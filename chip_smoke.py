@@ -1,0 +1,428 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (src/repro_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Drives the port's main path — the distributed modified-EllPack SpMV
+y = (D + A) x of the paper's Tables 3/4 — at a size its users would call
+real: n = 2^22 rows, r_nz = 16, the 32x-scaled matrix of
+examples/spmv_strategies.py (locality window n/64, 2% long-range columns,
+seed 1), over eight virtual ranks on one card (LoopbackComm(8),
+shards_per_node = 4, blocksize = 1024).  Phases, one JSON line each:
+
+1. card: name and power limit, as nvidia-smi gives them (also printed
+   raw on a line of their own);
+2. build: the CUDA kernels, compiled from kernels/csrc/*.cu for sm_90a;
+3. kernels: each kernel against its plain PyTorch version on the card, at
+   the inputs the main path gives it (condensed rung), with its time, the
+   plain version's, one PyTorch library call's where one computes the same
+   function, and the least time the card could take (its bound);
+4. main path: every rung x {full, dest} with use_kernel=True, y checked
+   against the numpy reference (rtol/atol 2e-4) and timed; the kernel
+   launch counters are zeroed just before and read just after, and every
+   kernel must have launched.
+
+Then one line {"kernels": [...]} with every kernel's numbers, and last
+{"ok": true, "device": {...}}.  Any failure exits non-zero before the last
+line; with no CUDA device, or outside a checkout of the repository, the
+script exits non-zero at once.
+"""
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+N = 1 << 22
+R_NZ = 16
+P = 8
+SHARDS_PER_NODE = 4
+BLOCKSIZE = 1024
+SEED = 1
+STRATEGIES = ("replicate", "blockwise", "condensed", "overlap")
+Y_TOL = dict(rtol=2e-4, atol=2e-4)     # as examples/spmv_strategies.py
+SPMV_TOL = dict(rtol=3e-5, atol=3e-5)  # float32 sums in another order
+
+# H100 SXM published peaks (NVIDIA data sheet): 3.35 TB/s HBM,
+# 67 TFLOP/s float32 outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+
+SOURCE = {
+    "pack_gather": ("src/repro_torch/kernels/csrc/pack_gather.cu",
+                    "src/repro/kernels/pack_gather.py:119"),
+    "unpack_scatter_set": ("src/repro_torch/kernels/csrc/pack_gather.cu",
+                           "src/repro/kernels/pack_gather.py:240"),
+    "unpack_dest": ("src/repro_torch/kernels/csrc/pack_gather.cu",
+                    "src/repro/kernels/pack_gather.py:185"),
+    "ellpack_spmv_windowed": ("src/repro_torch/kernels/csrc/ellpack_spmv.cu",
+                              "src/repro/kernels/ellpack_spmv.py:79"),
+}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def check(cond, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def cuda_ms(torch, fn, warmup: int = 3, iters: int = 20) -> float:
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(nbytes: float, flops: float = 0.0):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and the float32 operations over the float32 peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def unique_rows(torch, idx, mask=None) -> int:
+    """Distinct (rank, row) pairs read through ``idx`` (P, ...)."""
+    total = 0
+    for q in range(idx.shape[0]):
+        sel = idx[q].reshape(-1)
+        if mask is not None:
+            sel = sel[mask[q].reshape(-1) != 0]
+        total += int(torch.unique(sel).numel())
+    return total
+
+
+def phase_card(torch) -> str:
+    line = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    print(line, flush=True)
+    emit({"phase": "card", "nvidia_smi": line,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "device": torch.cuda.get_device_name(0)})
+    return line
+
+
+def phase_build() -> None:
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    _build.load()
+    info = _build.build_info()
+    print(info["log"], file=sys.stderr, flush=True)   # ptxas registers/spills
+    emit({"phase": "build", "nvcc_seconds": round(info["seconds"], 3),
+          "load_seconds": round(time.perf_counter() - t0, 3),
+          "built": info["built"], "library": pathlib.Path(info["path"]).name})
+
+
+def phase_kernels(torch, matrix, x_host, engines, y_ref):
+    """Every kernel against its plain version at the main path's inputs."""
+    from repro_torch.comm.strategies import own_offsets
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+
+    full = engines[("condensed", "full")]
+    dev = full.comm.device
+    dest = engines[("condensed", "dest")]
+    plan = full.plan
+    shard, s_max = plan.shard_size, plan.s_max
+    x = full.shard_vector(x_host)
+    send_idx, recv_idx = full.gather.plan_args
+    send_flat = send_idx.reshape(P, -1)
+    recv_gidx = recv_idx.reshape(P, -1)
+    results = {}
+
+    # B1 pack_gather: the condensed pack, m = P * s_max per rank
+    buf = kops.pack_gather(x, send_flat)
+    buf_ref = kref.pack_gather_ref(x, send_flat)
+    check(torch.equal(buf, buf_ref), "pack_gather differs from plain")
+    gidx = (send_flat.long() + (torch.arange(P, device=dev) * shard)[:, None]
+            ).reshape(-1)
+    x_flat = x.reshape(-1)
+    check(torch.equal(torch.index_select(x_flat, 0, gidx).reshape(P, -1),
+                      buf_ref), "index_select disagrees with pack_gather")
+    m = send_flat.shape[1]
+    results["pack_gather"] = dict(
+        max_abs_err=0.0,
+        ms=cuda_ms(torch, lambda: kops.pack_gather(x, send_flat)),
+        plain_ms=cuda_ms(torch, lambda: kref.pack_gather_ref(x, send_flat)),
+        library_ms=cuda_ms(torch, lambda: torch.index_select(x_flat, 0,
+                                                             gidx)),
+        bound=bound(P * m * 4 + P * m * 4
+                    + unique_rows(torch, send_flat) * 4),
+        shape=f"x ({P}, {shard}) f32, idx ({P}, {m}) int32")
+
+    recv = full.comm.all_to_all(buf.reshape(P, P, s_max)).wait()
+    recv_flat = recv.reshape(P, -1)
+    offsets = own_offsets(P, shard, dev)
+
+    # B2 unpack_scatter_set: the condensed full unpack, out_len = n + 1
+    def b2(fn):
+        return fn(recv_flat, recv_gidx, x, offsets, out_len=N + 1)
+    x_copy = b2(kops.unpack_scatter_set)
+    x_copy_ref = b2(kref.unpack_scatter_set_ref)
+    check(torch.equal(x_copy[:, :N], x_copy_ref[:, :N]),
+          "unpack_scatter_set differs from plain outside the dump row")
+    r = recv_flat.shape[1]
+    results["unpack_scatter_set"] = dict(
+        max_abs_err=0.0,
+        ms=cuda_ms(torch, lambda: b2(kops.unpack_scatter_set)),
+        plain_ms=cuda_ms(torch, lambda: b2(kref.unpack_scatter_set_ref)),
+        library_ms=None,
+        bound=bound(P * r * 8 + P * shard * 4 + P * 4 + P * (N + 1) * 4),
+        shape=f"recv ({P}, {r}) f32 -> x_copy ({P}, {N + 1})")
+
+    # B3 unpack_dest: the condensed targeted unpack into the EllPack slots
+    d_send, d_recv, src, own, own_m, rem_m = dest.gather.plan_args
+    check(torch.equal(d_send, send_idx) and torch.equal(d_recv, recv_idx),
+          "the two condensed engines planned different exchanges")
+    dargs = (recv_flat, x, src, own, own_m, rem_m)
+    slots = kops.unpack_dest(*dargs)
+    slots_ref = kref.unpack_dest_ref(*dargs)
+    check(torch.equal(slots, slots_ref), "unpack_dest differs from plain")
+    L = src.shape[1]
+    results["unpack_dest"] = dict(
+        max_abs_err=0.0,
+        ms=cuda_ms(torch, lambda: kops.unpack_dest(*dargs)),
+        plain_ms=cuda_ms(torch, lambda: kref.unpack_dest_ref(*dargs)),
+        library_ms=None,
+        bound=bound(P * L * (4 + 4 + 1 + 1 + 4)
+                    + (unique_rows(torch, src, rem_m)
+                       + unique_rows(torch, own, own_m)) * 4),
+        shape=f"recv ({P}, {r}), x ({P}, {shard}) f32, L = {L} slots")
+
+    # B4 ellpack_spmv_windowed: the on-copy SpMV of the full rungs
+    local_fn, kplan = kops.make_spmv_on_copy_sharded(matrix.cols, P)
+    win_blk, cols_rel, own_rel = (torch.as_tensor(a).to(dev) for a in kplan)
+    diag = torch.as_tensor(matrix.diag).to(dev).reshape(P, shard)
+    vals = torch.as_tensor(matrix.vals).to(dev).reshape(P, shard, R_NZ)
+    window, rpb = _on_copy_window(matrix.cols), min(256, shard)
+    y = local_fn(diag, vals, x_copy, win_blk, cols_rel, own_rel)
+    y_plain = kref.ellpack_spmv_ref(diag, vals, cols_rel, own_rel, win_blk,
+                                    x_copy, window=window,
+                                    rows_per_block=rpb)
+    torch.testing.assert_close(y, y_plain, **SPMV_TOL)
+    err = float((y - y_plain).abs().max())
+    check(np.allclose(y.reshape(-1).cpu().numpy(), y_ref, **Y_TOL),
+          "the on-copy SpMV disagrees with spmv_ref_np")
+    # the library's yardstick: one CSR product of D + A (cuSPARSE)
+    csr = _csr_d_plus_a(torch, matrix, dev)
+    x_col = x_flat[:, None]
+    y_lib = torch.sparse.mm(csr, x_col)
+    check(np.allclose(y_lib.reshape(-1).cpu().numpy(), y_ref, **Y_TOL),
+          "the CSR library product disagrees with spmv_ref_np")
+    cols_abs = (win_blk.long() * window).repeat_interleave(
+        rpb, dim=1)[:, :, None] + cols_rel
+    x_read = sum(int(torch.unique(torch.cat([
+        cols_abs[q].reshape(-1), q * shard + torch.arange(
+            shard, device=dev)])).numel()) for q in range(P))
+    results["ellpack_spmv_windowed"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(torch, lambda: local_fn(diag, vals, x_copy, win_blk,
+                                           cols_rel, own_rel)),
+        plain_ms=cuda_ms(torch, lambda: kref.ellpack_spmv_ref(
+            diag, vals, cols_rel, own_rel, win_blk, x_copy, window=window,
+            rows_per_block=rpb)),
+        library_ms=cuda_ms(torch, lambda: torch.sparse.mm(csr, x_col)),
+        bound=bound(P * shard * (4 + 4 + 4) + P * shard * R_NZ * 8
+                    + win_blk.numel() * 4 + x_read * 4,
+                    flops=2.0 * P * shard * (R_NZ + 1)),
+        shape=f"rows ({P}, {shard}) x r_nz {R_NZ} f32 on x_copy "
+              f"({P}, {N + 1})")
+    for name, res in results.items():
+        emit({"phase": "kernel", "name": name, "shape": res["shape"],
+              "max_abs_err": res["max_abs_err"], "ms": res["ms"],
+              "plain_ms": res["plain_ms"], "library_ms": res["library_ms"],
+              "bound_ms": res["bound"][0], "bound_by": res["bound"][1]})
+    return results
+
+
+def _on_copy_window(cols) -> int:
+    """The common static window ``make_spmv_on_copy_sharded`` plans."""
+    from repro_torch.kernels import ops as kops
+    shard = cols.shape[0] // P
+    return max(kops.plan_spmv_windows(cols[q * shard:(q + 1) * shard],
+                                      rows_per_block=min(256, shard))[0]
+               for q in range(P))
+
+
+def _csr_d_plus_a(torch, matrix, dev):
+    """D + A as one CSR tensor on the card (duplicate columns summed)."""
+    n = matrix.n
+    rows = torch.arange(n, device=dev).repeat_interleave(R_NZ + 1)
+    cols = torch.cat([torch.arange(n, device=dev)[:, None],
+                      torch.as_tensor(matrix.cols).to(dev).long()], dim=1)
+    vals = torch.cat([torch.as_tensor(matrix.diag).to(dev)[:, None],
+                      torch.as_tensor(matrix.vals).to(dev)], dim=1)
+    coo = torch.sparse_coo_tensor(torch.stack([rows, cols.reshape(-1)]),
+                                  vals.reshape(-1), (n, n))
+    return coo.coalesce().to_sparse_csr()
+
+
+EXPECTED = {  # kernels each rung x materialize launches with use_kernel
+    ("replicate", "full"): ("ellpack_spmv_windowed",),
+    ("replicate", "dest"): ("unpack_dest",),
+}
+for _s in ("blockwise", "condensed", "overlap"):
+    EXPECTED[(_s, "full")] = ("pack_gather", "unpack_scatter_set",
+                              "ellpack_spmv_windowed")
+    EXPECTED[(_s, "dest")] = ("pack_gather", "unpack_dest")
+
+
+def time_steps(torch, step, warmup: int = 5, iters: int = 20) -> dict:
+    """Device ms per step (CUDA events), and the host's enqueue and wall
+    ms per step over the same back-to-back run."""
+    for _ in range(warmup):
+        step()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(iters):
+        step()
+    end.record()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return {"ms_per_iter": start.elapsed_time(end) / iters,
+            "host_enqueue_ms_per_iter": (t1 - t0) / iters * 1e3,
+            "wall_ms_per_iter": (t2 - t0) / iters * 1e3}
+
+
+def profile_steps(torch, step, steps: int = 3, top: int = 6) -> dict:
+    """Device time by kernel (memsets and copies included) per step, summed
+    over ``steps`` steps by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total) for e in prof.key_averages()
+            if e.self_device_time_total > 0]
+    check(rows, "the profiler saw no device time")
+    rows.sort(key=lambda r: -r[1])
+    return {"kernel_ms_per_step": sum(t for _, t in rows) / steps / 1e3,
+            "top_kernels_ms_per_step": [[k[:60], t / steps / 1e3]
+                                        for k, t in rows[:top]]}
+
+
+def phase_main_path(torch, engines, x_host, y_ref, card):
+    """Every rung x materialize, counters zeroed before and read after."""
+    from repro_torch.kernels import ops as kops
+
+    kops.reset_launch_counts()
+    for (strategy, mat), eng in engines.items():
+        before = kops.launch_counts()
+        x = eng.shard_vector(x_host)
+        y = eng(x)
+        torch.cuda.synchronize()
+        check(tuple(y.shape) == (P, N // P), f"y has shape {tuple(y.shape)}")
+        y_np = y.reshape(-1).cpu().numpy()
+        check(np.isfinite(y_np).all(), f"{strategy}/{mat}: y not finite")
+        err = float(np.abs(y_np - y_ref).max())
+        check(np.allclose(y_np, y_ref, **Y_TOL),
+              f"{strategy}/{mat}: y disagrees with spmv_ref_np ({err})")
+        after = kops.launch_counts()
+        step = {k: after[k] - before[k] for k in after}
+        for k in EXPECTED[(strategy, mat)]:
+            check(step[k] > 0, f"{strategy}/{mat} never launched {k}")
+        timing = time_steps(torch, lambda: eng(x))
+        prof = profile_steps(torch, lambda: eng(x))
+        # the device's busy share of a step: its kernels' summed time over
+        # the step's span on the stream (the overlap rung's side-stream
+        # copy may push it past 1)
+        busy = prof["kernel_ms_per_step"] / timing["ms_per_iter"]
+        emit({"phase": "main_path", "strategy": strategy, "materialize": mat,
+              "use_kernel": True, "max_abs_err": err, **timing,
+              "busy_share": busy, **prof, "launches_per_step": step,
+              "card": card})
+    counts = kops.launch_counts()
+    for k, v in counts.items():
+        check(v > 0, f"the main path never launched {k}")
+    return counts
+
+
+def main() -> None:
+    import torch
+    if not torch.cuda.is_available():
+        fail("no CUDA device is available")
+    src = pathlib.Path(__file__).resolve().parent / "src"
+    if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
+        fail(f"{src}/repro_torch not found: run from a checkout")
+    sys.path.insert(0, str(src))
+    from repro_torch.comm.communicator import LoopbackComm
+    from repro_torch.comm.plan import Topology, build_comm_plan
+    from repro_torch.core.matrix import make_mesh_like_matrix, spmv_ref_np
+    from repro_torch.core.spmv import DistributedSpMV
+
+    card = phase_card(torch)
+    phase_build()
+
+    t0 = time.perf_counter()
+    matrix = make_mesh_like_matrix(N, R_NZ, locality_window=N // 64,
+                                   long_range_frac=0.02, seed=SEED)
+    x_host = np.random.default_rng(SEED).standard_normal(N).astype(
+        np.float32)
+    y_ref = spmv_ref_np(matrix, x_host)
+    t1 = time.perf_counter()
+    base = build_comm_plan(matrix.cols, N, P, blocksize=BLOCKSIZE,
+                           topology=Topology(P, SHARDS_PER_NODE))
+    t2 = time.perf_counter()
+    comm = LoopbackComm(P)
+    engines = {}
+    for strategy in STRATEGIES:
+        for mat in ("full", "dest"):
+            engines[(strategy, mat)] = DistributedSpMV(
+                matrix, comm, strategy=strategy,
+                shards_per_node=SHARDS_PER_NODE, use_kernel=True,
+                materialize=mat, base_plan=base)
+    torch.cuda.synchronize()
+    c = base.counts
+    emit({"phase": "setup", "n": N, "r_nz": R_NZ, "ranks": P,
+          "blocksize": BLOCKSIZE, "shards_per_node": SHARDS_PER_NODE,
+          "matrix_s": round(t1 - t0, 3), "plan_s": round(t2 - t1, 3),
+          "engines_s": round(time.perf_counter() - t2, 3),
+          "s_max": base.s_max, "b_max": base.b_max,
+          "condensed_volume": c.total_condensed_volume(),
+          "blockwise_volume": c.total_blockwise_volume(),
+          "device_mem_gb": round(torch.cuda.memory_allocated() / 1e9, 3)})
+
+    results = phase_kernels(torch, matrix, x_host, engines, y_ref)
+    counts = phase_main_path(torch, engines, x_host, y_ref, card)
+
+    kernels = []
+    for name, res in results.items():
+        source, replaces = SOURCE[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": counts[name],
+            "max_abs_err": res["max_abs_err"], "ms": res["ms"],
+            "plain_ms": res["plain_ms"], "bound_ms": res["bound"][0],
+            "bound_by": res["bound"][1], "library_ms": res["library_ms"]})
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+
+
+if __name__ == "__main__":
+    main()

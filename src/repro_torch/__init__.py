@@ -1,0 +1,11 @@
+"""PyTorch + CUDA port of ``repro``: the distributed modified-EllPack SpMV
+and the irregular-gather strategy ladder that carries it, on NVIDIA Hopper.
+
+The port mirrors ``repro``'s layout — ``comm/`` (plan, strategies, gather),
+``core/`` (matrix, SpMV engine), ``kernels/`` (CUDA kernels and their plain
+versions) — and imports neither JAX nor ``repro``.  Per-rank state carries a
+leading rank axis ``(P, ...)``; ``comm.communicator.LoopbackComm`` runs the
+collectives of ``P`` virtual ranks on one device.  Entry points take
+``device=None``, which means ``"cuda"``, and raise without a card unless the
+caller asks for ``device="cpu"``.
+"""

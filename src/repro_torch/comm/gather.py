@@ -1,0 +1,127 @@
+"""IrregularGather — the pull-direction front door to the strategy ladder.
+
+One object owns everything the paper's §4 machinery needs for one access
+pattern over one communicator: the one-time ``CommPlan``, the chosen rung,
+the device-resident plan arrays, and the rank-stacked gather functions.
+
+Consumers compose it two ways:
+
+* standalone: ``x_copy_all = gather(x)`` returns every rank's private copy
+  stacked (row q = rank q's ``mythread_x_copy``);
+* fused: the consumer calls ``gather.local(x, *gather.plan_args)`` inside
+  its own step — or, to hide the exchange behind own-shard compute (the
+  own/foreign split of the ``overlap`` rung), the ``OverlapHandle``
+  protocol::
+
+      handle = gather.start_local(x, *gather.plan_args)   # issued
+      y_own = ...                                # depends on x only
+      x_copy = handle.finish()                   # unpack landed messages
+      y = y_own + foreign_part(x_copy)
+
+  On the card the loopback all_to_all of ``start_local`` runs on a side
+  stream, so the own compute enqueued before ``finish`` overlaps it.
+
+With a ``Destination`` descriptor (named consumer slots, e.g. EllPack
+rows), ``finish()`` / ``local()`` default to ``materialize="dest"``: the
+landed recv buffer goes straight into the named slots and comes back as
+``{name: (P, *slot_shape, ...)}`` — no full-length ``x_copy``.
+``materialize="full"`` keeps the classic assembled copy, bit-identically.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.comm import strategies as strat
+from repro_torch.comm.exchange import IrregularExchange, OverlapHandle
+from repro_torch.comm.pattern import AccessPattern, Destination
+from repro_torch.comm.plan import CommPlan, attach_destination
+
+__all__ = ["IrregularGather", "OverlapHandle"]
+
+
+class IrregularGather(IrregularExchange):
+    """Plan + strategy + device state for gathering one ``AccessPattern``
+    over the ranks of one communicator."""
+
+    def __init__(self, pattern: AccessPattern, where, *,
+                 destination: Destination | None = None, **kwargs):
+        """``destination`` may be a ``Destination`` or a callable
+        ``(strategy, base_plan) -> Destination`` for consumers whose slot
+        layout depends on the rung (e.g. SpMV targets foreign slots only
+        under ``overlap``).  Remaining keyword arguments (``strategy``,
+        ``blocksize``, ``shards_per_node``, ``topology``, ``base_plan``,
+        ``use_kernel``) are the shared ``IrregularExchange`` surface."""
+        self._destination_arg = destination
+        super().__init__(pattern, where, **kwargs)
+
+    def _bind(self, base_plan: CommPlan, strategy: str) -> None:
+        p, n = self.p, self.pattern.n
+        destination = self._destination_arg
+        if callable(destination):
+            destination = destination(strategy, base_plan)
+        if destination is not None:
+            assert destination.p == p, (
+                f"destination has {destination.p} per-rank slot tables "
+                f"for {p} ranks")
+            assert destination.indices.max() < n, (
+                "destination indices must lie in [-1, n)")
+            self.plan: CommPlan = attach_destination(base_plan, destination)
+        else:
+            self.plan = base_plan
+        self.destination = destination
+        self.plan_args = strat.to_device(
+            strat.plan_device_args(self.plan, strategy,
+                                   with_dest=destination is not None),
+            self.device)
+        self._start, self._finish = strat.make_start_local(
+            self.plan, strategy, self.comm, use_kernel=self.use_kernel)
+
+    def _resolve_materialize(self, materialize: str | None) -> str:
+        if materialize is None:
+            return "dest" if self.destination is not None else "full"
+        if materialize == "dest" and self.destination is None:
+            raise ValueError(
+                'materialize="dest" requires constructing the gather with '
+                "a Destination descriptor")
+        if materialize not in ("dest", "full"):
+            raise ValueError(f"unknown materialize mode {materialize!r}")
+        return materialize
+
+    # ---- rank-stacked surface (compose inside a consumer's step) ----
+    def local(self, x: torch.Tensor, *plan_args,
+              materialize: str | None = None):
+        """One-shot gather.
+
+        ``materialize="full"`` (default without a destination): x
+        ``(P, shard, ...)`` -> x_copy ``(P, >= n, ...)``.
+        ``materialize="dest"`` (default with one): -> ``{name: slots}``
+        named consumer buffers, no full-length intermediate.
+        """
+        mode = self._resolve_materialize(materialize)
+        work = self._start(x, *plan_args)
+        out = self._finish(work, x, *plan_args, materialize=mode)
+        if mode == "dest":
+            return self.destination.split(out)
+        return out
+
+    def start_local(self, x: torch.Tensor, *plan_args) -> OverlapHandle:
+        """Issue the exchange; compute on ``x`` while it flies."""
+        work = self._start(x, *plan_args, async_op=True)
+
+        def finish(*, extra_slots=0, copy_own=True, materialize=None):
+            mode = self._resolve_materialize(materialize)
+            out = self._finish(work, x, *plan_args, extra_slots=extra_slots,
+                               copy_own=copy_own, materialize=mode)
+            if mode == "dest":
+                return self.destination.split(out)
+            return out
+
+        return OverlapHandle(x_local=x, _finish=finish)
+
+    # ---- standalone surface ----
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        """``(P, >= n, ...)``: row q is rank q's private x_copy.
+
+        Always the full materialization, regardless of any ``Destination``.
+        """
+        return self.local(x, *self.plan_args, materialize="full")
