@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — the distributed modified-EllPack SpMV
-y = (D + A) x of the paper's Tables 3/4 — at a size its users would call
-real: n = 2^22 rows, r_nz = 16, the 32x-scaled matrix of
+Drives the port's two paths — the distributed modified-EllPack SpMV
+y = (D + A) x of the paper's Tables 3/4 (pull direction) and its transpose
+y = (D + A)^T x (push direction) — at a size their users would call real:
+n = 2^22 rows, r_nz = 16, the 32x-scaled matrix of
 examples/spmv_strategies.py (locality window n/64, 2% long-range columns,
 seed 1), over eight virtual ranks on one card (LoopbackComm(8),
 shards_per_node = 4, blocksize = 1024).  Phases, one JSON line each:
@@ -13,14 +14,24 @@ shards_per_node = 4, blocksize = 1024).  Phases, one JSON line each:
 1. card: name and power limit, as nvidia-smi gives them (also printed
    raw on a line of their own);
 2. build: the CUDA kernels, compiled from kernels/csrc/*.cu for sm_90a;
-3. kernels: each kernel against its plain PyTorch version on the card, at
-   the inputs the main path gives it (condensed rung), with its time, the
-   plain version's, one PyTorch library call's where one computes the same
-   function, and the least time the card could take (its bound);
-4. main path: every rung x {full, dest} with use_kernel=True, y checked
-   against the numpy reference (rtol/atol 2e-4) and timed; the kernel
-   launch counters are zeroed just before and read just after, and every
-   kernel must have launched.
+3. setup: the matrix, the base plan, the push plan (ScatterPlan), the
+   eight forward and four transposed engines (all sharing those plans);
+4. kernels: each kernel against its plain PyTorch version at the inputs
+   its path gives it, with its time, the plain version's on the card, one
+   PyTorch library call's where one computes the same function, and the
+   least time the card could take (its bound).  The forward kernels run
+   at the condensed rung's inputs and are checked on the card; the push
+   kernels (accumulate_segments at its four call sites, accumulate_into)
+   are checked bit for bit against their plain versions run on the CPU
+   copy of the same inputs (a sequential fold), outside the dump rows;
+5. main path: every rung x {full, dest} forward with use_kernel=True, y
+   checked against the numpy reference (rtol/atol 2e-4) and timed;
+6. transposed: every rung of DistributedSpMV(transpose=True,
+   use_kernel=True), y checked against spmv_t_ref_np (rtol/atol 2e-4) and
+   timed.
+In phases 5 and 6 the kernel launch counters are zeroed just before the
+path runs and read just after, and every kernel of the path must have
+launched.
 
 Then one line {"kernels": [...]} with every kernel's numbers, and last
 {"ok": true, "device": {...}}.  Any failure exits non-zero before the last
@@ -59,7 +70,14 @@ SOURCE = {
                     "src/repro/kernels/pack_gather.py:185"),
     "ellpack_spmv_windowed": ("src/repro_torch/kernels/csrc/ellpack_spmv.cu",
                               "src/repro/kernels/ellpack_spmv.py:79"),
+    "accumulate_segments": ("src/repro_torch/kernels/csrc/accumulate.cu",
+                            "src/repro/kernels/pack_gather.py:277"),
+    "accumulate_into": ("src/repro_torch/kernels/csrc/accumulate.cu",
+                        "src/repro/kernels/pack_gather.py:301"),
 }
+FORWARD_KERNELS = ("pack_gather", "unpack_scatter_set", "unpack_dest",
+                   "ellpack_spmv_windowed")
+PUSH_KERNELS = ("accumulate_segments", "accumulate_into")
 
 
 def emit(obj) -> None:
@@ -255,6 +273,112 @@ def phase_kernels(torch, matrix, x_host, engines, y_ref):
     return results
 
 
+def phase_push_kernels(torch, matrix, x_host, t_engines):
+    """accumulate_segments at its four call sites on the transposed main
+    path, and accumulate_into at the condensed finish, each against its
+    plain version run on the CPU copy of the same inputs: a sequential
+    fold, so the live rows must match bit for bit."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+
+    cond, blk, rep = (t_engines[s].scatter
+                      for s in ("condensed", "blockwise", "replicate"))
+    dev = cond.comm.device
+    plan = cond.splan
+    shard, s_max, b_max = plan.shard_size, plan.s_max, plan.b_max
+    nblk = plan.blocks_per_shard
+    x = cond.shard_vector(x_host)
+    vals = torch.as_tensor(matrix.vals).reshape(P, -1, R_NZ).to(dev)
+    lanes = (vals * x[:, :, None]).reshape(P, -1)     # the contributions
+    c_msg, c_unpack, c_own = (a.reshape(P, -1) for a in cond.plan_args[:3])
+    b_msg, b_unpack = (a.reshape(P, -1) for a in blk.plan_args[:2])
+    width = b_max * BLOCKSIZE
+
+    def landed(src, idx, table, out_len, per_rank):
+        buf = kops.accumulate_segments(src, idx, out_len=out_len,
+                                       table=table)
+        return cond.comm.all_to_all(
+            buf[:, :P * per_rank].reshape(P, P, per_rank)).wait()
+
+    recv_c = landed(lanes, c_msg, cond.tables["pack"], P * s_max + 1,
+                    s_max).reshape(P, -1)
+    recv_b = landed(lanes, b_msg, blk.tables["pack"], P * width + 1,
+                    width).reshape(P, -1, BLOCKSIZE)
+    own_cpu = kref.accumulate_segments_ref(lanes.cpu(), c_own.cpu(),
+                                           out_len=shard + 1)
+    own = own_cpu.to(dev)
+    # name: (kernel, init, vals, idx, table, out_len)
+    sites = {
+        "pack": ("accumulate_segments", None, lanes, c_msg,
+                 cond.tables["pack"], P * s_max + 1),
+        "own": ("accumulate_segments", None, lanes, c_own,
+                cond.tables["own"], shard + 1),
+        "replicate": ("accumulate_segments", None, lanes,
+                      rep.plan_args[0].reshape(P, -1), rep.tables["all"], N),
+        "blocks": ("accumulate_segments", None, recv_b, b_unpack,
+                   blk.tables["blocks"], nblk + 1),
+        "into": ("accumulate_into", own, recv_c, c_unpack,
+                 cond.tables["into"], shard + 1),
+    }
+    per_kernel = {}
+    for site, (name, init, src, idx, table, out_len) in sites.items():
+        live = table.live_len
+        feat = src.shape[2:]
+        if init is None:
+            def kernel():
+                return kops.accumulate_segments(src, idx, out_len=out_len,
+                                                table=table)
+
+            def plain():
+                return kref.accumulate_segments_ref(src, idx,
+                                                    out_len=out_len)
+            want = kref.accumulate_segments_ref(src.cpu(), idx.cpu(),
+                                                out_len=out_len)
+        else:
+            def kernel():
+                return kops.accumulate_into(init, src, idx, table=table)
+
+            def plain():
+                return kref.accumulate_into_ref(init, src, idx)
+            want = kref.accumulate_into_ref(own_cpu, src.cpu(), idx.cpu())
+        got = kernel()[:, :live].cpu()
+        check(torch.equal(got.view(torch.int32),
+                          want[:, :live].view(torch.int32)),
+              f"{name} ({site}) differs from its plain version on the CPU")
+        # the library's yardstick: one index_add_ on rank-offset flat rows
+        rows = (idx.long() + (torch.arange(P, device=dev) * out_len)[:, None]
+                ).reshape(-1)
+        flat_src = src.reshape((-1,) + tuple(feat))
+        acc = (init.clone() if init is not None else torch.zeros(
+            (P, out_len) + tuple(feat), device=dev)).reshape(
+            (-1,) + tuple(feat))
+        k_lanes, f = idx.shape[1], int(np.prod(feat, dtype=np.int64))
+        nbytes = (P * k_lanes * f * 4 + P * k_lanes * 4 + P * live * f * 4
+                  + (P * out_len * f * 4 if init is not None else 0))
+        res = dict(
+            site=site, max_abs_err=float((got - want[:, :live]).abs().max()),
+            ms=cuda_ms(torch, kernel), plain_ms=cuda_ms(torch, plain),
+            library_ms=cuda_ms(torch, lambda: acc.index_add_(0, rows,
+                                                             flat_src)),
+            bound=bound(nbytes), longest_segment=table.longest(),
+            shape=f"vals ({P}, {k_lanes}{', ' + str(f) if feat else ''}) "
+                  f"f32 -> ({P}, {out_len}), live {live}")
+        emit({"phase": "kernel", "name": name, **{
+            k: v for k, v in res.items() if k != "bound"},
+            "bound_ms": res["bound"][0], "bound_by": res["bound"][1]})
+        per_kernel.setdefault(name, []).append(res)
+    # one entry per kernel: the sum over its call sites on the path
+    results = {}
+    for name, rs in per_kernel.items():
+        results[name] = dict(
+            max_abs_err=max(r["max_abs_err"] for r in rs),
+            ms=sum(r["ms"] for r in rs),
+            plain_ms=sum(r["plain_ms"] for r in rs),
+            library_ms=sum(r["library_ms"] for r in rs),
+            bound=(sum(r["bound"][0] for r in rs), "bytes"))
+    return results
+
+
 def _on_copy_window(cols) -> int:
     """The common static window ``make_spmv_on_copy_sharded`` plans."""
     from repro_torch.kernels import ops as kops
@@ -326,7 +450,8 @@ def profile_steps(torch, step, steps: int = 3, top: int = 6) -> dict:
 
 
 def phase_main_path(torch, engines, x_host, y_ref, card):
-    """Every rung x materialize, counters zeroed before and read after."""
+    """Every rung x materialize forward, counters zeroed before and read
+    after."""
     from repro_torch.kernels import ops as kops
 
     kops.reset_launch_counts()
@@ -356,8 +481,51 @@ def phase_main_path(torch, engines, x_host, y_ref, card):
               "busy_share": busy, **prof, "launches_per_step": step,
               "card": card})
     counts = kops.launch_counts()
-    for k, v in counts.items():
-        check(v > 0, f"the main path never launched {k}")
+    for k in FORWARD_KERNELS:
+        check(counts[k] > 0, f"the main path never launched {k}")
+    return counts
+
+
+T_EXPECTED = {  # kernels each transposed rung launches with use_kernel
+    "replicate": ("accumulate_segments",),
+    "blockwise": ("accumulate_segments",),
+    "condensed": PUSH_KERNELS,
+    "overlap": PUSH_KERNELS,
+}
+
+
+def phase_transposed(torch, t_engines, x_host, y_t_ref, card):
+    """Every rung of the transposed product, counters zeroed before and
+    read after."""
+    from repro_torch.kernels import ops as kops
+
+    kops.reset_launch_counts()
+    for strategy, eng in t_engines.items():
+        before = kops.launch_counts()
+        x = eng.shard_vector(x_host)
+        y = eng(x)
+        torch.cuda.synchronize()
+        check(tuple(y.shape) == (P, N // P), f"y has shape {tuple(y.shape)}")
+        y_np = y.reshape(-1).cpu().numpy()
+        check(np.isfinite(y_np).all(), f"{strategy}/transposed: y not finite")
+        err = float(np.abs(y_np - y_t_ref).max())
+        check(np.allclose(y_np, y_t_ref, **Y_TOL),
+              f"{strategy}/transposed: y disagrees with spmv_t_ref_np "
+              f"({err})")
+        after = kops.launch_counts()
+        step = {k: after[k] - before[k] for k in after}
+        for k in T_EXPECTED[strategy]:
+            check(step[k] > 0, f"{strategy}/transposed never launched {k}")
+        timing = time_steps(torch, lambda: eng(x))
+        prof = profile_steps(torch, lambda: eng(x))
+        busy = prof["kernel_ms_per_step"] / timing["ms_per_iter"]
+        emit({"phase": "transposed", "strategy": strategy,
+              "use_kernel": True, "max_abs_err": err, **timing,
+              "busy_share": busy, **prof, "launches_per_step": step,
+              "card": card})
+    counts = kops.launch_counts()
+    for k in PUSH_KERNELS:
+        check(counts[k] > 0, f"the transposed path never launched {k}")
     return counts
 
 
@@ -370,8 +538,10 @@ def main() -> None:
         fail(f"{src}/repro_torch not found: run from a checkout")
     sys.path.insert(0, str(src))
     from repro_torch.comm.communicator import LoopbackComm
-    from repro_torch.comm.plan import Topology, build_comm_plan
-    from repro_torch.core.matrix import make_mesh_like_matrix, spmv_ref_np
+    from repro_torch.comm.plan import (Topology, build_comm_plan,
+                                       derive_scatter_plan)
+    from repro_torch.core.matrix import (make_mesh_like_matrix, spmv_ref_np,
+                                         spmv_t_ref_np)
     from repro_torch.core.spmv import DistributedSpMV
 
     card = phase_card(torch)
@@ -383,10 +553,13 @@ def main() -> None:
     x_host = np.random.default_rng(SEED).standard_normal(N).astype(
         np.float32)
     y_ref = spmv_ref_np(matrix, x_host)
+    y_t_ref = spmv_t_ref_np(matrix, x_host)
     t1 = time.perf_counter()
     base = build_comm_plan(matrix.cols, N, P, blocksize=BLOCKSIZE,
                            topology=Topology(P, SHARDS_PER_NODE))
     t2 = time.perf_counter()
+    splan = derive_scatter_plan(base)
+    t3 = time.perf_counter()
     comm = LoopbackComm(P)
     engines = {}
     for strategy in STRATEGIES:
@@ -395,19 +568,32 @@ def main() -> None:
                 matrix, comm, strategy=strategy,
                 shards_per_node=SHARDS_PER_NODE, use_kernel=True,
                 materialize=mat, base_plan=base)
+    t4 = time.perf_counter()
+    t_engines = {strategy: DistributedSpMV(
+        matrix, comm, strategy=strategy, shards_per_node=SHARDS_PER_NODE,
+        use_kernel=True, transpose=True, base_plan=base, scatter_plan=splan)
+        for strategy in STRATEGIES}
     torch.cuda.synchronize()
-    c = base.counts
+    c, tc = base.counts, splan.counts
     emit({"phase": "setup", "n": N, "r_nz": R_NZ, "ranks": P,
           "blocksize": BLOCKSIZE, "shards_per_node": SHARDS_PER_NODE,
           "matrix_s": round(t1 - t0, 3), "plan_s": round(t2 - t1, 3),
-          "engines_s": round(time.perf_counter() - t2, 3),
+          "scatter_plan_s": round(t3 - t2, 3),
+          "engines_s": round(t4 - t3, 3),
+          "transposed_engines_s": round(time.perf_counter() - t4, 3),
           "s_max": base.s_max, "b_max": base.b_max,
           "condensed_volume": c.total_condensed_volume(),
           "blockwise_volume": c.total_blockwise_volume(),
+          "put_condensed_volume": tc.total_condensed_volume(),
+          "put_blockwise_volume": tc.total_blockwise_volume(),
           "device_mem_gb": round(torch.cuda.memory_allocated() / 1e9, 3)})
 
     results = phase_kernels(torch, matrix, x_host, engines, y_ref)
+    results.update(phase_push_kernels(torch, matrix, x_host, t_engines))
     counts = phase_main_path(torch, engines, x_host, y_ref, card)
+    counts.update({k: v for k, v in phase_transposed(
+        torch, t_engines, x_host, y_t_ref, card).items()
+        if k in PUSH_KERNELS})
 
     kernels = []
     for name, res in results.items():
@@ -419,9 +605,10 @@ def main() -> None:
             "plain_ms": res["plain_ms"], "bound_ms": res["bound"][0],
             "bound_by": res["bound"][1], "library_ms": res["library_ms"]})
     emit({"kernels": kernels})
+    # every engine of the run shares one LoopbackComm on one card
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
+                                 "count": len({comm.device})}})
 
 
 if __name__ == "__main__":

@@ -1,2 +1,2 @@
 """Irregular-communication layer: patterns, plans, the strategy ladder and
-the gather front door."""
+its two front doors, the gather (pull) and the scatter (push)."""

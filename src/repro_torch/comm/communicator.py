@@ -9,9 +9,11 @@ process on one device, like the paper's UPC threads sharing one node:
 * ``all_to_all`` on ``(P_src, P_dst, s, ...)`` is a transpose of the first
   two axes (rank ``q`` receives row ``s`` from rank ``s``);
 * ``all_gather`` on ``(P, shard, ...)`` gives every rank its own copy of the
-  whole ``(n, ...)`` vector.
+  whole ``(n, ...)`` vector;
+* ``all_reduce`` on ``(P, ...)`` gives every rank its own copy of the sum
+  (or the max) over ranks — the replicate put rung's ``psum``/``pmax``.
 
-Both take ``async_op=True``: the copy is then enqueued on a side CUDA stream
+All three take ``async_op=True``: the copy is then enqueued on a side CUDA stream
 and the returned ``Work`` makes the caller's stream wait for it in
 ``wait()`` — the ``start`` / ``finish`` window of the overlap rung.  On the
 CPU every collective completes before it returns.
@@ -19,6 +21,8 @@ CPU every collective completes before it returns.
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels.ref import maximum
 
 __all__ = ["LoopbackComm", "Work", "resolve_device"]
 
@@ -68,6 +72,8 @@ class LoopbackComm:
     [[2.0, 3.0], [6.0, 7.0]]
     >>> comm.all_gather(torch.tensor([[1.], [2.]])).wait().tolist()
     [[1.0, 2.0], [1.0, 2.0]]
+    >>> comm.all_reduce(torch.tensor([[1., 5.], [2., 3.]]), "max").wait()[0]
+    tensor([2., 5.])
     """
 
     def __init__(self, p: int, device=None):
@@ -115,3 +121,19 @@ class LoopbackComm:
             return flat.expand((p,) + tuple(flat.shape[1:])).contiguous()
 
         return self._run(gather, x, async_op)
+
+    def all_reduce(self, x: torch.Tensor, op: str = "sum", *,
+                   async_op: bool = False) -> Work:
+        """``(P, ...)`` -> ``(P, ...)``: every rank gets the reduction over
+        ranks, ``op`` ``"sum"`` (ranks added in ascending order) or ``"max"``
+        (XLA's semantics: a NaN propagates, +0.0 beats -0.0)."""
+        if op not in ("sum", "max"):
+            raise ValueError(f"op must be 'sum' or 'max', not {op!r}")
+
+        def reduce(t):
+            acc = t[0]
+            for q in range(1, t.shape[0]):
+                acc = acc + t[q] if op == "sum" else maximum(acc, t[q])
+            return acc.expand(t.shape).contiguous()
+
+        return self._run(reduce, x, async_op)

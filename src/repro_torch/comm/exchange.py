@@ -1,10 +1,12 @@
-"""Direction-agnostic exchange core (gather side of the port).
+"""Direction-agnostic exchange core.
 
 ``IrregularExchange`` owns what every exchange of one ``AccessPattern`` over
 one communicator needs: partitioning checks, BLOCKSIZE resolution, the
 destination-independent base ``CommPlan`` (built once, or handed in as
 ``base_plan=``), strategy validation, and the ``OverlapHandle`` protocol
-type.  Subclasses implement ``_bind`` to wire the resolved rung to their
+type.  Subclasses — ``IrregularGather`` (``direction = "get"``) and
+``IrregularScatter`` (``"put"``) — derive their direction's plan state in
+``_prepare`` and implement ``_bind`` to wire the resolved rung to their
 direction's rank-stacked functions (``repro_torch.comm.strategies``).
 
 This slice takes fixed rungs only.  ``strategy="auto"`` and
@@ -70,7 +72,11 @@ class OverlapHandle:
 
 class IrregularExchange:
     """Plan + strategy + device state for one ``AccessPattern`` over the
-    ranks of one communicator (``LoopbackComm``) or ``SharedVector``."""
+    ranks of one communicator (``LoopbackComm``) or ``SharedVector``, in
+    one direction: ``"get"`` (accessors pull the elements they index) or
+    ``"put"`` (accessors push contributions to them)."""
+
+    direction = "get"
 
     def __init__(
         self,
@@ -126,8 +132,13 @@ class IrregularExchange:
             base_plan = build_comm_plan(pattern.indices, n, p,
                                         blocksize=blocksize,
                                         topology=topology)
+        self._prepare(base_plan)
         self.strategy = strategy
         self._bind(base_plan, strategy)
+
+    # ---- subclass hooks ----
+    def _prepare(self, base_plan: CommPlan) -> None:
+        """Derive direction-specific plan state before the rung is bound."""
 
     def _bind(self, base_plan: CommPlan, strategy: str) -> None:
         """Wire the resolved strategy: set ``self.plan`` / ``plan_args`` and

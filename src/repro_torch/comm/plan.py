@@ -30,8 +30,8 @@ The plan also produces every count the paper's performance models (§5.2) need:
 ``B_remote`` (UPCv2, eq. 11), and ``S_*`` / ``C_remote_out`` (UPCv3,
 eqs. 12–15), split intra-node vs inter-node through a ``Topology``.
 
-A numpy-only copy of the gather side of ``repro.comm.plan`` (the push-side
-``ScatterPlan`` waits for its slice), kept in the port so that it imports no
+A numpy-only copy of ``repro.comm.plan`` (gather plans, and the push-side
+``ScatterPlan`` derived from them), kept in the port so that it imports no
 JAX.  Every array it builds equals the reference's, bit for bit.
 """
 from __future__ import annotations
@@ -40,8 +40,9 @@ import dataclasses
 
 import numpy as np
 
-__all__ = ["Topology", "GatherCounts", "CommPlan", "build_comm_plan",
-           "blockwise_block_counts", "attach_destination"]
+__all__ = ["Topology", "GatherCounts", "CommPlan", "ScatterPlan",
+           "build_comm_plan", "blockwise_block_counts", "attach_destination",
+           "pattern_cols", "derive_scatter_plan", "transpose_counts"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,6 +168,262 @@ class CommPlan:
     def rows_per_shard(self) -> int:
         """Accessor rows owned by each shard (== shard_size when m == n)."""
         return self.m // self.p
+
+    def transpose(self) -> "ScatterPlan":
+        """The push-direction (put/scatter) plan for the same access pattern.
+
+        The paper's condensing/consolidation machinery is direction-agnostic:
+        its per-pair message lists depend only on *which* elements cross each
+        (sender, receiver) boundary, not on which side initiates.  The
+        transposed plan therefore reuses this plan's tables with the roles
+        swapped — the gather's unpack table (``recv_global_idx``) becomes the
+        scatter's pack table, and the gather's pack table (``send_local_idx``)
+        becomes the scatter's accumulate-unpack table — plus a few O(m·r)
+        derived arrays (message-slot positions per contribution, the
+        ``reduce="set"`` winner mask, the touched-element mask).
+
+        ``transpose()`` of the result returns this plan again (an involution).
+        """
+        return derive_scatter_plan(self)
+
+
+def pattern_cols(plan: CommPlan) -> np.ndarray:
+    """Reconstruct the (m, r) global index table the plan was built from.
+
+    The overlap-split arrays (``loc_cols``/``loc_src``/``rem_cols``/
+    ``rem_src``) are a lossless per-row compaction of the original ``cols``:
+    valid owned slots carry local indices (< shard_size, padding ==
+    shard_size), valid foreign slots carry global indices (< n, padding ==
+    n + 1), and the ``*_src`` maps give each compacted slot's original
+    position.  Inverting them recovers ``cols`` exactly, so a scatter plan
+    can be derived from a cached gather plan without re-supplying the
+    pattern.
+    """
+    m, shard = plan.m, plan.shard_size
+    rows_shard = np.repeat(np.arange(plan.p), plan.rows_per_shard)
+    lvalid = plan.loc_cols != shard
+    rvalid = plan.rem_cols != plan.n + 1
+    r = int(lvalid[0].sum() + rvalid[0].sum())
+    cols = np.zeros((m, r), np.int64)
+    li, lk = np.nonzero(lvalid)
+    cols[li, plan.loc_src[li, lk]] = (plan.loc_cols[li, lk]
+                                      + rows_shard[li] * shard)
+    ri, rk = np.nonzero(rvalid)
+    cols[ri, plan.rem_src[ri, rk]] = plan.rem_cols[ri, rk]
+    return cols.astype(np.int32)
+
+
+def transpose_counts(plan: CommPlan) -> GatherCounts:
+    """Put-direction §5 volume counts: send and recv roles swapped.
+
+    Per-shard outgoing volume in the put direction equals the gather's
+    incoming volume (``s_*_in``) and vice versa; the outgoing inter-node
+    message count becomes the number of distinct inter-node *receivers* this
+    shard contributes to; block counts become the blocks this shard pushes,
+    split by the receiver's node.  The fine-grained occurrence counts
+    (``c_*_indv``) are unchanged — they count the accessor shard's foreign
+    touches, which is the sender in the put direction.
+    """
+    p = plan.p
+    node = plan.topology.node_of(np.arange(p))
+    c = plan.counts
+    sc = plan.send_counts          # [src, dst] in the gather direction
+    sbc = plan.send_block_counts
+    same = node[:, None] == node[None, :]   # [src, dst]
+    # put sender q's message to s has the gather pair (s -> q)'s size
+    c_rem_out = ((sc > 0) & ~same).sum(axis=0).astype(np.int64)
+    b_local = (np.where(same, sbc, 0).sum(axis=0)
+               + plan.blocks_per_shard).astype(np.int64)
+    b_remote = np.where(same, 0, sbc).sum(axis=0).astype(np.int64)
+    return GatherCounts(
+        c_local_indv=c.c_local_indv,
+        c_remote_indv=c.c_remote_indv,
+        b_local=b_local,
+        b_remote=b_remote,
+        blocksize=plan.blocksize,
+        s_local_out=c.s_local_in,
+        s_remote_out=c.s_remote_in,
+        s_local_in=c.s_local_out,
+        s_remote_in=c.s_remote_out,
+        c_remote_out=c_rem_out,
+        padded_condensed_per_shard=c.padded_condensed_per_shard,
+        padded_blockwise_per_shard=c.padded_blockwise_per_shard,
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class ScatterPlan:
+    """Static push-direction (put/scatter) executor tables for one pattern.
+
+    Derived from a gather ``CommPlan`` by ``CommPlan.transpose()`` — the
+    base plan's per-pair tables are reused with send/recv roles swapped, so
+    the O(nnz) preparation step is never repeated for the reverse direction.
+    Accessor row i's slot j *contributes* a value to global element
+    ``tgt_global[i, j]``; duplicate targets combine under a ``reduce``
+    semantic chosen at execution time (``"add"`` / ``"set"`` / ``"max"``).
+
+    All executor arrays are host numpy with leading dim m or P, sharded
+    contiguously like the base plan (``strategies.scatter_plan_device_args``
+    gives them the leading rank axis):
+
+    * ``cond_msg_idx``: flat position of each contribution in the sender's
+      padded (P, s_max) condensed message buffer (owned targets -> the dump
+      slot ``p * s_max``); the receiver accumulates the landed buffer at
+      ``base.send_local_idx[me]`` — the gather's pack table, role-swapped.
+    * ``blk_msg_idx``: same for the blockwise (P, b_max, BS) buffer.
+    * ``own_tgt_idx``: local position of owned targets (foreign -> the dump
+      slot ``shard_size``) so own contributions accumulate without touching
+      the network.
+    * ``win_mask``: 1 on the single contribution slot that wins each target
+      under ``reduce="set"`` (the last contributor in row-major accessor
+      order) — masking all other slots to the reduce identity makes "set"
+      deterministic on every rung.
+    * ``touched``: 1 where an owned element receives at least one
+      contribution — ``reduce="max"`` returns 0 (not the -inf identity) on
+      untouched elements.
+    """
+
+    base: CommPlan
+    tgt_global: np.ndarray    # (m, r) int32 global target per contribution
+    cond_msg_idx: np.ndarray  # (m, r) int32 into (P*s_max); owned -> dump
+    blk_msg_idx: np.ndarray   # (m, r) int32 into (P*b_max*BS); owned -> dump
+    own_tgt_idx: np.ndarray   # (m, r) int32 into own shard; foreign -> dump
+    win_mask: np.ndarray      # (m, r) int8, reduce="set" winner slots
+    touched: np.ndarray       # (P, shard_size) int8, >=1 contribution
+    counts: GatherCounts      # put-direction counts (see transpose_counts)
+
+    # -- partitioning facts proxied from the base plan --
+    @property
+    def n(self) -> int:
+        return self.base.n
+
+    @property
+    def p(self) -> int:
+        return self.base.p
+
+    @property
+    def m(self) -> int:
+        return self.base.m
+
+    @property
+    def r(self) -> int:
+        return self.tgt_global.shape[1]
+
+    @property
+    def shard_size(self) -> int:
+        return self.base.shard_size
+
+    @property
+    def blocksize(self) -> int:
+        return self.base.blocksize
+
+    @property
+    def topology(self) -> Topology:
+        return self.base.topology
+
+    @property
+    def s_max(self) -> int:
+        return self.base.s_max
+
+    @property
+    def b_max(self) -> int:
+        return self.base.b_max
+
+    @property
+    def blocks_per_shard(self) -> int:
+        return self.base.blocks_per_shard
+
+    @property
+    def rows_per_shard(self) -> int:
+        return self.base.rows_per_shard
+
+    @property
+    def dest_len(self) -> int:
+        """Scatter delivery is always owner-targeted; no Destination."""
+        return 0
+
+    def transpose(self) -> CommPlan:
+        """The pull-direction plan this was derived from (involution)."""
+        return self.base
+
+
+def derive_scatter_plan(plan: CommPlan) -> ScatterPlan:
+    """Derive the push-direction executor tables from a gather plan.
+
+    O(m·r·log s_max) searchsorted passes over the base plan's already-sorted
+    per-pair lists — never a second O(nnz) planning step.  Prefer
+    ``CommPlan.transpose()`` (this function is its implementation).
+    """
+    cols = pattern_cols(plan)
+    p, n, shard = plan.p, plan.n, plan.shard_size
+    m, r = cols.shape
+    bs = plan.blocksize
+    rows_per_shard = plan.rows_per_shard
+    rows_shard = np.repeat(np.arange(p), rows_per_shard)
+    owner = cols // shard
+    own = owner == rows_shard[:, None]
+
+    cond_msg = np.full((m, r), p * plan.s_max, np.int64)       # dump slot
+    blk_msg = np.full((m, r), p * plan.b_max * bs, np.int64)   # dump slot
+    for q in range(p):
+        rows = slice(q * rows_per_shard, (q + 1) * rows_per_shard)
+        # group this shard's foreign contributions by owner once (one
+        # stable sort), then resolve each owner's contiguous segment —
+        # O(m·r·log) total, never p passes over every contribution
+        flat_c = cols[rows].ravel()
+        foreign = np.flatnonzero(~own[rows].ravel())
+        if not len(foreign):
+            continue
+        fo = owner[rows].ravel()[foreign]
+        grp = np.argsort(fo, kind="stable")
+        fo, fc, fslot = fo[grp], flat_c[foreign][grp], foreign[grp]
+        bounds = np.searchsorted(fo, np.arange(p + 1))
+        cflat = cond_msg[rows].reshape(-1)
+        bflat = blk_msg[rows].reshape(-1)
+        for s in range(p):
+            lo, hi = int(bounds[s]), int(bounds[s + 1])
+            if lo == hi:
+                continue
+            tgt, slot = fc[lo:hi], fslot[lo:hi]
+            # the gather's unpack list for pair (q <- s) IS the put
+            # direction's message contents for pair (q -> s): sorted unique
+            # globals owned by s that q touches
+            k = int(plan.send_counts[s, q])
+            need = plan.recv_global_idx[q, s, :k]
+            pos = np.searchsorted(need, tgt)
+            assert k and (need[np.minimum(pos, k - 1)] == tgt).all(), (
+                "gather plan does not cover this pattern")
+            cflat[slot] = s * plan.s_max + pos
+            kb = int(plan.send_block_counts[s, q])
+            bneed = plan.recv_global_blk[q, s, :kb]
+            bpos = np.searchsorted(bneed, tgt // bs)
+            assert kb and (bneed[np.minimum(bpos, kb - 1)]
+                           == tgt // bs).all(), (
+                "gather plan is missing a needed block")
+            bflat[slot] = s * plan.b_max * bs + bpos * bs + tgt % bs
+
+    own_tgt = np.where(own, cols - rows_shard[:, None] * shard, shard)
+
+    # reduce="set" winner: the last contribution in row-major accessor order
+    flat_t = cols.ravel().astype(np.int64)
+    order = np.arange(m * r, dtype=np.int64)
+    last = np.full(n, -1, np.int64)
+    np.maximum.at(last, flat_t, order)
+    win = (last[flat_t] == order).reshape(m, r)
+
+    touched = np.zeros(n, np.int8)
+    touched[flat_t] = 1
+
+    return ScatterPlan(
+        base=plan,
+        tgt_global=cols,
+        cond_msg_idx=cond_msg.astype(np.int32),
+        blk_msg_idx=blk_msg.astype(np.int32),
+        own_tgt_idx=own_tgt.astype(np.int32),
+        win_mask=win.astype(np.int8),
+        touched=touched.reshape(p, shard),
+        counts=transpose_counts(plan),
+    )
 
 
 def blockwise_block_counts(

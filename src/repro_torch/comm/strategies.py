@@ -1,4 +1,4 @@
-"""The paper's communication-strategy ladder (gather side), rank-stacked.
+"""The paper's communication-strategy ladder (both directions), rank-stacked.
 
 Each strategy turns a sharded vector ``x`` — one tensor ``(P, shard, ...)``
 whose row q is rank q's contiguous shard — into every rank's private copy
@@ -28,16 +28,20 @@ collective so ``OverlapHandle`` can expose an own-compute window between the
 two.  When the plan carries a ``Destination`` (``plan.dest_len > 0``), each
 strategy also has a *targeted* finish that gathers the landed buffer
 straight into the consumer's flat slot buffer ``(P, dest_len, ...)``.
+
+The push direction (put / scatter) runs the same rungs with the roles
+swapped: see the second half of this module.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import numpy as np
 import torch
 
 from repro_torch.comm.communicator import Work
-from repro_torch.comm.plan import CommPlan
+from repro_torch.comm.plan import CommPlan, ScatterPlan
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 
@@ -51,6 +55,16 @@ __all__ = [
     "dest_gather_local",
     "plan_device_args",
     "make_start_local",
+    "SCATTER_REDUCES",
+    "replicate_scatter_start_local",
+    "replicate_scatter_finish_local",
+    "condensed_scatter_start_local",
+    "condensed_scatter_finish_local",
+    "blockwise_scatter_start_local",
+    "blockwise_scatter_finish_local",
+    "scatter_plan_device_args",
+    "scatter_segment_tables",
+    "make_scatter_start_local",
 ]
 
 STRATEGIES = ("replicate", "blockwise", "condensed", "overlap")
@@ -272,3 +286,335 @@ def to_device(arrays, device) -> tuple[torch.Tensor, ...]:
     """Host plan arrays as tensors on ``device`` (dtypes kept)."""
     return tuple(torch.as_tensor(np.ascontiguousarray(a)).to(device)
                  for a in arrays)
+
+
+# --------------------------------------------------------------------------
+# Push direction (put / scatter): the same rung ladder, roles swapped.
+#
+# Each scatter strategy turns a table of *contributions* ``vals`` — one
+# tensor ``(P, rows, r, ...)`` whose slot (q, i, j) contributes to global
+# element ``tgt_global[q*rows + i, j]`` — into every rank's combined owned
+# slice ``y`` ``(P, shard, ...)``.  Duplicate targets combine under
+# ``reduce``:
+#
+#   * "add" — y[t] = sum of contributions (0 where none);
+#   * "max" — y[t] = max of contributions (0 where none; the -inf identity
+#     is masked out by the plan's static ``touched`` table);
+#   * "set" — y[t] = the last contribution in row-major accessor order
+#     (0 where none): "add" after the plan's winner mask zeroes every
+#     non-winning slot, so it is deterministic and rides the same collective
+#     on every rung.
+#
+# The pack side combines duplicates *before* the wire (sender-side
+# condensing); padded message lanes carry the reduce identity, so the
+# receiver's accumulate treats them as no-ops without any masking.  Every
+# combine goes through an ``accumulate`` (``accumulate_segments`` shape) or
+# ``accumulate_into`` callable: the plain PyTorch versions, which start from
+# ``kernels.ref.reduce_identity``, or the kernel wrappers bound to their
+# segment tables (``make_scatter_start_local``).
+# --------------------------------------------------------------------------
+
+SCATTER_REDUCES = ("add", "set", "max")
+
+
+def _trailing(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``mask`` with singleton dims appended to broadcast against ``like``."""
+    return mask.reshape(tuple(mask.shape) + (1,) * (like.dim() - mask.dim()))
+
+
+def _apply_set_mask(vals: torch.Tensor, win_mask: torch.Tensor,
+                    reduce: str) -> torch.Tensor:
+    if reduce != "set":
+        return vals
+    return vals * _trailing(win_mask, vals).to(vals.dtype)
+
+
+def _mask_untouched(y: torch.Tensor, touched: torch.Tensor,
+                    reduce: str) -> torch.Tensor:
+    """reduce="max" leaves the -inf identity on never-written elements;
+    the static touched table replaces it with the documented 0."""
+    if reduce != "max":
+        return y
+    return torch.where(_trailing(touched, y) > 0, y,
+                       torch.zeros((), dtype=y.dtype, device=y.device))
+
+
+def _lanes(vals: torch.Tensor) -> torch.Tensor:
+    """``(P, rows, r, ...)`` -> ``(P, rows * r, ...)``."""
+    return vals.reshape((vals.shape[0], -1) + tuple(vals.shape[3:]))
+
+
+def own_rows(x_full: torch.Tensor, shard: int) -> torch.Tensor:
+    """Rank q's own rows ``x_full[q, q*shard : (q+1)*shard, ...]``."""
+    p = x_full.shape[0]
+    feat = tuple(x_full.shape[2:])
+    blocks = x_full[:, :p * shard].reshape((p, p, shard) + feat)
+    ranks = torch.arange(p, device=x_full.device)
+    return blocks[ranks, ranks]
+
+
+def replicate_scatter_start_local(vals, tgt, win_mask, *, comm, n: int,
+                                  reduce: str, async_op=False,
+                                  accumulate=kref.accumulate_segments_ref
+                                  ) -> Work:
+    """Naive put: every rank combines ALL its contributions into a private
+    full-length accumulator, then a whole-vector all-reduce (sum / max)
+    delivers each owner its slice — the push dual of the replicate
+    all-gather, O(n) volume per rank."""
+    p = vals.shape[0]
+    v = _apply_set_mask(vals, win_mask, reduce)
+    acc = accumulate(_lanes(v), tgt.reshape(p, -1), out_len=n, reduce=reduce)
+    return comm.all_reduce(acc, "max" if reduce == "max" else "sum",
+                           async_op=async_op)
+
+
+def replicate_scatter_finish_local(work, touched, *, shard_size: int,
+                                   reduce: str):
+    y = own_rows(work.wait(), shard_size)
+    return _mask_untouched(y, touched, reduce)
+
+
+def condensed_scatter_start_local(vals, cond_msg_idx, win_mask, *, comm,
+                                  p: int, s_max: int, reduce: str,
+                                  async_op=False,
+                                  accumulate=kref.accumulate_segments_ref
+                                  ) -> Work:
+    """UPCv3 put: sender-side segment-combine into one padded message per
+    (sender, receiver) pair, then the consolidated exchange (the transpose
+    of the gather's pack + ``upc_memput``).  The landed ``(P, P, s_max,
+    ...)`` contribution buffer is not yet accumulated."""
+    feat = tuple(vals.shape[3:])
+    v = _apply_set_mask(vals, win_mask, reduce)
+    buf = accumulate(_lanes(v), cond_msg_idx.reshape(p, -1),
+                     out_len=p * s_max + 1, reduce=reduce)
+    return comm.all_to_all(buf[:, :p * s_max].reshape((p, p, s_max) + feat),
+                           async_op=async_op)
+
+
+def condensed_scatter_finish_local(work, vals, unpack_idx, own_idx,
+                                   win_mask, touched, *, shard_size: int,
+                                   reduce: str,
+                                   accumulate=kref.accumulate_segments_ref,
+                                   accumulate_into=kref.accumulate_into_ref):
+    """Accumulate-unpack: own contributions combine first, never touching
+    the wire (so this runs while the exchange is in flight), then the landed
+    foreign contributions combine into the owned slice at the gather's pack
+    positions (``unpack_idx`` = base ``send_local_idx``, roles swapped).
+    Padded lanes carry the reduce identity, so no masking is needed."""
+    p = vals.shape[0]
+    feat = tuple(vals.shape[3:])
+    v = _apply_set_mask(vals, win_mask, reduce)
+    own = accumulate(_lanes(v), own_idx.reshape(p, -1),
+                     out_len=shard_size + 1, reduce=reduce)
+    recv = work.wait()
+    acc = accumulate_into(own, recv.reshape((p, -1) + feat),
+                          unpack_idx.reshape(p, -1), reduce=reduce)
+    return _mask_untouched(acc[:, :shard_size], touched, reduce)
+
+
+def blockwise_scatter_start_local(vals, blk_msg_idx, win_mask, *, comm,
+                                  p: int, b_max: int, blocksize: int,
+                                  reduce: str, async_op=False,
+                                  accumulate=kref.accumulate_segments_ref
+                                  ) -> Work:
+    """UPCv2 put: contributions combine into whole virtual blocks (only
+    blocks containing >= 1 target travel); one padded block all_to_all.
+    The landed ``(P, P, b_max * BS, ...)`` blocks are not yet combined."""
+    feat = tuple(vals.shape[3:])
+    v = _apply_set_mask(vals, win_mask, reduce)
+    width = b_max * blocksize
+    buf = accumulate(_lanes(v), blk_msg_idx.reshape(p, -1),
+                     out_len=p * width + 1, reduce=reduce)
+    return comm.all_to_all(buf[:, :p * width].reshape((p, p, width) + feat),
+                           async_op=async_op)
+
+
+def blockwise_scatter_finish_local(work, vals, unpack_blk, own_idx, win_mask,
+                                   touched, *, shard_size: int,
+                                   blocksize: int, reduce: str,
+                                   accumulate=kref.accumulate_segments_ref,
+                                   accumulate_blocks=(
+                                       kref.accumulate_segments_ref)):
+    """Own contributions combine first (inside the exchange window), then
+    the landed blocks combine whole into the owned blocks at the gather's
+    block pack positions (``unpack_blk`` = base ``send_local_blk``)."""
+    p = vals.shape[0]
+    feat = tuple(vals.shape[3:])
+    v = _apply_set_mask(vals, win_mask, reduce)
+    own = accumulate(_lanes(v), own_idx.reshape(p, -1),
+                     out_len=shard_size + 1, reduce=reduce)
+    y_own = own[:, :shard_size]
+    blocks_per_shard = shard_size // blocksize
+    recv = work.wait()
+    accb = accumulate_blocks(recv.reshape((p, -1, blocksize) + feat),
+                             unpack_blk.reshape(p, -1),
+                             out_len=blocks_per_shard + 1, reduce=reduce)
+    y_blocks = accb[:, :blocks_per_shard].reshape((p, shard_size) + feat)
+    y = (kref.maximum(y_blocks, y_own) if reduce == "max"
+         else y_blocks + y_own)
+    return _mask_untouched(y, touched, reduce)
+
+
+def scatter_plan_device_args(splan: ScatterPlan, strategy: str):
+    """Host (numpy) plan arrays each scatter strategy needs, every one
+    shaped ``(P, ...)``: row q is rank q's slice.
+
+    The condensed/overlap and blockwise rungs reuse the *base gather plan's*
+    pack tables (``send_local_idx`` / ``send_local_blk``) as their
+    accumulate-unpack tables — the send/recv role swap made concrete.
+    """
+    p = splan.p
+
+    def ranked(a):
+        return a.reshape((p, -1) + a.shape[1:])
+
+    if strategy == "replicate":
+        return (ranked(splan.tgt_global), ranked(splan.win_mask),
+                splan.touched)
+    if strategy in ("condensed", "overlap"):
+        return (ranked(splan.cond_msg_idx), splan.base.send_local_idx,
+                ranked(splan.own_tgt_idx), ranked(splan.win_mask),
+                splan.touched)
+    if strategy == "blockwise":
+        return (ranked(splan.blk_msg_idx), splan.base.send_local_blk,
+                ranked(splan.own_tgt_idx), ranked(splan.win_mask),
+                splan.touched)
+    raise ValueError(f"unknown strategy {strategy!r}")
+
+
+def _padding_lanes(counts: np.ndarray, width: int, device) -> torch.Tensor:
+    """``(P, P * width)`` bool: lane j of rank q's row d is padding when
+    ``j >= counts[q, d]``."""
+    lane = torch.arange(width, device=device)
+    filled = torch.as_tensor(counts, device=device)[:, :, None]
+    return (lane >= filled).reshape(counts.shape[0], -1)
+
+
+def scatter_segment_tables(splan: ScatterPlan, strategy: str,
+                           plan_args) -> dict:
+    """The kernel arm's ``SegmentTable`` for every combine of one rung,
+    built once from the rung's plan arrays on their device
+    (``plan_args``, as ``scatter_plan_device_args`` orders them):
+
+    * replicate: ``"all"`` (every contribution into the n-long vector);
+    * condensed/overlap: ``"pack"`` (dump slot ``P·s_max`` left out),
+      ``"own"`` (dump ``shard_size`` left out) and ``"into"`` (the gather's
+      padded pack lanes left out, recorded as padding);
+    * blockwise: ``"pack"``, ``"own"`` and ``"blocks"`` (padded blocks left
+      out, recorded as padding).
+    """
+    p, shard = splan.p, splan.shard_size
+    table = kops.segment_table
+    if strategy == "replicate":
+        tgt = plan_args[0]
+        return {"all": table(tgt.reshape(p, -1), out_len=splan.n)}
+    msg, unpack, own = plan_args[:3]
+    dev = msg.device
+    tables = {"own": table(own.reshape(p, -1), out_len=shard + 1,
+                           live_len=shard)}
+    if strategy in ("condensed", "overlap"):
+        live = p * splan.s_max
+        tables["pack"] = table(msg.reshape(p, -1), out_len=live + 1,
+                               live_len=live)
+        tables["into"] = table(
+            unpack.reshape(p, -1), out_len=shard + 1, live_len=shard,
+            pad=_padding_lanes(splan.base.send_counts, splan.s_max, dev))
+        return tables
+    if strategy == "blockwise":
+        live = p * splan.b_max * splan.blocksize
+        nblk = splan.blocks_per_shard
+        tables["pack"] = table(msg.reshape(p, -1), out_len=live + 1,
+                               live_len=live)
+        tables["blocks"] = table(
+            unpack.reshape(p, -1), out_len=nblk + 1, live_len=nblk,
+            pad=_padding_lanes(splan.base.send_block_counts, splan.b_max,
+                               dev))
+        return tables
+    raise ValueError(f"unknown strategy {strategy!r}")
+
+
+def make_scatter_start_local(splan: ScatterPlan, strategy: str, comm,
+                             reduce: str, *, use_kernel: bool = False,
+                             tables: dict | None = None):
+    """Returns (start_fn, finish_fn) splitting the scatter at its collective.
+
+    ``start_fn(vals, *plan_args, async_op=False) -> Work`` packs
+    (sender-side combine) and issues the exchange; ``finish_fn(work, vals,
+    *plan_args) -> y`` ``(P, shard, ...)`` runs the own-accumulate — which
+    depends only on local contributions, so it runs while the exchange is in
+    flight (on the card the loopback copy runs on a side stream) — and then
+    combines the landed foreign contributions.  The ``overlap`` rung is the
+    ``condensed`` exchange consumed through this split.
+
+    ``use_kernel=True`` swaps the plain combines for the CUDA kernels
+    (``kernels.ops.accumulate_segments`` for the sender-side pack, the
+    own-target accumulate and the blockwise block combine;
+    ``accumulate_into`` for the landed-foreign fold), each bound to its
+    ``tables`` entry (``scatter_segment_tables``).  Bit-identical to the
+    plain arm on every rung × reduce (same combines, same lane order).  The
+    winner mask for ``reduce="set"`` stays a PyTorch multiply outside the
+    kernels, exactly where the plain arm applies it.
+    """
+    if reduce not in SCATTER_REDUCES:
+        raise ValueError(f"reduce must be one of {SCATTER_REDUCES}")
+    if use_kernel and tables is None:
+        raise ValueError("use_kernel=True needs the rung's segment tables "
+                         "(scatter_segment_tables)")
+
+    def seg(name):
+        if not use_kernel:
+            return kref.accumulate_segments_ref
+        return functools.partial(kops.accumulate_segments,
+                                 table=tables[name])
+
+    p, shard = splan.p, splan.shard_size
+    if strategy == "replicate":
+        acc_all = seg("all")
+
+        def start(vals, tgt, win, touched, *, async_op=False):
+            return replicate_scatter_start_local(
+                vals, tgt, win, comm=comm, n=splan.n, reduce=reduce,
+                async_op=async_op, accumulate=acc_all)
+
+        def finish(work, vals, tgt, win, touched):
+            return replicate_scatter_finish_local(
+                work, touched, shard_size=shard, reduce=reduce)
+
+        return start, finish
+    acc_pack, acc_own = seg("pack"), seg("own")
+    if strategy in ("condensed", "overlap"):
+        acc_into = (functools.partial(kops.accumulate_into,
+                                      table=tables["into"])
+                    if use_kernel else kref.accumulate_into_ref)
+
+        def start(vals, msg_idx, unpack_idx, own_idx, win, touched, *,
+                  async_op=False):
+            return condensed_scatter_start_local(
+                vals, msg_idx, win, comm=comm, p=p, s_max=splan.s_max,
+                reduce=reduce, async_op=async_op, accumulate=acc_pack)
+
+        def finish(work, vals, msg_idx, unpack_idx, own_idx, win, touched):
+            return condensed_scatter_finish_local(
+                work, vals, unpack_idx, own_idx, win, touched,
+                shard_size=shard, reduce=reduce, accumulate=acc_own,
+                accumulate_into=acc_into)
+
+        return start, finish
+    if strategy == "blockwise":
+        acc_blocks = seg("blocks")
+
+        def start(vals, msg_idx, unpack_blk, own_idx, win, touched, *,
+                  async_op=False):
+            return blockwise_scatter_start_local(
+                vals, msg_idx, win, comm=comm, p=p, b_max=splan.b_max,
+                blocksize=splan.blocksize, reduce=reduce, async_op=async_op,
+                accumulate=acc_pack)
+
+        def finish(work, vals, msg_idx, unpack_blk, own_idx, win, touched):
+            return blockwise_scatter_finish_local(
+                work, vals, unpack_blk, own_idx, win, touched,
+                shard_size=shard, blocksize=splan.blocksize, reduce=reduce,
+                accumulate=acc_own, accumulate_blocks=acc_blocks)
+
+        return start, finish
+    raise ValueError(f"unknown strategy {strategy!r}")

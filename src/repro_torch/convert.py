@@ -1,13 +1,14 @@
 """Carry the JAX reference's data across to the port.
 
 The system runs no model, so the "weights" the two packages must share are
-the matrix and the communication plan.  ``from_reference`` reads the
-reference's ``EllpackMatrix`` and ``CommPlan`` duck-typed — as plain numpy
-fields, never importing the reference — and returns the port's host-side
-equivalents, so that both packages can run the same matrix through the same
-plan (``DistributedSpMV(..., base_plan=plan)``).  Both objects are host
-(numpy) state in either package; they reach a device only when an engine
-is built on them.
+the matrix and the communication plans.  ``from_reference`` reads the
+reference's ``EllpackMatrix``, ``CommPlan`` and ``ScatterPlan`` duck-typed —
+as plain numpy fields, never importing the reference — and returns the
+port's host-side equivalents, so that both packages can run the same matrix
+through the same plan (``DistributedSpMV(..., base_plan=plan)``,
+``IrregularScatter(..., scatter_plan=splan)``).  All of them are host
+(numpy) state in either package; they reach a device only when an engine is
+built on them.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ import dataclasses
 
 import numpy as np
 
-from repro_torch.comm.plan import CommPlan, GatherCounts, Topology
+from repro_torch.comm.plan import CommPlan, GatherCounts, ScatterPlan, Topology
 from repro_torch.core.matrix import EllpackMatrix
 
 __all__ = ["from_reference"]
@@ -33,14 +34,25 @@ def _copy(cls, obj, **overrides):
     return cls(**kw)
 
 
+def _comm_plan(plan) -> CommPlan:
+    return _copy(CommPlan, plan, topology=_copy(Topology, plan.topology),
+                 counts=_copy(GatherCounts, plan.counts))
+
+
 def from_reference(matrix, plan=None):
-    """``(EllpackMatrix, CommPlan | None)`` of the port, equal field for
-    field to the reference's ``matrix`` and (optional) ``plan``, including
-    any ``Destination`` arrays attached to the plan."""
-    port_matrix = _copy(EllpackMatrix, matrix)
+    """``(EllpackMatrix | None, plan | None)`` of the port, equal field for
+    field to the reference's ``matrix`` and (optional) ``plan``.
+
+    ``plan`` is a ``CommPlan`` (any ``Destination`` arrays attached to it
+    come along) or a ``ScatterPlan``, whose base ``CommPlan`` is carried
+    across with it: pass the result's ``.base`` as ``base_plan=`` beside
+    ``scatter_plan=``.  ``matrix`` may be None for a pattern that is not a
+    matrix."""
+    port_matrix = None if matrix is None else _copy(EllpackMatrix, matrix)
     if plan is None:
         return port_matrix, None
-    port_plan = _copy(CommPlan, plan,
-                      topology=_copy(Topology, plan.topology),
-                      counts=_copy(GatherCounts, plan.counts))
-    return port_matrix, port_plan
+    if hasattr(plan, "tgt_global"):              # a ScatterPlan
+        return port_matrix, _copy(ScatterPlan, plan,
+                                  base=_comm_plan(plan.base),
+                                  counts=_copy(GatherCounts, plan.counts))
+    return port_matrix, _comm_plan(plan)

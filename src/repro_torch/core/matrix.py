@@ -21,7 +21,8 @@ import dataclasses
 
 import numpy as np
 
-__all__ = ["EllpackMatrix", "make_mesh_like_matrix", "spmv_ref_np"]
+__all__ = ["EllpackMatrix", "make_mesh_like_matrix", "spmv_ref_np",
+           "spmv_t_ref_np"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,4 +99,16 @@ def make_mesh_like_matrix(
 def spmv_ref_np(m: EllpackMatrix, x: np.ndarray) -> np.ndarray:
     """Ground-truth SpMV in numpy (paper Listing 1)."""
     return m.diag * x + np.einsum("ij,ij->i", m.vals, x[m.cols])
+
+
+def spmv_t_ref_np(m: EllpackMatrix, x: np.ndarray) -> np.ndarray:
+    """Ground-truth transposed SpMV: y = (D + A)ᵀ x.
+
+    Row i's off-diagonal entry (vals[i, j] at column cols[i, j]) becomes a
+    *contribution* vals[i, j] * x[i] to y[cols[i, j]] — the push-direction
+    dual of the gather-based forward product.
+    """
+    y = (m.diag * x).astype(x.dtype)
+    np.add.at(y, m.cols.ravel(), (m.vals * x[:, None]).ravel())
+    return y
 

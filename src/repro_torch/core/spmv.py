@@ -11,6 +11,13 @@ PyTorch.
 ``strategy`` is any rung of the ladder (``replicate`` / ``blockwise`` /
 ``condensed`` / ``overlap``); ``"auto"`` comes with a later slice.
 
+``transpose=True`` computes ``y = (D + A)ᵀ x`` in the push direction:
+each rank forms its contributions ``vals * x[:, None]`` and scatters them to
+the column owners through ``IrregularScatter`` (``reduce="add"``); the
+diagonal product runs while the exchange is in flight.  With
+``use_kernel=True`` every combine of the scatter runs through the port's
+segment-fold kernels.
+
 ``materialize`` picks the unpack: ``"dest"`` (default on the plain paths)
 registers the EllPack slot table as a ``Destination`` so each exchange
 lands directly in gather-slot order — O(slots + recv) per step, no
@@ -41,7 +48,8 @@ import torch
 from repro_torch.comm import strategies as strat
 from repro_torch.comm.gather import IrregularGather
 from repro_torch.comm.pattern import AccessPattern, Destination
-from repro_torch.comm.plan import CommPlan, Topology
+from repro_torch.comm.plan import CommPlan, ScatterPlan, Topology
+from repro_torch.comm.scatter import IrregularScatter
 from repro_torch.core.matrix import EllpackMatrix
 from repro_torch.kernels import ops as kops
 
@@ -54,19 +62,12 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return x[ranks.reshape((-1,) + (1,) * (idx.dim() - 1)), idx]
 
 
-def _own_rows(x_copy: torch.Tensor, shard: int) -> torch.Tensor:
-    """Rank q's own rows ``x_copy[q, q*shard : (q+1)*shard]``."""
-    p = x_copy.shape[0]
-    blocks = x_copy[:, :p * shard].reshape(p, p, shard)
-    ranks = torch.arange(p, device=x_copy.device)
-    return blocks[ranks, ranks]
-
-
 class DistributedSpMV:
-    """y = (D + A) x with x, y, D, A, J sharded over the ranks of ``comm``
-    (a ``LoopbackComm``).  ``base_plan`` shares one already-built
-    destination-independent ``CommPlan`` between engines over the same
-    matrix."""
+    """y = (D + A) x (or ``(D + A)ᵀ x`` with ``transpose=True``) with x, y,
+    D, A, J sharded over the ranks of ``comm`` (a ``LoopbackComm``).
+    ``base_plan`` shares one already-built destination-independent
+    ``CommPlan`` between engines over the same matrix, and ``scatter_plan``
+    one ``ScatterPlan`` between transposed engines."""
 
     def __init__(
         self,
@@ -80,12 +81,8 @@ class DistributedSpMV:
         materialize: str | None = None,
         transpose: bool = False,
         base_plan: CommPlan | None = None,
+        scatter_plan: ScatterPlan | None = None,
     ):
-        if transpose:
-            raise NotImplementedError(
-                "transpose=True (y = (D + A)^T x by scatter-accumulate) "
-                "comes with the push-direction slice of the port "
-                "(ROADMAP A6)")
         self.matrix = matrix
         self.comm = comm
         p = comm.p
@@ -94,6 +91,17 @@ class DistributedSpMV:
         n = matrix.n
         assert n % p == 0, "pad the matrix so n divides the rank count"
         topology = Topology(p, shards_per_node or p)
+        self.transpose = transpose
+        if transpose:
+            assert materialize is None, (
+                "materialize= is a gather-unpack knob; the transposed "
+                "product always accumulates straight into the owned slice")
+            self._init_transpose(matrix, comm, strategy=strategy,
+                                 blocksize=blocksize, topology=topology,
+                                 use_kernel=use_kernel, base_plan=base_plan,
+                                 scatter_plan=scatter_plan)
+            return
+        assert scatter_plan is None, "scatter_plan serves transpose=True"
         if materialize is None:
             # the SpMV kernel consumes the assembled copy, so the kernel
             # default is "full"; an explicit materialize="dest" with
@@ -194,25 +202,69 @@ class DistributedSpMV:
 
             def step(x):
                 x_copy = gather.local(x, *gargs)
-                own = _own_rows(x_copy, shard)
+                own = strat.own_rows(x_copy, shard)
                 return diag * own + (vals * _take(x_copy, cols)).sum(-1)
+
+        self._step = step
+
+    def _init_transpose(self, matrix, comm, *, strategy, blocksize,
+                        topology, use_kernel, base_plan, scatter_plan):
+        """y = (D + A)ᵀ x via scatter-accumulate of partial products.
+
+        Each rank forms its contributions ``vals * x[:, None]`` (its rows'
+        partial products) and pushes them to the column owners; the diagonal
+        term is purely local (Dᵀ = D).  The ``ScatterHandle`` protocol
+        issues the exchange first, so the diagonal product and the
+        own-column accumulate run while the collective is in flight — the
+        ``overlap`` rung's window, on every rung.
+        """
+        p = self.p
+        scatter = IrregularScatter(
+            AccessPattern.from_ellpack(matrix), comm, strategy=strategy,
+            blocksize=blocksize, topology=topology, reduce="add",
+            use_kernel=use_kernel, base_plan=base_plan,
+            scatter_plan=scatter_plan)
+        self.scatter = scatter
+        self.gather = None
+        self.plan: CommPlan = scatter.plan
+        self.splan = scatter.splan
+        self.strategy = strategy
+        self.blocksize = self.plan.blocksize
+        self.materialize = None
+        rows = matrix.cols.shape[0] // p
+        diag = torch.as_tensor(matrix.diag).reshape(p, rows).to(comm.device)
+        vals = torch.as_tensor(np.ascontiguousarray(matrix.vals)).reshape(
+            p, rows, -1).to(comm.device)
+        sargs = scatter.plan_args
+
+        def step(x):
+            contrib = vals * x[:, :, None]
+            handle = scatter.start_local(contrib, *sargs)
+            y_diag = diag * x
+            return y_diag + handle.finish()
 
         self._step = step
 
     # ---- public API ----
     def shard_vector(self, x) -> torch.Tensor:
         """Host vector (length n) -> ``(P, n / P)`` on the engine's device."""
+        if self.transpose:
+            return self.scatter.shard_vector(x)
         return self.gather.shard_vector(x)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        """y = (D + A) x, both ``(P, n / P)``."""
+        """y = (D + A) x (or ``(D + A)ᵀ x``), both ``(P, n / P)``."""
         return self._step(x)
 
     def gather_x_copy(self, x: torch.Tensor) -> torch.Tensor:
         """``(P, >= n)``: row q is rank q's private x_copy (testing)."""
+        assert not self.transpose, "the transposed product never gathers"
         return self.gather(x)
 
     @property
     def counts(self):
-        """Exact per-shard §5 volume counts."""
+        """Exact per-shard §5 volume counts — put-direction counts when
+        ``transpose=True`` (the direction the step actually runs)."""
+        if self.transpose:
+            return self.splan.counts
         return self.plan.counts

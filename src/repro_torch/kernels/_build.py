@@ -41,6 +41,12 @@ _SIGNATURES = {
                        ctypes.c_int, _P),
     "rt_ellpack_spmv_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _I, _P),
+    "rt_accumulate_segments": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               ctypes.c_int, ctypes.c_int, _P),
+    "rt_accumulate_into": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                           ctypes.c_int, ctypes.c_int, _P),
+    "rt_fold_long_rows": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          ctypes.c_int, ctypes.c_int, _P),
 }
 
 _lib = None
@@ -48,7 +54,8 @@ _info: dict = {}
 
 # kernel name -> launches so far; each wrapper adds one where it launches
 LAUNCHES = {"pack_gather": 0, "unpack_scatter_set": 0, "unpack_dest": 0,
-            "ellpack_spmv_windowed": 0}
+            "ellpack_spmv_windowed": 0, "accumulate_segments": 0,
+            "accumulate_into": 0}
 
 
 def _nvcc() -> str:
@@ -133,14 +140,15 @@ def build_info() -> dict:
     return dict(_info)
 
 
-def launch(kernel: str, entry: str, device, *args) -> None:
+def launch(kernel: str | None, entry: str, device, *args) -> None:
     """Call C entry point ``entry`` on ``device``'s current stream (appended
     as the last argument), raise on a CUDA error, count one launch of
-    ``kernel``."""
+    ``kernel`` (None: a further launch of a kernel already counted)."""
     lib = load()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         status = getattr(lib, entry)(*args, stream)
     if status != 0:
         raise RuntimeError(f"{entry} failed: cudaError_t {status}")
-    LAUNCHES[kernel] += 1
+    if kernel is not None:
+        LAUNCHES[kernel] += 1

@@ -15,13 +15,17 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ellpack_spmv import ellpack_spmv_windowed
-from repro_torch.kernels.pack_gather import (pack_gather, unpack_dest,
-                                             unpack_scatter_set)
+from repro_torch.kernels.pack_gather import (SegmentTable,
+                                             accumulate_into,
+                                             accumulate_segments,
+                                             pack_gather, segment_table,
+                                             unpack_dest, unpack_scatter_set)
 
 __all__ = [
     "plan_spmv_windows", "ellpack_spmv", "make_spmv_on_copy_sharded",
     "make_spmv_overlap_sharded", "pack_gather", "unpack_dest",
-    "unpack_scatter_set", "ellpack_spmv_windowed", "launch_counts",
+    "unpack_scatter_set", "ellpack_spmv_windowed", "accumulate_segments",
+    "accumulate_into", "SegmentTable", "segment_table", "launch_counts",
     "reset_launch_counts",
 ]
 

@@ -1,7 +1,8 @@
 """The exchange fast path: pack and unpack around the all_to_all.
 
-Wrappers of the CUDA kernels in ``csrc/pack_gather.cu`` (which replace the
-Pallas kernels of ``repro/kernels/pack_gather.py``):
+Wrappers of the CUDA kernels in ``csrc/pack_gather.cu`` and
+``csrc/accumulate.cu`` (which replace the Pallas kernels of
+``repro/kernels/pack_gather.py``):
 
 * ``pack_gather`` — ``out[q, k] = x[q, idx[q, k]]``: each rank's condensed
   messages (or whole virtual blocks) from its owned shard into one
@@ -10,7 +11,11 @@ Pallas kernels of ``repro/kernels/pack_gather.py``):
   ``x_copy`` per rank, the landed rows scattered in, the owned rows copied
   in at the rank's offset (eq. 15 + eq. 14 in one call);
 * ``unpack_dest`` — the ``Destination``-targeted unpack: each of the L slots
-  reads the landed buffer, the owned shard, or exactly 0.0.
+  reads the landed buffer, the owned shard, or exactly 0.0;
+* ``accumulate_segments`` / ``accumulate_into`` — the push direction's
+  combines (sender-side pack, own-target accumulate, blockwise block
+  combine, landed-foreign fold) under ``add`` or ``max``, in ascending lane
+  order through a ``SegmentTable`` built once per static index array.
 
 Every tensor carries the leading rank axis ``(P, ...)`` and one launch
 serves all ranks.  A CUDA tensor always goes through the kernel (or the call
@@ -20,6 +25,7 @@ wrapper allocates its output with ``torch.empty`` and counts its launches in
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -27,7 +33,9 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as kref
 
-__all__ = ["pack_gather", "unpack_scatter_set", "unpack_dest"]
+__all__ = ["pack_gather", "unpack_scatter_set", "unpack_dest",
+           "SegmentTable", "segment_table", "accumulate_segments",
+           "accumulate_into"]
 
 
 def require(cond: bool, what=None) -> None:
@@ -157,3 +165,196 @@ def unpack_dest(recv_flat: torch.Tensor, x_local: torch.Tensor,
                   p, recv_flat.shape[1], x_local.shape[1], slots,
                   math.prod(x_local.shape[2:]), _DEST_DTYPES[x_local.dtype])
     return out
+
+
+# --------------------------------------------------------------------------
+# Segment accumulate (push direction)
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class SegmentTable:
+    """One static index array ``idx (P, K)`` sorted by target row, stably.
+
+    Rank q's lanes that target row t are ``perm[q, seg_ptr[q, t] :
+    seg_ptr[q, t + 1]]``, in ascending lane order, for every live row
+    ``t < live_len``.  Lanes that target a row at or above ``live_len`` (the
+    dump rows callers slice off) and padding lanes (which carry the reduce
+    identity by construction) are left out; ``pad_rows[q, t]`` is 1 where a
+    padding lane targeted row t.  ``perm`` keeps all K lanes per rank: the
+    left-out ones sort last and are never read.  ``long_rows`` lists the
+    rows (``q * live_len + t``) with more than ``LONG_LANES`` lanes, which
+    the kernel folds one block each (scalar rows only)."""
+
+    perm: torch.Tensor                 # (P, K) int32
+    seg_ptr: torch.Tensor              # (P, live_len + 1) int32
+    pad_rows: torch.Tensor | None      # (P, live_len) int8
+    long_rows: torch.Tensor            # (n_long,) int32
+    out_len: int
+    live_len: int
+
+    @property
+    def lanes(self) -> int:
+        return self.perm.shape[1]
+
+    def longest(self) -> int:
+        """The most lanes any live row folds: its chain of dependent
+        combines is the fold's serial work."""
+        return int((self.seg_ptr[:, 1:] - self.seg_ptr[:, :-1]).max())
+
+
+# rows with more lanes get a block of their own on scalar rows
+LONG_LANES = 64
+
+
+def segment_table(idx: torch.Tensor, *, out_len: int,
+                  live_len: int | None = None,
+                  pad: torch.Tensor | None = None) -> SegmentTable:
+    """Build the ``SegmentTable`` of ``idx (P, K)`` (values in ``[0,
+    out_len)``) on idx's device, once per static index array: a stable
+    ``torch.sort`` by target and a per-rank ``bincount``/``cumsum``.
+
+    ``live_len`` (default ``out_len``): rows at or above it are never
+    folded.  ``pad (P, K)`` bool: lanes that carry the reduce identity,
+    left out of the fold and recorded in ``pad_rows``."""
+    require(idx.dim() == 2, idx.shape)
+    p, k = idx.shape
+    live = out_len if live_len is None else int(live_len)
+    require(0 <= live <= out_len and k < 2 ** 31, (live, out_len, k))
+    rows = idx.to(torch.int64)
+    if rows.numel():
+        require(int(rows.min()) >= 0 and int(rows.max()) < out_len,
+                "idx outside [0, out_len)")
+    drop = rows >= live
+    if pad is not None:
+        require(pad.shape == idx.shape, (pad.shape, idx.shape))
+        pad = pad.to(device=idx.device, dtype=torch.bool) & ~drop
+        drop = drop | pad
+    key = torch.where(drop, live, rows)
+    perm = torch.sort(key, dim=1, stable=True).indices.to(torch.int32)
+    base = torch.arange(p, device=idx.device)[:, None]
+    counts = torch.bincount((key + base * (live + 1)).reshape(-1),
+                            minlength=p * (live + 1)).reshape(p, live + 1)
+    seg_ptr = torch.zeros((p, live + 1), dtype=torch.int32,
+                          device=idx.device)
+    seg_ptr[:, 1:] = counts[:, :live].cumsum(1)
+    long_rows = torch.nonzero(counts[:, :live].reshape(-1) > LONG_LANES
+                              ).reshape(-1).to(torch.int32)
+    pad_rows = None
+    if pad is not None:
+        hit = torch.where(pad, rows + base * live, p * live).reshape(-1)
+        pad_rows = (torch.bincount(hit, minlength=p * live + 1)[:p * live]
+                    > 0).to(torch.int8).reshape(p, live)
+    return SegmentTable(perm=perm.contiguous(), seg_ptr=seg_ptr,
+                        pad_rows=pad_rows, long_rows=long_rows,
+                        out_len=out_len, live_len=live)
+
+
+_FOLD_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
+# "set" is add after the caller's winner mask
+_FOLD_REDUCES = {"add": 0, "set": 0, "max": 1}
+
+
+def _fold_checks(vals: torch.Tensor, idx: torch.Tensor, reduce: str) -> None:
+    require(vals.dim() >= 2 and idx.dim() == 2
+            and tuple(idx.shape) == tuple(vals.shape[:2]),
+            (vals.shape, idx.shape))
+    require(reduce in _FOLD_REDUCES, reduce)
+    _int32(idx)
+
+
+def _fold(kernel: str, entry: str, init, vals, idx, reduce: str, table,
+          out_len: int) -> torch.Tensor:
+    """Launch one fold of ``vals`` into a fresh ``(P, out_len, ...)``
+    through ``table`` (built here from ``idx`` when None)."""
+    p = vals.shape[0]
+    if vals.dtype not in _FOLD_DTYPES:
+        raise TypeError(f"{kernel} runs float32, bfloat16 or int32 on the "
+                        f"card, not {vals.dtype}")
+    if table is None:
+        table = segment_table(idx, out_len=out_len)
+    require(table.out_len == out_len and table.lanes == idx.shape[1]
+            and table.perm.shape[0] == p, "the table was built for other "
+            f"inputs: out_len {table.out_len}, lanes {table.lanes}")
+    parts = [table.perm, table.seg_ptr, table.long_rows]
+    if table.pad_rows is not None:
+        parts.append(table.pad_rows)
+    on_card(vals, *parts)
+    dev = vals.device
+    feat = math.prod(vals.shape[2:])
+    out = torch.empty((p, out_len) + tuple(vals.shape[2:]), dtype=vals.dtype,
+                      device=dev)
+    init_ptr = None if init is None else init.data_ptr()
+    pad_ptr = None if table.pad_rows is None else table.pad_rows.data_ptr()
+    common = (vals.data_ptr(), table.perm.data_ptr(), table.seg_ptr.data_ptr(),
+              pad_ptr)
+    dtype, red = _FOLD_DTYPES[vals.dtype], _FOLD_REDUCES[reduce]
+    head = () if init is None else (init_ptr,)
+    short = (kernel, entry, dev, *head, *common, out.data_ptr(), p,
+             idx.shape[1], table.live_len, out_len, feat,
+             LONG_LANES if feat == 1 else 2 ** 31 - 1, dtype, red)
+    # scalar rows past LONG_LANES fold in blocks of their own, each on an
+    # SM of its own: launched first on the caller's stream, so that they
+    # find empty SMs, with the short rows beside them on a side stream;
+    # wider rows fold every row one thread per feature element
+    n_long = table.long_rows.numel() if feat == 1 else 0
+    if not n_long:
+        _build.launch(*short)
+        return out
+    main = torch.cuda.current_stream(dev)
+    side = _side_stream(dev)
+    side.wait_stream(main)
+    _build.launch(None, "rt_fold_long_rows", dev, init_ptr, *common,
+                  table.long_rows.data_ptr(), out.data_ptr(), p, idx.shape[1],
+                  table.live_len, out_len, n_long, dtype, red)
+    with torch.cuda.stream(side):
+        _build.launch(*short)
+    # everything the side stream read was allocated on the main stream,
+    # which waits for it before running (or freeing) anything after
+    main.wait_stream(side)
+    return out
+
+
+_SIDE_STREAMS: dict = {}
+
+
+def _side_stream(device) -> torch.cuda.Stream:
+    if device not in _SIDE_STREAMS:
+        _SIDE_STREAMS[device] = torch.cuda.Stream(device=device)
+    return _SIDE_STREAMS[device]
+
+
+def accumulate_segments(vals: torch.Tensor, idx: torch.Tensor, *,
+                        out_len: int, reduce: str = "add",
+                        table: SegmentTable | None = None) -> torch.Tensor:
+    """Per rank q: ``acc = full((out_len, ...), identity)``, then combine
+    ``vals[q, k]`` into ``acc[idx[q, k]]`` in ascending k — add (``set`` is
+    add after the caller's winner mask) or max.
+
+    vals ``(P, K, ...)``, idx ``(P, K)`` int32 -> ``(P, out_len, ...)``;
+    float32, bfloat16 or int32 on the card.  ``table`` is
+    ``segment_table(idx, out_len=out_len, ...)``, built once where idx is
+    static (else here, on every call).  Bit-exact on the live rows; rows at
+    or above ``table.live_len`` are unspecified, and padding lanes the table
+    left out must carry the reduce identity."""
+    _fold_checks(vals, idx, reduce)
+    if not on_card(vals, idx):
+        return kref.accumulate_segments_ref(vals, idx, out_len=out_len,
+                                            reduce=reduce)
+    return _fold("accumulate_segments", "rt_accumulate_segments", None, vals,
+                 idx, reduce, table, out_len)
+
+
+def accumulate_into(init: torch.Tensor, vals: torch.Tensor,
+                    idx: torch.Tensor, *, reduce: str = "add",
+                    table: SegmentTable | None = None) -> torch.Tensor:
+    """The same combine, continuing from ``init (P, L, ...)`` (not
+    modified) -> ``(P, L, ...)``; ``table`` as for ``accumulate_segments``
+    with ``out_len = L``."""
+    _fold_checks(vals, idx, reduce)
+    require(init.dim() == vals.dim() and init.shape[0] == vals.shape[0]
+            and init.shape[2:] == vals.shape[2:], (init.shape, vals.shape))
+    require(init.dtype == vals.dtype, (init.dtype, vals.dtype))
+    if not on_card(init, vals, idx):
+        return kref.accumulate_into_ref(init, vals, idx, reduce=reduce)
+    return _fold("accumulate_into", "rt_accumulate_into", init, vals, idx,
+                 reduce, table, init.shape[1])

@@ -7,10 +7,13 @@ reference, the kernel wrappers run them for CPU tensors, and
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 __all__ = ["pack_gather_ref", "unpack_scatter_set_ref", "unpack_dest_ref",
-           "ellpack_spmv_ref"]
+           "ellpack_spmv_ref", "reduce_identity", "maximum",
+           "accumulate_segments_ref", "accumulate_into_ref"]
 
 
 def _ranks(t: torch.Tensor) -> torch.Tensor:
@@ -73,3 +76,88 @@ def ellpack_spmv_ref(diag, vals, cols_rel, own_rel, win_blk, x, *, window,
         return acc.to(vals.dtype)
     own = x.gather(1, base + own_rel)
     return (diag.float() * own.float() + acc).to(diag.dtype)
+
+
+# --------------------------------------------------------------------------
+# Segment accumulate (push direction).  ``max`` follows XLA's semantics: a
+# NaN propagates, and +0.0 is larger than -0.0 (``torch.maximum`` and
+# ``scatter_reduce(..., "amax")`` keep whichever zero they meet first).
+# --------------------------------------------------------------------------
+
+_BITS = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+         torch.float16: torch.int16, torch.float64: torch.int64}
+
+
+def reduce_identity(dtype: torch.dtype, reduce: str):
+    """The value padded lanes carry and accumulators start from: 0 for
+    ``add``/``set``, -inf (or the integer minimum) for ``max``."""
+    if reduce == "max":
+        if dtype.is_floating_point:
+            return float("-inf")
+        return torch.iinfo(dtype).min
+    return 0
+
+
+def _ordered(t: torch.Tensor) -> torch.Tensor:
+    """Float bits as integers ordered like the floats, -0.0 below +0.0."""
+    return _flip(t.view(_BITS[t.dtype]))
+
+
+def _flip(bits: torch.Tensor) -> torch.Tensor:
+    """Flip the magnitude bits of the negative ones (an involution)."""
+    return torch.where(bits < 0, bits ^ torch.iinfo(bits.dtype).max, bits)
+
+
+def maximum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise max with XLA's semantics (``jnp.maximum``)."""
+    if not a.dtype.is_floating_point:
+        return torch.maximum(a, b)
+    out = _flip(torch.maximum(_ordered(a), _ordered(b))).view(a.dtype)
+    return torch.where(a.isnan() | b.isnan(), float("nan"), out)
+
+
+def _combine(acc: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
+             reduce: str) -> torch.Tensor:
+    """Fold ``vals (P, K, ...)`` into ``acc (P, L, ...)`` at ``idx (P, K)``,
+    in place.  Every element is indexed on its own (a flat 1-D combine): on
+    the CPU a 1-D ``index_add_`` adds the contributions of an element in
+    ascending k order, one rounding each, as the reference's ``.at[].add``
+    does — a 2-D bfloat16 ``index_add_`` does not.  ``max`` does not depend
+    on the order."""
+    p, out_len = acc.shape[:2]
+    feat = math.prod(acc.shape[2:])
+    flat = acc.view(-1)
+    rows = idx.to(torch.int64) + _ranks(idx) * out_len
+    index = (rows.reshape(-1, 1) * feat
+             + torch.arange(feat, device=acc.device)).reshape(-1)
+    src = vals.reshape(-1)
+    if reduce != "max":
+        flat.index_add_(0, index, src)
+        return acc
+    if not acc.dtype.is_floating_point:
+        flat.scatter_reduce_(0, index, src, "amax", include_self=True)
+        return acc
+    key = _ordered(flat).scatter_reduce(0, index, _ordered(src), "amax",
+                                        include_self=True)
+    nan = torch.zeros(flat.shape, dtype=torch.int32, device=acc.device)
+    nan.scatter_add_(0, index, src.isnan().to(torch.int32))
+    flat.copy_(torch.where((nan > 0) | flat.isnan(), float("nan"),
+                           _flip(key).view(acc.dtype)))
+    return acc
+
+
+def accumulate_segments_ref(vals, idx, *, out_len: int, reduce: str = "add"):
+    """Per rank q: ``acc = full((out_len, ...), identity)``, then combine
+    ``vals[q, k]`` into ``acc[idx[q, k]]`` — add (``set`` is add after the
+    caller's winner mask) or max.  vals ``(P, K, ...)``, idx ``(P, K)``
+    int32 -> ``(P, out_len, ...)``."""
+    acc = torch.full((vals.shape[0], out_len) + tuple(vals.shape[2:]),
+                     reduce_identity(vals.dtype, reduce), dtype=vals.dtype,
+                     device=vals.device)
+    return _combine(acc, idx, vals, reduce)
+
+
+def accumulate_into_ref(init, vals, idx, *, reduce: str = "add"):
+    """The same combine, continuing from ``init (P, L, ...)`` (which is not
+    modified)."""
+    return _combine(init.clone(), idx, vals, reduce)

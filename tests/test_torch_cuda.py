@@ -4,12 +4,17 @@ Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one; on the card run ``python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 This file imports no JAX, so it runs where only PyTorch is installed.
 """
+import time
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.comm.communicator import LoopbackComm
-from repro_torch.core.matrix import make_mesh_like_matrix, spmv_ref_np
+from repro_torch.comm.pattern import AccessPattern
+from repro_torch.comm.scatter import IrregularScatter
+from repro_torch.core.matrix import (make_mesh_like_matrix, spmv_ref_np,
+                                     spmv_t_ref_np)
 from repro_torch.core.spmv import DistributedSpMV
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
@@ -155,3 +160,185 @@ def test_spmv_engine_on_card(dev, strategy, materialize):
             2 if strategy == "overlap" else 1)
         assert counts["unpack_scatter_set"] == (
             0 if strategy == "replicate" else 1)
+
+
+def _same_bits(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Bit for bit, NaN compared by position (its payload is the
+    platform's)."""
+    got, want = got.cpu(), want.cpu()
+    if not got.dtype.is_floating_point:
+        return torch.equal(got, want)
+    nan = want.isnan()
+    if not torch.equal(got.isnan(), nan):
+        return False
+    bits = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+    return torch.equal(got[~nan].view(bits), want[~nan].view(bits))
+
+
+def _fold_inputs(dtype, feat, reduce, p=4, k=3000, live=200, seed=0):
+    """Contributions with heavy duplicates, -0.0/NaN/inf, a dump row (index
+    ``live``) and identity-carrying padding lanes piled onto row 0."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, live + 1, (p, k)).astype(np.int32)
+    pad = rng.random((p, k)) < 0.2
+    idx[pad] = 0
+    if dtype == torch.int32:
+        vals = torch.as_tensor(rng.integers(-999, 999, (p, k) + feat),
+                               dtype=torch.int32)
+        init = torch.as_tensor(rng.integers(-999, 999, (p, live + 1) + feat),
+                               dtype=torch.int32)
+    else:
+        v = rng.standard_normal((p, k) + feat).astype(np.float32)
+        v.reshape(p, k, -1)[:, :6, 0] = [-0.0, -0.0, np.nan, np.inf,
+                                         -np.inf, 0.0]
+        idx[:, :6] = [0, 0, 3, 4, 4, 5]
+        pad[:, :6] = False
+        vals = torch.as_tensor(v).to(dtype)
+        init = torch.as_tensor(rng.standard_normal((p, live + 1) + feat)
+                               .astype(np.float32)).to(dtype)
+        init[:, 0] = -0.0
+    vals[torch.as_tensor(pad)] = kref.reduce_identity(vals.dtype, reduce)
+    return torch.as_tensor(idx), torch.as_tensor(pad), vals, init
+
+
+@pytest.mark.parametrize("feat", [(), (3,), (1024,)])
+@pytest.mark.parametrize("reduce", ["add", "set", "max"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32])
+def test_accumulate_kernels_bit_exact(dev, feat, reduce, dtype):
+    """B5 and B6 through a table with a dump row and padding lanes, and
+    through a table built per call, against the plain versions on the CPU
+    (a sequential fold), bit for bit on every live row."""
+    k = 300 if feat == (1024,) else 3000
+    idx, pad, vals, init = _fold_inputs(dtype, feat, reduce, k=k)
+    live = init.shape[1] - 1
+    table = kops.segment_table(idx.to(dev), out_len=live + 1, live_len=live,
+                               pad=pad.to(dev))
+    before = kops.launch_counts()
+    seg = kops.accumulate_segments(vals.to(dev), idx.to(dev),
+                                   out_len=live + 1, reduce=reduce,
+                                   table=table)
+    into = kops.accumulate_into(init.to(dev), vals.to(dev), idx.to(dev),
+                                reduce=reduce, table=table)
+    whole = kops.accumulate_segments(vals.to(dev), idx.to(dev),
+                                     out_len=live + 1, reduce=reduce)
+    torch.cuda.synchronize()
+    after = kops.launch_counts()
+    assert after["accumulate_segments"] == before["accumulate_segments"] + 2
+    assert after["accumulate_into"] == before["accumulate_into"] + 1
+    want_seg = kref.accumulate_segments_ref(vals, idx, out_len=live + 1,
+                                            reduce=reduce)
+    want_into = kref.accumulate_into_ref(init, vals, idx, reduce=reduce)
+    assert _same_bits(seg[:, :live], want_seg[:, :live])
+    assert _same_bits(into[:, :live], want_into[:, :live])
+    assert _same_bits(whole, want_seg)
+
+
+def test_segment_table_long_dump_segment(dev):
+    """A 1 M-lane dump segment is left out of the fold: the kernel takes
+    well under 20 ms (it would fold 1 M dependent adds on one thread
+    otherwise), and the live rows stay exact."""
+    p, dump, live = 2, 1 << 20, 4096
+    rng = np.random.default_rng(3)
+    idx = torch.full((p, dump + live * 4), live, dtype=torch.int32)
+    idx[:, dump:] = torch.as_tensor(rng.integers(0, live, (p, live * 4)),
+                                    dtype=torch.int32)
+    vals = torch.as_tensor(rng.standard_normal(tuple(idx.shape))
+                           .astype(np.float32))
+    table = kops.segment_table(idx.to(dev), out_len=live + 1, live_len=live)
+    assert table.longest() < 64
+    vd, idd = vals.to(dev), idx.to(dev)
+    kops.accumulate_segments(vd, idd, out_len=live + 1, table=table)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = kops.accumulate_segments(vd, idd, out_len=live + 1, table=table)
+    torch.cuda.synchronize()
+    assert time.perf_counter() - t0 < 0.020
+    want = kref.accumulate_segments_ref(vals, idx, out_len=live + 1)
+    assert _same_bits(got[:, :live], want[:, :live])
+
+
+@pytest.mark.parametrize("reduce", ["add", "max"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32])
+def test_long_rows_bit_exact(dev, reduce, dtype):
+    """Rows past LONG_LANES (a 2^18-lane hot row, as the main path's edge
+    columns have, and a few just past the threshold) fold in their own
+    blocks, in lane order: bit for bit against the CPU's sequential fold."""
+    from repro_torch.kernels.pack_gather import LONG_LANES
+    p, live = 2, 5000
+    rng = np.random.default_rng(6)
+    idx = rng.integers(0, live, (p, 1 << 19)).astype(np.int32)
+    idx[:, ::2] = 7                            # the hot row
+    idx[:, 1:600:8] = 11                       # just past the threshold
+    if dtype == torch.int32:
+        vals = torch.as_tensor(rng.integers(-99, 99, idx.shape),
+                               dtype=torch.int32)
+    else:
+        vals = torch.as_tensor(rng.standard_normal(idx.shape)
+                               .astype(np.float32)).to(dtype)
+    tidx = torch.as_tensor(idx)
+    table = kops.segment_table(tidx.to(dev), out_len=live)
+    assert table.longest() >= 1 << 18
+    assert set(table.long_rows.tolist()) >= {7, 11, live + 7, live + 11}
+    lanes = np.bincount(idx[0], minlength=live)
+    assert 11 in [t for t in range(live) if lanes[t] > LONG_LANES]
+    got = kops.accumulate_segments(vals.to(dev), tidx.to(dev), out_len=live,
+                                   reduce=reduce, table=table)
+    want = kref.accumulate_segments_ref(vals, tidx, out_len=live,
+                                        reduce=reduce)
+    assert _same_bits(got, want)
+
+
+@pytest.mark.parametrize("strategy", ["replicate", "blockwise", "condensed",
+                                      "overlap"])
+@pytest.mark.parametrize("reduce", ["add", "set", "max"])
+def test_scatter_engine_on_card(dev, strategy, reduce):
+    """The kernel arm on the card equals the plain arm on the CPU bit for
+    bit on random float32 (both fold every target in lane order)."""
+    n, m, r, d = 8 * 512, 8 * 256, 5, 3
+    rng = np.random.default_rng(4)
+    idx = rng.integers(0, n, (m, r)).astype(np.int32)
+    vals = rng.standard_normal((m, r, d)).astype(np.float32)
+    pattern = AccessPattern.from_indices(idx, n=n)
+    kw = dict(strategy=strategy, blocksize=64, shards_per_node=4,
+              reduce=reduce)
+    card = IrregularScatter(pattern, LoopbackComm(8, device=dev),
+                            use_kernel=True, **kw)
+    cpu = IrregularScatter(pattern, LoopbackComm(8, device="cpu"),
+                           scatter_plan=card.splan, **kw)
+    kops.reset_launch_counts()
+    y = card(card.shard_values(vals))
+    y2 = card.start_local(card.shard_values(vals), *card.plan_args).finish()
+    torch.cuda.synchronize()
+    counts = kops.launch_counts()
+    # two scatters: per scatter replicate folds once, blockwise three
+    # times (pack, own, blocks), condensed/overlap twice plus one fold-into
+    assert counts["accumulate_segments"] == 2 * {
+        "replicate": 1, "blockwise": 3}.get(strategy, 2)
+    assert counts["accumulate_into"] == (
+        2 if strategy in ("condensed", "overlap") else 0)
+    want = cpu(cpu.shard_values(vals))
+    assert _same_bits(y, want) and _same_bits(y2, want)
+
+
+@pytest.mark.parametrize("strategy", ["replicate", "blockwise", "condensed",
+                                      "overlap"])
+def test_transposed_spmv_on_card(dev, strategy):
+    n = 8 * 1024
+    m = make_mesh_like_matrix(n, 16, locality_window=n // 64,
+                              long_range_frac=0.02, seed=1)
+    x = np.random.default_rng(1).standard_normal(n).astype(np.float32)
+    eng = DistributedSpMV(m, LoopbackComm(8, device=dev), strategy=strategy,
+                          blocksize=64, shards_per_node=4, use_kernel=True,
+                          transpose=True)
+    kops.reset_launch_counts()
+    y = eng(eng.shard_vector(x))
+    torch.cuda.synchronize()
+    counts = kops.launch_counts()
+    np.testing.assert_allclose(y.reshape(-1).cpu().numpy(),
+                               spmv_t_ref_np(m, x), rtol=2e-4, atol=2e-4)
+    assert counts["accumulate_segments"] == {
+        "replicate": 1, "blockwise": 3}.get(strategy, 2)
+    assert counts["accumulate_into"] == (
+        1 if strategy in ("condensed", "overlap") else 0)

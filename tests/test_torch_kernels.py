@@ -201,3 +201,198 @@ def test_ellpack_spmv_overlap_partials(p):
                                    **TOL)
         np.testing.assert_allclose(got_rem[q].numpy(), np.asarray(want_rem),
                                    **TOL)
+
+
+# --------------------------------------------------------------------------
+# B5 accumulate_segments / B6 accumulate_into (push direction)
+# --------------------------------------------------------------------------
+
+ACC_DTYPES = {"f32": (torch.float32, jnp.float32, np.int32),
+              "bf16": (torch.bfloat16, jnp.bfloat16, np.int16),
+              "i32": (torch.int32, jnp.int32, np.int32)}
+
+
+def _jax_pack_gather():
+    """The reference's Pallas kernels module (``repro.kernels`` exports a
+    function of the same name, so import the module by its path)."""
+    import importlib
+    return importlib.import_module("repro.kernels.pack_gather")
+
+
+def _acc_inputs(dtype, feat, p=3, k=400, rows=37, seed=0):
+    """Random contributions with -0.0, +0.0, NaN and ±inf (floats) or the
+    integer extremes, heavy duplicates, and an ``init`` with -0.0/NaN."""
+    rng = np.random.default_rng(seed)
+    tdt, jdt, _ = ACC_DTYPES[dtype]
+    idx = rng.integers(0, rows, (p, k)).astype(np.int32)
+    idx[:, :12] = [0, 0, 0, 1, 1, 2, 2, 3, 3, 4, 4, 4]
+    if dtype == "i32":
+        vals = rng.integers(-1000, 1000, (p, k) + feat).astype(np.int32)
+        vals.reshape(p, k, -1)[:, :3] = np.iinfo(np.int32).min
+        init = rng.integers(-1000, 1000, (p, rows) + feat).astype(np.int32)
+        return idx, vals, init, tdt, jdt
+    vals = rng.standard_normal((p, k) + feat).astype(np.float32)
+    vals.reshape(p, k, -1)[:, :12, 0] = [-0.0, -0.0, -0.0, -0.0, 0.0,
+                                         np.nan, 1.0, np.inf, -np.inf,
+                                         0.0, -0.0, -0.0]
+    init = rng.standard_normal((p, rows) + feat).astype(np.float32)
+    init.reshape(p, rows, -1)[:, :4, 0] = [-0.0, 0.0, np.nan, -0.0]
+    return idx, vals, init, tdt, jdt
+
+
+def _assert_same_bits(got: torch.Tensor, want, dtype: str):
+    """Bit for bit; a NaN's payload bits are the platform's own, so NaN is
+    compared by position."""
+    bits = ACC_DTYPES[dtype][2]
+    want = np.asarray(want)
+    if dtype == "i32":
+        np.testing.assert_array_equal(got.numpy(), want)
+        return
+    nan = np.isnan(want.astype(np.float32))
+    np.testing.assert_array_equal(got.float().isnan().numpy(), nan)
+    np.testing.assert_array_equal(
+        got.view(torch.int16 if dtype == "bf16" else torch.int32)
+        .numpy()[~nan], want.view(bits)[~nan])
+
+
+@pytest.mark.parametrize("feat", [(), (3,), (1024,)])
+@pytest.mark.parametrize("reduce", ["add", "set", "max"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "i32"])
+def test_accumulate_bit_exact(feat, reduce, dtype):
+    """Both plain versions against the reference's Pallas kernels (interpret
+    mode) and its jnp oracles, one rank at a time."""
+    jpg = _jax_pack_gather()
+    k = 40 if feat == (1024,) else 400
+    idx, vals, init, tdt, jdt = _acc_inputs(dtype, feat, k=k)
+    rows = init.shape[1]
+    tv, ti = torch.as_tensor(vals).to(tdt), torch.as_tensor(init).to(tdt)
+    tidx = torch.as_tensor(idx)
+    seg = tops.accumulate_segments(tv, tidx, out_len=rows + 2, reduce=reduce)
+    into = tops.accumulate_into(ti, tv, tidx, reduce=reduce)
+    assert seg.shape == (3, rows + 2) + feat and into.shape == ti.shape
+    for q in range(3):
+        jv, ji = jnp.asarray(vals[q]).astype(jdt), jnp.asarray(init[q]).astype(
+            jdt)
+        jidx = jnp.asarray(idx[q])
+        for want in (jpg.accumulate_segments(jv, jidx, out_len=rows + 2,
+                                             reduce=reduce, interpret=True),
+                     jref.accumulate_segments_ref(jv, jidx, out_len=rows + 2,
+                                                  reduce=reduce)):
+            _assert_same_bits(seg[q], want, dtype)
+        for want in (jpg.accumulate_into(ji, jv, jidx, reduce=reduce,
+                                         interpret=True),
+                     jref.accumulate_into_ref(ji, jv, jidx, reduce=reduce)):
+            _assert_same_bits(into[q], want, dtype)
+
+
+def test_accumulate_adds_in_lane_order():
+    """On the CPU the plain add folds each row's lanes in ascending k, one
+    float32 rounding each: equal to a sequential loop, bit for bit, where a
+    pairwise or reordered sum would differ."""
+    rng = np.random.default_rng(11)
+    p, k, rows = 2, 20000, 50
+    idx = rng.integers(0, rows, (p, k)).astype(np.int32)
+    vals = (rng.standard_normal((p, k))
+            * 10.0 ** rng.integers(-3, 4, (p, k))).astype(np.float32)
+    got = tops.accumulate_segments(torch.as_tensor(vals),
+                                   torch.as_tensor(idx), out_len=rows)
+    want = np.zeros((p, rows), np.float32)
+    for q in range(p):
+        for i, v in zip(idx[q], vals[q]):
+            want[q, i] = np.float32(want[q, i] + v)
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.view(np.int32))
+    pairwise = np.zeros((p, rows), np.float32)
+    for q in range(p):
+        for t in range(rows):
+            pairwise[q, t] = vals[q][idx[q] == t].sum()
+    assert not np.array_equal(pairwise, want)
+
+
+def _np_max(a, b):
+    """XLA's max: a NaN propagates, +0.0 beats -0.0."""
+    out = np.where(a > b, a, b)
+    out = np.where((a == b) & np.signbit(a), b, out)
+    return np.where(np.isnan(a) | np.isnan(b), np.nan, out).astype(a.dtype)
+
+
+def _fold_through_table(table, vals, init, reduce):
+    """What the CUDA kernel computes from a ``SegmentTable``, in numpy:
+    each live row folds its lanes in table order, then (add) one +0.0 where
+    a padding lane was left out."""
+    perm, ptr = table.perm.numpy(), table.seg_ptr.numpy()
+    p = vals.shape[0]
+    out = init[:, :table.live_len].copy()
+    for q in range(p):
+        for t in range(table.live_len):
+            acc = out[q, t]
+            for j in range(ptr[q, t], ptr[q, t + 1]):
+                v = vals[q, perm[q, j]]
+                acc = np.float32(acc + v) if reduce == "add" else _np_max(
+                    acc, v)
+            if (reduce == "add" and table.pad_rows is not None
+                    and table.pad_rows[q, t]):
+                acc = np.float32(acc + np.float32(0.0))
+            out[q, t] = acc
+    return out
+
+
+@pytest.mark.parametrize("reduce", ["add", "max"])
+def test_segment_table_fold_bit_exact(reduce):
+    """The kernels' design, checked on the CPU: folding through a table
+    that leaves out the dump rows and the padding lanes gives the plain
+    version's bits on every live row — including row 0, where -0.0
+    contributions meet the identity padding (+0.0 under add)."""
+    rng = np.random.default_rng(5)
+    p, k, live = 3, 300, 20
+    out_len = live + 1                       # one dump row
+    idx = rng.integers(0, out_len, (p, k)).astype(np.int32)
+    pad = rng.random((p, k)) < 0.3
+    idx[pad] = 0                             # padding lanes pile onto row 0
+    ident = 0.0 if reduce == "add" else -np.inf
+    vals = rng.standard_normal((p, k)).astype(np.float32)
+    vals[pad] = ident
+    vals[(idx == 0) & ~pad] = -0.0           # row 0's real lanes: -0.0
+    init = rng.standard_normal((p, out_len)).astype(np.float32)
+    init[:, 0] = -0.0
+    table = tops.segment_table(torch.as_tensor(idx), out_len=out_len,
+                               live_len=live, pad=torch.as_tensor(pad))
+    # the table: a stable sort by target, dump and padding lanes last
+    key = np.where((idx >= live) | pad, live, idx)
+    for q in range(p):
+        order = np.argsort(key[q], kind="stable")
+        np.testing.assert_array_equal(table.perm[q].numpy(), order)
+        np.testing.assert_array_equal(
+            table.seg_ptr[q].numpy(),
+            np.r_[0, np.cumsum(np.bincount(key[q], minlength=live)[:live])])
+    np.testing.assert_array_equal(table.pad_rows.numpy()[:, 0], 1)
+    assert not table.pad_rows.numpy()[:, 1:].any()
+    assert table.longest() == max(
+        int(np.bincount(key[q], minlength=live)[:live].max()) for q in range(p))
+    jpg = _jax_pack_gather()
+    want_seg = tops.accumulate_segments(torch.as_tensor(vals),
+                                        torch.as_tensor(idx),
+                                        out_len=out_len, reduce=reduce)
+    want_into = tops.accumulate_into(torch.as_tensor(init),
+                                     torch.as_tensor(vals),
+                                     torch.as_tensor(idx), reduce=reduce)
+    start = np.full((p, out_len), ident, np.float32)
+    got_seg = _fold_through_table(table, vals, start, reduce)
+    got_into = _fold_through_table(table, vals, init, reduce)
+    for got, want in ((got_seg, want_seg), (got_into, want_into)):
+        np.testing.assert_array_equal(
+            got.view(np.int32), want[:, :live].numpy().view(np.int32))
+    for q in range(p):
+        jwant = jpg.accumulate_into(jnp.asarray(init[q]), jnp.asarray(vals[q]),
+                                    jnp.asarray(idx[q]), reduce=reduce,
+                                    interpret=True)
+        np.testing.assert_array_equal(got_into[q].view(np.int32),
+                                      np.asarray(jwant)[:live].view(np.int32))
+    if reduce == "add":
+        # row 0 summed -0.0s from a -0.0 start: the padding's +0.0 decides
+        assert not np.signbit(got_into[:, 0]).any()
+        no_pad = _fold_through_table(
+            tops.segment_table(torch.as_tensor(np.where(pad, live, idx)),
+                               out_len=out_len, live_len=live),
+            vals, init, reduce)
+        assert np.signbit(no_pad[:, 0]).all()

@@ -125,8 +125,6 @@ def test_port_engine_refuses_later_slices(shared):
         DistributedSpMV(tm, comm, strategy="auto", base_plan=tp)
     with pytest.raises(NotImplementedError, match="A5"):
         DistributedSpMV(tm, comm, blocksize="auto")
-    with pytest.raises(NotImplementedError, match="A6"):
-        DistributedSpMV(tm, comm, transpose=True)
 
 
 if __name__ == "__main__":
