@@ -117,6 +117,14 @@ def bound(nbytes: float, flops: float = 0.0):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def check_bound(what: str, res: dict) -> None:
+    """A kernel that beats its bound shows the bound counts work the
+    function does not need."""
+    check(res["ms"] >= res["bound"][0],
+          f"{what} ran in {res['ms']} ms, under its bound "
+          f"{res['bound'][0]} ms: the bound is wrong")
+
+
 def unique_rows(torch, idx, mask=None) -> int:
     """Distinct (rank, row) pairs read through ``idx`` (P, ...)."""
     total = 0
@@ -270,6 +278,7 @@ def phase_kernels(torch, matrix, x_host, engines, y_ref):
               "max_abs_err": res["max_abs_err"], "ms": res["ms"],
               "plain_ms": res["plain_ms"], "library_ms": res["library_ms"],
               "bound_ms": res["bound"][0], "bound_by": res["bound"][1]})
+        check_bound(name, res)
     return results
 
 
@@ -352,20 +361,28 @@ def phase_push_kernels(torch, matrix, x_host, t_engines):
         acc = (init.clone() if init is not None else torch.zeros(
             (P, out_len) + tuple(feat), device=dev)).reshape(
             (-1,) + tuple(feat))
+        # the bound: the bytes the live rows need — the value and index
+        # entry of every lane that lands on a live row (dump lanes never
+        # do; padding lanes carry the identity by construction), the live
+        # init rows read and the live output rows written
         k_lanes, f = idx.shape[1], int(np.prod(feat, dtype=np.int64))
-        nbytes = (P * k_lanes * f * 4 + P * k_lanes * 4 + P * live * f * 4
-                  + (P * out_len * f * 4 if init is not None else 0))
+        esize = src.element_size()
+        folded = int(table.seg_ptr[:, -1].sum())
+        nbytes = (folded * (f * esize + 4)
+                  + P * live * f * esize * (1 if init is None else 2))
         res = dict(
             site=site, max_abs_err=float((got - want[:, :live]).abs().max()),
             ms=cuda_ms(torch, kernel), plain_ms=cuda_ms(torch, plain),
             library_ms=cuda_ms(torch, lambda: acc.index_add_(0, rows,
                                                              flat_src)),
-            bound=bound(nbytes), longest_segment=table.longest(),
+            bound=bound(nbytes), folded_lanes=folded,
+            longest_segment=table.longest(),
             shape=f"vals ({P}, {k_lanes}{', ' + str(f) if feat else ''}) "
                   f"f32 -> ({P}, {out_len}), live {live}")
         emit({"phase": "kernel", "name": name, **{
             k: v for k, v in res.items() if k != "bound"},
             "bound_ms": res["bound"][0], "bound_by": res["bound"][1]})
+        check_bound(f"{name} ({site})", res)
         per_kernel.setdefault(name, []).append(res)
     # one entry per kernel: the sum over its call sites on the path
     results = {}
@@ -432,19 +449,47 @@ def time_steps(torch, step, warmup: int = 5, iters: int = 20) -> dict:
             "wall_ms_per_iter": (t2 - t0) / iters * 1e3}
 
 
+def busy_us(spans) -> float:
+    """The length of the union of ``(start, end)`` intervals."""
+    total, reach = 0.0, float("-inf")
+    for start, end in sorted(spans):
+        if end > reach:
+            total += end - max(start, reach)
+            reach = end
+    return total
+
+
 def profile_steps(torch, step, steps: int = 3, top: int = 6) -> dict:
-    """Device time by kernel (memsets and copies included) per step, summed
-    over ``steps`` steps by torch.profiler."""
+    """torch.profiler's device activities (kernels, memsets, copies) over
+    ``steps`` back-to-back steps: their summed time per step and by kernel,
+    and the device's busy share — the union of their intervals over the
+    span from the end of a marker kernel, enqueued on an idle device just
+    before the steps, to the end of the last activity.  The union counts
+    kernels that ran side by side once, so the share is at most 1, and the
+    first step's host lead-in counts as idle."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    mark = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        mark.fill_(1.0)
         for _ in range(steps):
             step()
         torch.cuda.synchronize()
-    rows = [(e.key, e.self_device_time_total) for e in prof.key_averages()
-            if e.self_device_time_total > 0]
-    check(rows, "the profiler saw no device time")
-    rows.sort(key=lambda r: -r[1])
-    return {"kernel_ms_per_step": sum(t for _, t in rows) / steps / 1e3,
+    acts = sorted((e.time_range.start, e.time_range.end, e.name)
+                  for e in prof.events() if e.device_type == DeviceType.CUDA)
+    check(len(acts) > 1, "the profiler saw no device time")
+    opened = acts[0][1]            # the marker's end
+    acts = acts[1:]
+    check(acts[0][0] >= opened, "a device activity overlapped the marker")
+    span = max(end for _, end, _ in acts) - opened
+    by_name = {}
+    for start, end, name in acts:
+        by_name[name] = by_name.get(name, 0.0) + (end - start)
+    rows = sorted(by_name.items(), key=lambda r: -r[1])
+    return {"kernel_ms_per_step": sum(by_name.values()) / steps / 1e3,
+            "busy_share": busy_us((a, b) for a, b, _ in acts) / span,
+            "profiled_span_ms_per_step": span / steps / 1e3,
             "top_kernels_ms_per_step": [[k[:60], t / steps / 1e3]
                                         for k, t in rows[:top]]}
 
@@ -472,14 +517,9 @@ def phase_main_path(torch, engines, x_host, y_ref, card):
             check(step[k] > 0, f"{strategy}/{mat} never launched {k}")
         timing = time_steps(torch, lambda: eng(x))
         prof = profile_steps(torch, lambda: eng(x))
-        # the device's busy share of a step: its kernels' summed time over
-        # the step's span on the stream (the overlap rung's side-stream
-        # copy may push it past 1)
-        busy = prof["kernel_ms_per_step"] / timing["ms_per_iter"]
         emit({"phase": "main_path", "strategy": strategy, "materialize": mat,
-              "use_kernel": True, "max_abs_err": err, **timing,
-              "busy_share": busy, **prof, "launches_per_step": step,
-              "card": card})
+              "use_kernel": True, "max_abs_err": err, **timing, **prof,
+              "launches_per_step": step, "card": card})
     counts = kops.launch_counts()
     for k in FORWARD_KERNELS:
         check(counts[k] > 0, f"the main path never launched {k}")
@@ -518,11 +558,9 @@ def phase_transposed(torch, t_engines, x_host, y_t_ref, card):
             check(step[k] > 0, f"{strategy}/transposed never launched {k}")
         timing = time_steps(torch, lambda: eng(x))
         prof = profile_steps(torch, lambda: eng(x))
-        busy = prof["kernel_ms_per_step"] / timing["ms_per_iter"]
         emit({"phase": "transposed", "strategy": strategy,
-              "use_kernel": True, "max_abs_err": err, **timing,
-              "busy_share": busy, **prof, "launches_per_step": step,
-              "card": card})
+              "use_kernel": True, "max_abs_err": err, **timing, **prof,
+              "launches_per_step": step, "card": card})
     counts = kops.launch_counts()
     for k in PUSH_KERNELS:
         check(counts[k] > 0, f"the transposed path never launched {k}")

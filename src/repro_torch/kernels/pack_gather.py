@@ -183,18 +183,16 @@ class SegmentTable:
     padding lane targeted row t.  ``perm`` keeps all K lanes per rank: the
     left-out ones sort last and are never read.  ``long_rows`` lists the
     rows (``q * live_len + t``) with more than ``LONG_LANES`` lanes, which
-    the kernel folds one block each (scalar rows only)."""
+    the kernel folds one block each (scalar rows only).  ``idx`` is the
+    array the table was built from: the kernels fold only that array."""
 
+    idx: torch.Tensor                  # (P, K) int32
     perm: torch.Tensor                 # (P, K) int32
     seg_ptr: torch.Tensor              # (P, live_len + 1) int32
     pad_rows: torch.Tensor | None      # (P, live_len) int8
     long_rows: torch.Tensor            # (n_long,) int32
     out_len: int
     live_len: int
-
-    @property
-    def lanes(self) -> int:
-        return self.perm.shape[1]
 
     def longest(self) -> int:
         """The most lanes any live row folds: its chain of dependent
@@ -244,7 +242,7 @@ def segment_table(idx: torch.Tensor, *, out_len: int,
         hit = torch.where(pad, rows + base * live, p * live).reshape(-1)
         pad_rows = (torch.bincount(hit, minlength=p * live + 1)[:p * live]
                     > 0).to(torch.int8).reshape(p, live)
-    return SegmentTable(perm=perm.contiguous(), seg_ptr=seg_ptr,
+    return SegmentTable(idx=idx, perm=perm.contiguous(), seg_ptr=seg_ptr,
                         pad_rows=pad_rows, long_rows=long_rows,
                         out_len=out_len, live_len=live)
 
@@ -265,16 +263,17 @@ def _fold_checks(vals: torch.Tensor, idx: torch.Tensor, reduce: str) -> None:
 def _fold(kernel: str, entry: str, init, vals, idx, reduce: str, table,
           out_len: int) -> torch.Tensor:
     """Launch one fold of ``vals`` into a fresh ``(P, out_len, ...)``
-    through ``table`` (built here from ``idx`` when None)."""
+    through ``table``, which must have been built from this ``idx``."""
     p = vals.shape[0]
     if vals.dtype not in _FOLD_DTYPES:
         raise TypeError(f"{kernel} runs float32, bfloat16 or int32 on the "
                         f"card, not {vals.dtype}")
     if table is None:
-        table = segment_table(idx, out_len=out_len)
-    require(table.out_len == out_len and table.lanes == idx.shape[1]
-            and table.perm.shape[0] == p, "the table was built for other "
-            f"inputs: out_len {table.out_len}, lanes {table.lanes}")
+        raise ValueError(f"{kernel} on the card folds through a SegmentTable "
+                         "built once from idx (segment_table)")
+    require(table.idx.data_ptr() == idx.data_ptr()
+            and table.idx.shape == idx.shape and table.out_len == out_len,
+            "the table was built for another index array or out_len")
     parts = [table.perm, table.seg_ptr, table.long_rows]
     if table.pad_rows is not None:
         parts.append(table.pad_rows)
@@ -332,8 +331,9 @@ def accumulate_segments(vals: torch.Tensor, idx: torch.Tensor, *,
 
     vals ``(P, K, ...)``, idx ``(P, K)`` int32 -> ``(P, out_len, ...)``;
     float32, bfloat16 or int32 on the card.  ``table`` is
-    ``segment_table(idx, out_len=out_len, ...)``, built once where idx is
-    static (else here, on every call).  Bit-exact on the live rows; rows at
+    ``segment_table(idx, out_len=out_len, ...)``, built once from this very
+    idx tensor; the card requires it (the CPU ignores it).  Bit-exact on the
+    live rows; rows at
     or above ``table.live_len`` are unspecified, and padding lanes the table
     left out must carry the reduce identity."""
     _fold_checks(vals, idx, reduce)

@@ -207,21 +207,22 @@ def _fold_inputs(dtype, feat, reduce, p=4, k=3000, live=200, seed=0):
                                    torch.int32])
 def test_accumulate_kernels_bit_exact(dev, feat, reduce, dtype):
     """B5 and B6 through a table with a dump row and padding lanes, and
-    through a table built per call, against the plain versions on the CPU
-    (a sequential fold), bit for bit on every live row."""
+    through a plain table that folds every row, against the plain versions
+    on the CPU (a sequential fold), bit for bit on every live row."""
     k = 300 if feat == (1024,) else 3000
     idx, pad, vals, init = _fold_inputs(dtype, feat, reduce, k=k)
     live = init.shape[1] - 1
-    table = kops.segment_table(idx.to(dev), out_len=live + 1, live_len=live,
+    idd, vd = idx.to(dev), vals.to(dev)
+    table = kops.segment_table(idd, out_len=live + 1, live_len=live,
                                pad=pad.to(dev))
+    plain_table = kops.segment_table(idd, out_len=live + 1)
     before = kops.launch_counts()
-    seg = kops.accumulate_segments(vals.to(dev), idx.to(dev),
-                                   out_len=live + 1, reduce=reduce,
+    seg = kops.accumulate_segments(vd, idd, out_len=live + 1, reduce=reduce,
                                    table=table)
-    into = kops.accumulate_into(init.to(dev), vals.to(dev), idx.to(dev),
-                                reduce=reduce, table=table)
-    whole = kops.accumulate_segments(vals.to(dev), idx.to(dev),
-                                     out_len=live + 1, reduce=reduce)
+    into = kops.accumulate_into(init.to(dev), vd, idd, reduce=reduce,
+                                table=table)
+    whole = kops.accumulate_segments(vd, idd, out_len=live + 1, reduce=reduce,
+                                     table=plain_table)
     torch.cuda.synchronize()
     after = kops.launch_counts()
     assert after["accumulate_segments"] == before["accumulate_segments"] + 2
@@ -232,6 +233,24 @@ def test_accumulate_kernels_bit_exact(dev, feat, reduce, dtype):
     assert _same_bits(seg[:, :live], want_seg[:, :live])
     assert _same_bits(into[:, :live], want_into[:, :live])
     assert _same_bits(whole, want_seg)
+
+
+def test_fold_refuses_missing_or_foreign_table(dev):
+    """On the card a fold needs the table built from its own index array:
+    none, another array of the same shape, or another out_len raise."""
+    idx, _, vals, _ = _fold_inputs(torch.float32, (), "add", k=300)
+    live = int(idx.max()) + 1
+    idd, vd = idx.to(dev), vals.to(dev)
+    other = idd.flip(1).contiguous()
+    with pytest.raises(ValueError):
+        kops.accumulate_segments(vd, idd, out_len=live)
+    with pytest.raises(ValueError):
+        kops.accumulate_segments(vd, idd, out_len=live,
+                                 table=kops.segment_table(other,
+                                                          out_len=live))
+    with pytest.raises(ValueError):
+        kops.accumulate_segments(vd, idd, out_len=live + 1,
+                                 table=kops.segment_table(idd, out_len=live))
 
 
 def test_segment_table_long_dump_segment(dev):
@@ -245,9 +264,9 @@ def test_segment_table_long_dump_segment(dev):
                                     dtype=torch.int32)
     vals = torch.as_tensor(rng.standard_normal(tuple(idx.shape))
                            .astype(np.float32))
-    table = kops.segment_table(idx.to(dev), out_len=live + 1, live_len=live)
-    assert table.longest() < 64
     vd, idd = vals.to(dev), idx.to(dev)
+    table = kops.segment_table(idd, out_len=live + 1, live_len=live)
+    assert table.longest() < 64
     kops.accumulate_segments(vd, idd, out_len=live + 1, table=table)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -278,12 +297,13 @@ def test_long_rows_bit_exact(dev, reduce, dtype):
         vals = torch.as_tensor(rng.standard_normal(idx.shape)
                                .astype(np.float32)).to(dtype)
     tidx = torch.as_tensor(idx)
-    table = kops.segment_table(tidx.to(dev), out_len=live)
+    idd = tidx.to(dev)
+    table = kops.segment_table(idd, out_len=live)
     assert table.longest() >= 1 << 18
     assert set(table.long_rows.tolist()) >= {7, 11, live + 7, live + 11}
     lanes = np.bincount(idx[0], minlength=live)
     assert 11 in [t for t in range(live) if lanes[t] > LONG_LANES]
-    got = kops.accumulate_segments(vals.to(dev), tidx.to(dev), out_len=live,
+    got = kops.accumulate_segments(vals.to(dev), idd, out_len=live,
                                    reduce=reduce, table=table)
     want = kref.accumulate_segments_ref(vals, tidx, out_len=live,
                                         reduce=reduce)
