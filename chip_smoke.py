@@ -459,29 +459,33 @@ def busy_us(spans) -> float:
     return total
 
 
-def profile_steps(torch, step, steps: int = 3, top: int = 6) -> dict:
+def profile_steps(torch, step, steps: int = 3, lead: int = 2,
+                  top: int = 6) -> dict:
     """torch.profiler's device activities (kernels, memsets, copies) over
-    ``steps`` back-to-back steps: their summed time per step and by kernel,
-    and the device's busy share — the union of their intervals over the
-    span from the end of a marker kernel, enqueued on an idle device just
-    before the steps, to the end of the last activity.  The union counts
-    kernels that ran side by side once, so the share is at most 1, and the
-    first step's host lead-in counts as idle."""
+    ``steps`` back-to-back steps: their time per step, by kernel, and the
+    device's busy share — the union of their intervals over the span from
+    the end of a marker kernel (``torch.cuda._sleep``, enqueued after
+    ``lead`` steps, so the queue holds what the host keeps ahead) to the
+    end of the last activity.  Kernels side by side count once, so the
+    share is at most 1; its complement is the time the device waited."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    mark = torch.zeros(1, device="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        mark.fill_(1.0)
+        for _ in range(lead):
+            step()
+        torch.cuda._sleep(1000)
         for _ in range(steps):
             step()
         torch.cuda.synchronize()
-    acts = sorted((e.time_range.start, e.time_range.end, e.name)
-                  for e in prof.events() if e.device_type == DeviceType.CUDA)
-    check(len(acts) > 1, "the profiler saw no device time")
-    opened = acts[0][1]            # the marker's end
-    acts = acts[1:]
-    check(acts[0][0] >= opened, "a device activity overlapped the marker")
+    acts = [(e.time_range.start, e.time_range.end, e.name)
+            for e in prof.events() if e.device_type == DeviceType.CUDA]
+    marks = [end for _, end, name in acts if "spin_kernel" in name]
+    check(len(marks) == 1, "the profiler did not see the marker kernel")
+    opened = marks[0]
+    acts = [(max(start, opened), end, name) for start, end, name in acts
+            if end > opened and "spin_kernel" not in name]
+    check(acts, "the profiler saw no device time")
     span = max(end for _, end, _ in acts) - opened
     by_name = {}
     for start, end, name in acts:
