@@ -3,13 +3,17 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths — the distributed modified-EllPack SpMV
-y = (D + A) x of the paper's Tables 3/4 (pull direction) and its transpose
-y = (D + A)^T x (push direction) — at a size their users would call real:
-n = 2^22 rows, r_nz = 16, the 32x-scaled matrix of
-examples/spmv_strategies.py (locality window n/64, 2% long-range columns,
-seed 1), over eight virtual ranks on one card (LoopbackComm(8),
-shards_per_node = 4, blocksize = 1024).  Phases, one JSON line each:
+Drives the port's paths at sizes their users would call real.  The
+distributed modified-EllPack SpMV y = (D + A) x of the paper's Tables 3/4
+(pull direction), its transpose y = (D + A)^T x (push direction) and the
+normal-equations step z = M^T M x with CG on top run at n = 2^22 rows,
+r_nz = 16, the 32x-scaled matrix of examples/spmv_strategies.py (locality
+window n/64, 2% long-range columns, seed 1), over eight virtual ranks on
+one card (LoopbackComm(8), shards_per_node = 4, blocksize = 1024).  The
+paper's §8 heat equation (Heat2D) runs a 4096 x 4096 float32 field over a
+2 x 4 rank grid (the grid of the paper's Table 5, whose 20000^2 mesh is cut
+to 4096^2 by the O(area) host planning), coef 0.1.  Phases, one JSON line
+each:
 
 1. card: name and power limit, as nvidia-smi gives them (also printed
    raw on a line of their own);
@@ -24,12 +28,22 @@ shards_per_node = 4, blocksize = 1024).  Phases, one JSON line each:
    kernels (accumulate_segments at its four call sites, accumulate_into)
    are checked bit for bit against their plain versions run on the CPU
    copy of the same inputs (a sequential fold), outside the dump rows;
+   stencil2d runs on Heat2D's whole padded tile, bit for bit;
 5. main path: every rung x {full, dest} forward with use_kernel=True, y
    checked against the numpy reference (rtol/atol 2e-4) and timed;
 6. transposed: every rung of DistributedSpMV(transpose=True,
    use_kernel=True), y checked against spmv_t_ref_np (rtol/atol 2e-4) and
-   timed.
-In phases 5 and 6 the kernel launch counters are zeroed just before the
+   timed;
+7. heat2d: every rung x {dest, full} of Heat2D(use_kernel=True), the
+   overlap rung split, one stencil pattern and one base plan shared by
+   all eight; run(phi, 10) checked bit for bit against ten plain steps on
+   the whole field on the card, then timed over run(phi, 20);
+8. normal_equations: normal_equations_step(use_kernel=True) on every
+   rung, z checked against spmv_t_ref_np(m, spmv_ref_np(m, x)) (rtol 2e-4,
+   atol 2e-4 max|z|) and timed; ConjugateGradient on the condensed rung
+   for ten iterations against the same ten with use_kernel=False (rel
+   1e-4), its residual norm below the start's.
+In phases 5 to 8 the kernel launch counters are zeroed just before the
 path runs and read just after, and every kernel of the path must have
 launched.
 
@@ -53,6 +67,11 @@ SHARDS_PER_NODE = 4
 BLOCKSIZE = 1024
 SEED = 1
 STRATEGIES = ("replicate", "blockwise", "condensed", "overlap")
+HEAT_N = 4096           # the field is HEAT_N x HEAT_N
+MPROCS, NPROCS = 2, 4
+HEAT_COEF = 0.1
+HEAT_CHECK_STEPS, HEAT_TIMED_STEPS = 10, 20
+CG_ITERS = 10
 Y_TOL = dict(rtol=2e-4, atol=2e-4)     # as examples/spmv_strategies.py
 SPMV_TOL = dict(rtol=3e-5, atol=3e-5)  # float32 sums in another order
 
@@ -74,6 +93,8 @@ SOURCE = {
                             "src/repro/kernels/pack_gather.py:277"),
     "accumulate_into": ("src/repro_torch/kernels/csrc/accumulate.cu",
                         "src/repro/kernels/pack_gather.py:301"),
+    "stencil2d": ("src/repro_torch/kernels/csrc/stencil2d.cu",
+                  "src/repro/kernels/stencil2d.py:60"),
 }
 FORWARD_KERNELS = ("pack_gather", "unpack_scatter_set", "unpack_dest",
                    "ellpack_spmv_windowed")
@@ -460,14 +481,15 @@ def busy_us(spans) -> float:
 
 
 def profile_steps(torch, step, steps: int = 3, lead: int = 2,
-                  top: int = 6) -> dict:
+                  top: int = 6, per_call: int = 1) -> dict:
     """torch.profiler's device activities (kernels, memsets, copies) over
     ``steps`` back-to-back steps: their time per step, by kernel, and the
     device's busy share — the union of their intervals over the span from
     the end of a marker kernel (``torch.cuda._sleep``, enqueued after
     ``lead`` steps, so the queue holds what the host keeps ahead) to the
     end of the last activity.  Kernels side by side count once, so the
-    share is at most 1; its complement is the time the device waited."""
+    share is at most 1; its complement is the time the device waited.
+    ``per_call`` is the number of steps one call of ``step`` runs."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -491,10 +513,11 @@ def profile_steps(torch, step, steps: int = 3, lead: int = 2,
     for start, end, name in acts:
         by_name[name] = by_name.get(name, 0.0) + (end - start)
     rows = sorted(by_name.items(), key=lambda r: -r[1])
-    return {"kernel_ms_per_step": sum(by_name.values()) / steps / 1e3,
+    per = steps * per_call * 1e3
+    return {"kernel_ms_per_step": sum(by_name.values()) / per,
             "busy_share": busy_us((a, b) for a, b, _ in acts) / span,
-            "profiled_span_ms_per_step": span / steps / 1e3,
-            "top_kernels_ms_per_step": [[k[:60], t / steps / 1e3]
+            "profiled_span_ms_per_step": span / per,
+            "top_kernels_ms_per_step": [[k[:60], t / per]
                                         for k, t in rows[:top]]}
 
 
@@ -571,6 +594,242 @@ def phase_transposed(torch, t_engines, x_host, y_t_ref, card):
     return counts
 
 
+def heat_field() -> np.ndarray:
+    """The field every heat phase starts from: Heat2D.init_field's draw."""
+    return np.random.default_rng(SEED).standard_normal(
+        (HEAT_N, HEAT_N)).astype(np.float32)
+
+
+def padded_tiles(torch, field, dev):
+    """Heat2D's padded assembly ``(P, m_loc + 2, n_loc + 2)``: every rank's
+    tile with its four halo strips, zero outside the domain and in the
+    corners (rank r = ip * NPROCS + kp holds tile (ip, kp))."""
+    m_loc, n_loc = HEAT_N // MPROCS, HEAT_N // NPROCS
+    g = torch.zeros((HEAT_N + 2, HEAT_N + 2), device=dev)
+    g[1:-1, 1:-1] = torch.as_tensor(field).to(dev)
+    tiles = torch.stack([
+        g[ip * m_loc:(ip + 1) * m_loc + 2, kp * n_loc:(kp + 1) * n_loc + 2]
+        for ip in range(MPROCS) for kp in range(NPROCS)])
+    tiles[:, 0, 0] = tiles[:, 0, -1] = tiles[:, -1, 0] = tiles[:, -1, -1] = 0
+    return tiles
+
+
+def phase_stencil_kernel(torch, dev):
+    """stencil2d on Heat2D's whole padded tile, bit for bit against its
+    plain version on the card; F.conv2d with the five-point weights on the
+    interior (TF32 off) is the library's yardstick, timed only."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+
+    padded = padded_tiles(torch, heat_field(), dev)
+    got = kops.stencil2d(padded, coef=HEAT_COEF)
+    want = kref.stencil2d_ref(padded, HEAT_COEF)
+    check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+          "stencil2d differs from its plain version")
+    c = HEAT_COEF
+    weight = torch.tensor([[0.0, c, 0.0], [c, 1.0 - 4.0 * c, c],
+                           [0.0, c, 0.0]], device=dev).reshape(1, 1, 3, 3)
+    inp = padded[:, None]
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        conv = F.conv2d(inp, weight)[:, 0]
+        check(torch.allclose(conv, want[:, 1:-1, 1:-1], rtol=1e-5,
+                             atol=1e-5), "conv2d disagrees with stencil2d")
+        library_ms = cuda_ms(torch, lambda: F.conv2d(inp, weight))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    b, m, n = padded.shape
+    res = dict(
+        max_abs_err=float((got - want).abs().max()),
+        ms=cuda_ms(torch, lambda: kops.stencil2d(padded, coef=HEAT_COEF)),
+        plain_ms=cuda_ms(torch, lambda: kref.stencil2d_ref(padded,
+                                                           HEAT_COEF)),
+        library_ms=library_ms,
+        # one read and one write of the batch; 7 flops per interior cell
+        bound=bound(2 * b * m * n * 4, flops=7.0 * b * (m - 2) * (n - 2)),
+        shape=f"({b}, {m}, {n}) f32, coef {HEAT_COEF}")
+    emit({"phase": "kernel", "name": "stencil2d", **{
+        k: v for k, v in res.items() if k != "bound"},
+        "bound_ms": res["bound"][0], "bound_by": res["bound"][1]})
+    check_bound("stencil2d", res)
+    return {"stencil2d": res}
+
+
+H_EXPECTED = {  # kernels each Heat2D rung x materialize launches
+    ("replicate", "dest"): ("stencil2d", "unpack_dest"),
+    ("replicate", "full"): ("stencil2d",),
+}
+for _s in ("blockwise", "condensed", "overlap"):
+    H_EXPECTED[(_s, "dest")] = ("stencil2d", "pack_gather", "unpack_dest")
+    H_EXPECTED[(_s, "full")] = ("stencil2d", "pack_gather",
+                                "unpack_scatter_set")
+
+
+def phase_heat2d(torch, comm, card):
+    """Every rung x {dest, full} of Heat2D on one shared stencil pattern
+    and base plan, counters zeroed before and read after."""
+    from repro_torch.comm.pattern import AccessPattern
+    from repro_torch.comm.plan import Topology, build_comm_plan
+    from repro_torch.core.heat2d import Heat2D
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+
+    t0 = time.perf_counter()
+    pattern = AccessPattern.from_stencil5(HEAT_N, HEAT_N, MPROCS, NPROCS)
+    t1 = time.perf_counter()
+    base = build_comm_plan(pattern.indices, pattern.n, P,
+                           topology=Topology(P, SHARDS_PER_NODE))
+    t2 = time.perf_counter()
+    engines = {(s, m): Heat2D(
+        comm, HEAT_N, HEAT_N, mprocs=MPROCS, nprocs=NPROCS, coef=HEAT_COEF,
+        strategy=s, materialize=m, use_kernel=True,
+        shards_per_node=SHARDS_PER_NODE, pattern=pattern, base_plan=base)
+        for s in STRATEGIES for m in ("dest", "full")}
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    field = heat_field()
+    whole = torch.as_tensor(field).to(comm.device)
+    for _ in range(HEAT_CHECK_STEPS):
+        whole = kref.stencil2d_ref(whole, HEAT_COEF)
+    want = whole.cpu().numpy().view(np.int32)
+    emit({"phase": "heat2d_setup", "field": [HEAT_N, HEAT_N],
+          "grid": [MPROCS, NPROCS], "pattern_s": round(t1 - t0, 3),
+          "plan_s": round(t2 - t1, 3), "engines_s": round(t3 - t2, 3),
+          "s_max": base.s_max, "b_max": base.b_max,
+          "blocksize": base.blocksize,
+          "condensed_volume": base.counts.total_condensed_volume(),
+          "blockwise_volume": base.counts.total_blockwise_volume()})
+
+    kops.reset_launch_counts()
+    for (strategy, mat), h in engines.items():
+        phi = h.shard_field(field)
+        before = kops.launch_counts()
+        out = h.run(phi, HEAT_CHECK_STEPS)
+        torch.cuda.synchronize()
+        after = kops.launch_counts()
+        got = h.gather_field(out)
+        check(got.shape == (HEAT_N, HEAT_N), f"field has shape {got.shape}")
+        check(np.isfinite(got).all(), f"{strategy}/{mat}: field not finite")
+        check(np.array_equal(got.view(np.int32), want),
+              f"{strategy}/{mat}: Heat2D.run differs from the plain "
+              "whole-field steps")
+        step = {k: after[k] - before[k] for k in after}
+        for k in H_EXPECTED[(strategy, mat)]:
+            check(step[k] > 0, f"heat2d {strategy}/{mat} never launched {k}")
+        timing = time_steps(torch, lambda: h.run(phi, HEAT_TIMED_STEPS),
+                            warmup=1, iters=1)
+        timing = {k: v / HEAT_TIMED_STEPS for k, v in timing.items()}
+        prof = profile_steps(torch, lambda: h.run(phi, 4), steps=1, lead=1,
+                             per_call=4)
+        emit({"phase": "heat2d", "strategy": strategy, "materialize": mat,
+              "split": h.overlap, "use_kernel": True,
+              "bit_equal_steps": HEAT_CHECK_STEPS, **timing, **prof,
+              "launches_per_check_run": step, "card": card})
+    counts = kops.launch_counts()
+    for k in ("stencil2d", "pack_gather", "unpack_scatter_set",
+              "unpack_dest"):
+        check(counts[k] > 0, f"the heat2d path never launched {k}")
+    return counts
+
+
+NE_EXPECTED = {  # kernels each normal-equations rung launches
+    "replicate": ("unpack_dest", "accumulate_segments"),
+    "blockwise": ("pack_gather", "unpack_dest", "accumulate_segments"),
+    "condensed": ("pack_gather", "unpack_dest") + PUSH_KERNELS,
+    "overlap": ("pack_gather", "unpack_dest") + PUSH_KERNELS,
+}
+
+
+def phase_normal_equations(torch, comm, matrix, base, splan, x_host, card):
+    """normal_equations_step on every rung and CG on the condensed rung,
+    on the SpMV phases' plans, counters zeroed before and read after."""
+    from repro_torch.comm.pattern import AccessPattern
+    from repro_torch.comm.plan import Topology
+    from repro_torch.comm.schedule import plan_key
+    from repro_torch.core.matrix import spmv_ref_np, spmv_t_ref_np
+    from repro_torch.core.solvers import ConjugateGradient
+    from repro_torch.core.spmv import normal_equations_step
+    from repro_torch.kernels import ops as kops
+
+    key = plan_key(AccessPattern.from_ellpack(matrix), P, BLOCKSIZE,
+                   Topology(P, SHARDS_PER_NODE))
+    plans = {key: base, ("put", key): splan}
+    z_ref = spmv_t_ref_np(matrix, spmv_ref_np(matrix, x_host))
+    z_tol = dict(rtol=2e-4, atol=2e-4 * float(np.abs(z_ref).max()))
+    kw = dict(blocksize=BLOCKSIZE, shards_per_node=SHARDS_PER_NODE,
+              plans=plans)
+    t0 = time.perf_counter()
+    steps = {s: normal_equations_step(matrix, comm, strategy=s,
+                                      use_kernel=True, **kw)
+             for s in STRATEGIES}
+    torch.cuda.synchronize()
+    emit({"phase": "normal_equations_setup",
+          "steps_s": round(time.perf_counter() - t0, 3),
+          "plans": len(plans)})
+    check(len(plans) == 2, "the steps built plans of their own")
+
+    kops.reset_launch_counts()
+    for strategy, step in steps.items():
+        x = step.shard_vector(x_host)
+        before = kops.launch_counts()
+        z = step(x)
+        torch.cuda.synchronize()
+        after = kops.launch_counts()
+        check(tuple(z.shape) == (P, N // P), f"z has shape {tuple(z.shape)}")
+        z_np = z.reshape(-1).cpu().numpy()
+        check(np.isfinite(z_np).all(), f"{strategy}/normal: z not finite")
+        err = float(np.abs(z_np - z_ref).max())
+        check(np.allclose(z_np, z_ref, **z_tol),
+              f"{strategy}/normal: z disagrees with the numpy reference "
+              f"({err})")
+        launched = {k: after[k] - before[k] for k in after}
+        for k in NE_EXPECTED[strategy]:
+            check(launched[k] > 0, f"{strategy}/normal never launched {k}")
+        timing = time_steps(torch, lambda: step(x))
+        prof = profile_steps(torch, lambda: step(x))
+        emit({"phase": "normal_equations", "strategy": strategy,
+              "use_kernel": True, "max_abs_err": err,
+              "ref_max_abs": float(np.abs(z_ref).max()), **timing, **prof,
+              "launches_per_step": launched, "card": card})
+    del steps
+
+    t0 = time.perf_counter()
+    cgs = {uk: ConjugateGradient(matrix, comm, strategy="condensed",
+                                 use_kernel=uk, **kw)
+           for uk in (True, False)}
+    setup_s = time.perf_counter() - t0
+    b = np.random.default_rng(SEED + 1).standard_normal(N).astype(
+        np.float32)
+    finals = {}
+    for uk, cg in cgs.items():
+        carries = cg.carries(b)
+        finals[uk] = cg.schedule(*carries, n_steps=CG_ITERS)
+    torch.cuda.synchronize()
+    (xk, rk, _), (xp, _, _) = finals[True], finals[False]
+    check(bool(torch.isfinite(xk).all()), "CG iterate not finite")
+    rel = float((xk - xp).abs().max() / xp.abs().max())
+    check(rel < 1e-4, f"CG with kernels is {rel} from CG without")
+    r0 = float(np.linalg.norm(b.astype(np.float64)))
+    r_end = float(torch.linalg.vector_norm(rk.double()))
+    check(r_end < r0, f"CG residual grew: {r_end} >= {r0}")
+    carries = cgs[True].carries(b)
+    timing = time_steps(torch, lambda: cgs[True].schedule(
+        *carries, n_steps=CG_ITERS), warmup=1, iters=3)
+    emit({"phase": "cg", "strategy": "condensed", "use_kernel": True,
+          "iterations": CG_ITERS, "setup_s": round(setup_s, 3),
+          "rel_vs_plain": rel, "residual_start": r0, "residual_end": r_end,
+          "ms_per_iteration": timing["ms_per_iter"] / CG_ITERS,
+          "host_enqueue_ms_per_iteration":
+              timing["host_enqueue_ms_per_iter"] / CG_ITERS, "card": card})
+    counts = kops.launch_counts()
+    for k in ("pack_gather", "unpack_dest") + PUSH_KERNELS:
+        check(counts[k] > 0, f"the normal-equations path never launched {k}")
+    return counts
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -632,10 +891,16 @@ def main() -> None:
 
     results = phase_kernels(torch, matrix, x_host, engines, y_ref)
     results.update(phase_push_kernels(torch, matrix, x_host, t_engines))
+    results.update(phase_stencil_kernel(torch, comm.device))
     counts = phase_main_path(torch, engines, x_host, y_ref, card)
     counts.update({k: v for k, v in phase_transposed(
         torch, t_engines, x_host, y_t_ref, card).items()
         if k in PUSH_KERNELS})
+    del engines, t_engines
+    torch.cuda.empty_cache()
+    counts["stencil2d"] = phase_heat2d(torch, comm, card)["stencil2d"]
+    torch.cuda.empty_cache()
+    phase_normal_equations(torch, comm, matrix, base, splan, x_host, card)
 
     kernels = []
     for name, res in results.items():
@@ -647,10 +912,9 @@ def main() -> None:
             "plain_ms": res["plain_ms"], "bound_ms": res["bound"][0],
             "bound_by": res["bound"][1], "library_ms": res["library_ms"]})
     emit({"kernels": kernels})
-    # every engine of the run shares one LoopbackComm on one card
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
-                                 "count": len({comm.device})}})
+                                 "count": torch.cuda.device_count()}})
 
 
 if __name__ == "__main__":

@@ -8,12 +8,14 @@ two partitioning facts the planner needs: vector length ``n`` and accessor
 count ``m``) so every consumer feeds the same planner, the same strategies,
 and the same §5 models.
 
-A numpy-only copy of ``repro.comm.pattern`` (the gather slice: no stencil
-constructor, no plan-cache key), kept in the port so that it imports no JAX.
+A numpy-only copy of ``repro.comm.pattern`` (no plan-cache key), kept in
+the port so that it imports no JAX.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+import hashlib
 
 import numpy as np
 
@@ -48,6 +50,14 @@ class AccessPattern:
     def r(self) -> int:
         return self.indices.shape[1]
 
+    @functools.cached_property
+    def digest(self) -> str:
+        """Content hash of the index set and ``n``: schedules key the base
+        plans they share by it (``comm.schedule.plan_key``)."""
+        h = hashlib.sha1(np.ascontiguousarray(self.indices).tobytes())
+        h.update(repr((self.indices.shape, self.n)).encode())
+        return h.hexdigest()
+
     @classmethod
     def from_indices(cls, idx, n: int | None = None) -> "AccessPattern":
         """Any global index set: (m,) or (m, r) integers into a length-n
@@ -65,6 +75,44 @@ class AccessPattern:
     def from_ellpack(cls, matrix) -> "AccessPattern":
         """The SpMV instance: row i accesses x[J[i, :]] (m == n)."""
         return cls.from_indices(matrix.cols, n=matrix.n)
+
+    @classmethod
+    def from_stencil5(cls, big_m: int, big_n: int, mprocs: int,
+                      nprocs: int) -> "AccessPattern":
+        """5-point stencil neighbors over an (mprocs × nprocs) tile grid.
+
+        The field is flattened *tile-major*: rank r = ip*nprocs + kp owns the
+        contiguous slice [r*tile, (r+1)*tile) holding its (m_loc × n_loc)
+        tile row-major — exactly the SharedVector contiguous-ownership
+        layout.  Each cell's pattern row holds its four neighbors' global
+        ids; out-of-domain neighbors pad with the cell's own id (an owned,
+        zero-cost access; the solver masks the global boundary anyway).
+        """
+        assert big_m % mprocs == 0 and big_n % nprocs == 0
+        m_loc, n_loc = big_m // mprocs, big_n // nprocs
+        tile = m_loc * n_loc
+
+        def gid(gi, gk):
+            """Global row/col -> tile-major global id (arrays ok)."""
+            ip, i = gi // m_loc, gi % m_loc
+            kp, k = gk // n_loc, gk % n_loc
+            return (ip * nprocs + kp) * tile + i * n_loc + k
+
+        gi, gk = np.meshgrid(np.arange(big_m), np.arange(big_n),
+                             indexing="ij")
+        own = gid(gi, gk)
+        nbrs = []
+        for di, dk in ((-1, 0), (1, 0), (0, -1), (0, 1)):
+            ni, nk = gi + di, gk + dk
+            ok = (ni >= 0) & (ni < big_m) & (nk >= 0) & (nk < big_n)
+            nbrs.append(np.where(
+                ok, gid(np.clip(ni, 0, big_m - 1), np.clip(nk, 0, big_n - 1)),
+                own))
+        # order pattern rows by owning rank then tile-row-major so accessor
+        # row g is the accessor of vector element g (m == n, SpMV-like)
+        order = np.argsort(own.ravel(), kind="stable")
+        idx = np.stack([nb.ravel()[order] for nb in nbrs], axis=1)
+        return cls.from_indices(idx.astype(np.int32), n=big_m * big_n)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -33,6 +33,9 @@ condensed all_to_all (on a side stream on the card), run the own-shard
 partial SpMV (which depends only on ``x``) meanwhile, then finish with the
 foreign partial on the unpacked remote values.
 
+``normal_equations_step`` chains both directions, ``z = MᵀM x``, as one
+``Schedule`` whose gather and scatter stages share one base plan.
+
 Usage:
     comm = LoopbackComm(8)                 # 8 ranks on the default card
     m = make_mesh_like_matrix(1 << 16, 16)
@@ -50,10 +53,12 @@ from repro_torch.comm.gather import IrregularGather
 from repro_torch.comm.pattern import AccessPattern, Destination
 from repro_torch.comm.plan import CommPlan, ScatterPlan, Topology
 from repro_torch.comm.scatter import IrregularScatter
+from repro_torch.comm.schedule import Schedule
 from repro_torch.core.matrix import EllpackMatrix
 from repro_torch.kernels import ops as kops
 
-__all__ = ["DistributedSpMV"]
+__all__ = ["DistributedSpMV", "normal_equations_stages",
+           "normal_equations_step"]
 
 
 def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -268,3 +273,74 @@ class DistributedSpMV:
         if self.transpose:
             return self.splan.counts
         return self.plan.counts
+
+
+def normal_equations_stages(sched, matrix: EllpackMatrix, p: int, x_ref):
+    """Declare the z = MᵀM x stage graph on an existing ``Schedule``.
+
+    ``x_ref`` is the (already declared) input/stage whose value is the
+    ``(P, n / P)`` operand; the return value is the ``z`` stage ref.  Shared
+    by ``normal_equations_step`` (one step) and the iterative solvers
+    (``repro_torch.core.solvers``), which embed the same graph inside a
+    ``ScanSchedule`` body next to their own recurrence stages.
+
+    The graph chains the two SpMV directions in one window: gather-product
+    ``y = M x`` (EllPack-slot ``Destination``, slot product in PyTorch),
+    push-product ``z = Mᵀ y`` whose scatter stage derives its executor
+    tables from the gather stage's base plan, and the diagonal product
+    ``D·y`` scheduled after the scatter so it runs inside the push
+    collective's window.
+    """
+    n = matrix.n
+    assert n % p == 0, "pad the matrix so n divides the rank count"
+    rows_per_shard = matrix.cols.shape[0] // p
+    pattern = AccessPattern.from_ellpack(matrix)
+    # the forward product lands gathered x in EllPack slot order
+    destination = Destination.from_slots(
+        ellpack=matrix.cols.reshape(p, rows_per_shard, -1))
+
+    diag = sched.constant(matrix.diag, "diag")
+    vals = sched.constant(matrix.vals, "vals")
+    g = sched.gather(pattern, src=x_ref, destination=destination,
+                     name="gather_x")
+
+    def forward(x_l, d_l, v_l, delivered):
+        return d_l * x_l + (v_l * delivered["ellpack"]).sum(-1)
+
+    y = sched.compute(forward, x_ref, diag, vals, g, name="y=Mx")
+    contrib = sched.compute(lambda y_l, v_l: v_l * y_l[:, :, None], y, vals,
+                            name="partials")
+    s = sched.scatter(pattern, contrib, reduce="add", name="scatter_t")
+    # scheduled after the scatter stage: D·y runs inside the push window
+    y_diag = sched.compute(lambda y_l, d_l: d_l * y_l, y, diag,
+                           name="diag_t")
+    return sched.compute(lambda a, b: a + b, s, y_diag, name="z=Mty")
+
+
+def normal_equations_step(matrix: EllpackMatrix, comm, *,
+                          strategy: str = "auto",
+                          blocksize: int | str | None = None,
+                          shards_per_node: int | None = None,
+                          use_kernel: bool = False,
+                          plans: dict | None = None):
+    """z = MᵀM x with M = (D + A), as ONE ``ExchangeSchedule``.
+
+    The normal-equations step (the CGNR / least-squares inner product)
+    chains the forward gather-product ``y = M x`` and the transposed
+    scatter-product ``z = Mᵀ y``: the scatter stage derives its executor
+    tables from the gather stage's base plan (one O(nnz) preparation step
+    in all), and ``D·y`` runs inside the push window.  ``use_kernel``
+    routes both exchanges through the CUDA pack / unpack / fold kernels;
+    ``plans`` shares base plans (``Schedule.resolve``).
+
+    Returns the compiled ``ExchangeSchedule``: ``step(x) -> z``, both ``(P,
+    n / P)`` (``step.shard_vector`` places a host vector).
+    """
+    p = comm.p
+    sched = Schedule()
+    x_ref = sched.input("x")
+    z = normal_equations_stages(sched, matrix, p, x_ref)
+    return sched.compile(
+        comm, strategy=strategy, blocksize=blocksize,
+        topology=Topology(p, shards_per_node or p), use_kernel=use_kernel,
+        plans=plans, output=z)

@@ -47,6 +47,7 @@ _SIGNATURES = {
                            ctypes.c_int, ctypes.c_int, _P),
     "rt_fold_long_rows": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           ctypes.c_int, ctypes.c_int, _P),
+    "rt_stencil2d_f32": (_P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P),
 }
 
 _lib = None
@@ -55,7 +56,7 @@ _info: dict = {}
 # kernel name -> launches so far; each wrapper adds one where it launches
 LAUNCHES = {"pack_gather": 0, "unpack_scatter_set": 0, "unpack_dest": 0,
             "ellpack_spmv_windowed": 0, "accumulate_segments": 0,
-            "accumulate_into": 0}
+            "accumulate_into": 0, "stencil2d": 0}
 
 
 def _nvcc() -> str:

@@ -20,13 +20,14 @@ from repro_torch.kernels.pack_gather import (SegmentTable,
                                              accumulate_segments,
                                              pack_gather, segment_table,
                                              unpack_dest, unpack_scatter_set)
+from repro_torch.kernels.stencil2d import stencil2d
 
 __all__ = [
     "plan_spmv_windows", "ellpack_spmv", "make_spmv_on_copy_sharded",
     "make_spmv_overlap_sharded", "pack_gather", "unpack_dest",
     "unpack_scatter_set", "ellpack_spmv_windowed", "accumulate_segments",
-    "accumulate_into", "SegmentTable", "segment_table", "launch_counts",
-    "reset_launch_counts",
+    "accumulate_into", "SegmentTable", "segment_table", "stencil2d",
+    "launch_counts", "reset_launch_counts",
 ]
 
 

@@ -13,7 +13,8 @@ import torch
 
 __all__ = ["pack_gather_ref", "unpack_scatter_set_ref", "unpack_dest_ref",
            "ellpack_spmv_ref", "reduce_identity", "maximum",
-           "accumulate_segments_ref", "accumulate_into_ref"]
+           "accumulate_segments_ref", "accumulate_into_ref", "fma_f32",
+           "stencil2d_ref"]
 
 
 def _ranks(t: torch.Tensor) -> torch.Tensor:
@@ -161,3 +162,48 @@ def accumulate_into_ref(init, vals, idx, *, reduce: str = "add"):
     """The same combine, continuing from ``init (P, L, ...)`` (which is not
     modified)."""
     return _combine(init.clone(), idx, vals, reduce)
+
+
+# --------------------------------------------------------------------------
+# 5-point stencil
+# --------------------------------------------------------------------------
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+            ) -> torch.Tensor:
+    """``a * b + c`` on float32 tensors, rounded once (IEEE fma), as the
+    card's ``__fmaf_rn`` and XLA's fused multiply-add compute it.
+
+    The product is exact in float64 and the float64 sum rounds once; the
+    second rounding, to float32, can differ from a single rounding only
+    where the float64 sum lies exactly halfway between two float32 values
+    and is not the exact sum.  The exact error of the float64 add (TwoSum)
+    says on which side the exact sum lies, and that case is rounded toward
+    it."""
+    prod = a.double() * b.double()
+    c64 = c.double()
+    s = prod + c64
+    back = s - prod
+    err = (prod - (s - back)) + (c64 - back)
+    f = s.float()
+    below = s - f.double()                       # exact
+    away = torch.where(below > 0, float("inf"), float("-inf")).to(f.dtype)
+    g = torch.nextafter(f, away)                 # the other candidate
+    tie = (below != 0) & ((f.double() + g.double()) * 0.5 == s)
+    return torch.where(tie & (err != 0) & ((err > 0) == (below > 0)), g, f)
+
+
+def stencil2d_ref(x: torch.Tensor, coef: float) -> torch.Tensor:
+    """One 5-point Jacobi step on every ``(M, N)`` slice of ``x (..., M,
+    N)`` float32 (paper Listing 8): the interior gets ``mid + coef·lap``
+    with ``lap = ((up + down) + left) + right - 4·mid`` and the last step
+    one fused multiply-add (``fma_f32``), ``coef`` rounded to float32 first;
+    boundary rows and columns are copied.  This is the rounding of the
+    reference's jitted ``stencil2d_ref`` and of its Pallas kernel (its eager
+    ``stencil2d_ref`` rounds the product and the sum on their own)."""
+    mid = x[..., 1:-1, 1:-1]
+    lap = (x[..., :-2, 1:-1] + x[..., 2:, 1:-1] + x[..., 1:-1, :-2]
+           + x[..., 1:-1, 2:] - 4.0 * mid)
+    coef32 = torch.tensor(coef, dtype=torch.float32, device=x.device)
+    out = x.clone()
+    out[..., 1:-1, 1:-1] = fma_f32(coef32, lap, mid)
+    return out

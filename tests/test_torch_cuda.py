@@ -15,7 +15,10 @@ from repro_torch.comm.pattern import AccessPattern
 from repro_torch.comm.scatter import IrregularScatter
 from repro_torch.core.matrix import (make_mesh_like_matrix, spmv_ref_np,
                                      spmv_t_ref_np)
-from repro_torch.core.spmv import DistributedSpMV
+from repro_torch.core.heat2d import Heat2D
+from repro_torch.core.matrix import EllpackMatrix
+from repro_torch.core.solvers import ConjugateGradient
+from repro_torch.core.spmv import DistributedSpMV, normal_equations_step
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 
@@ -362,3 +365,98 @@ def test_transposed_spmv_on_card(dev, strategy):
         "replicate": 1, "blockwise": 3}.get(strategy, 2)
     assert counts["accumulate_into"] == (
         1 if strategy in ("condensed", "overlap") else 0)
+
+
+# --------------------------------------------------------------------------
+# B7 stencil2d, Heat2D, the normal equations and CG
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(1, 1), (2, 5), (5, 2), (3, 40), (40, 3),
+                                   (16, 16), (129, 65), (257, 1031),
+                                   (8, 37, 45), (8, 2050, 130)])
+@pytest.mark.parametrize("coef", [0.1, 0.13])
+def test_stencil2d_bit_exact(dev, shape, coef):
+    x = _rand(np.random.default_rng(7), shape, torch.float32, dev)
+    before = kops.launch_counts()["stencil2d"]
+    got = kops.stencil2d(x, coef=coef)
+    torch.cuda.synchronize()
+    assert kops.launch_counts()["stencil2d"] == before + 1
+    assert got.shape == x.shape
+    assert _same_bits(got, kref.stencil2d_ref(x, coef))
+    # the plain version on the CPU rounds the same way
+    assert _same_bits(got.cpu(), kref.stencil2d_ref(x.cpu(), coef))
+    if min(shape[-2:]) < 3:
+        assert torch.equal(got, x)
+
+
+def test_stencil2d_strided_ring_strips(dev):
+    padded = _rand(np.random.default_rng(8), (8, 66, 130), torch.float32,
+                   dev)
+    for strip in (padded[:, 0:3, :], padded[:, -3:, :], padded[:, :, 0:3],
+                  padded[:, :, -3:], padded[3], padded[:, 1:-1, 1:-1]):
+        got = kops.stencil2d(strip, coef=0.1)
+        assert got.is_contiguous() and got.shape == strip.shape
+        assert _same_bits(got, kref.stencil2d_ref(strip.contiguous(), 0.1))
+    with pytest.raises(TypeError, match="float32"):
+        kops.stencil2d(padded.double(), coef=0.1)
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+@pytest.mark.parametrize("materialize", ["dest", "full"])
+@pytest.mark.parametrize("strategy", ["replicate", "blockwise", "condensed",
+                                      "overlap"])
+def test_heat2d_on_card(dev, strategy, materialize, overlap):
+    comm = LoopbackComm(8, device=dev)
+    engines = {uk: Heat2D(comm, 96, 160, mprocs=2, nprocs=4, coef=0.1,
+                          strategy=strategy, materialize=materialize,
+                          overlap=overlap, use_kernel=uk)
+               for uk in (False, True)}
+    phi = engines[True].init_field(5)
+    kops.reset_launch_counts()
+    got = engines[True].run(phi, 6)
+    torch.cuda.synchronize()
+    counts = kops.launch_counts()
+    assert counts["stencil2d"] > 0
+    if strategy != "replicate":
+        assert counts["pack_gather"] > 0
+    if materialize == "dest":
+        assert counts["unpack_dest"] > 0
+    elif strategy != "replicate":
+        assert counts["unpack_scatter_set"] > 0
+    plain = engines[False].run(phi, 6)
+    assert _same_bits(got, plain)
+    whole = Heat2D.reference(torch.as_tensor(
+        engines[True].gather_field(phi)).to(dev), 6, 0.1)
+    np.testing.assert_array_equal(engines[True].gather_field(got),
+                                  whole.cpu().numpy())
+
+
+@pytest.mark.parametrize("strategy", ["replicate", "blockwise", "condensed",
+                                      "overlap"])
+def test_normal_equations_and_cg_on_card(dev, strategy):
+    n = 8 * 1024
+    m0 = make_mesh_like_matrix(n, 8, locality_window=n // 64,
+                               long_range_frac=0.02, seed=2)
+    rng = np.random.default_rng(2)
+    m = EllpackMatrix(n=n, r_nz=m0.r_nz,
+                      diag=rng.integers(-3, 4, n).astype(np.float32),
+                      vals=rng.integers(-3, 4, (n, 8)).astype(np.float32),
+                      cols=m0.cols)
+    x = rng.integers(-3, 4, n).astype(np.float32)
+    comm = LoopbackComm(8, device=dev)
+    step = normal_equations_step(m, comm, strategy=strategy, blocksize=64,
+                                 use_kernel=True)
+    kops.reset_launch_counts()
+    z = step(step.shard_vector(x))
+    torch.cuda.synchronize()
+    counts = kops.launch_counts()
+    assert counts["unpack_dest"] == 1 and counts["accumulate_segments"] > 0
+    np.testing.assert_array_equal(z.reshape(-1).cpu().numpy(),
+                                  spmv_t_ref_np(m, spmv_ref_np(m, x)))
+    m = make_mesh_like_matrix(n, 8, locality_window=n // 64,
+                              long_range_frac=0.02, seed=3)
+    b = rng.standard_normal(n).astype(np.float32)
+    xs = {uk: ConjugateGradient(m, comm, strategy=strategy, blocksize=64,
+                                use_kernel=uk).solve(b, 10).reshape(-1)
+          for uk in (False, True)}
+    torch.testing.assert_close(xs[True], xs[False], rtol=1e-4, atol=1e-4)

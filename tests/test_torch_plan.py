@@ -184,7 +184,10 @@ def test_port_imports_neither_jax_nor_repro():
         "    importlib.import_module(name)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'repro'))\n"
-        "assert len(names) >= 14, names\n"
+        "assert len(names) >= 18, names\n"
+        "for mod in ('comm.schedule', 'core.heat2d', 'core.solvers',\n"
+        "            'kernels.stencil2d'):\n"
+        "    assert 'repro_torch.' + mod in names, mod\n"
         "assert not bad, bad\n"
         "print('CLEAN', len(names))\n")
     src = pathlib.Path(__file__).resolve().parents[1] / "src"
