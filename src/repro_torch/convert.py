@@ -1,25 +1,27 @@
 """Carry the JAX reference's data across to the port.
 
-The system runs no model, so the "weights" the two packages must share are
-the matrix and the communication plans.  ``from_reference`` reads the
-reference's ``EllpackMatrix``, ``CommPlan`` and ``ScatterPlan`` duck-typed —
-as plain numpy fields, never importing the reference — and returns the
-port's host-side equivalents, so that both packages can run the same matrix
-through the same plan (``DistributedSpMV(..., base_plan=plan)``,
-``IrregularScatter(..., scatter_plan=splan)``).  All of them are host
-(numpy) state in either package; they reach a device only when an engine is
-built on them.
+The communication layer's "weights" are the matrix and the plans:
+``from_reference`` reads the reference's ``EllpackMatrix``, ``CommPlan``
+and ``ScatterPlan`` duck-typed — as plain numpy fields, never importing
+the reference — and returns the port's host-side equivalents, so that
+both packages can run the same matrix through the same plan
+(``DistributedSpMV(..., base_plan=plan)``, ``IrregularScatter(...,
+scatter_plan=splan)``).  All of them are host (numpy) state in either
+package; they reach a device only when an engine is built on them.  The
+serving model's weights come across through
+``model_params_from_reference``.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch.comm.plan import CommPlan, GatherCounts, ScatterPlan, Topology
 from repro_torch.core.matrix import EllpackMatrix
 
-__all__ = ["from_reference"]
+__all__ = ["from_reference", "model_params_from_reference"]
 
 
 def _copy(cls, obj, **overrides):
@@ -56,3 +58,30 @@ def from_reference(matrix, plan=None):
                                   base=_comm_plan(plan.base),
                                   counts=_copy(GatherCounts, plan.counts))
     return port_matrix, _comm_plan(plan)
+
+
+def model_params_from_reference(cfg, params):
+    """The reference's ``Model(cfg).init_params`` tree, given as numpy
+    arrays (``jax.tree.map(np.asarray, params)``), as the port's master
+    tree: float32 CPU tensors of the same structure, with the layers
+    stacked on the leading axis.  ``Model.load_params`` places it on the
+    model's device in its dtypes.  Checks the tree against ``cfg``."""
+    want = {"embed": (cfg.vocab_size, cfg.d_model)}
+    if not cfg.tie_embeddings:
+        want["lm_head"] = (cfg.d_model, cfg.vocab_size)
+    for name, shape in want.items():
+        got = tuple(np.shape(params[name]["w"]))
+        if got != shape:
+            raise ValueError(f"{name} is {got}, the config says {shape}")
+
+    def copy(tree, path):
+        if isinstance(tree, dict):
+            return {k: copy(v, path + (k,)) for k, v in tree.items()}
+        a = np.asarray(tree, dtype=np.float32)
+        if path[0] == "layers" and (a.ndim == 0
+                                    or a.shape[0] != cfg.num_layers):
+            raise ValueError(f"{'/'.join(path)} has shape {a.shape}, not "
+                             f"{cfg.num_layers} stacked layers")
+        return torch.from_numpy(a.copy())
+
+    return copy(params, ())

@@ -48,6 +48,10 @@ _SIGNATURES = {
     "rt_fold_long_rows": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           ctypes.c_int, ctypes.c_int, _P),
     "rt_stencil2d_f32": (_P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P),
+    "rt_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                            _I, _I, ctypes.c_int, ctypes.c_int,
+                            ctypes.c_float, _P),
+    "rt_selective_scan_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 _lib = None
@@ -56,7 +60,8 @@ _info: dict = {}
 # kernel name -> launches so far; each wrapper adds one where it launches
 LAUNCHES = {"pack_gather": 0, "unpack_scatter_set": 0, "unpack_dest": 0,
             "ellpack_spmv_windowed": 0, "accumulate_segments": 0,
-            "accumulate_into": 0, "stencil2d": 0}
+            "accumulate_into": 0, "stencil2d": 0, "decode_attention": 0,
+            "selective_scan": 0}
 
 
 def _nvcc() -> str:

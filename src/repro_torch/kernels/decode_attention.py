@@ -1,0 +1,74 @@
+"""Single-token (decode) GQA attention over the valid prefix of a KV cache.
+
+Wrapper of the CUDA kernel in ``csrc/decode_attention.cu``, which replaces
+the Pallas kernel ``decode_attention`` of
+``repro/kernels/decode_attention.py``.  The TPU kernel's ``kv_chunk`` (its
+VMEM blocking, which also required ``S % kv_chunk == 0``) is not part of
+the function and is gone: any cache length works, and the card's kernel
+splits the valid prefix into chunks of its own choosing.  A CUDA tensor
+always goes through the kernel (or the call raises); a CPU tensor takes
+the plain version in ``kernels/ref.py``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import ref as kref
+from repro_torch.kernels.pack_gather import on_card, require
+
+__all__ = ["decode_attention"]
+
+CHUNK = 256          # slots per block on the card (a split of the KV axis)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     lengths: torch.Tensor) -> torch.Tensor:
+    """``out (B, H, D)`` in ``q.dtype``: query head h of lane b attends
+    slots ``s < lengths[b]`` of KV head ``h // (H / Hkv)``, float32 dot
+    products scaled by ``D ** -0.5`` and a float32 softmax.
+
+    q ``(B, H, D)``, k/v ``(B, S, Hkv, D)`` (on the card q and the cache
+    float32 or bfloat16 — a float32 query may read a bfloat16 cache, not
+    the other way — and D <= 128, the configs' widths), lengths ``(B,)``
+    int32, on one
+    device.  Lengths past S count as S.  A length of 0 or less (the model
+    never passes one: its lanes always hold their current token) gives
+    what the TPU kernel gives, every slot masked alike: the mean of V over
+    all S slots.  The card's kernel sums in another order than the plain
+    version (rtol/atol 2e-4 in float32)."""
+    require(q.dim() == 3 and k.dim() == 4 and k.shape == v.shape,
+            (q.shape, k.shape, v.shape))
+    b, h, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    require(k.shape[0] == b and k.shape[3] == d and s >= 1 and hkv >= 1
+            and h % hkv == 0, (q.shape, k.shape))
+    require(tuple(lengths.shape) == (b,), lengths.shape)
+    if not on_card(q, k, v, lengths):
+        return kref.decode_attention_ref(q, k, v, lengths)
+    if lengths.dtype != torch.int32:
+        raise TypeError(f"lengths must be int32, got {lengths.dtype}")
+    if (q.dtype not in _DTYPES or k.dtype not in _DTYPES
+            or v.dtype != k.dtype
+            or (q.dtype, k.dtype) == (torch.bfloat16, torch.float32)):
+        raise TypeError("the card's decode attention takes a float32 or "
+                        "bfloat16 query and cache (a float32 query may read "
+                        f"a bfloat16 cache), got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    require(d <= 128, d)
+    out = torch.empty_like(q)
+    nsplit = -(-s // CHUNK)
+    part_ml = torch.empty((2, b * hkv, nsplit, h // hkv),
+                          dtype=torch.float32, device=q.device)
+    part_acc = torch.empty((b * hkv, nsplit, h // hkv, d),
+                           dtype=torch.float32, device=q.device)
+    _build.launch("decode_attention", "rt_decode_attention", q.device,
+                  q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  lengths.data_ptr(), out.data_ptr(), part_ml[0].data_ptr(),
+                  part_ml[1].data_ptr(), part_acc.data_ptr(), b, s, h, hkv,
+                  d, CHUNK, _DTYPES[q.dtype], _DTYPES[k.dtype],
+                  ctypes.c_float(d ** -0.5))
+    return out

@@ -14,12 +14,14 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.ellpack_spmv import ellpack_spmv_windowed
 from repro_torch.kernels.pack_gather import (SegmentTable,
                                              accumulate_into,
                                              accumulate_segments,
                                              pack_gather, segment_table,
                                              unpack_dest, unpack_scatter_set)
+from repro_torch.kernels.selective_scan import selective_scan
 from repro_torch.kernels.stencil2d import stencil2d
 
 __all__ = [
@@ -27,7 +29,8 @@ __all__ = [
     "make_spmv_overlap_sharded", "pack_gather", "unpack_dest",
     "unpack_scatter_set", "ellpack_spmv_windowed", "accumulate_segments",
     "accumulate_into", "SegmentTable", "segment_table", "stencil2d",
-    "launch_counts", "reset_launch_counts",
+    "decode_attention", "selective_scan", "launch_counts",
+    "reset_launch_counts",
 ]
 
 

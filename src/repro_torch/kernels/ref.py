@@ -1,9 +1,11 @@
 """Plain PyTorch versions of the port's kernels.
 
-Each ``*_ref`` computes what its CUDA kernel computes, on tensors with the
-leading rank axis ``(P, ...)``: the CPU tests run them against the JAX
-reference, the kernel wrappers run them for CPU tensors, and
-``chip_smoke.py`` holds each kernel against its plain version on the card.
+Each ``*_ref`` computes what its CUDA kernel computes — the exchange and
+stencil kernels on tensors with the leading rank axis ``(P, ...)``, the
+two model kernels on the model's own layouts: the CPU tests run them
+against the JAX reference, the kernel wrappers run them for CPU tensors,
+and ``chip_smoke.py`` holds each kernel against its plain version on the
+card.
 """
 from __future__ import annotations
 
@@ -13,8 +15,9 @@ import torch
 
 __all__ = ["pack_gather_ref", "unpack_scatter_set_ref", "unpack_dest_ref",
            "ellpack_spmv_ref", "reduce_identity", "maximum",
-           "accumulate_segments_ref", "accumulate_into_ref", "fma_f32",
-           "stencil2d_ref"]
+           "accumulate_segments_ref", "accumulate_into_ref", "ordered_add",
+           "fma_f32",
+           "stencil2d_ref", "decode_attention_ref", "selective_scan_ref"]
 
 
 def _ranks(t: torch.Tensor) -> torch.Tensor:
@@ -123,8 +126,10 @@ def _combine(acc: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
     in place.  Every element is indexed on its own (a flat 1-D combine): on
     the CPU a 1-D ``index_add_`` adds the contributions of an element in
     ascending k order, one rounding each, as the reference's ``.at[].add``
-    does — a 2-D bfloat16 ``index_add_`` does not.  ``max`` does not depend
-    on the order."""
+    does — a 2-D bfloat16 ``index_add_`` does not.  On the card
+    ``index_add_`` adds with atomics, in another order every run, so the
+    add goes through ``_card_add``.  ``max`` does not depend on the
+    order."""
     p, out_len = acc.shape[:2]
     feat = math.prod(acc.shape[2:])
     flat = acc.view(-1)
@@ -133,7 +138,10 @@ def _combine(acc: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
              + torch.arange(feat, device=acc.device)).reshape(-1)
     src = vals.reshape(-1)
     if reduce != "max":
-        flat.index_add_(0, index, src)
+        if flat.device.type == "cuda":
+            _card_add(flat, index, src)
+        else:
+            flat.index_add_(0, index, src)
         return acc
     if not acc.dtype.is_floating_point:
         flat.scatter_reduce_(0, index, src, "amax", include_self=True)
@@ -145,6 +153,44 @@ def _combine(acc: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
     flat.copy_(torch.where((nan > 0) | flat.isnan(), float("nan"),
                            _flip(key).view(acc.dtype)))
     return acc
+
+
+def _card_add(flat: torch.Tensor, index: torch.Tensor,
+              src: torch.Tensor) -> None:
+    """``flat[index] += src`` on the card, with the same sums every run.
+    float32 (and wider) and integers: ``index_put_(accumulate=True)``, which
+    sorts by target and adds in the dtype, in an order of its own — float
+    sums can differ from the CPU's (and the kernels') in the last bits.
+    bfloat16 and float16: ``index_put_`` would add in float32 and round
+    once, another function than one rounding per add, so they take
+    ``ordered_add``, the CPU's sums bit for bit."""
+    if flat.dtype in (torch.bfloat16, torch.float16):
+        ordered_add(flat, index, src)
+    else:
+        flat.index_put_((index,), src, accumulate=True)
+
+
+def ordered_add(flat: torch.Tensor, index: torch.Tensor,
+                src: torch.Tensor) -> None:
+    """``flat[index[i]] += src[i]`` for i in ascending order, one rounding
+    in ``flat``'s dtype per add: what a 1-D ``index_add_`` computes on the
+    CPU and the reference's ``.at[].add`` specifies, on any device.  The
+    contributions are sorted by target (stably, so each target keeps them
+    in ascending i) and added in rounds, round r adding every target's
+    r-th contribution: as many rounds as the most contributions any one
+    target gets, each round a few launches."""
+    if index.numel() == 0:
+        return
+    tgt, order = torch.sort(index, stable=True)
+    vals = src[order]
+    pos = torch.arange(tgt.numel(), device=tgt.device)
+    first = torch.ones_like(tgt, dtype=torch.bool)
+    first[1:] = tgt[1:] != tgt[:-1]
+    rank = pos - torch.cummax(torch.where(first, pos, 0), 0).values
+    by_rank = torch.sort(rank, stable=True).indices
+    for part in torch.split(by_rank, torch.bincount(rank).tolist()):
+        t = tgt[part]
+        flat[t] = flat[t] + vals[part]
 
 
 def accumulate_segments_ref(vals, idx, *, out_len: int, reduce: str = "add"):
@@ -207,3 +253,47 @@ def stencil2d_ref(x: torch.Tensor, coef: float) -> torch.Tensor:
     out = x.clone()
     out[..., 1:-1, 1:-1] = fma_f32(coef32, lap, mid)
     return out
+
+
+# --------------------------------------------------------------------------
+# Model kernels: single-token attention over a KV cache, mamba-1 recurrence
+# --------------------------------------------------------------------------
+
+def decode_attention_ref(q, k, v, lengths, *, scale=None):
+    """Single-token GQA attention over the valid prefix of a KV cache: q
+    ``(B, H, D)``, k/v ``(B, S, Hkv, D)`` (the model's cache layout, H a
+    multiple of Hkv), lengths ``(B,)`` int.  Slot s of lane b is valid when
+    ``s < lengths[b]``; the logits are float32, invalid ones -1e30 before
+    the softmax over all S slots, as the reference's decode attention and
+    its Pallas kernel mask them.  So a lane with length 0 (or less) gets
+    uniform weights: the mean of V over all S slots.  Returns ``(B, H, D)``
+    in ``q.dtype``."""
+    b, h, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    if scale is None:
+        scale = d ** -0.5
+    qg = q.reshape(b, hkv, h // hkv, d).float()
+    logits = torch.einsum("bhgd,bshd->bhgs", qg, k.float()) * scale
+    valid = (torch.arange(s, device=q.device)[None, :]
+             < lengths.to(device=q.device, dtype=torch.int64)[:, None])
+    logits = torch.where(valid[:, None, None, :], logits, -1e30)
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", w, v.float())
+    return out.reshape(b, h, d).to(q.dtype)
+
+
+def selective_scan_ref(x, dt, bmat, cmat, a):
+    """The mamba-1 recurrence, one step after another: x/dt ``(B, L, di)``,
+    bmat/cmat ``(B, L, st)``, a ``(di, st)``; in float32, from h = 0,
+    ``h = exp(dt[t]·a) ⊙ h + (dt[t]·x[t]) ⊗ B[t]`` and ``y[t] = h · C[t]``.
+    Returns y ``(B, L, di)`` in ``x.dtype`` (no gate, no skip)."""
+    bsz, l, di = x.shape
+    xf, dtf, bf, cf, af = (t.float() for t in (x, dt, bmat, cmat, a))
+    h = torch.zeros((bsz, di, bmat.shape[-1]), dtype=torch.float32,
+                    device=x.device)
+    ys = torch.empty((bsz, l, di), dtype=torch.float32, device=x.device)
+    for t in range(l):
+        da = torch.exp(dtf[:, t, :, None] * af[None])
+        h = da * h + (dtf[:, t] * xf[:, t])[..., None] * bf[:, t, None, :]
+        ys[:, t] = torch.einsum("bds,bs->bd", h, cf[:, t])
+    return ys.to(x.dtype)

@@ -1,9 +1,11 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, and its
+paths on the card against the same paths on the CPU.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips without
 one; on the card run ``python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 This file imports no JAX, so it runs where only PyTorch is installed.
 """
+import dataclasses
 import time
 
 import numpy as np
@@ -13,6 +15,7 @@ import torch
 from repro_torch.comm.communicator import LoopbackComm
 from repro_torch.comm.pattern import AccessPattern
 from repro_torch.comm.scatter import IrregularScatter
+from repro_torch.configs.registry import get_config
 from repro_torch.core.matrix import (make_mesh_like_matrix, spmv_ref_np,
                                      spmv_t_ref_np)
 from repro_torch.core.heat2d import Heat2D
@@ -21,6 +24,9 @@ from repro_torch.core.solvers import ConjugateGradient
 from repro_torch.core.spmv import DistributedSpMV, normal_equations_step
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
+from repro_torch.models.transformer import Model, RunCtx
+from repro_torch.runtime.steps import build_prefill
+from repro_torch.serve import Request, ServeEngine
 
 pytestmark = pytest.mark.cuda
 
@@ -460,3 +466,193 @@ def test_normal_equations_and_cg_on_card(dev, strategy):
                                 use_kernel=uk).solve(b, 10).reshape(-1)
           for uk in (False, True)}
     torch.testing.assert_close(xs[True], xs[False], rtol=1e-4, atol=1e-4)
+
+
+# -- B8 decode attention and B9 selective scan against their plain versions
+
+MODEL_TOL = dict(rtol=2e-4, atol=2e-4)   # float32 sums in another order
+BF16_OUT_TOL = dict(rtol=2.0 ** -8, atol=2e-4)   # plus one bf16 rounding
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype", [
+    (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+    (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("s", [1, 77, 300, 2080])
+@pytest.mark.parametrize("g", [1, 4])
+def test_decode_attention_matches_plain(dev, g, s, q_dtype, kv_dtype):
+    rng = np.random.default_rng(10 * s + g)
+    b, hkv, d = 6, 3, 128
+    lengths = rng.integers(1, s + 1, b)
+    lengths[:3] = (s, 1, s + 7)          # full, one slot, past the cache
+    lengths = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
+    q = _rand(rng, (b, hkv * g, d), q_dtype, dev)
+    k = _rand(rng, (b, s, hkv, d), kv_dtype, dev)
+    v = _rand(rng, (b, s, hkv, d), kv_dtype, dev)
+    before = kops.launch_counts()["decode_attention"]
+    got = kops.decode_attention(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert kops.launch_counts()["decode_attention"] == before + 1
+    assert got.dtype == q_dtype and got.shape == q.shape
+    want = kref.decode_attention_ref(q.float(), k, v, lengths)
+    tol = MODEL_TOL if q_dtype == torch.float32 else BF16_OUT_TOL
+    torch.testing.assert_close(got.float(), want, **tol)
+
+
+@pytest.mark.parametrize("h,hkv,d", [(12, 1, 64), (6, 2, 16), (4, 4, 128),
+                                     (20, 2, 80)])
+def test_decode_attention_head_shapes(dev, h, hkv, d):
+    """G past one block's eight heads, D under a warp, at the limit, and
+    not a multiple of 32."""
+    rng = np.random.default_rng(h + d)
+    b, s = 3, 333
+    lengths = torch.as_tensor([333, 5, 200], dtype=torch.int32, device=dev)
+    q = _rand(rng, (b, h, d), torch.float32, dev)
+    k = _rand(rng, (b, s, hkv, d), torch.float32, dev)
+    v = _rand(rng, (b, s, hkv, d), torch.float32, dev)
+    torch.testing.assert_close(kops.decode_attention(q, k, v, lengths),
+                               kref.decode_attention_ref(q, k, v, lengths),
+                               **MODEL_TOL)
+
+
+def test_decode_attention_length_zero_is_mean_of_v(dev):
+    rng = np.random.default_rng(4)
+    q = _rand(rng, (2, 4, 32), torch.float32, dev)
+    k = _rand(rng, (2, 700, 2, 32), torch.float32, dev)
+    v = _rand(rng, (2, 700, 2, 32), torch.float32, dev)
+    lengths = torch.tensor([0, -3], dtype=torch.int32, device=dev)
+    got = kops.decode_attention(q, k, v, lengths)
+    want = v.mean(dim=1).repeat_interleave(2, dim=1)
+    torch.testing.assert_close(got, want, **MODEL_TOL)
+    torch.testing.assert_close(
+        got, kref.decode_attention_ref(q, k, v, lengths), **MODEL_TOL)
+
+
+def test_decode_attention_refusals(dev):
+    q = torch.zeros((2, 4, 16), device=dev)
+    kv = torch.zeros((2, 8, 2, 16), device=dev)
+    lengths = torch.ones(2, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError, match="int32"):
+        kops.decode_attention(q, kv, kv, lengths.long())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        kops.decode_attention(q.half(), kv.half(), kv.half(), lengths)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        kops.decode_attention(q.bfloat16(), kv, kv, lengths)
+    with pytest.raises(ValueError):
+        kops.decode_attention(torch.zeros((2, 3, 16), device=dev), kv, kv,
+                              lengths)
+    big = torch.zeros((2, 8, 2, 136), device=dev)
+    with pytest.raises(ValueError):
+        kops.decode_attention(torch.zeros((2, 4, 136), device=dev), big, big,
+                              lengths)
+    with pytest.raises(ValueError):
+        kops.decode_attention(q, kv, kv, lengths.cpu())
+
+
+def _scan_inputs(rng, b, l, di, st, dev):
+    x = _rand(rng, (b, l, di), torch.float32, dev) * 0.3
+    dt = torch.nn.functional.softplus(_rand(rng, (b, l, di), torch.float32,
+                                            dev))
+    bm = _rand(rng, (b, l, st), torch.float32, dev) * 0.5
+    cm = _rand(rng, (b, l, st), torch.float32, dev) * 0.5
+    a = -torch.exp(_rand(rng, (di, st), torch.float32, dev) * 0.3)
+    return x, dt, bm, cm, a
+
+
+@pytest.mark.parametrize("b,l,di,st", [
+    (1, 1, 1, 1), (2, 3, 37, 4), (1, 64, 16, 16), (2, 65, 130, 16),
+    (1, 200, 40, 32), (3, 129, 24, 8), (1, 300, 17, 5)])
+def test_selective_scan_matches_plain(dev, b, l, di, st):
+    """di not a multiple of the block's 16 channels, short and ragged L
+    around the 64 staged steps, st from 1 to 32."""
+    rng = np.random.default_rng(l + di)
+    args = _scan_inputs(rng, b, l, di, st, dev)
+    before = kops.launch_counts()["selective_scan"]
+    got = kops.selective_scan(*args)
+    torch.cuda.synchronize()
+    assert kops.launch_counts()["selective_scan"] == before + 1
+    torch.testing.assert_close(got, kref.selective_scan_ref(*args),
+                               **MODEL_TOL)
+
+
+def test_selective_scan_refusals(dev):
+    rng = np.random.default_rng(0)
+    x, dt, bm, cm, a = _scan_inputs(rng, 1, 8, 16, 4, dev)
+    with pytest.raises(TypeError, match="float32"):
+        kops.selective_scan(x.double(), dt.double(), bm.double(),
+                            cm.double(), a.double())
+    with pytest.raises(ValueError):                  # L = 0
+        kops.selective_scan(x[:, :0], dt[:, :0], bm[:, :0], cm[:, :0], a)
+    with pytest.raises(ValueError):                  # a of the wrong shape
+        kops.selective_scan(x, dt, bm, cm, a[:8])
+    x, dt, bm, cm, a = _scan_inputs(rng, 1, 8, 16, 33, dev)
+    with pytest.raises(ValueError):                  # st past 32
+        kops.selective_scan(x, dt, bm, cm, a)
+
+
+# -- the serving paths on the card against the same model on the CPU --
+
+def _model_pair(dev, cfg):
+    master = Model(cfg, RunCtx(act_dtype=torch.float32),
+                   device="cpu").init_params(torch.Generator().manual_seed(0))
+    models = {d: Model(cfg, RunCtx(act_dtype=torch.float32), device=d)
+              for d in ("cpu", dev)}
+    return {d: (m, m.load_params(master)) for d, m in models.items()}
+
+
+def test_serve_engine_on_card_matches_cpu(dev):
+    """Reduced llama3-8b with G = 2, float32, slot reuse and a ring wrap:
+    the same greedy tokens as on the CPU, B8 once per layer and tick."""
+    cfg = dataclasses.replace(get_config("llama3-8b", reduced=True),
+                              num_kv_heads=2)
+    rng = np.random.default_rng(0)
+    reqs = [dict(id=i, prompt=rng.integers(0, cfg.vocab_size,
+                                           int(rng.integers(3, 7))).tolist(),
+                 max_new_tokens=6, arrival_time=float(i // 2))
+            for i in range(5)]
+    reports = {}
+    for d, (model, params) in _model_pair(dev, cfg).items():
+        engine = ServeEngine(model, params, num_slots=2, cache_len=8,
+                             prefill_chunk=4, cache_dtype=torch.float32)
+        for r in reqs:
+            engine.submit(Request(**r))
+        kops.reset_launch_counts()
+        reports[d] = engine.run()
+        counts = kops.launch_counts()
+    assert counts["decode_attention"] == cfg.num_layers * len(
+        reports[dev].tick_seconds)
+    assert reports[dev].outputs == reports["cpu"].outputs
+
+
+def test_ssm_prefill_on_card_matches_cpu(dev):
+    cfg = get_config("falcon-mamba-7b", reduced=True)
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 100)), dtype=torch.int32)
+    logits = {}
+    for d, (model, params) in _model_pair(dev, cfg).items():
+        kops.reset_launch_counts()
+        logits[d] = build_prefill(model)(params, toks.to(d)).cpu()
+    assert kops.launch_counts()["selective_scan"] == cfg.num_layers
+    torch.testing.assert_close(logits[dev], logits["cpu"], **MODEL_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32,
+                                   torch.bfloat16])
+def test_plain_fold_on_card_is_repeatable(dev, dtype):
+    """The plain fold on the card gives the same sums every run (CG without
+    kernels is the yardstick of CG with them), within float32 rounding of
+    the CPU's ascending-order sums (exactly for integers, and bit for bit
+    for bfloat16, which keeps one rounding per add on the card)."""
+    rng = np.random.default_rng(7)
+    p, k, live = 2, 200_000, 64
+    idx = torch.as_tensor(rng.integers(0, live, (p, k)), dtype=torch.int32)
+    vals = torch.as_tensor(rng.standard_normal((p, k)) * 1e3).to(dtype)
+    want = kref.accumulate_segments_ref(vals, idx, out_len=live)
+    runs = [kref.accumulate_segments_ref(vals.to(dev), idx.to(dev),
+                                         out_len=live).cpu()
+            for _ in range(3)]
+    assert all(torch.equal(r, runs[0]) for r in runs)
+    if dtype == torch.bfloat16:
+        assert torch.equal(runs[0], want)
+        return
+    # sums of ~3,000 terms of size 1e3 in another order: ~30 float32 ulps
+    torch.testing.assert_close(runs[0], want, rtol=1e-4, atol=1.0)

@@ -309,6 +309,31 @@ def test_accumulate_adds_in_lane_order():
     assert not np.array_equal(pairwise, want)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16, torch.int32])
+def test_ordered_add_is_the_sequential_index_add(dtype):
+    """``ordered_add`` (the card's plain bfloat16/float16 fold) equals the
+    CPU's sequential 1-D ``index_add_`` bit for bit: ascending order, one
+    rounding per add, targets with 0 to ~500 contributions."""
+    from repro_torch.kernels import ref as kref
+    rng = np.random.default_rng(12)
+    n, k = 64, 6000
+    index = torch.as_tensor(np.concatenate([
+        rng.integers(0, n // 2, k - 500), np.full(500, n - 1)]))
+    index = index[torch.as_tensor(rng.permutation(k))]
+    src = torch.as_tensor(rng.standard_normal(k) * 1e2).to(dtype)
+    init = torch.as_tensor(rng.standard_normal(n) * 1e2).to(dtype)
+    got, want = init.clone(), init.clone()
+    kref.ordered_add(got, index, src)
+    want.index_add_(0, index, src)
+    assert torch.equal(got, want)
+    if dtype == torch.bfloat16:
+        once = (init.float().index_add_(0, index, src.float())).to(dtype)
+        assert not torch.equal(got, once)   # one rounding at the end differs
+    kref.ordered_add(got, index[:0], src[:0])
+    assert torch.equal(got, want)
+
+
 def _np_max(a, b):
     """XLA's max: a NaN propagates, +0.0 beats -0.0."""
     out = np.where(a > b, a, b)
