@@ -61,8 +61,11 @@ each:
 In phases 5 to 10 the kernel launch counters are zeroed just before the
 path runs and read just after, and every kernel of the path must have
 launched.  The kernel phase also holds decode_attention (one decode step
-of phase 9: 8 lanes, a bf16 ring of 2080 slots) and selective_scan (one
-falcon-mamba layer at L = 2048) against their plain versions at 2e-4.
+of phase 9: 8 lanes, a bf16 ring of 2080 slots; then, on a line of its
+own beside SDPA, decode_32k's 32768-slot cache with the batch cut to 8)
+and selective_scan (one falcon-mamba layer at L = 32768) against their
+plain versions at 2e-4, each with the device time of every kernel it
+launches (torch.profiler) and ptxas's registers and spills.
 
 Then one line {"kernels": [...]} with all nine kernels' numbers, and last
 {"ok": true, "device": {...}}.  Any failure exits non-zero before the last
@@ -892,25 +895,112 @@ def rel_l2(torch, got, want) -> float:
                  / torch.linalg.vector_norm(w))
 
 
+def ptxas_usage(log: str, keys) -> dict:
+    """ptxas's registers and spill bytes of every kernel in an nvcc ``-Xptxas
+    -v`` log whose (mangled) name holds one of ``keys``."""
+    usage, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            if not any(k in name for k in keys):
+                name = None
+        elif name and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            usage[name] = {"spill_stores": nums[1], "spill_loads": nums[2]}
+        elif name and "Used" in line and "registers" in line:
+            usage.setdefault(name, {})["registers"] = int(
+                line.split("Used")[1].split()[0])
+            name = None
+    return usage
+
+
+def decode_inputs(torch, dev, s: int, lo: int):
+    """One decode step's decode_attention inputs at llama3-8b's heads (8
+    lanes, 32 query and 8 KV heads of 128) on a bf16 ring of ``s`` slots,
+    lengths drawn from [lo, s]; with SDPA (boolean mask, GQA) on the same
+    inputs, and the bound: the valid K/V prefix read once, q and lengths
+    read, out written; a dot and an accumulate of D per (query head, live
+    slot)."""
+    import torch.nn.functional as F
+    b, h, hkv, d = 8, 32, 8, 128
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    q = torch.randn((b, h, d), generator=gen, device=dev).bfloat16()
+    k = torch.randn((b, s, hkv, d), generator=gen, device=dev).bfloat16()
+    v = torch.randn((b, s, hkv, d), generator=gen, device=dev).bfloat16()
+    lengths = torch.as_tensor(np.random.default_rng(SEED).integers(
+        lo, s + 1, b), dtype=torch.int32, device=dev)
+    mask = (torch.arange(s, device=dev)[None, :] < lengths[:, None])[
+        :, None, None, :]
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q[:, :, None], kt, vt,
+                                              attn_mask=mask, enable_gqa=True)
+    live = int(lengths.sum())
+    return q, k, v, lengths, sdpa, bound(
+        2 * live * hkv * d * 2 + 2 * b * h * d * 2 + b * 4,
+        flops=4.0 * live * h * d)
+
+
+def scan_inputs(torch, dev, l: int):
+    """selective_scan's inputs at one falcon-mamba-7b layer (B = 1, di
+    8192, st 16) of ``l`` steps, from the seed."""
+    b, di, st = 1, 8192, 16
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((b, l, di), generator=gen, device=dev) * 0.3
+    dt = torch.nn.functional.softplus(torch.randn(
+        (b, l, di), generator=gen, device=dev))
+    bm = torch.randn((b, l, st), generator=gen, device=dev) * 0.5
+    cm = torch.randn((b, l, st), generator=gen, device=dev) * 0.5
+    a = -torch.exp(torch.randn((di, st), generator=gen, device=dev) * 0.3)
+    return x, dt, bm, cm, a
+
+
+def kernel_split(torch, fn, iters: int = 10) -> list:
+    """[name, mean device ms a launch, launches seen a call] of each kernel
+    that ``fn`` launches, from torch.profiler over ``iters`` calls (after
+    one warm-up call); the mean is over the launches the profiler saw."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us, seen = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (us + e.time_range.end - e.time_range.start,
+                               seen + 1)
+    return [[name[:60], us / seen / 1e3, seen / iters]
+            for name, (us, seen) in sorted(by_name.items(),
+                                           key=lambda r: -r[1][0])]
+
+
+def kernel_detail(torch, fn, keys) -> dict:
+    """The device time of each kernel one call of ``fn`` launches, and
+    ptxas's registers and spills of the kernels named by ``keys``."""
+    from repro_torch.kernels import _build
+    return {"kernels_ms": kernel_split(torch, fn),
+            "ptxas": ptxas_usage(_build.build_info().get("log", ""), keys)}
+
+
 def phase_decode_attention_kernel(torch, dev):
     """decode_attention at one decode step of the serve phase: 8 lanes,
     llama3-8b's 32 query and 8 KV heads of 128, a bf16 ring of 2080 slots,
     lengths drawn from [1025, 2080].  Against its plain version with float32
     outputs at 2e-4 (a float32 query on the bf16 cache, and all float32),
     and with the path's bf16 output within one bf16 rounding; SDPA with a
-    boolean mask is the library's yardstick, timed only."""
-    import torch.nn.functional as F
-
+    boolean mask is the library's yardstick, timed only.  Then the same at
+    decode_32k's cache length (32768 slots, lengths from [16385, 32768],
+    batch cut to 8), on a line of its own."""
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref as kref
 
-    b, h, hkv, d, s = 8, 32, 8, 128, 2080
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    q = torch.randn((b, h, d), generator=gen, device=dev).bfloat16()
-    k = torch.randn((b, s, hkv, d), generator=gen, device=dev).bfloat16()
-    v = torch.randn((b, s, hkv, d), generator=gen, device=dev).bfloat16()
-    lengths = torch.as_tensor(np.random.default_rng(SEED).integers(
-        1025, s + 1, b), dtype=torch.int32, device=dev)
+    q, k, v, lengths, sdpa, bnd = decode_inputs(torch, dev, 2080, 1025)
     errs = []
     for qq, kk, vv in ((q.float(), k, v), (q.float(), k.float(), v.float())):
         got = kops.decode_attention(qq, kk, vv, lengths)
@@ -924,34 +1014,45 @@ def phase_decode_attention_kernel(torch, dev):
     check(got.dtype == torch.bfloat16 and torch.allclose(
         got.float(), want, **BF16_OUT_TOL),
         "decode_attention's bf16 output is more than one rounding off")
-    mask = (torch.arange(s, device=dev)[None, :] < lengths[:, None])[
-        :, None, None, :]
-    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
-
-    def sdpa():
-        return F.scaled_dot_product_attention(q[:, :, None], kt, vt,
-                                              attn_mask=mask, enable_gqa=True)
     # SDPA rounds its probabilities to bf16 before the product with V
     check(torch.allclose(sdpa()[:, :, 0].float(), want, rtol=1e-2,
                          atol=2e-3),
           "SDPA disagrees with decode_attention's plain version")
-    live = int(lengths.sum())
+
+    def fn():
+        return kops.decode_attention(q, k, v, lengths)
     res = dict(
-        max_abs_err=max(errs),
-        ms=cuda_ms(torch, lambda: kops.decode_attention(q, k, v, lengths)),
+        max_abs_err=max(errs), ms=cuda_ms(torch, fn),
         plain_ms=cuda_ms(torch, lambda: kref.decode_attention_ref(
             q, k, v, lengths)),
-        library_ms=cuda_ms(torch, sdpa),
-        # the valid K/V prefix read once, q and lengths read, out written;
-        # a dot and an accumulate of D per (query head, live slot)
-        bound=bound(2 * live * hkv * d * 2 + 2 * b * h * d * 2 + b * 4,
-                    flops=4.0 * live * h * d),
-        shape=f"q ({b}, {h}, {d}) bf16, k/v ({b}, {s}, {hkv}, {d}) bf16, "
-              f"{live} live slots")
+        library_ms=cuda_ms(torch, sdpa), bound=bnd,
+        shape=f"q {tuple(q.shape)} bf16, k/v {tuple(k.shape)} bf16, "
+              f"{int(lengths.sum())} live slots",
+        **kernel_detail(torch, fn, ("decode",)))
     emit({"phase": "kernel", "name": "decode_attention", **{
         k_: v_ for k_, v_ in res.items() if k_ != "bound"},
         "bound_ms": res["bound"][0], "bound_by": res["bound"][1]})
     check_bound("decode_attention", res)
+    del q, k, v
+
+    q, k, v, lengths, sdpa, bnd = decode_inputs(torch, dev, 32768, 16385)
+    got = kops.decode_attention(q, k, v, lengths)
+    want = kref.decode_attention_ref(q.float(), k, v, lengths)
+    check(torch.allclose(got.float(), want, **BF16_OUT_TOL),
+          "decode_attention at a 32k cache is more than one bf16 rounding "
+          f"off: {float((got.float() - want).abs().max())}")
+    long = dict(max_abs_err=float((got.float() - want).abs().max()),
+                ms=cuda_ms(torch, lambda: kops.decode_attention(
+                    q, k, v, lengths)),
+                library_ms=cuda_ms(torch, sdpa), bound=bnd)
+    emit({"phase": "kernel", "name": "decode_attention_32k",
+          "max_abs_err": long["max_abs_err"], "ms": long["ms"],
+          "library_ms": long["library_ms"], "bound_ms": bnd[0],
+          "bound_by": bnd[1], "shape": f"k/v {tuple(k.shape)} bf16, "
+          f"{int(lengths.sum())} live slots"})
+    check_bound("decode_attention at a 32k cache", long)
+    del q, k, v, want
+    torch.cuda.empty_cache()
     return {"decode_attention": res}
 
 
@@ -963,23 +1064,20 @@ def phase_selective_scan_kernel(torch, dev):
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref as kref
 
-    b, l, di, st = 1, SSM_L, 8192, 16
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    x = torch.randn((b, l, di), generator=gen, device=dev) * 0.3
-    dt = torch.nn.functional.softplus(torch.randn(
-        (b, l, di), generator=gen, device=dev))
-    bm = torch.randn((b, l, st), generator=gen, device=dev) * 0.5
-    cm = torch.randn((b, l, st), generator=gen, device=dev) * 0.5
-    a = -torch.exp(torch.randn((di, st), generator=gen, device=dev) * 0.3)
-    args = (x, dt, bm, cm, a)
+    args = scan_inputs(torch, dev, SSM_L)
+    b, l, di = args[0].shape
+    st = args[2].shape[2]
     got = kops.selective_scan(*args)
     want = kref.selective_scan_ref(*args)
     check(torch.allclose(got, want, **MODEL_TOL),
           "selective_scan differs from its plain version: "
           f"{float((got - want).abs().max())}")
+
+    def fn():
+        return kops.selective_scan(*args)
     res = dict(
         max_abs_err=float((got - want).abs().max()),
-        ms=cuda_ms(torch, lambda: kops.selective_scan(*args)),
+        ms=cuda_ms(torch, fn),
         plain_ms=cuda_ms(torch, lambda: kref.selective_scan_ref(*args),
                          warmup=0, iters=1),
         library_ms=None,
@@ -989,7 +1087,8 @@ def phase_selective_scan_kernel(torch, dev):
         bound=bound(3 * b * l * di * 4 + 2 * b * l * st * 4 + di * st * 4,
                     flops=7.0 * b * l * di * st),
         shape=f"x/dt ({b}, {l}, {di}) f32, B/C ({b}, {l}, {st}), a ({di}, "
-              f"{st})")
+              f"{st})",
+        **kernel_detail(torch, fn, ("selective",)))
     emit({"phase": "kernel", "name": "selective_scan", **{
         k_: v_ for k_, v_ in res.items() if k_ != "bound"},
         "bound_ms": res["bound"][0], "bound_by": res["bound"][1]})

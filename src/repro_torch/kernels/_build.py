@@ -48,8 +48,8 @@ _SIGNATURES = {
     "rt_fold_long_rows": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           ctypes.c_int, ctypes.c_int, _P),
     "rt_stencil2d_f32": (_P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P),
-    "rt_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                            _I, _I, ctypes.c_int, ctypes.c_int,
+    "rt_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                            _I, _I, _I, ctypes.c_int, ctypes.c_int,
                             ctypes.c_float, _P),
     "rt_selective_scan_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }

@@ -22,6 +22,7 @@ from repro_torch.core.heat2d import Heat2D
 from repro_torch.core.matrix import EllpackMatrix
 from repro_torch.core.solvers import ConjugateGradient
 from repro_torch.core.spmv import DistributedSpMV, normal_equations_step
+from repro_torch.kernels import decode_attention as kda
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.models.transformer import Model, RunCtx
@@ -548,6 +549,73 @@ def test_decode_attention_refusals(dev):
         kops.decode_attention(q, kv, kv, lengths.cpu())
 
 
+@pytest.fixture(params=[None, 1], ids=["planned", "one_tile_splits"])
+def split_plan(request, monkeypatch):
+    """The planner's splits, and splits of one tile each (the most splits
+    a lane can have, so the most partials the last block merges)."""
+    if request.param is not None:
+        monkeypatch.setattr(kda, "MAX_TILES", request.param)
+    return request.param
+
+
+def _check_decode(dev, b, h, hkv, d, s, lengths, dtype, seed):
+    rng = np.random.default_rng(seed)
+    lengths = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
+    q = _rand(rng, (b, h, d), dtype, dev)
+    k = _rand(rng, (b, s, hkv, d), dtype, dev)
+    v = _rand(rng, (b, s, hkv, d), dtype, dev)
+    got = kops.decode_attention(q, k, v, lengths)
+    again = kops.decode_attention(q, k, v, lengths)
+    torch.cuda.synchronize()
+    # the last split merges whatever order the splits end in: no race
+    assert torch.equal(got, again)
+    want = kref.decode_attention_ref(q.float(), k, v, lengths)
+    tol = MODEL_TOL if dtype == torch.float32 else BF16_OUT_TOL
+    torch.testing.assert_close(got.float(), want, **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g", [1, 3, 5, 7, 48])
+@pytest.mark.parametrize("d", [16, 64, 80, 128])
+def test_decode_attention_any_g_and_d(dev, split_plan, g, d, dtype):
+    """G of minitron, qwen2.5/hymba, arctic and granite's MQA; D of the
+    reduced configs, 64, a width that is no power of two, and 128; lengths
+    0, 1, S and S + 7."""
+    hkv = 1 if g == 48 else 2
+    s = 200
+    _check_decode(dev, 4, g * hkv, hkv, d, s, [0, 1, s, s + 7], dtype,
+                  seed=g * d)
+
+
+@pytest.mark.parametrize("s", [31, 32, 33, 63, 64, 65, 255, 256, 257, 2080])
+def test_decode_attention_tile_edges(dev, split_plan, s):
+    """S at a tile of 32 slots, two tiles and a split of eight tiles, +- 1,
+    with lengths 0, 1, S, S + 7 and short ones that end inside a tile."""
+    lengths = [0, 1, s, s + 7, max(1, s // 2 + 1), max(1, s - 1)]
+    _check_decode(dev, len(lengths), 8, 2, 128, s, lengths, torch.bfloat16,
+                  seed=s)
+
+
+def test_decode_attention_64_lanes(dev, split_plan):
+    """64 lanes of llama3-8b's heads: 512 (lane, KV head) pairs, splits of
+    several tiles (``plan_chunk``)."""
+    b, s = 64, 2080
+    lengths = np.random.default_rng(3).integers(1, s + 8, b)
+    lengths[:2] = (0, s)
+    if split_plan is None:
+        assert kda.plan_chunk(b, s, 8) > kda.TILE
+    _check_decode(dev, b, 32, 8, 128, s, lengths, torch.bfloat16, seed=5)
+
+
+def test_decode_attention_32k_cache(dev, split_plan):
+    """decode_32k's cache length, batch cut to 8: lengths in
+    [16385, 32768] as in chip_smoke.py, plus a full and an overlong lane."""
+    b, s = 8, 32768
+    lengths = np.random.default_rng(1).integers(16385, s + 1, b)
+    lengths[:2] = (s, s + 7)
+    _check_decode(dev, b, 32, 8, 128, s, lengths, torch.bfloat16, seed=6)
+
+
 def _scan_inputs(rng, b, l, di, st, dev):
     x = _rand(rng, (b, l, di), torch.float32, dev) * 0.3
     dt = torch.nn.functional.softplus(_rand(rng, (b, l, di), torch.float32,
@@ -571,6 +639,55 @@ def test_selective_scan_matches_plain(dev, b, l, di, st):
     torch.cuda.synchronize()
     assert kops.launch_counts()["selective_scan"] == before + 1
     torch.testing.assert_close(got, kref.selective_scan_ref(*args),
+                               **MODEL_TOL)
+
+
+@pytest.mark.parametrize("l", [15, 16, 17, 63, 64, 65, 127, 128, 129, 257])
+def test_selective_scan_chunk_edges(dev, l):
+    """L at the staged chunk of 128 steps (st 16) +- 1, two chunks, and
+    short L, B = 2, di ragged against the block's 32 channels."""
+    rng = np.random.default_rng(l)
+    args = _scan_inputs(rng, 2, l, 133, 16, dev)
+    torch.testing.assert_close(kops.selective_scan(*args),
+                               kref.selective_scan_ref(*args), **MODEL_TOL)
+
+
+@pytest.mark.parametrize("st", [1, 2, 3, 4, 5, 7, 8, 9, 15, 16, 17, 24, 31,
+                                32])
+def test_selective_scan_every_state_width(dev, st):
+    rng = np.random.default_rng(st)
+    args = _scan_inputs(rng, 3, 70, 45, st, dev)
+    torch.testing.assert_close(kops.selective_scan(*args),
+                               kref.selective_scan_ref(*args), **MODEL_TOL)
+
+
+def test_selective_scan_carry_underflows(dev):
+    """A strongly decaying ``a``: exp(dt * a) underflows to 0 within a step
+    or two, so h forgets its carry at once."""
+    rng = np.random.default_rng(9)
+    x, dt, bm, cm, a = _scan_inputs(rng, 2, 300, 64, 16, dev)
+    a = a * 200.0
+    got = kops.selective_scan(x, dt, bm, cm, a)
+    torch.testing.assert_close(got, kref.selective_scan_ref(x, dt, bm, cm,
+                                                            a), **MODEL_TOL)
+    assert bool(torch.isfinite(got).all())
+
+
+def test_selective_scan_unaligned_rows(dev):
+    """x/dt/B/C that are not 16-byte aligned (an odd offset into a larger
+    buffer) go through the 4-byte copies."""
+    rng = np.random.default_rng(11)
+    x, dt, bm, cm, a = (t.contiguous() for t in _scan_inputs(
+        rng, 1, 100, 33, 16, dev))
+    def shift(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        return out
+    xs, dts, bms, cms = (shift(t) for t in (x, dt, bm, cm))
+    assert xs.data_ptr() % 16 != 0
+    torch.testing.assert_close(kops.selective_scan(xs, dts, bms, cms, a),
+                               kref.selective_scan_ref(x, dt, bm, cm, a),
                                **MODEL_TOL)
 
 
