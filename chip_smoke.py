@@ -17,18 +17,24 @@ each:
 
 1. card: name and power limit, as nvidia-smi gives them (also printed
    raw on a line of their own);
-2. build: the CUDA kernels, compiled from kernels/csrc/*.cu for sm_90a;
+2. build: the CUDA kernels, compiled from kernels/csrc/*.cu for sm_90a,
+   and beside them the probes of tools/spmv_probes.cu;
 3. setup: the matrix, the base plan, the push plan (ScatterPlan), the
    eight forward and four transposed engines (all sharing those plans);
 4. kernels: each kernel against its plain PyTorch version at the inputs
    its path gives it, with its time, the plain version's on the card, one
    PyTorch library call's where one computes the same function, and the
    least time the card could take (its bound).  The forward kernels run
-   at the condensed rung's inputs and are checked on the card; the push
-   kernels (accumulate_segments at its four call sites, accumulate_into)
-   are checked bit for bit against their plain versions run on the CPU
-   copy of the same inputs (a sequential fold), outside the dump rows;
-   stencil2d runs on Heat2D's whole padded tile, bit for bit;
+   at the condensed rung's inputs and are checked on the card;
+   ellpack_spmv_windowed also in bfloat16 (a second line, against the
+   plain version on float32 copies of the bf16 inputs, one bf16 rounding
+   apart), and each twice, bit for bit; the push kernels
+   (accumulate_segments at its four call sites, accumulate_into) are
+   checked bit for bit against their plain versions run on the CPU copy of
+   the same inputs (a sequential fold), outside the dump rows, and each
+   site's line carries chain_ms (one thread's dependent add chain as long
+   as the site's longest row, a probe) and floor_ms = max(bound_ms,
+   chain_ms); stencil2d runs on Heat2D's whole padded tile, bit for bit;
 5. main path: every rung x {full, dest} forward with use_kernel=True, y
    checked against the numpy reference (rtol/atol 2e-4) and timed;
 6. transposed: every rung of DistributedSpMV(transpose=True,
@@ -124,6 +130,9 @@ F32_FLOP_PER_S = 67e12
 # cycles a second of torch.cuda._sleep's spin: the H100's top clock (1.98
 # GHz) rounded up, so a spin lasts at least the time asked for
 SPIN_CYCLES_PER_S = 2e9
+
+PROBES_SRC = pathlib.Path(__file__).resolve().parent / "tools" / \
+    "spmv_probes.cu"
 
 SOURCE = {
     "pack_gather": ("src/repro_torch/kernels/csrc/pack_gather.cu",
@@ -227,15 +236,41 @@ def phase_card(torch) -> str:
     return line
 
 
-def phase_build() -> None:
+def load_probes():
+    """The probe kernels of tools/spmv_probes.cu, built beside the port's
+    kernels: ``(library, build info)``."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    lib, info = _build.build_library([PROBES_SRC], "spmv_probes")
+    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.probe_add_chain.argtypes = [ptr, i64, ptr]
+    lib.probe_spmv_gathers.argtypes = [ptr, ptr, ptr] + [i64] * 6 + [ptr]
+    lib.probe_gather_list.argtypes = [ptr, ptr, ptr, i64, ptr]
+    for fn in (lib.probe_add_chain, lib.probe_spmv_gathers,
+               lib.probe_gather_list):
+        fn.restype = ctypes.c_int
+    return lib, info
+
+
+def phase_build():
+    """Build the port's kernels and the probes, the two nvcc runs side by
+    side; returns the probes' library."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    _build.load()
+    with ThreadPoolExecutor(1) as pool:
+        probes = pool.submit(load_probes)
+        _build.load()
+        probes, probe_info = probes.result()
     info = _build.build_info()
     print(info["log"], file=sys.stderr, flush=True)   # ptxas registers/spills
     emit({"phase": "build", "nvcc_seconds": round(info["seconds"], 3),
+          "probes_nvcc_seconds": round(probe_info["seconds"], 3),
           "load_seconds": round(time.perf_counter() - t0, 3),
           "built": info["built"], "library": pathlib.Path(info["path"]).name})
+    return probes
 
 
 def phase_kernels(torch, matrix, x_host, engines, y_ref):
@@ -315,17 +350,17 @@ def phase_kernels(torch, matrix, x_host, engines, y_ref):
         shape=f"recv ({P}, {r}), x ({P}, {shard}) f32, L = {L} slots")
 
     # B4 ellpack_spmv_windowed: the on-copy SpMV of the full rungs
-    local_fn, kplan = kops.make_spmv_on_copy_sharded(matrix.cols, P)
-    win_blk, cols_rel, own_rel = (torch.as_tensor(a).to(dev) for a in kplan)
-    diag = torch.as_tensor(matrix.diag).to(dev).reshape(P, shard)
-    vals = torch.as_tensor(matrix.vals).to(dev).reshape(P, shard, R_NZ)
-    window, rpb = _on_copy_window(matrix.cols), min(256, shard)
+    local_fn, (diag, vals, win_blk, cols_rel, own_rel), window, rpb = \
+        spmv_inputs(torch, matrix, dev)
     y = local_fn(diag, vals, x_copy, win_blk, cols_rel, own_rel)
     y_plain = kref.ellpack_spmv_ref(diag, vals, cols_rel, own_rel, win_blk,
                                     x_copy, window=window,
                                     rows_per_block=rpb)
     torch.testing.assert_close(y, y_plain, **SPMV_TOL)
     err = float((y - y_plain).abs().max())
+    again = local_fn(diag, vals, x_copy, win_blk, cols_rel, own_rel)
+    check(torch.equal(y.view(torch.int32), again.view(torch.int32)),
+          "ellpack_spmv_windowed gave other bits on a second call")
     check(np.allclose(y.reshape(-1).cpu().numpy(), y_ref, **Y_TOL),
           "the on-copy SpMV disagrees with spmv_ref_np")
     # the library's yardstick: one CSR product of D + A (cuSPARSE)
@@ -334,11 +369,7 @@ def phase_kernels(torch, matrix, x_host, engines, y_ref):
     y_lib = torch.sparse.mm(csr, x_col)
     check(np.allclose(y_lib.reshape(-1).cpu().numpy(), y_ref, **Y_TOL),
           "the CSR library product disagrees with spmv_ref_np")
-    cols_abs = (win_blk.long() * window).repeat_interleave(
-        rpb, dim=1)[:, :, None] + cols_rel
-    x_read = sum(int(torch.unique(torch.cat([
-        cols_abs[q].reshape(-1), q * shard + torch.arange(
-            shard, device=dev)])).numel()) for q in range(P))
+    x_read = spmv_x_read(torch, win_blk, cols_rel, window, rpb)
     results["ellpack_spmv_windowed"] = dict(
         max_abs_err=err,
         ms=cuda_ms(torch, lambda: local_fn(diag, vals, x_copy, win_blk,
@@ -352,7 +383,51 @@ def phase_kernels(torch, matrix, x_host, engines, y_ref):
                     flops=2.0 * P * shard * (R_NZ + 1)),
         shape=f"rows ({P}, {shard}) x r_nz {R_NZ} f32 on x_copy "
               f"({P}, {N + 1})")
-    for name, res in results.items():
+    # the same product in bfloat16 (diag, vals and x; y in bfloat16), held
+    # against the plain version on float32 copies of the same bf16 inputs
+    # (float32 sums, so one bf16 rounding apart), twice for repeatability
+    bf = [t.to(torch.bfloat16) for t in (diag, vals, x_copy)]
+    y16 = local_fn(bf[0], bf[1], bf[2], win_blk, cols_rel, own_rel)
+    want16 = kref.ellpack_spmv_ref(bf[0].float(), bf[1].float(), cols_rel,
+                                   own_rel, win_blk, bf[2].float(),
+                                   window=window, rows_per_block=rpb)
+    check(y16.dtype == torch.bfloat16 and torch.allclose(
+        y16.float(), want16, **BF16_OUT_TOL),
+        "ellpack_spmv_windowed in bfloat16 differs from its plain version")
+    again = local_fn(bf[0], bf[1], bf[2], win_blk, cols_rel, own_rel)
+    check(torch.equal(y16.view(torch.int16), again.view(torch.int16)),
+          "ellpack_spmv_windowed in bfloat16 gave other bits on a second "
+          "call")
+    # the library's yardstick in bfloat16: the same CSR product, its values
+    # and x rounded to bfloat16 (timed only; the float32 line checks it)
+    csr16 = torch.sparse_csr_tensor(
+        csr.crow_indices(), csr.col_indices(),
+        csr.values().to(torch.bfloat16), csr.shape)
+    x_col16 = x_col.to(torch.bfloat16)
+    try:
+        torch.sparse.mm(csr16, x_col16)
+        library16 = cuda_ms(torch, lambda: torch.sparse.mm(csr16, x_col16))
+    except (RuntimeError, NotImplementedError) as exc:
+        # this torch build refuses a bfloat16 CSR product on the card
+        emit({"phase": "kernel", "name": "ellpack_spmv_windowed",
+              "library_refused": f"sparse.mm on bfloat16 CSR: {exc}"[:300]})
+        library16 = None
+    bf16_line = dict(
+        max_abs_err=float((y16.float() - want16).abs().max()),
+        ms=cuda_ms(torch, lambda: local_fn(bf[0], bf[1], bf[2], win_blk,
+                                           cols_rel, own_rel)),
+        plain_ms=cuda_ms(torch, lambda: kref.ellpack_spmv_ref(
+            bf[0], bf[1], cols_rel, own_rel, win_blk, bf[2], window=window,
+            rows_per_block=rpb)),
+        library_ms=library16,
+        bound=bound(P * shard * (2 + 4 + 2) + P * shard * R_NZ * 6
+                    + win_blk.numel() * 4 + x_read * 2,
+                    flops=2.0 * P * shard * (R_NZ + 1)),
+        shape=f"rows ({P}, {shard}) x r_nz {R_NZ} bf16 on x_copy "
+              f"({P}, {N + 1}) bf16")
+    del bf, y16, want16, again, csr16, x_col16
+    lines = list(results.items()) + [("ellpack_spmv_windowed", bf16_line)]
+    for name, res in lines:
         emit({"phase": "kernel", "name": name, "shape": res["shape"],
               "max_abs_err": res["max_abs_err"], "ms": res["ms"],
               "plain_ms": res["plain_ms"], "library_ms": res["library_ms"],
@@ -361,11 +436,36 @@ def phase_kernels(torch, matrix, x_host, engines, y_ref):
     return results
 
 
-def phase_push_kernels(torch, matrix, x_host, t_engines):
-    """accumulate_segments at its four call sites on the transposed main
-    path, and accumulate_into at the condensed finish, each against its
-    plain version run on the CPU copy of the same inputs: a sequential
-    fold, so the live rows must match bit for bit."""
+def spmv_x_read(torch, win_blk, cols_rel, window: int, rpb: int) -> int:
+    """Distinct (rank, position) pairs of x that B4 reads: every column and
+    every own row."""
+    shard = cols_rel.shape[1]
+    cols_abs = (win_blk.long() * window).repeat_interleave(
+        rpb, dim=1)[:, :, None] + cols_rel
+    return sum(int(torch.unique(torch.cat([
+        cols_abs[q].reshape(-1), q * shard + torch.arange(
+            shard, device=cols_rel.device)])).numel()) for q in range(P))
+
+
+def spmv_inputs(torch, matrix, dev):
+    """B4's inputs on the full rungs: ``(local_fn, (diag, vals, win_blk,
+    cols_rel, own_rel), window, rows_per_block)`` from
+    ``make_spmv_on_copy_sharded``, rank-stacked on ``dev``."""
+    from repro_torch.kernels import ops as kops
+    shard = N // P
+    local_fn, kplan = kops.make_spmv_on_copy_sharded(matrix.cols, P)
+    win_blk, cols_rel, own_rel = (torch.as_tensor(a).to(dev) for a in kplan)
+    diag = torch.as_tensor(matrix.diag).to(dev).reshape(P, shard)
+    vals = torch.as_tensor(matrix.vals).to(dev).reshape(P, shard, R_NZ)
+    return (local_fn, (diag, vals, win_blk, cols_rel, own_rel),
+            _on_copy_window(matrix.cols), min(256, shard))
+
+
+def push_sites(torch, matrix, x_host, t_engines):
+    """The push kernels' five call sites on the transposed main path:
+    ``{site: (kernel, init, vals, idx, table, out_len)}`` on the card, and
+    the own-target fold's result computed on the CPU (the condensed
+    finish's init)."""
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref as kref
 
@@ -395,7 +495,6 @@ def phase_push_kernels(torch, matrix, x_host, t_engines):
     own_cpu = kref.accumulate_segments_ref(lanes.cpu(), c_own.cpu(),
                                            out_len=shard + 1)
     own = own_cpu.to(dev)
-    # name: (kernel, init, vals, idx, table, out_len)
     sites = {
         "pack": ("accumulate_segments", None, lanes, c_msg,
                  cond.tables["pack"], P * s_max + 1),
@@ -408,6 +507,47 @@ def phase_push_kernels(torch, matrix, x_host, t_engines):
         "into": ("accumulate_into", own, recv_c, c_unpack,
                  cond.tables["into"], shard + 1),
     }
+    return sites, own_cpu
+
+
+def push_bound(table, src, init):
+    """B5/B6's bound at one site: the bytes the live rows need — the value
+    and index entry of every lane that lands on a live row (dump lanes never
+    do; padding lanes carry the identity by construction), the live init
+    rows read and the live output rows written."""
+    f = int(np.prod(src.shape[2:], dtype=np.int64))
+    esize = src.element_size()
+    folded = int(table.seg_ptr[:, -1].sum())
+    nbytes = (folded * (f * esize + 4)
+              + P * table.live_len * f * esize * (1 if init is None else 2))
+    return bound(nbytes), folded
+
+
+def chain_ms(torch, probes, length: int) -> float:
+    """Device ms of one thread adding ``length`` float32 values one after
+    another (tools/spmv_probes.cu): the floor of a fold whose longest row
+    has ``length`` lanes."""
+    out = torch.empty(1, device="cuda")
+
+    def run():
+        status = probes.probe_add_chain(
+            out.data_ptr(), length, torch.cuda.current_stream().cuda_stream)
+        check(status == 0, f"probe_add_chain failed: cudaError_t {status}")
+    return cuda_ms(torch, run, warmup=1, iters=5)
+
+
+def phase_push_kernels(torch, matrix, x_host, t_engines, probes):
+    """accumulate_segments at its four call sites on the transposed main
+    path, and accumulate_into at the condensed finish, each against its
+    plain version run on the CPU copy of the same inputs: a sequential
+    fold, so the live rows must match bit for bit.  Each site's line also
+    carries chain_ms, the time of one dependent add chain as long as its
+    longest row, and floor_ms = max(bound_ms, chain_ms)."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+
+    sites, own_cpu = push_sites(torch, matrix, x_host, t_engines)
+    dev = t_engines["condensed"].comm.device
     per_kernel = {}
     for site, (name, init, src, idx, table, out_len) in sites.items():
         live = table.live_len
@@ -440,22 +580,18 @@ def phase_push_kernels(torch, matrix, x_host, t_engines):
         acc = (init.clone() if init is not None else torch.zeros(
             (P, out_len) + tuple(feat), device=dev)).reshape(
             (-1,) + tuple(feat))
-        # the bound: the bytes the live rows need — the value and index
-        # entry of every lane that lands on a live row (dump lanes never
-        # do; padding lanes carry the identity by construction), the live
-        # init rows read and the live output rows written
         k_lanes, f = idx.shape[1], int(np.prod(feat, dtype=np.int64))
-        esize = src.element_size()
-        folded = int(table.seg_ptr[:, -1].sum())
-        nbytes = (folded * (f * esize + 4)
-                  + P * live * f * esize * (1 if init is None else 2))
+        site_bound, folded = push_bound(table, src, init)
+        longest = table.longest()
+        chain = chain_ms(torch, probes, longest)
         res = dict(
             site=site, max_abs_err=float((got - want[:, :live]).abs().max()),
             ms=cuda_ms(torch, kernel), plain_ms=cuda_ms(torch, plain),
             library_ms=cuda_ms(torch, lambda: acc.index_add_(0, rows,
                                                              flat_src)),
-            bound=bound(nbytes), folded_lanes=folded,
-            longest_segment=table.longest(),
+            bound=site_bound, chain_ms=chain,
+            floor_ms=max(site_bound[0], chain), folded_lanes=folded,
+            longest_segment=longest,
             shape=f"vals ({P}, {k_lanes}{', ' + str(f) if feat else ''}) "
                   f"f32 -> ({P}, {out_len}), live {live}")
         emit({"phase": "kernel", "name": name, **{
@@ -1331,7 +1467,7 @@ def main() -> None:
     from repro_torch.core.spmv import DistributedSpMV
 
     card = phase_card(torch)
-    phase_build()
+    probes = phase_build()
 
     t0 = time.perf_counter()
     matrix = make_mesh_like_matrix(N, R_NZ, locality_window=N // 64,
@@ -1375,7 +1511,8 @@ def main() -> None:
           "device_mem_gb": round(torch.cuda.memory_allocated() / 1e9, 3)})
 
     results = phase_kernels(torch, matrix, x_host, engines, y_ref)
-    results.update(phase_push_kernels(torch, matrix, x_host, t_engines))
+    results.update(phase_push_kernels(torch, matrix, x_host, t_engines,
+                                      probes))
     results.update(phase_stencil_kernel(torch, comm.device))
     results.update(phase_decode_attention_kernel(torch, comm.device))
     results.update(phase_selective_scan_kernel(torch, comm.device))

@@ -22,7 +22,7 @@ import time
 
 import torch
 
-__all__ = ["load", "build_info", "launch", "LAUNCHES"]
+__all__ = ["load", "build_library", "build_info", "launch", "LAUNCHES"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
@@ -39,14 +39,17 @@ _SIGNATURES = {
                               ctypes.c_int, _P),
     "rt_unpack_dest": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                        ctypes.c_int, _P),
-    "rt_ellpack_spmv_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                            _I, _P),
-    "rt_accumulate_segments": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                               ctypes.c_int, ctypes.c_int, _P),
-    "rt_accumulate_into": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                           ctypes.c_int, ctypes.c_int, _P),
+    "rt_ellpack_spmv": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                        ctypes.c_int, ctypes.c_int, _P),
+    "rt_ellpack_spmv_sorted": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _I, _I, ctypes.c_int, ctypes.c_int, _P),
+    "rt_accumulate_segments": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _I, ctypes.c_int, ctypes.c_int, _P),
+    "rt_accumulate_into": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _I, ctypes.c_int, ctypes.c_int, _P),
     "rt_fold_long_rows": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                          ctypes.c_int, ctypes.c_int, _P),
+                          ctypes.c_int, ctypes.c_int, _P, _P),
+    "rt_fold_gate": (_P, _I, _P),
     "rt_stencil2d_f32": (_P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P),
     "rt_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                             _I, _I, _I, ctypes.c_int, ctypes.c_int,
@@ -117,20 +120,27 @@ def _compile(srcs, lib_path: pathlib.Path) -> dict:
             "built": True}
 
 
+def build_library(srcs, stem: str) -> tuple[ctypes.CDLL, dict]:
+    """Compile ``srcs`` (``*.cu`` paths) into ``BUILD_DIR/lib<stem>-<hash>.so``
+    unless that file exists, and load it: ``(library, info)`` as
+    ``build_info`` describes.  The port's kernels go through ``load``; tools
+    build their own probes with this."""
+    srcs = sorted(pathlib.Path(s) for s in srcs)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib_path = BUILD_DIR / f"lib{stem}-{_digest(srcs)}.so"
+    info = ({"seconds": 0.0, "log": "", "built": False} if lib_path.exists()
+            else _compile(srcs, lib_path))
+    info["path"] = str(lib_path)
+    return ctypes.CDLL(str(lib_path)), info
+
+
 def load() -> ctypes.CDLL:
     """The kernels' shared library, built first if needed."""
     global _lib
     if _lib is not None:
         return _lib
-    srcs = _sources()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    lib_path = BUILD_DIR / f"librepro_torch_kernels-{_digest(srcs)}.so"
-    if lib_path.exists():
-        _info.update(seconds=0.0, log="", built=False)
-    else:
-        _info.update(_compile(srcs, lib_path))
-    _info["path"] = str(lib_path)
-    lib = ctypes.CDLL(str(lib_path))
+    lib, info = build_library(_sources(), "repro_torch_kernels")
+    _info.update(info)
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)

@@ -10,27 +10,45 @@
 // under add or max.  The TPU kernels ran one program (grid=(1,)) over a
 // resident array, so the combines happened in order.  Atomics would fix no
 // order, and a float sum in another order has other bits, so these kernels
-// fold instead:
-//   * the caller hands in a segment table built once per static index array
-//     (kernels/pack_gather.py segment_table): the stable sort of the lanes by
-//     target, perm[], and each target's first lane, seg_ptr[];
-//   * one thread per (target row, feature element) folds its row's lanes in
-//     ascending order, each add rounded on its own (__fadd_rn; bfloat16 is
-//     rounded back after every add), which is exactly the reference's
-//     sequential scatter, bit for bit;
-//   * consecutive threads take consecutive feature elements of a row, so the
+// fold instead, through a segment table built once per static index array
+// (kernels/pack_gather.py segment_table): the stable sort of the lanes by
+// target, perm[], each target's first lane, seg_ptr[], and the runs below.
+// Every row folds its lanes in ascending order, each add rounded on its own
+// (__fadd_rn; bfloat16 is rounded back after every add): exactly the
+// reference's sequential scatter, bit for bit.
+//
+// What bounds them on this card: bytes (one read of vals and idx, one write
+// of the live output rows; at most one add per element read) and, for a
+// row with very many lanes, the chain of its dependent adds.  The lanes of a
+// scalar fold (feat == 1) sit at random rows of vals: at the main path's
+// matrix every value is a 4-byte read of its own 32-byte sector, so what
+// the card can do is keep many of those reads in flight.
+//   * Short scalar rows (run_fold_kernel): the table cuts the sorted lanes
+//     of the rows with at most LONG_LANES lanes into runs: up to 2048
+//     consecutive target rows whose lanes form one contiguous range of
+//     perm of fewer than kRunLanes lanes.  A block takes one run: it parks
+//     the run's slice of seg_ptr in shared memory, reads that range of perm
+//     coalesced, issues the value reads eight a thread with no dependent
+//     load between them, parks the values beside it, and then lets each
+//     thread fold its rows' lanes from there, in order.
+//     That is two round trips to memory per run instead of two per four
+//     lanes of a row, consecutive threads write consecutive rows, and a
+//     stretch of empty rows (most of the replicate fold's n targets) costs
+//     one block per 2048 rows.
+//   * Long scalar rows (long_fold_kernel), more than LONG_LANES lanes: a
+//     block of their own, whose warps stage the row's values in shared
+//     memory while one thread folds them: the fold of one row is a chain of
+//     dependent adds that no order-preserving design can split, so the
+//     kernel keeps it at the add's latency rather than a gather's.  At the
+//     main path's matrix the band clipping at the vector's ends piles some
+//     2^18 lanes onto columns 0 and n-1; their chains, not the bytes, set
+//     the time of the replicate and own-target folds.  The host launches
+//     them first, on a stream of higher priority, so that they find empty
+//     SMs, and the short rows beside them.
+//   * Wide rows (segment_fold_kernel, feat > 1): one thread per (row,
+//     feature element), consecutive threads on consecutive elements, so the
 //     1024-float rows of the blockwise block combine are read coalesced;
-//     each thread issues the loads of four lanes before it folds them;
-//   * a row with more than long_lanes lanes (scalar rows only) gets a block
-//     of its own, whose warps stage the row's values in shared memory while
-//     one thread folds them: the fold of one row is a chain of dependent
-//     adds that no order-preserving design can split, so the kernel keeps
-//     it at the add's latency rather than a gather's.  At the main path's
-//     matrix the band clipping at the vector's ends piles some 2^18 lanes
-//     onto columns 0 and n-1; their chains, not the bytes, set the time of
-//     the replicate and own-target folds.
-// What bounds them on this card otherwise: bytes (one read of vals and idx,
-// one write of the live output rows; at most one add per element read).
+//     each thread issues the loads of four lanes before it folds them.
 //
 // Rows at or above live_len (the dump rows the callers slice off) are never
 // folded, and their contents are unspecified: at the main path's shapes
@@ -61,6 +79,12 @@ constexpr long long kMaxBlocks = 1LL << 20;
 constexpr long long kMaxPerRank = 1LL << 31;
 constexpr int kLanes = 4;   // lanes whose loads one thread issues together
 constexpr int kStage = 32;    // lanes a stager thread loads at once
+constexpr int kRunBatch = 8;  // value reads a run_fold_kernel thread issues
+                              // before it parks any
+constexpr int kRunRows = 8;   // kRunRows * kThreads rows a run holds at
+                              // most (RUN_ROWS in kernels/pack_gather.py)
+constexpr int kRunLanes = 2048;  // a run holds fewer lanes (RUN_LANES in
+                                 // kernels/pack_gather.py)
 
 enum Reduce : int { kAdd = 0, kMax = 1 };
 
@@ -141,9 +165,11 @@ struct Fold {
   const T* init;            // (P, out_len, feat) or null
   T* out;                   // (P, out_len, feat); rows >= live_len untouched
   const int32_t* long_rows; // (n_long,) rank * live_len + row
+  const int4* runs;         // (n_runs,) {first row, end row, first lane,
+                            // end lane}: rows as rank * live_len + row,
+                            // lanes as positions in the rank's perm
   unsigned k_lanes, live_len, out_len, feat;
-  int long_lanes;           // rows with more lanes are the long ones
-  unsigned blocks;          // blocks per rank of the short-row kernel
+  unsigned blocks;          // blocks per rank of the wide-row kernel
 };
 
 // Four accumulators' worth of shared memory in one load.
@@ -192,11 +218,16 @@ __device__ __forceinline__ void stage_chunk(typename Elem<T>::Acc* dst,
 // one in order, reading four values per shared-memory load, so the serial
 // chain runs at the combine's latency instead of a dependent gather's.  The
 // block takes all the shared memory a block may have, so no other block
-// shares its SM and its memory pipeline with the chain; the host launches it
-// first, so that it finds empty SMs, and the short-row kernel beside it on a
-// second stream.
+// shares its SM's issue slots and memory pipeline with the chain (beside
+// short-row blocks the chain runs some 55% slower).  Such a block starts
+// only on an empty SM, so the short rows' thousands of blocks must not be
+// dispatched before it: the host launches it first, on a stream of higher
+// priority, and holds the short-row kernel behind gate_kernel until every
+// long-row block has counted itself in `started`.
 template <typename T, int kReduce>
-__global__ void long_fold_kernel(const Fold<T> a, int chunk) {
+__global__ void long_fold_kernel(const Fold<T> a, int chunk,
+                                 unsigned long long* started) {
+  if (threadIdx.x == 0 && started != nullptr) atomicAdd(started, 1ULL);
   using E = Elem<T>;
   using Acc = typename E::Acc;
   using V4 = typename Vec4<Acc>::type;
@@ -262,11 +293,69 @@ __global__ void long_fold_kernel(const Fold<T> a, int chunk) {
   }
 }
 
-// Short rows: one thread per (row, feature element), consecutive threads on
-// consecutive elements; each thread issues the loads of kLanes lanes before
-// it folds them.  Rows with more than long_lanes lanes are left to
-// long_fold_kernel.
-template <typename T, int kReduce, bool kUnit>
+// Short scalar rows (feat == 1), one run a block: the run's lanes are one
+// contiguous range of the rank's perm (fewer than kRunLanes of them, at most
+// kRunRows * kThreads rows).  The block parks the run's slice of seg_ptr in
+// shared memory, reads the run's range of perm coalesced and the lanes'
+// values kRunBatch a thread with no dependent load between them, and parks
+// the values beside it; after the barrier thread i folds rows first + i,
+// first + i + kThreads, ... from there in ascending lane order, each from
+// its start value.  Long rows belong to no run.  Little state a thread (40
+// registers): six blocks fill an SM.
+template <typename T, int kReduce>
+__global__ void __launch_bounds__(kThreads) run_fold_kernel(const Fold<T> a) {
+  using E = Elem<T>;
+  using Acc = typename E::Acc;
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* const spp = reinterpret_cast<int*>(smem);          // rows + 1
+  Acc* const parked = reinterpret_cast<Acc*>(smem) + kRunRows * kThreads + 4;
+  static_assert(sizeof(Acc) == sizeof(int), "the parked values follow spp");
+  const int4 run = a.runs[blockIdx.x];
+  const unsigned rank = static_cast<unsigned>(run.x) / a.live_len;
+  const unsigned t0 = static_cast<unsigned>(run.x) - rank * a.live_len;
+  const int rows = run.y - run.x;
+  const T* vr = a.vals + static_cast<size_t>(rank) * a.k_lanes;
+  const int32_t* pr = a.perm + static_cast<size_t>(rank) * a.k_lanes + run.z;
+  const int32_t* sp = a.seg_ptr + static_cast<size_t>(rank) *
+                                      (a.live_len + 1) + t0;
+  const size_t out0 = static_cast<size_t>(rank) * a.out_len + t0;
+  const int n = run.w - run.z;
+  for (int i = threadIdx.x; i <= rows; i += kThreads) spp[i] = sp[i] - run.z;
+  for (int u0 = threadIdx.x; u0 < n; u0 += kRunBatch * kThreads) {
+    int k[kRunBatch];
+    T v[kRunBatch];
+#pragma unroll
+    for (int s = 0; s < kRunBatch; ++s) {
+      const int u = u0 + s * kThreads;
+      k[s] = u < n ? pr[u] : 0;
+    }
+#pragma unroll
+    for (int s = 0; s < kRunBatch; ++s) {
+      if (u0 + s * kThreads < n) v[s] = vr[k[s]];
+    }
+#pragma unroll
+    for (int s = 0; s < kRunBatch; ++s) {
+      const int u = u0 + s * kThreads;
+      if (u < n) parked[u] = E::load(v[s]);
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < rows; i += kThreads) {
+    Acc acc = start_value<T, kReduce>(a.init, out0 + i);
+    const bool padded = kReduce == kAdd && a.pad_rows &&
+        a.pad_rows[static_cast<size_t>(rank) * a.live_len + t0 + i];
+    for (int j = spp[i]; j < spp[i + 1]; ++j) {
+      acc = combine<T, kReduce>(acc, parked[j]);
+    }
+    if (padded) acc = E::add(acc, E::zero());
+    a.out[out0 + i] = E::store(acc);
+  }
+}
+
+// Wide rows (feat > 1): one thread per (row, feature element), consecutive
+// threads on consecutive elements; each thread issues the loads of kLanes
+// lanes before it folds them.
+template <typename T, int kReduce>
 __global__ void segment_fold_kernel(const Fold<T> a) {
   const size_t rank = blockIdx.y;
   const unsigned feat = a.feat;
@@ -278,11 +367,10 @@ __global__ void segment_fold_kernel(const Fold<T> a) {
   const size_t base = rank * a.out_len * feat;
   for (unsigned i = blockIdx.x * kThreads + threadIdx.x; i < total;
        i += a.blocks * kThreads) {
-    const unsigned t = kUnit ? i : i / feat;
+    const unsigned t = i / feat;
     const unsigned f = i - t * feat;
     const int hi = sp[t + 1];
     int j = sp[t];
-    if (hi - j > a.long_lanes) continue;
     typename Elem<T>::Acc acc = start_value<T, kReduce>(a.init, base + i);
     for (; j + kLanes <= hi; j += kLanes) {
       T v[kLanes];
@@ -309,9 +397,9 @@ __global__ void segment_fold_kernel(const Fold<T> a) {
 template <typename T>
 Fold<T> make_fold(const void* vals, const void* perm, const void* seg_ptr,
                   const void* pad_rows, const void* long_rows,
-                  const void* init, void* out, long long p,
-                  long long k_lanes, long long live_len, long long out_len,
-                  long long feat, long long long_lanes) {
+                  const void* runs, const void* init, void* out,
+                  long long p, long long k_lanes, long long live_len,
+                  long long out_len, long long feat) {
   long long blocks = (live_len * feat + kThreads - 1) / kThreads;
   blocks = blocks < 1 ? 1 : (blocks > kMaxBlocks ? kMaxBlocks : blocks);
   return Fold<T>{static_cast<const T*>(vals),
@@ -321,31 +409,38 @@ Fold<T> make_fold(const void* vals, const void* perm, const void* seg_ptr,
                  static_cast<const T*>(init),
                  static_cast<T*>(out),
                  static_cast<const int32_t*>(long_rows),
+                 static_cast<const int4*>(runs),
                  static_cast<unsigned>(k_lanes),
                  static_cast<unsigned>(live_len),
                  static_cast<unsigned>(out_len),
                  static_cast<unsigned>(feat),
-                 static_cast<int>(long_lanes),
                  static_cast<unsigned>(blocks)};
 }
 
 template <typename T>
-void launch_short(const Fold<T>& a, long long p, int reduce,
-                  cudaStream_t s) {
-  const dim3 grid(a.blocks, static_cast<unsigned>(p));
-  auto go = [&](auto kernel) { kernel<<<grid, kThreads, 0, s>>>(a); };
-  if (reduce == kAdd) {
-    if (a.feat == 1) go(segment_fold_kernel<T, kAdd, true>);
-    else go(segment_fold_kernel<T, kAdd, false>);
-  } else {
-    if (a.feat == 1) go(segment_fold_kernel<T, kMax, true>);
-    else go(segment_fold_kernel<T, kMax, false>);
+int launch_short(const Fold<T>& a, long long p, long long n_runs,
+                 int reduce, cudaStream_t s) {
+  using Acc = typename Elem<T>::Acc;
+  if (a.feat == 1) {
+    if (n_runs == 0) return static_cast<int>(cudaGetLastError());
+    // seg_ptr's slice and the run's lanes, 4 bytes each: 16 KB, under the
+    // 48 KB a block may take without opting in
+    const size_t smem = (kRunRows * kThreads + 4) * sizeof(int) +
+                        kRunLanes * sizeof(Acc);
+    const unsigned grid = static_cast<unsigned>(n_runs);
+    if (reduce == kAdd) run_fold_kernel<T, kAdd><<<grid, kThreads, smem, s>>>(a);
+    else run_fold_kernel<T, kMax><<<grid, kThreads, smem, s>>>(a);
+    return static_cast<int>(cudaGetLastError());
   }
+  const dim3 grid(a.blocks, static_cast<unsigned>(p));
+  if (reduce == kAdd) segment_fold_kernel<T, kAdd><<<grid, kThreads, 0, s>>>(a);
+  else segment_fold_kernel<T, kMax><<<grid, kThreads, 0, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_long(const Fold<T>& a, long long n_long, int reduce,
-                cudaStream_t s) {
+                unsigned long long* started, cudaStream_t s) {
   using Acc = typename Elem<T>::Acc;
   int device = 0, smem = 0;
   cudaGetDevice(&device);
@@ -357,7 +452,8 @@ int launch_long(const Fold<T>& a, long long n_long, int reduce,
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<static_cast<unsigned>(n_long), kThreads, smem, s>>>(a, chunk);
+    kernel<<<static_cast<unsigned>(n_long), kThreads, smem, s>>>(a, chunk,
+                                                               started);
     return static_cast<int>(cudaGetLastError());
   };
   return reduce == kAdd ? go(long_fold_kernel<T, kAdd>)
@@ -373,35 +469,34 @@ bool bad_extents(long long p, long long k_lanes, long long live_len,
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = int32; reduce: 0 = add, 1 = max.
 int fold(const void* vals, const void* perm, const void* seg_ptr,
-         const void* pad_rows, const void* init, void* out, long long p,
-         long long k_lanes, long long live_len, long long out_len,
-         long long feat, long long long_lanes, int dtype, int reduce,
-         void* stream) {
+         const void* pad_rows, const void* runs, const void* init, void* out,
+         long long p, long long k_lanes, long long live_len,
+         long long out_len, long long feat, long long n_runs, int dtype,
+         int reduce, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (p == 0 || live_len == 0 || feat == 0) return cudaGetLastError();
   if (bad_extents(p, k_lanes, live_len, out_len, feat, reduce) ||
-      long_lanes < 0 || long_lanes > INT_MAX)
+      n_runs < 0 || n_runs > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
 #define FOLD_SHORT(T)                                                       \
-  launch_short<T>(make_fold<T>(vals, perm, seg_ptr, pad_rows, nullptr,     \
-                               init, out, p, k_lanes, live_len, out_len,   \
-                               feat, long_lanes),                          \
-                  p, reduce, s)
+  return launch_short<T>(make_fold<T>(vals, perm, seg_ptr, pad_rows,        \
+                                      nullptr, runs, init, out, p, k_lanes, \
+                                      live_len, out_len, feat),             \
+                         p, n_runs, reduce, s)
   switch (dtype) {
-    case 0: FOLD_SHORT(float); break;
-    case 1: FOLD_SHORT(__nv_bfloat16); break;
-    case 2: FOLD_SHORT(int32_t); break;
+    case 0: FOLD_SHORT(float);
+    case 1: FOLD_SHORT(__nv_bfloat16);
+    case 2: FOLD_SHORT(int32_t);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef FOLD_SHORT
-  return cudaGetLastError();
 }
 
 int fold_long(const void* vals, const void* perm, const void* seg_ptr,
               const void* pad_rows, const void* long_rows, const void* init,
               void* out, long long p, long long k_lanes, long long live_len,
               long long out_len, long long n_long, int dtype, int reduce,
-              void* stream) {
+              void* started, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_long == 0) return cudaGetLastError();
   if (bad_extents(p, k_lanes, live_len, out_len, 1, reduce) || n_long < 0 ||
@@ -409,9 +504,10 @@ int fold_long(const void* vals, const void* perm, const void* seg_ptr,
     return static_cast<int>(cudaErrorInvalidValue);
 #define FOLD_LONG(T)                                                         \
   return launch_long<T>(make_fold<T>(vals, perm, seg_ptr, pad_rows,          \
-                                     long_rows, init, out, p, k_lanes,       \
-                                     live_len, out_len, 1, 0),               \
-                        n_long, reduce, s)
+                                     long_rows, nullptr, init, out, p,       \
+                                     k_lanes, live_len, out_len, 1),         \
+                        n_long, reduce,                                       \
+                        static_cast<unsigned long long*>(started), s)
   switch (dtype) {
     case 0: FOLD_LONG(float);
     case 1: FOLD_LONG(__nv_bfloat16);
@@ -421,45 +517,66 @@ int fold_long(const void* vals, const void* perm, const void* seg_ptr,
 #undef FOLD_LONG
 }
 
+// Holds its stream until *started reaches target: one thread, asleep
+// between reads, so it keeps nothing of its SM from the long-row blocks it
+// waits for.
+__global__ void gate_kernel(const unsigned long long* started,
+                            unsigned long long target) {
+  while (*static_cast<const volatile unsigned long long*>(started) < target) {
+    __nanosleep(500);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 // out[q, t] = identity (+)= vals[q, perm[q, j]] for j in [seg_ptr[q, t],
-// seg_ptr[q, t + 1]), for every live row t < live_len with at most
-// long_lanes lanes; rows are feat elements wide.  pad_rows may be null.
+// seg_ptr[q, t + 1]), rows feat elements wide: for feat == 1 over the rows
+// of the n_runs runs (fewer than kRunLanes lanes each), for feat > 1 over
+// every live row t < live_len.  pad_rows may be null.
 int rt_accumulate_segments(const void* vals, const void* perm,
                            const void* seg_ptr, const void* pad_rows,
-                           void* out, long long p, long long k_lanes,
-                           long long live_len, long long out_len,
-                           long long feat, long long long_lanes, int dtype,
-                           int reduce, void* stream) {
-  return fold(vals, perm, seg_ptr, pad_rows, nullptr, out, p, k_lanes,
-              live_len, out_len, feat, long_lanes, dtype, reduce, stream);
+                           const void* runs, void* out, long long p,
+                           long long k_lanes, long long live_len,
+                           long long out_len, long long feat,
+                           long long n_runs, int dtype, int reduce,
+                           void* stream) {
+  return fold(vals, perm, seg_ptr, pad_rows, runs, nullptr, out, p, k_lanes,
+              live_len, out_len, feat, n_runs, dtype, reduce, stream);
 }
 
 // The same fold, starting from init[q, t] (out_len rows, like out).
 int rt_accumulate_into(const void* init, const void* vals, const void* perm,
-                       const void* seg_ptr, const void* pad_rows, void* out,
-                       long long p, long long k_lanes, long long live_len,
-                       long long out_len, long long feat,
-                       long long long_lanes, int dtype, int reduce,
-                       void* stream) {
-  return fold(vals, perm, seg_ptr, pad_rows, init, out, p, k_lanes, live_len,
-              out_len, feat, long_lanes, dtype, reduce, stream);
+                       const void* seg_ptr, const void* pad_rows,
+                       const void* runs, void* out, long long p,
+                       long long k_lanes, long long live_len,
+                       long long out_len, long long feat, long long n_runs,
+                       int dtype, int reduce, void* stream) {
+  return fold(vals, perm, seg_ptr, pad_rows, runs, init, out, p, k_lanes,
+              live_len, out_len, feat, n_runs, dtype, reduce, stream);
 }
 
 // The long rows of either fold (feat == 1): long_rows lists n_long rows as
-// rank * live_len + row; init may be null (start from the identity).
+// rank * live_len + row; init may be null (start from the identity).  Each
+// block adds one to *started (a device counter, or null) as it starts.
 int rt_fold_long_rows(const void* init, const void* vals, const void* perm,
                       const void* seg_ptr, const void* pad_rows,
                       const void* long_rows, void* out, long long p,
                       long long k_lanes, long long live_len,
                       long long out_len, long long n_long, int dtype,
-                      int reduce, void* stream) {
+                      int reduce, void* started, void* stream) {
   return fold_long(vals, perm, seg_ptr, pad_rows, long_rows, init, out, p,
                    k_lanes, live_len, out_len, n_long, dtype, reduce,
-                   stream);
+                   started, stream);
+}
+
+// Holds the stream until the device counter *started reaches target.
+int rt_fold_gate(const void* started, long long target, void* stream) {
+  gate_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned long long*>(started),
+      static_cast<unsigned long long>(target));
+  return cudaGetLastError();
 }
 
 }  // extern "C"

@@ -15,7 +15,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention import decode_attention
-from repro_torch.kernels.ellpack_spmv import ellpack_spmv_windowed
+from repro_torch.kernels.ellpack_spmv import (PlanOrder,
+                                              ellpack_spmv_windowed)
 from repro_torch.kernels.pack_gather import (SegmentTable,
                                              accumulate_into,
                                              accumulate_segments,
@@ -92,7 +93,9 @@ def ellpack_spmv(diag, vals, cols, x, *, rows_per_block: int = 256,
     """y = diag*x + EllPack(vals, cols) @ x for one unsharded matrix.
 
     ``plan``: optional precomputed ``plan_spmv_windows`` output (amortize the
-    one-time prep, exactly like the paper's preparation step).
+    one-time prep, exactly like the paper's preparation step).  The plan
+    holds no order table, so the card runs the row-order kernel; the
+    sharded planners below keep one (``PlanOrder``).
     """
     n = vals.shape[0]
     if plan is None:
@@ -148,12 +151,14 @@ def make_spmv_on_copy_sharded(cols: np.ndarray, p: int, *,
         assert cols_rel[q].min() >= 0 and cols_rel[q].max() < 2 * window
     # positions read: every column and every own row, all < n
     need = max(int(cols.max()), n - 1) + 1
+    order = PlanOrder(window=window, rows_per_block=rows_per_block)
 
     def local_fn(diag, vals, x_copy, win_blk_t, cols_rel_t, own_rel_t):
         _x_long_enough(x_copy, need, "x_copy")
         return ellpack_spmv_windowed(
             diag, vals, cols_rel_t, own_rel_t, win_blk_t, x_copy,
-            window=window, rows_per_block=rows_per_block)
+            window=window, rows_per_block=rows_per_block,
+            order=order(cols_rel_t, win_blk_t))
 
     return local_fn, (win_blk, cols_rel, own_rel)
 
@@ -223,6 +228,8 @@ def make_spmv_overlap_sharded(plan, vals: np.ndarray, *,
     assert rem_cols_rel.min() >= 0 and rem_cols_rel.max() < 2 * window_rem
     need_rem = int(hi.max()) + 1
     own_rel_cache: dict = {}
+    own_order = PlanOrder(window=window_own, rows_per_block=rows_per_block)
+    rem_order = PlanOrder(window=window_rem, rows_per_block=rows_per_block)
 
     def own_fn(diag, x_ext, loc_vals_t, loc_cols_t, own_win_t):
         _x_long_enough(x_ext, shard + 1, "x_ext")
@@ -233,13 +240,15 @@ def make_spmv_overlap_sharded(plan, vals: np.ndarray, *,
             own_rel_cache[x_ext.device] = own_rel
         return ellpack_spmv_windowed(
             diag, loc_vals_t, loc_cols_t, own_rel, own_win_t, x_ext,
-            window=window_own, rows_per_block=rows_per_block)
+            window=window_own, rows_per_block=rows_per_block,
+            order=own_order(loc_cols_t, own_win_t))
 
     def rem_fn(x_copy, rem_vals_t, rem_cols_t, rem_own_t, rem_win_t):
         _x_long_enough(x_copy, need_rem, "x_copy")
         return ellpack_spmv_windowed(
             None, rem_vals_t, rem_cols_t, None, rem_win_t, x_copy,
-            window=window_rem, rows_per_block=rows_per_block)
+            window=window_rem, rows_per_block=rows_per_block,
+            order=rem_order(rem_cols_t, rem_win_t))
 
     kargs = (loc_vals_s, loc_cols_s, own_win,
              rem_vals.reshape(p, shard, r_rem), rem_cols_rel,

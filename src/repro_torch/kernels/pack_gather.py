@@ -183,14 +183,19 @@ class SegmentTable:
     padding lane targeted row t.  ``perm`` keeps all K lanes per rank: the
     left-out ones sort last and are never read.  ``long_rows`` lists the
     rows (``q * live_len + t``) with more than ``LONG_LANES`` lanes, which
-    the kernel folds one block each (scalar rows only).  ``idx`` is the
-    array the table was built from: the kernels fold only that array."""
+    the kernel folds one block each (scalar rows only).  ``runs`` cuts the
+    other live rows into runs for the scalar kernel, one block each: row
+    ``runs[b, 0] <= g < runs[b, 1]`` (``g = q * live_len + t``, at most
+    ``RUN_ROWS`` rows of one rank) folds lanes ``perm[q, runs[b, 2] :
+    runs[b, 3]]`` (fewer than ``RUN_LANES``).  ``idx`` is the array the
+    table was built from: the kernels fold only that array."""
 
     idx: torch.Tensor                  # (P, K) int32
     perm: torch.Tensor                 # (P, K) int32
     seg_ptr: torch.Tensor              # (P, live_len + 1) int32
     pad_rows: torch.Tensor | None      # (P, live_len) int8
     long_rows: torch.Tensor            # (n_long,) int32
+    runs: torch.Tensor                 # (n_runs, 4) int32
     out_len: int
     live_len: int
 
@@ -202,6 +207,38 @@ class SegmentTable:
 
 # rows with more lanes get a block of their own on scalar rows
 LONG_LANES = 64
+# a run of the scalar short-row kernel: at most RUN_ROWS rows (eight for
+# each of a block's 256 threads, csrc/accumulate.cu kRunRows) and fewer than
+# RUN_LANES lanes (parked in its shared memory, kRunLanes)
+RUN_ROWS = 2048
+RUN_LANES = 2048
+
+
+def _runs(seg_ptr: torch.Tensor) -> torch.Tensor:
+    """The runs of ``SegmentTable`` from its ``seg_ptr`` ``(P, live + 1)``:
+    cut the live rows of every rank before each multiple of ``RUN_ROWS``,
+    around each long row, and where ``seg_ptr // (RUN_LANES - LONG_LANES)``
+    steps; drop the long rows.  A run's rows then start within ``RUN_LANES
+    - LONG_LANES`` lanes of each other and its last row has at most
+    ``LONG_LANES`` lanes, so it holds fewer than ``RUN_LANES``."""
+    sp = seg_ptr.to(torch.int64)
+    long = (sp[:, 1:] - sp[:, :-1]) > LONG_LANES
+    p, live = long.shape
+    if p * live == 0:
+        return torch.zeros((0, 4), dtype=torch.int32, device=sp.device)
+    step = sp[:, :-1] // (RUN_LANES - LONG_LANES)
+    cut = long.clone()
+    cut[:, ::RUN_ROWS] = True
+    cut[:, 1:] |= long[:, :-1] | (step[:, 1:] != step[:, :-1])
+    first = torch.nonzero(cut.reshape(-1)).reshape(-1)
+    end = torch.cat([first[1:], first.new_full((1,), p * live)])
+    keep = ~long.reshape(-1)[first]
+    first, end = first[keep], end[keep]
+    rank = first // live
+    flat = sp.reshape(-1)
+    lo = flat[first + rank]                   # sp[rank, first - rank * live]
+    hi = flat[end + rank]
+    return torch.stack([first, end, lo, hi], dim=1).to(torch.int32)
 
 
 def segment_table(idx: torch.Tensor, *, out_len: int,
@@ -244,7 +281,7 @@ def segment_table(idx: torch.Tensor, *, out_len: int,
                     > 0).to(torch.int8).reshape(p, live)
     return SegmentTable(idx=idx, perm=perm.contiguous(), seg_ptr=seg_ptr,
                         pad_rows=pad_rows, long_rows=long_rows,
-                        out_len=out_len, live_len=live)
+                        runs=_runs(seg_ptr), out_len=out_len, live_len=live)
 
 
 _FOLD_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
@@ -274,7 +311,7 @@ def _fold(kernel: str, entry: str, init, vals, idx, reduce: str, table,
     require(table.idx.data_ptr() == idx.data_ptr()
             and table.idx.shape == idx.shape and table.out_len == out_len,
             "the table was built for another index array or out_len")
-    parts = [table.perm, table.seg_ptr, table.long_rows]
+    parts = [table.perm, table.seg_ptr, table.long_rows, table.runs]
     if table.pad_rows is not None:
         parts.append(table.pad_rows)
     on_card(vals, *parts)
@@ -288,38 +325,60 @@ def _fold(kernel: str, entry: str, init, vals, idx, reduce: str, table,
               pad_ptr)
     dtype, red = _FOLD_DTYPES[vals.dtype], _FOLD_REDUCES[reduce]
     head = () if init is None else (init_ptr,)
-    short = (kernel, entry, dev, *head, *common, out.data_ptr(), p,
-             idx.shape[1], table.live_len, out_len, feat,
-             LONG_LANES if feat == 1 else 2 ** 31 - 1, dtype, red)
+    short = (kernel, entry, dev, *head, *common, table.runs.data_ptr(),
+             out.data_ptr(), p, idx.shape[1], table.live_len, out_len, feat,
+             table.runs.shape[0], dtype, red)
     # scalar rows past LONG_LANES fold in blocks of their own, each on an
-    # SM of its own: launched first on the caller's stream, so that they
-    # find empty SMs, with the short rows beside them on a side stream;
-    # wider rows fold every row one thread per feature element
+    # SM of its own: launched first, on a stream of higher priority, with
+    # the short rows beside them on the caller's stream behind a gate that
+    # opens once every long-row block has started (so they find empty SMs);
+    # wider rows fold every row one thread per feature element.  The gate's
+    # target is a host-side running total, which a CUDA graph would freeze
+    # at capture: under capture the long rows count nothing and no gate is
+    # launched: a captured fold gives the same bits, but its short rows may
+    # take the SMs before its long rows start (the serialized step of
+    # PERF.md §6 that the gate removes)
     n_long = table.long_rows.numel() if feat == 1 else 0
     if not n_long:
         _build.launch(*short)
         return out
     main = torch.cuda.current_stream(dev)
-    side = _side_stream(dev)
-    side.wait_stream(main)
-    _build.launch(None, "rt_fold_long_rows", dev, init_ptr, *common,
-                  table.long_rows.data_ptr(), out.data_ptr(), p, idx.shape[1],
-                  table.live_len, out_len, n_long, dtype, red)
-    with torch.cuda.stream(side):
-        _build.launch(*short)
-    # everything the side stream read was allocated on the main stream,
+    chains = _Chains.on(dev)
+    gated = not torch.cuda.is_current_stream_capturing()
+    chains.stream.wait_stream(main)
+    with torch.cuda.stream(chains.stream):
+        _build.launch(None, "rt_fold_long_rows", dev, init_ptr, *common,
+                      table.long_rows.data_ptr(), out.data_ptr(), p,
+                      idx.shape[1], table.live_len, out_len, n_long, dtype,
+                      red, chains.started.data_ptr() if gated else None)
+    if gated:
+        chains.launched += n_long
+        _build.launch(None, "rt_fold_gate", dev, chains.started.data_ptr(),
+                      chains.launched)
+    _build.launch(*short)
+    # everything the chain stream read was allocated on the main stream,
     # which waits for it before running (or freeing) anything after
-    main.wait_stream(side)
+    main.wait_stream(chains.stream)
     return out
 
 
-_SIDE_STREAMS: dict = {}
+class _Chains:
+    """A device's long-row stream (priority -1, above the default streams),
+    the device counter its blocks add themselves to as they start, and the
+    number of blocks launched on it so far."""
 
+    _by_device: dict = {}
 
-def _side_stream(device) -> torch.cuda.Stream:
-    if device not in _SIDE_STREAMS:
-        _SIDE_STREAMS[device] = torch.cuda.Stream(device=device)
-    return _SIDE_STREAMS[device]
+    def __init__(self, device):
+        self.stream = torch.cuda.Stream(device=device, priority=-1)
+        self.started = torch.zeros(1, dtype=torch.int64, device=device)
+        self.launched = 0
+
+    @classmethod
+    def on(cls, device) -> "_Chains":
+        if device not in cls._by_device:
+            cls._by_device[device] = cls(device)
+        return cls._by_device[device]
 
 
 def accumulate_segments(vals: torch.Tensor, idx: torch.Tensor, *,

@@ -23,6 +23,7 @@ from repro_torch.core.matrix import EllpackMatrix
 from repro_torch.core.solvers import ConjugateGradient
 from repro_torch.core.spmv import DistributedSpMV, normal_equations_step
 from repro_torch.kernels import decode_attention as kda
+from repro_torch.kernels import ellpack_spmv as kes
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.models.transformer import Model, RunCtx
@@ -121,27 +122,71 @@ def test_unpack_dest_bit_exact(dev, feat, dtype):
                                        else torch.int32))
 
 
+BF16_OUT_TOL = dict(rtol=2.0 ** -8, atol=2e-4)   # one bf16 rounding
+
+
 @pytest.mark.parametrize("r_nz", [1, 3, 8, 16, 33])
 @pytest.mark.parametrize("with_diag", [True, False])
-def test_ellpack_spmv_matches_plain(dev, r_nz, with_diag):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [512, 544, 2592])
+def test_ellpack_spmv_matches_plain(dev, r_nz, with_diag, dtype, rows):
+    """B4 against its plain version, in float32 (3e-5) and in bfloat16
+    (diag, vals and x; against the plain version on float32 copies of the
+    same values, one bf16 rounding apart), on a strided x: the row-order
+    kernel, and where r_nz is ``sortable`` the column-sorted one through
+    the plan's ``order_table`` in ``SORT_ROWS`` (1024-row) groups, at one
+    partial group (512, 544 rows) and at two full groups and a partial one
+    (2592); two calls give the same bits."""
     rng = np.random.default_rng(3)
-    p, rows, rpb, window = 3, 512, 128, 256
+    p, rpb, window = 3, 32, 256
     nblk = rows // rpb
-    x = _rand(rng, (p, 4 * window + 7), torch.float32, dev)
+    x = _rand(rng, (p, 4 * window + 7), dtype, dev)
     win_blk = torch.as_tensor(rng.integers(0, 3, (p, nblk)),
                               dtype=torch.int32, device=dev)
     cols_rel = torch.as_tensor(rng.integers(0, 2 * window, (p, rows, r_nz)),
                                dtype=torch.int32, device=dev)
     own_rel = torch.as_tensor(rng.integers(0, 2 * window, (p, rows)),
                               dtype=torch.int32, device=dev)
-    vals = _rand(rng, (p, rows, r_nz), torch.float32, dev)
-    diag = _rand(rng, (p, rows), torch.float32, dev) if with_diag else None
+    vals = _rand(rng, (p, rows, r_nz), dtype, dev)
+    diag = _rand(rng, (p, rows), dtype, dev) if with_diag else None
     args = (diag, vals, cols_rel, own_rel if with_diag else None, win_blk,
             x[:, :-7])                         # a strided view of x
-    got = kops.ellpack_spmv_windowed(*args, window=window,
-                                     rows_per_block=rpb)
-    want = kref.ellpack_spmv_ref(*args, window=window, rows_per_block=rpb)
-    torch.testing.assert_close(got, want, **TOL)
+    wide = tuple(t.float() if t is not None and t.is_floating_point() else t
+                 for t in args)
+    want = kref.ellpack_spmv_ref(*wide, window=window, rows_per_block=rpb)
+    orders = [None]
+    if kes.sortable(r_nz):
+        orders.append(kes.order_table(cols_rel, win_blk, window=window,
+                                      rows_per_block=rpb,
+                                      group_rows=kes.SORT_ROWS))
+    for order in orders:
+        kops.reset_launch_counts()
+        got = kops.ellpack_spmv_windowed(*args, window=window,
+                                         rows_per_block=rpb, order=order)
+        again = kops.ellpack_spmv_windowed(*args, window=window,
+                                           rows_per_block=rpb, order=order)
+        assert kops.launch_counts()["ellpack_spmv_windowed"] == 2
+        assert got.dtype == dtype and _same_bits(got, again)
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, **TOL)
+        else:
+            torch.testing.assert_close(got.float(), want, **BF16_OUT_TOL)
+
+
+def test_plan_order_built_once_per_plan(dev):
+    """The on-copy planner's ``PlanOrder`` builds its table at the plan's
+    first call on the card and gives the same one after; other plan arrays
+    get a table of their own."""
+    n, p = 4096, 4
+    m = make_mesh_like_matrix(n, 16, locality_window=n // 64,
+                              long_range_frac=0.02, seed=2)
+    order = kes.PlanOrder(window=512, rows_per_block=256)
+    _, kplan = kops.make_spmv_on_copy_sharded(m.cols, p)
+    win_blk, cols_rel, _ = (torch.as_tensor(a).to(dev) for a in kplan)
+    first = order(cols_rel, win_blk)
+    assert first is order(cols_rel, win_blk)
+    other = order(cols_rel.clone(), win_blk)
+    assert other is not first and torch.equal(other[0], first[0])
 
 
 @pytest.mark.parametrize("strategy", ["replicate", "blockwise", "condensed",
@@ -161,6 +206,7 @@ def test_spmv_engine_on_card(dev, strategy, materialize):
     counts = kops.launch_counts()
     np.testing.assert_allclose(y.reshape(-1).cpu().numpy(), spmv_ref_np(m, x),
                                rtol=2e-4, atol=2e-4)
+    assert _same_bits(eng(eng.shard_vector(x)), y)     # repeatable
     if strategy != "replicate":
         assert counts["pack_gather"] == 1
     if materialize == "dest":
@@ -320,6 +366,115 @@ def test_long_rows_bit_exact(dev, reduce, dtype):
     assert _same_bits(got, want)
 
 
+def _stage_idx(layout: str, rng, p: int):
+    """``(idx, live)`` for the staged-run cases: 60000 lanes a rank over
+    6000 rows, a long row of 2000 lanes among short ones, a row of exactly
+    LONG_LANES (short) and lanes to the dump row ``live``.
+
+    * random: 3000 targets, about 20 lanes each, runs cut on the lane step
+      with stretches of empty rows; three tenths of rank 1's lanes dumped;
+    * full_runs: row 0 takes 63 lanes and rows 1-900 LONG_LANES each, so
+      runs hold ``RUN_LANES - 1`` lanes, the most a run may;
+    * empty_stretch: as random, but the short rows' lanes lie below row
+      1000 or from 5000 up, so rows 2048-4095 are one run of ``RUN_ROWS``
+      empty rows."""
+    from repro_torch.kernels.pack_gather import LONG_LANES
+    live, k = 6000, 60000
+    if layout == "full_runs":
+        rows = np.concatenate([
+            np.zeros(63, int), np.repeat(np.arange(1, 901), LONG_LANES),
+            np.full(2000, 1500), np.full(LONG_LANES, 1501)])
+        rows = np.concatenate([rows, np.full(k - rows.size, live)])
+        return np.stack([rows[rng.permutation(k)] for _ in range(p)]
+                        ).astype(np.int32), live
+    idx = rng.integers(0, 3000 if layout == "random" else 2000, (p, k))
+    if layout == "empty_stretch":
+        idx[idx >= 1000] += 4000
+    idx = idx.astype(np.int32)
+    idx[(idx == 1500) | (idx == 1501)] = live
+    idx[:, :2000] = 1500                      # a long row among short ones
+    idx[:, 2000:2000 + LONG_LANES] = 1501     # at the threshold: short
+    idx[1, rng.random(k) < 0.3] = live        # the dump row
+    return idx, live
+
+
+@pytest.mark.parametrize("layout", ["random", "full_runs", "empty_stretch"])
+@pytest.mark.parametrize("reduce", ["add", "max"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32])
+def test_runs_straddle_stages_bit_exact(dev, layout, reduce, dtype):
+    """Runs cut on the lane step, runs of ``RUN_LANES - 1`` lanes (every
+    thread parks several values) and a run of ``RUN_ROWS`` empty rows, each
+    beside a long row (2000 lanes), B5 and B6, bit for bit against the
+    CPU's sequential fold."""
+    from repro_torch.kernels import pack_gather as kpg
+    p = 3
+    rng = np.random.default_rng(5)
+    idx, live = _stage_idx(layout, rng, p)
+    if dtype == torch.int32:
+        vals = torch.as_tensor(rng.integers(-99, 99, idx.shape),
+                               dtype=torch.int32)
+        init = torch.as_tensor(rng.integers(-99, 99, (p, live + 1)),
+                               dtype=torch.int32)
+    else:
+        vals = torch.as_tensor(rng.standard_normal(idx.shape)
+                               .astype(np.float32)).to(dtype)
+        init = torch.as_tensor(rng.standard_normal((p, live + 1))
+                               .astype(np.float32)).to(dtype)
+    tidx = torch.as_tensor(idx)
+    idd = tidx.to(dev)
+    table = kops.segment_table(idd, out_len=live + 1, live_len=live)
+    runs = table.runs.cpu().numpy().astype(np.int64)
+    lanes, rows = runs[:, 3] - runs[:, 2], runs[:, 1] - runs[:, 0]
+    assert lanes.max() < kpg.RUN_LANES and table.long_rows.numel() == p
+    if layout == "full_runs":
+        assert lanes.max() == kpg.RUN_LANES - 1
+    if layout == "empty_stretch":
+        assert np.any((rows == kpg.RUN_ROWS) & (lanes == 0))
+    seg = kops.accumulate_segments(vals.to(dev), idd, out_len=live + 1,
+                                   reduce=reduce, table=table)
+    into = kops.accumulate_into(init.to(dev), vals.to(dev), idd,
+                                reduce=reduce, table=table)
+    want_seg = kref.accumulate_segments_ref(vals, tidx, out_len=live + 1,
+                                            reduce=reduce)
+    want_into = kref.accumulate_into_ref(init, vals, tidx, reduce=reduce)
+    assert _same_bits(seg[:, :live], want_seg[:, :live])
+    assert _same_bits(into[:, :live], want_into[:, :live])
+
+
+def test_fold_with_long_rows_in_a_cuda_graph(dev):
+    """A fold with long rows captured in a CUDA graph (no start gate there)
+    gives the same bits on every replay, and the gated fold outside the
+    graph still does after the replays."""
+    p = 3
+    rng = np.random.default_rng(6)
+    idx, live = _stage_idx("random", rng, p)
+    vals = torch.as_tensor(rng.standard_normal(idx.shape).astype(
+        np.float32)).to(dev)
+    idd = torch.as_tensor(idx).to(dev)
+    table = kops.segment_table(idd, out_len=live + 1, live_len=live)
+    want = kref.accumulate_segments_ref(vals.cpu(), idd.cpu(),
+                                        out_len=live + 1)[:, :live]
+
+    def fold():
+        return kops.accumulate_segments(vals, idd, out_len=live + 1,
+                                        table=table)
+    side = torch.cuda.Stream(device=dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        fold()                                   # warm-up before capture
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fold()
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _same_bits(out[:, :live], want)
+    assert _same_bits(fold()[:, :live], want)
+
+
 @pytest.mark.parametrize("strategy", ["replicate", "blockwise", "condensed",
                                       "overlap"])
 @pytest.mark.parametrize("reduce", ["add", "set", "max"])
@@ -368,6 +523,11 @@ def test_transposed_spmv_on_card(dev, strategy):
     counts = kops.launch_counts()
     np.testing.assert_allclose(y.reshape(-1).cpu().numpy(),
                                spmv_t_ref_np(m, x), rtol=2e-4, atol=2e-4)
+    # the band clipping piles some 500 lanes onto columns 0 and n - 1: long
+    # rows beside short ones, folded in lane order like the CPU's plain arm
+    cpu = DistributedSpMV(m, LoopbackComm(8, device="cpu"), strategy=strategy,
+                          blocksize=64, shards_per_node=4, transpose=True)
+    assert _same_bits(y, cpu(cpu.shard_vector(x)))
     assert counts["accumulate_segments"] == {
         "replicate": 1, "blockwise": 3}.get(strategy, 2)
     assert counts["accumulate_into"] == (
