@@ -25,7 +25,13 @@ each:
    its path gives it, with its time, the plain version's on the card, one
    PyTorch library call's where one computes the same function, and the
    least time the card could take (its bound).  The forward kernels run
-   at the condensed rung's inputs and are checked on the card;
+   at the condensed rung's inputs and are checked on the card:
+   unpack_scatter_set and unpack_dest through their plan tables (each
+   line also times the kernel that runs without one, no_table_ms; B3's
+   bound counts the table it reads, bound_plan_arrays_ms the plan's
+   arrays), and on a line of its own unpack_dest_spmv (unpack_dest with
+   the dest rungs' slot product as its epilogue) against its plain
+   composition (3e-5) and spmv_ref_np (2e-4), beside CSR sparse.mm;
    ellpack_spmv_windowed also in bfloat16 (a second line, against the
    plain version on float32 copies of the bf16 inputs, one bf16 rounding
    apart), and each twice, bit for bit; the push kernels
@@ -66,12 +72,14 @@ each:
    recurrence's at L = 1024 (relative L2 under 2e-2).
 In phases 5 to 10 the kernel launch counters are zeroed just before the
 path runs and read just after, and every kernel of the path must have
-launched.  The kernel phase also holds decode_attention (one decode step
-of phase 9: 8 lanes, a bf16 ring of 2080 slots; then, on a line of its
-own beside SDPA, decode_32k's 32768-slot cache with the batch cut to 8)
-and selective_scan (one falcon-mamba layer at L = 32768) against their
-plain versions at 2e-4, each with the device time of every kernel it
-launches (torch.profiler) and ptxas's registers and spills.
+launched; in phases 5, 7 and 8 every launch of unpack_dest and
+unpack_scatter_set must have gone through its plan table (the counts by C
+entry point show it).  The kernel phase also holds decode_attention (one
+decode step of phase 9: 8 lanes, a bf16 ring of 2080 slots; then, on a
+line of its own beside SDPA, decode_32k's 32768-slot cache with the batch
+cut to 8) and selective_scan (one falcon-mamba layer at L = 32768)
+against their plain versions at 2e-4, each with the device time of every
+kernel it launches (torch.profiler) and ptxas's registers and spills.
 
 Then one line {"kernels": [...]} with all nine kernels' numbers, and last
 {"ok": true, "device": {...}}.  Any failure exits non-zero before the last
@@ -247,8 +255,11 @@ def load_probes():
     lib.probe_add_chain.argtypes = [ptr, i64, ptr]
     lib.probe_spmv_gathers.argtypes = [ptr, ptr, ptr] + [i64] * 6 + [ptr]
     lib.probe_gather_list.argtypes = [ptr, ptr, ptr, i64, ptr]
+    lib.probe_dest_sorted_arrays.argtypes = [ptr] * 8 + [i64] * 5 + [ptr]
+    lib.probe_dest_codes.argtypes = [ptr] * 5 + [i64] * 4 + [ptr]
     for fn in (lib.probe_add_chain, lib.probe_spmv_gathers,
-               lib.probe_gather_list):
+               lib.probe_gather_list, lib.probe_dest_sorted_arrays,
+               lib.probe_dest_codes):
         fn.restype = ctypes.c_int
     return lib, info
 
@@ -314,44 +325,99 @@ def phase_kernels(torch, matrix, x_host, engines, y_ref):
     recv_flat = recv.reshape(P, -1)
     offsets = own_offsets(P, shard, dev)
 
-    # B2 unpack_scatter_set: the condensed full unpack, out_len = n + 1
-    def b2(fn):
-        return fn(recv_flat, recv_gidx, x, offsets, out_len=N + 1)
-    x_copy = b2(kops.unpack_scatter_set)
+    # B2 unpack_scatter_set: the condensed full unpack, out_len = n + 1,
+    # through the plan's tile table (the path's kernel) and, timed beside
+    # it, the three-phase kernel that runs without one
+    tiles = kops.ScatterTiles()(recv_gidx, out_len=N + 1, row_bytes=4)
+    check(tiles is not None, "the condensed plan got no tile table")
+
+    def b2(fn, **kw):
+        return fn(recv_flat, recv_gidx, x, offsets, out_len=N + 1, **kw)
+    x_copy = b2(kops.unpack_scatter_set, table=tiles)
     x_copy_ref = b2(kref.unpack_scatter_set_ref)
     check(torch.equal(x_copy[:, :N], x_copy_ref[:, :N]),
           "unpack_scatter_set differs from plain outside the dump row")
+    check(torch.equal(b2(kops.unpack_scatter_set)[:, :N], x_copy_ref[:, :N]),
+          "unpack_scatter_set without its table differs from plain")
     r = recv_flat.shape[1]
     results["unpack_scatter_set"] = dict(
         max_abs_err=0.0,
-        ms=cuda_ms(torch, lambda: b2(kops.unpack_scatter_set)),
+        ms=cuda_ms(torch, lambda: b2(kops.unpack_scatter_set, table=tiles)),
+        no_table_ms=cuda_ms(torch, lambda: b2(kops.unpack_scatter_set)),
         plain_ms=cuda_ms(torch, lambda: b2(kref.unpack_scatter_set_ref)),
         library_ms=None,
         bound=bound(P * r * 8 + P * shard * 4 + P * 4 + P * (N + 1) * 4),
         shape=f"recv ({P}, {r}) f32 -> x_copy ({P}, {N + 1})")
+    del tiles
 
-    # B3 unpack_dest: the condensed targeted unpack into the EllPack slots
+    # B3 unpack_dest: the condensed targeted unpack into the EllPack slots,
+    # through the plan's dest table (one code and one slot a slot: 6 bytes
+    # where the plan's arrays take 10) and, beside it, the kernel that reads
+    # the plan's arrays
     d_send, d_recv, src, own, own_m, rem_m = dest.gather.plan_args
     check(torch.equal(d_send, send_idx) and torch.equal(d_recv, recv_idx),
           "the two condensed engines planned different exchanges")
     dargs = (recv_flat, x, src, own, own_m, rem_m)
-    slots = kops.unpack_dest(*dargs)
+    table = kops.DestOrder()(src, own, own_m, rem_m)
+    check(table is not None, "the condensed plan got no dest table")
+    slots = kops.unpack_dest(*dargs, table=table)
     slots_ref = kref.unpack_dest_ref(*dargs)
     check(torch.equal(slots, slots_ref), "unpack_dest differs from plain")
+    check(torch.equal(kops.unpack_dest(*dargs), slots_ref),
+          "unpack_dest without its table differs from plain")
     L = src.shape[1]
+    gathered = (unique_rows(torch, src, rem_m)
+                + unique_rows(torch, own, own_m)) * 4
     results["unpack_dest"] = dict(
         max_abs_err=0.0,
-        ms=cuda_ms(torch, lambda: kops.unpack_dest(*dargs)),
+        ms=cuda_ms(torch, lambda: kops.unpack_dest(*dargs, table=table)),
+        no_table_ms=cuda_ms(torch, lambda: kops.unpack_dest(*dargs)),
         plain_ms=cuda_ms(torch, lambda: kref.unpack_dest_ref(*dargs)),
         library_ms=None,
-        bound=bound(P * L * (4 + 4 + 1 + 1 + 4)
-                    + (unique_rows(torch, src, rem_m)
-                       + unique_rows(torch, own, own_m)) * 4),
+        bound=bound(P * L * (4 + 2 + 4) + gathered),
+        # the bound on what the kernel without a table reads: the plan's
+        # four arrays and the output, 14 bytes a slot
+        bound_plan_arrays_ms=bound(P * L * (4 + 4 + 1 + 1 + 4)
+                                   + gathered)[0],
         shape=f"recv ({P}, {r}), x ({P}, {shard}) f32, L = {L} slots")
+    del table, slots, slots_ref
 
     # B4 ellpack_spmv_windowed: the on-copy SpMV of the full rungs
     local_fn, (diag, vals, win_blk, cols_rel, own_rel), window, rpb = \
         spmv_inputs(torch, matrix, dev)
+    # the library's yardstick of both SpMV lines: one CSR product of D + A
+    # (cuSPARSE) on the global x
+    csr = _csr_d_plus_a(torch, matrix, dev)
+    x_col = x_flat[:, None]
+    y_lib = torch.sparse.mm(csr, x_col)
+    check(np.allclose(y_lib.reshape(-1).cpu().numpy(), y_ref, **Y_TOL),
+          "the CSR library product disagrees with spmv_ref_np")
+    library_ms = cuda_ms(torch, lambda: torch.sparse.mm(csr, x_col))
+
+    # unpack_dest_spmv: B3 with the dest rungs' slot product as its
+    # epilogue (a launch of unpack_dest), through the dest table in groups
+    # of whole rows, held against the plain composition and spmv_ref_np
+    ftable = kops.DestOrder(row=R_NZ)(src, own, own_m, rem_m)
+    y_fused = kops.unpack_dest_spmv(*dargs, vals, diag, table=ftable)
+    y_composed = kref.unpack_dest_spmv_ref(*dargs, vals, diag)
+    torch.testing.assert_close(y_fused, y_composed, **SPMV_TOL)
+    check(np.allclose(y_fused.reshape(-1).cpu().numpy(), y_ref, **Y_TOL),
+          "unpack_dest_spmv disagrees with spmv_ref_np")
+    fused = dict(
+        max_abs_err=float((y_fused - y_composed).abs().max()),
+        ms=cuda_ms(torch, lambda: kops.unpack_dest_spmv(
+            *dargs, vals, diag, table=ftable)),
+        plain_ms=cuda_ms(torch, lambda: kref.unpack_dest_spmv_ref(
+            *dargs, vals, diag)),
+        library_ms=library_ms,
+        # the table and vals streamed once, diag, x and y once a row (the
+        # owned slots read rows of x that the diagonal term reads anyway),
+        # and every gathered row of recv once
+        bound=bound(P * L * (4 + 2 + 4) + P * shard * 12
+                    + unique_rows(torch, src, rem_m) * 4,
+                    flops=2.0 * P * (L + shard)),
+        shape=f"L = {L} slots, vals ({P}, {shard}, {R_NZ}) f32 -> y")
+    del ftable, y_fused, y_composed
     y = local_fn(diag, vals, x_copy, win_blk, cols_rel, own_rel)
     y_plain = kref.ellpack_spmv_ref(diag, vals, cols_rel, own_rel, win_blk,
                                     x_copy, window=window,
@@ -363,12 +429,6 @@ def phase_kernels(torch, matrix, x_host, engines, y_ref):
           "ellpack_spmv_windowed gave other bits on a second call")
     check(np.allclose(y.reshape(-1).cpu().numpy(), y_ref, **Y_TOL),
           "the on-copy SpMV disagrees with spmv_ref_np")
-    # the library's yardstick: one CSR product of D + A (cuSPARSE)
-    csr = _csr_d_plus_a(torch, matrix, dev)
-    x_col = x_flat[:, None]
-    y_lib = torch.sparse.mm(csr, x_col)
-    check(np.allclose(y_lib.reshape(-1).cpu().numpy(), y_ref, **Y_TOL),
-          "the CSR library product disagrees with spmv_ref_np")
     x_read = spmv_x_read(torch, win_blk, cols_rel, window, rpb)
     results["ellpack_spmv_windowed"] = dict(
         max_abs_err=err,
@@ -377,7 +437,7 @@ def phase_kernels(torch, matrix, x_host, engines, y_ref):
         plain_ms=cuda_ms(torch, lambda: kref.ellpack_spmv_ref(
             diag, vals, cols_rel, own_rel, win_blk, x_copy, window=window,
             rows_per_block=rpb)),
-        library_ms=cuda_ms(torch, lambda: torch.sparse.mm(csr, x_col)),
+        library_ms=library_ms,
         bound=bound(P * shard * (4 + 4 + 4) + P * shard * R_NZ * 8
                     + win_blk.numel() * 4 + x_read * 4,
                     flops=2.0 * P * shard * (R_NZ + 1)),
@@ -426,12 +486,15 @@ def phase_kernels(torch, matrix, x_host, engines, y_ref):
         shape=f"rows ({P}, {shard}) x r_nz {R_NZ} bf16 on x_copy "
               f"({P}, {N + 1}) bf16")
     del bf, y16, want16, again, csr16, x_col16
-    lines = list(results.items()) + [("ellpack_spmv_windowed", bf16_line)]
+    lines = list(results.items()) + [("ellpack_spmv_windowed", bf16_line),
+                                     ("unpack_dest_spmv", fused)]
     for name, res in lines:
         emit({"phase": "kernel", "name": name, "shape": res["shape"],
               "max_abs_err": res["max_abs_err"], "ms": res["ms"],
               "plain_ms": res["plain_ms"], "library_ms": res["library_ms"],
-              "bound_ms": res["bound"][0], "bound_by": res["bound"][1]})
+              "bound_ms": res["bound"][0], "bound_by": res["bound"][1],
+              **{k: res[k] for k in ("no_table_ms", "bound_plan_arrays_ms")
+                 if k in res}})
         check_bound(name, res)
     return results
 
@@ -633,6 +696,32 @@ def _csr_d_plus_a(torch, matrix, dev):
     return coo.coalesce().to_sparse_csr()
 
 
+# the C entry points through which B3 and B2 read their plan tables, and
+# those that read the plan's arrays instead, which no path may launch
+TABLE_ENTRIES = {"unpack_dest": ("rt_unpack_dest_sorted",
+                                 "rt_unpack_dest_spmv_sorted"),
+                 "unpack_scatter_set": ("rt_unpack_scatter_tiles",)}
+ARRAY_ENTRIES = ("rt_unpack_dest", "rt_unpack_scatter_set")
+
+
+def entry_diff(kops, before: dict) -> dict:
+    """Launches by C entry point since ``before`` (``kops.entry_counts``)."""
+    after = kops.entry_counts()
+    return {k: v - before.get(k, 0) for k, v in after.items()
+            if v != before.get(k, 0)}
+
+
+def check_table_variants(where: str, launched: dict, entries: dict) -> None:
+    """Every B3/B2 launch of a path went through its plan table."""
+    for k in ARRAY_ENTRIES:
+        check(not entries.get(k), f"{where} launched {k}, which reads the "
+              "plan's arrays: a plan table is missing")
+    for kernel, table_entries in TABLE_ENTRIES.items():
+        check(sum(entries.get(e, 0) for e in table_entries)
+              == launched.get(kernel, 0),
+              f"{where}: {kernel} did not launch through its table")
+
+
 EXPECTED = {  # kernels each rung x materialize launches with use_kernel
     ("replicate", "full"): ("ellpack_spmv_windowed",),
     ("replicate", "dest"): ("unpack_dest",),
@@ -686,17 +775,22 @@ def profile_steps(torch, step, steps: int = 3, lead: int = 2,
     ``per_call`` is the number of steps one call of ``step`` runs."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(lead):
-            step()
-        torch.cuda._sleep(1000)
-        for _ in range(steps):
-            step()
+    # a trace now and then comes back without the marker (the profiler
+    # dropped events): one more trace before failing
+    for attempt in range(2):
         torch.cuda.synchronize()
-    acts = [(e.time_range.start, e.time_range.end, e.name)
-            for e in prof.events() if e.device_type == DeviceType.CUDA]
-    marks = [end for _, end, name in acts if "spin_kernel" in name]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(lead):
+                step()
+            torch.cuda._sleep(1000)
+            for _ in range(steps):
+                step()
+            torch.cuda.synchronize()
+        acts = [(e.time_range.start, e.time_range.end, e.name)
+                for e in prof.events() if e.device_type == DeviceType.CUDA]
+        marks = [end for _, end, name in acts if "spin_kernel" in name]
+        if len(marks) == 1:
+            break
     check(len(marks) == 1, "the profiler did not see the marker kernel")
     opened = marks[0]
     acts = [(max(start, opened), end, name) for start, end, name in acts
@@ -723,9 +817,11 @@ def phase_main_path(torch, engines, x_host, y_ref, card):
     kops.reset_launch_counts()
     for (strategy, mat), eng in engines.items():
         before = kops.launch_counts()
+        before_entries = kops.entry_counts()
         x = eng.shard_vector(x_host)
         y = eng(x)
         torch.cuda.synchronize()
+        entries = entry_diff(kops, before_entries)
         check(tuple(y.shape) == (P, N // P), f"y has shape {tuple(y.shape)}")
         y_np = y.reshape(-1).cpu().numpy()
         check(np.isfinite(y_np).all(), f"{strategy}/{mat}: y not finite")
@@ -736,11 +832,13 @@ def phase_main_path(torch, engines, x_host, y_ref, card):
         step = {k: after[k] - before[k] for k in after}
         for k in EXPECTED[(strategy, mat)]:
             check(step[k] > 0, f"{strategy}/{mat} never launched {k}")
+        check_table_variants(f"{strategy}/{mat}", step, entries)
         timing = time_steps(torch, lambda: eng(x))
         prof = profile_steps(torch, lambda: eng(x))
         emit({"phase": "main_path", "strategy": strategy, "materialize": mat,
               "use_kernel": True, "max_abs_err": err, **timing, **prof,
-              "launches_per_step": step, "card": card})
+              "launches_per_step": step, "entries_per_step": entries,
+              "card": card})
     counts = kops.launch_counts()
     for k in FORWARD_KERNELS:
         check(counts[k] > 0, f"the main path never launched {k}")
@@ -901,9 +999,11 @@ def phase_heat2d(torch, comm, card):
     for (strategy, mat), h in engines.items():
         phi = h.shard_field(field)
         before = kops.launch_counts()
+        before_entries = kops.entry_counts()
         out = h.run(phi, HEAT_CHECK_STEPS)
         torch.cuda.synchronize()
         after = kops.launch_counts()
+        entries = entry_diff(kops, before_entries)
         got = h.gather_field(out)
         check(got.shape == (HEAT_N, HEAT_N), f"field has shape {got.shape}")
         check(np.isfinite(got).all(), f"{strategy}/{mat}: field not finite")
@@ -913,6 +1013,7 @@ def phase_heat2d(torch, comm, card):
         step = {k: after[k] - before[k] for k in after}
         for k in H_EXPECTED[(strategy, mat)]:
             check(step[k] > 0, f"heat2d {strategy}/{mat} never launched {k}")
+        check_table_variants(f"heat2d {strategy}/{mat}", step, entries)
         timing = time_steps(torch, lambda: h.run(phi, HEAT_TIMED_STEPS),
                             warmup=1, iters=1)
         timing = {k: v / HEAT_TIMED_STEPS for k, v in timing.items()}
@@ -921,7 +1022,8 @@ def phase_heat2d(torch, comm, card):
         emit({"phase": "heat2d", "strategy": strategy, "materialize": mat,
               "split": h.overlap, "use_kernel": True,
               "bit_equal_steps": HEAT_CHECK_STEPS, **timing, **prof,
-              "launches_per_check_run": step, "card": card})
+              "launches_per_check_run": step,
+              "entries_per_check_run": entries, "card": card})
     counts = kops.launch_counts()
     for k in ("stencil2d", "pack_gather", "unpack_scatter_set",
               "unpack_dest"):
@@ -969,9 +1071,11 @@ def phase_normal_equations(torch, comm, matrix, base, splan, x_host, card):
     for strategy, step in steps.items():
         x = step.shard_vector(x_host)
         before = kops.launch_counts()
+        before_entries = kops.entry_counts()
         z = step(x)
         torch.cuda.synchronize()
         after = kops.launch_counts()
+        entries = entry_diff(kops, before_entries)
         check(tuple(z.shape) == (P, N // P), f"z has shape {tuple(z.shape)}")
         z_np = z.reshape(-1).cpu().numpy()
         check(np.isfinite(z_np).all(), f"{strategy}/normal: z not finite")
@@ -982,12 +1086,14 @@ def phase_normal_equations(torch, comm, matrix, base, splan, x_host, card):
         launched = {k: after[k] - before[k] for k in after}
         for k in NE_EXPECTED[strategy]:
             check(launched[k] > 0, f"{strategy}/normal never launched {k}")
+        check_table_variants(f"{strategy}/normal", launched, entries)
         timing = time_steps(torch, lambda: step(x))
         prof = profile_steps(torch, lambda: step(x))
         emit({"phase": "normal_equations", "strategy": strategy,
               "use_kernel": True, "max_abs_err": err,
               "ref_max_abs": float(np.abs(z_ref).max()), **timing, **prof,
-              "launches_per_step": launched, "card": card})
+              "launches_per_step": launched, "entries_per_step": entries,
+              "card": card})
     del steps
 
     t0 = time.perf_counter()
@@ -1000,8 +1106,15 @@ def phase_normal_equations(torch, comm, matrix, base, splan, x_host, card):
     finals = {}
     for uk, cg in cgs.items():
         carries = cg.carries(b)
+        before = kops.launch_counts()
+        before_entries = kops.entry_counts()
         finals[uk] = cg.schedule(*carries, n_steps=CG_ITERS)
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        if uk:
+            after = kops.launch_counts()
+            check_table_variants(
+                "condensed/cg", {k: after[k] - before[k] for k in after},
+                entry_diff(kops, before_entries))
     (xk, rk, _), (xp, _, _) = finals[True], finals[False]
     check(bool(torch.isfinite(xk).all()), "CG iterate not finite")
     rel = float((xk - xp).abs().max() / xp.abs().max())

@@ -48,6 +48,9 @@ class OverlapHandle:
     * ``materialize="dest"`` — requires the gather to own a ``Destination``:
       land the recv buffer straight in the consumer's named slots and return
       ``{name: (P, *slot_shape, ...)}``.  No full-length intermediate.
+    * ``materialize="landed"`` — as ``"dest"``, but undelivered: the landed
+      buffer and the plan's four dest arrays (``strategies.Landed``), for a
+      consumer that fuses the delivery into its compute.
 
     The default is ``"dest"`` when the gather was constructed with a
     ``Destination``, else ``"full"``.

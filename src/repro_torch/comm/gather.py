@@ -26,6 +26,11 @@ rows), ``finish()`` / ``local()`` default to ``materialize="dest"``: the
 landed recv buffer goes straight into the named slots and comes back as
 ``{name: (P, *slot_shape, ...)}`` — no full-length ``x_copy``.
 ``materialize="full"`` keeps the classic assembled copy, bit-identically.
+``materialize="landed"`` hands back the landed buffer with the plan's four
+dest arrays (``strategies.Landed``) for a consumer that fuses the delivery
+into its own compute (``kernels.unpack_dest_spmv``).  With
+``use_kernel=True`` the delivery reads the plan's dest table, which a
+``kernels.DestOrder`` of the gather builds at its first call on a card.
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ from repro_torch.comm import strategies as strat
 from repro_torch.comm.exchange import IrregularExchange, OverlapHandle
 from repro_torch.comm.pattern import AccessPattern, Destination
 from repro_torch.comm.plan import CommPlan, attach_destination
+from repro_torch.kernels import ops as kops
 
 __all__ = ["IrregularGather", "OverlapHandle"]
 
@@ -75,17 +81,30 @@ class IrregularGather(IrregularExchange):
             self.device)
         self._start, self._finish = strat.make_start_local(
             self.plan, strategy, self.comm, use_kernel=self.use_kernel)
+        self._dest_order = kops.DestOrder() if self.use_kernel else None
 
     def _resolve_materialize(self, materialize: str | None) -> str:
         if materialize is None:
             return "dest" if self.destination is not None else "full"
-        if materialize == "dest" and self.destination is None:
-            raise ValueError(
-                'materialize="dest" requires constructing the gather with '
-                "a Destination descriptor")
-        if materialize not in ("dest", "full"):
+        if materialize not in ("dest", "full", "landed"):
             raise ValueError(f"unknown materialize mode {materialize!r}")
+        if materialize != "full" and self.destination is None:
+            raise ValueError(
+                f'materialize="{materialize}" requires constructing the '
+                "gather with a Destination descriptor")
         return materialize
+
+    def _deliver(self, out, mode: str):
+        """The finish's result in ``mode``: a targeted finish's ``Landed``
+        goes into the named slots for ``"dest"``."""
+        if mode != "dest":
+            return out
+        if self.use_kernel:
+            slots = kops.unpack_dest(*out,
+                                     table=self._dest_order(*out[2:]))
+        else:
+            slots = strat.dest_gather_local(*out)
+        return self.destination.split(slots)
 
     # ---- rank-stacked surface (compose inside a consumer's step) ----
     def local(self, x: torch.Tensor, *plan_args,
@@ -96,13 +115,13 @@ class IrregularGather(IrregularExchange):
         ``(P, shard, ...)`` -> x_copy ``(P, >= n, ...)``.
         ``materialize="dest"`` (default with one): -> ``{name: slots}``
         named consumer buffers, no full-length intermediate.
+        ``materialize="landed"``: -> ``strategies.Landed``, undelivered.
         """
         mode = self._resolve_materialize(materialize)
         work = self._start(x, *plan_args)
-        out = self._finish(work, x, *plan_args, materialize=mode)
-        if mode == "dest":
-            return self.destination.split(out)
-        return out
+        out = self._finish(work, x, *plan_args,
+                           materialize="full" if mode == "full" else "dest")
+        return self._deliver(out, mode)
 
     def start_local(self, x: torch.Tensor, *plan_args) -> OverlapHandle:
         """Issue the exchange; compute on ``x`` while it flies."""
@@ -111,10 +130,10 @@ class IrregularGather(IrregularExchange):
         def finish(*, extra_slots=0, copy_own=True, materialize=None):
             mode = self._resolve_materialize(materialize)
             out = self._finish(work, x, *plan_args, extra_slots=extra_slots,
-                               copy_own=copy_own, materialize=mode)
-            if mode == "dest":
-                return self.destination.split(out)
-            return out
+                               copy_own=copy_own,
+                               materialize="full" if mode == "full"
+                               else "dest")
+            return self._deliver(out, mode)
 
         return OverlapHandle(x_local=x, _finish=finish)
 

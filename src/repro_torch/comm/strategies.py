@@ -26,8 +26,11 @@ Strategies (paper §4):
 The ``*_start_local`` / ``*_finish_local`` pairs split each strategy at its
 collective so ``OverlapHandle`` can expose an own-compute window between the
 two.  When the plan carries a ``Destination`` (``plan.dest_len > 0``), each
-strategy also has a *targeted* finish that gathers the landed buffer
-straight into the consumer's flat slot buffer ``(P, dest_len, ...)``.
+strategy also has a *targeted* finish that hands back the landed buffer with
+the plan's four dest arrays (``Landed``), which the consumer delivers
+straight into its flat slot buffer ``(P, dest_len, ...)``
+(``dest_gather_local`` / ``kernels.unpack_dest``) or fuses into its own
+compute (``kernels.unpack_dest_spmv``).
 
 The push direction (put / scatter) runs the same rungs with the roles
 swapped: see the second half of this module.
@@ -35,7 +38,8 @@ swapped: see the second half of this module.
 from __future__ import annotations
 
 import functools
-from typing import Any
+import math
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -52,6 +56,7 @@ __all__ = [
     "condensed_finish_local",
     "blockwise_start_local",
     "blockwise_finish_local",
+    "Landed",
     "dest_gather_local",
     "plan_device_args",
     "make_start_local",
@@ -69,12 +74,19 @@ __all__ = [
 
 STRATEGIES = ("replicate", "blockwise", "condensed", "overlap")
 
-# the data-movement steps each arm of ``make_start_local`` runs: the plain
-# PyTorch versions, or the kernel wrappers (which take the plain version
-# only for CPU tensors)
-_PLAIN = (kref.pack_gather_ref, kref.unpack_scatter_set_ref,
-          kref.unpack_dest_ref)
-_KERNEL = (kops.pack_gather, kops.unpack_scatter_set, kops.unpack_dest)
+
+def _tiled_unpack():
+    """The kernel arm's full unpack: ``kops.unpack_scatter_set`` through
+    the tile tables of the plan it serves (a ``ScatterTiles`` of its own)."""
+    tiles = kops.ScatterTiles()
+
+    def unpack(recv, idx, x_own, offsets, *, out_len, copy_own=True):
+        row_bytes = math.prod(x_own.shape[2:]) * x_own.element_size()
+        return kops.unpack_scatter_set(
+            recv, idx, x_own, offsets, out_len=out_len, copy_own=copy_own,
+            table=tiles(idx, out_len=out_len, row_bytes=row_bytes))
+
+    return unpack
 
 
 def own_offsets(p: int, rows: int, device) -> torch.Tensor:
@@ -127,16 +139,25 @@ def blockwise_start_local(x, send_local_blk, *, comm, blocksize: int,
                            async_op=async_op)
 
 
+def move_dump_block(recv_global_blk, nblks: int):
+    """``recv_global_blk`` with the dump block ``nblks`` moved one block
+    further (``blockwise_finish_local`` with ``extra_slots``)."""
+    return torch.where(recv_global_blk == nblks, nblks + 1, recv_global_blk)
+
+
 def blockwise_finish_local(recv, x, recv_global_blk, offsets_blk, *, n: int,
                            blocksize: int, extra_slots: int = 0,
                            copy_own: bool = True,
-                           unpack=kref.unpack_scatter_set_ref):
+                           unpack=kref.unpack_scatter_set_ref,
+                           moved_blk=None):
     """UPCv2 unpack: scatter whole landed blocks into x_copy.
 
     With ``extra_slots`` the dump block is remapped past the zero-guaranteed
     region so slots ``n+1 .. n+extra_slots`` stay zero (requires
-    ``extra_slots < blocksize``).  ``offsets_blk`` counts blocks: rank q's
-    own shard starts at block row ``q * blocks_per_shard``."""
+    ``extra_slots < blocksize``); ``moved_blk`` may hand in that remapped
+    copy of ``recv_global_blk`` (``move_dump_block``), kept from an earlier
+    call.  ``offsets_blk`` counts blocks: rank q's own shard starts at block
+    row ``q * blocks_per_shard``."""
     p = x.shape[0]
     feat = tuple(x.shape[2:])
     nblks = n // blocksize
@@ -146,7 +167,8 @@ def blockwise_finish_local(recv, x, recv_global_blk, offsets_blk, *, n: int,
             "zero-slot region must fit inside one virtual block")
         # dump block nblks would cover slots [n, n+BS); remap it one block
         # further so [n, n+BS) — including the zero slots — is never written
-        blk_idx = torch.where(blk_idx == nblks, nblks + 1, blk_idx)
+        blk_idx = (move_dump_block(blk_idx, nblks) if moved_blk is None
+                   else moved_blk.reshape(p, -1))
         out_blocks = nblks + 2
     else:
         out_blocks = nblks + 1
@@ -157,6 +179,19 @@ def blockwise_finish_local(recv, x, recv_global_blk, offsets_blk, *, n: int,
                       x.reshape((p, -1, blocksize) + feat), offsets_blk,
                       out_len=out_blocks, copy_own=copy_own)
     return x_blocks.reshape((p, -1) + feat)
+
+
+class Landed(NamedTuple):
+    """A targeted finish's result: the landed recv buffer ``(P, R, ...)``,
+    the local operand, and the plan's four dest arrays ``(P, L)`` — the
+    arguments of ``dest_gather_local`` / ``kernels.unpack_dest``, in order."""
+
+    recv_flat: torch.Tensor
+    x_local: torch.Tensor
+    src_idx: torch.Tensor
+    own_idx: torch.Tensor
+    own_mask: torch.Tensor
+    rem_mask: torch.Tensor
 
 
 def dest_gather_local(recv_flat, x_local, src_idx, own_idx, own_mask,
@@ -208,21 +243,23 @@ def make_start_local(plan: CommPlan, strategy: str, comm, *,
 
     When the plan args carry the four targeted-unpack arrays, ``finish``
     honors ``materialize``: ``"full"`` assembles the classic x_copy
-    ``(P, >= n, ...)``; ``"dest"`` returns the flat ``(P, dest_len, ...)``
-    consumer-slot buffer with no full-length intermediate.
+    ``(P, >= n, ...)``; ``"dest"`` returns the landed buffer with the four
+    dest arrays (``Landed``), which the caller delivers into its
+    ``(P, dest_len, ...)`` slots with no full-length intermediate.
 
     ``use_kernel=True`` swaps the plain pack/unpack around the (unchanged)
     collective for the CUDA kernels (``kernels.ops``): bit-identical to the
-    plain arm.  Replicate has no pack side, so only its targeted unpack
-    runs a kernel.
+    plain arm.  Replicate has no pack side and its full finish no unpack.
     """
-    pack, unpack_set, unpack_dest = _KERNEL if use_kernel else _PLAIN
+    if use_kernel:
+        pack, unpack_set = kops.pack_gather, _tiled_unpack()
+    else:
+        pack, unpack_set = kref.pack_gather_ref, kref.unpack_scatter_set_ref
     p, n = plan.p, plan.n
     dev = comm.device
 
     def deliver(recv_flat, x, dest):
-        src, own_idx, own_mask, rem_mask = dest
-        return unpack_dest(recv_flat, x, src, own_idx, own_mask, rem_mask)
+        return Landed(recv_flat, x, *dest)
 
     if strategy == "replicate":
         def start(x, *args, async_op=False):
@@ -261,6 +298,14 @@ def make_start_local(plan: CommPlan, strategy: str, comm, *,
     if strategy == "blockwise":
         blocksize = plan.blocksize
         offsets_blk = own_offsets(p, plan.blocks_per_shard, dev)
+        # the plan's recv_blk with its dump block moved (extra_slots), made
+        # once, so that the tile table built from it serves every call
+        moved = []
+
+        def moved_blk(recv_blk):
+            if not moved or moved[0] is not recv_blk:
+                moved[:] = [recv_blk, move_dump_block(recv_blk, plan.nblks)]
+            return moved[1]
 
         def start(x, send_blk, recv_blk, *dest, async_op=False):
             return blockwise_start_local(x, send_blk, comm=comm,
@@ -276,7 +321,8 @@ def make_start_local(plan: CommPlan, strategy: str, comm, *,
             return blockwise_finish_local(
                 recv, x, recv_blk, offsets_blk, n=n, blocksize=blocksize,
                 extra_slots=extra_slots, copy_own=copy_own,
-                unpack=unpack_set)
+                unpack=unpack_set,
+                moved_blk=moved_blk(recv_blk) if extra_slots else None)
 
         return start, finish
     raise ValueError(f"unknown strategy {strategy!r}")

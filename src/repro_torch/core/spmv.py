@@ -25,8 +25,9 @@ full-length ``x_copy``; ``"full"`` keeps the paper's UPCv3 layout
 (assemble ``mythread_x_copy``, then index it).  With ``use_kernel=True``
 the default is ``"full"`` (the SpMV kernel consumes the assembled copy,
 itself built by the unpack kernel); an explicit ``materialize="dest"``
-routes the exchange through the targeted unpack kernel with the slot
-compute in PyTorch.
+routes the landed exchange through ``unpack_dest_spmv``, the targeted
+unpack with the slot product as its epilogue (the slots never leave the
+kernel), through the engine's dest table (``kernels.DestOrder``).
 
 The ``overlap`` strategy uses the ``OverlapHandle`` protocol: issue the
 condensed all_to_all (on a side stream on the card), run the own-shard
@@ -56,6 +57,7 @@ from repro_torch.comm.scatter import IrregularScatter
 from repro_torch.comm.schedule import Schedule
 from repro_torch.core.matrix import EllpackMatrix
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
 
 __all__ = ["DistributedSpMV", "normal_equations_stages",
            "normal_equations_step"]
@@ -65,6 +67,20 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``out[q, ...] = x[q, idx[q, ...]]`` for every rank q."""
     ranks = torch.arange(x.shape[0], device=x.device)
     return x[ranks.reshape((-1,) + (1,) * (idx.dim() - 1)), idx]
+
+
+def _dest_product(landed: strat.Landed, vals, diag, table, *,
+                  use_kernel: bool) -> torch.Tensor:
+    """The slot product on a dest gather's landed exchange, ``diag·x + Σ_j
+    vals·slot`` (``diag`` None: the sum alone): fused with the delivery
+    where the card has the plan's dest ``table`` (``kops.DestOrder``), else
+    the delivery (B3's kernel with ``use_kernel``) and then the plain
+    product."""
+    if table is not None:
+        return kops.unpack_dest_spmv(*landed, vals, diag, table=table)
+    unpack = kops.unpack_dest if use_kernel else kref.unpack_dest_ref
+    acc = (vals * unpack(*landed).reshape(vals.shape)).sum(-1)
+    return acc if diag is None else diag * landed.x_local + acc
 
 
 class DistributedSpMV:
@@ -111,7 +127,7 @@ class DistributedSpMV:
             # the SpMV kernel consumes the assembled copy, so the kernel
             # default is "full"; an explicit materialize="dest" with
             # use_kernel=True routes the exchange through the targeted
-            # unpack kernel instead (slot compute stays plain)
+            # unpack fused with the slot product instead
             materialize = "full" if use_kernel else "dest"
         assert materialize in ("dest", "full"), materialize
         self.materialize = materialize
@@ -148,6 +164,11 @@ class DistributedSpMV:
 
         diag = put(matrix.diag)
 
+        def dest_product(landed, vals_t, diag_t, order):
+            return _dest_product(landed, vals_t, diag_t,
+                                 order(*landed[2:]) if use_kernel else None,
+                                 use_kernel=use_kernel)
+
         if strategy == "overlap" and use_kernel and materialize == "full":
             own_fn, rem_fn, kargs = kops.make_spmv_overlap_sharded(
                 plan, matrix.vals)
@@ -169,6 +190,7 @@ class DistributedSpMV:
                 put(np.take_along_axis(matrix.vals, plan.loc_src, axis=1)),
                 put(np.take_along_axis(matrix.vals, plan.rem_src, axis=1)))
             rem_cols = put(plan.rem_cols) if materialize == "full" else None
+            rem_order = kops.DestOrder(row=rem_vals.shape[2])
 
             def step(x):
                 # 1. issue the condensed exchange (paper Listing 5 pack)
@@ -176,23 +198,26 @@ class DistributedSpMV:
                 # 2. own-shard partial: no dependency on the landed messages
                 x_ext = torch.cat([x, x.new_zeros((p, 1))], dim=1)
                 y_own = diag * x + (loc_vals * _take(x_ext, loc_cols)).sum(-1)
-                # 3. foreign partial on the landed remote values: straight
-                # off the targeted delivery, or off x_copy, where slot n is
-                # the recv dump and slot n+1 the compute padding (zero)
+                # 3. foreign partial on the landed remote values: the
+                # targeted delivery inside the product, or off x_copy, where
+                # slot n is the recv dump and slot n+1 the compute padding
+                # (zero)
                 if materialize == "dest":
-                    foreign = handle.finish()["foreign"]
-                else:
-                    x_copy = handle.finish(extra_slots=1, copy_own=False)
-                    foreign = _take(x_copy, rem_cols)
-                return y_own + (rem_vals * foreign).sum(-1)
+                    return y_own + dest_product(
+                        handle.finish(materialize="landed"), rem_vals, None,
+                        rem_order)
+                x_copy = handle.finish(extra_slots=1, copy_own=False)
+                return y_own + (rem_vals * _take(x_copy, rem_cols)).sum(-1)
         elif materialize == "dest":
             vals = put(matrix.vals)
+            order = kops.DestOrder(row=vals.shape[2])
 
             def step(x):
-                # landed values arrive already in EllPack slot order; owned
-                # slots were gathered from x by the same delivery
-                gathered = gather.local(x, *gargs)["ellpack"]
-                return diag * x + (vals * gathered).sum(-1)
+                # the landed values, delivered in EllPack slot order (owned
+                # slots gathered from x) inside the slot product
+                return dest_product(
+                    gather.local(x, *gargs, materialize="landed"), vals, diag,
+                    order)
         elif use_kernel:
             kernel_local, kplan = kops.make_spmv_on_copy_sharded(
                 matrix.cols, p)

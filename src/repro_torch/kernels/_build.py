@@ -22,7 +22,8 @@ import time
 
 import torch
 
-__all__ = ["load", "build_library", "build_info", "launch", "LAUNCHES"]
+__all__ = ["load", "build_library", "build_info", "launch", "LAUNCHES",
+           "ENTRIES"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
@@ -39,6 +40,12 @@ _SIGNATURES = {
                               ctypes.c_int, _P),
     "rt_unpack_dest": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                        ctypes.c_int, _P),
+    "rt_unpack_dest_sorted": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              ctypes.c_int, _P),
+    "rt_unpack_dest_spmv_sorted": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                   _I, _I, _I, _I, ctypes.c_int, _P),
+    "rt_unpack_scatter_tiles": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                _I, _I, ctypes.c_int, _P),
     "rt_ellpack_spmv": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         ctypes.c_int, ctypes.c_int, _P),
     "rt_ellpack_spmv_sorted": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -65,6 +72,8 @@ LAUNCHES = {"pack_gather": 0, "unpack_scatter_set": 0, "unpack_dest": 0,
             "ellpack_spmv_windowed": 0, "accumulate_segments": 0,
             "accumulate_into": 0, "stencil2d": 0, "decode_attention": 0,
             "selective_scan": 0}
+# C entry point -> launches so far: which variant of a kernel ran
+ENTRIES: dict[str, int] = {}
 
 
 def _nvcc() -> str:
@@ -159,7 +168,8 @@ def build_info() -> dict:
 def launch(kernel: str | None, entry: str, device, *args) -> None:
     """Call C entry point ``entry`` on ``device``'s current stream (appended
     as the last argument), raise on a CUDA error, count one launch of
-    ``kernel`` (None: a further launch of a kernel already counted)."""
+    ``kernel`` (None: a further launch of a kernel already counted) and
+    one of ``entry``."""
     lib = load()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -168,3 +178,4 @@ def launch(kernel: str | None, entry: str, device, *args) -> None:
         raise RuntimeError(f"{entry} failed: cudaError_t {status}")
     if kernel is not None:
         LAUNCHES[kernel] += 1
+    ENTRIES[entry] = ENTRIES.get(entry, 0) + 1

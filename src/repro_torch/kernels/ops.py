@@ -17,20 +17,23 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.ellpack_spmv import (PlanOrder,
                                               ellpack_spmv_windowed)
-from repro_torch.kernels.pack_gather import (SegmentTable,
+from repro_torch.kernels.pack_gather import (DestOrder, ScatterTiles,
+                                             SegmentTable,
                                              accumulate_into,
                                              accumulate_segments,
                                              pack_gather, segment_table,
-                                             unpack_dest, unpack_scatter_set)
+                                             unpack_dest, unpack_dest_spmv,
+                                             unpack_scatter_set)
 from repro_torch.kernels.selective_scan import selective_scan
 from repro_torch.kernels.stencil2d import stencil2d
 
 __all__ = [
     "plan_spmv_windows", "ellpack_spmv", "make_spmv_on_copy_sharded",
     "make_spmv_overlap_sharded", "pack_gather", "unpack_dest",
-    "unpack_scatter_set", "ellpack_spmv_windowed", "accumulate_segments",
+    "unpack_dest_spmv", "DestOrder", "unpack_scatter_set", "ScatterTiles",
+    "ellpack_spmv_windowed", "accumulate_segments",
     "accumulate_into", "SegmentTable", "segment_table", "stencil2d",
-    "decode_attention", "selective_scan", "launch_counts",
+    "decode_attention", "selective_scan", "launch_counts", "entry_counts",
     "reset_launch_counts",
 ]
 
@@ -40,9 +43,18 @@ def launch_counts() -> dict[str, int]:
     return dict(_build.LAUNCHES)
 
 
+def entry_counts() -> dict[str, int]:
+    """Launches so far by C entry point: which variant of each kernel ran
+    (e.g. ``rt_unpack_dest_sorted``, through the plan's table, or
+    ``rt_unpack_dest``, without one)."""
+    return dict(_build.ENTRIES)
+
+
 def reset_launch_counts() -> None:
+    """Zero both counts."""
     for k in _build.LAUNCHES:
         _build.LAUNCHES[k] = 0
+    _build.ENTRIES.clear()
 
 
 # --------------------------------------------------------------------------

@@ -9,9 +9,15 @@ Wrappers of the CUDA kernels in ``csrc/pack_gather.cu`` and
   contiguous send buffer;
 * ``unpack_scatter_set`` — the full-materialization unpack: a fresh
   ``x_copy`` per rank, the landed rows scattered in, the owned rows copied
-  in at the rank's offset (eq. 15 + eq. 14 in one call);
+  in at the rank's offset (eq. 15 + eq. 14 in one call); given the plan's
+  ``TileTable`` (kept by a ``ScatterTiles`` beside the plan) the card
+  writes each output tile once;
 * ``unpack_dest`` — the ``Destination``-targeted unpack: each of the L slots
-  reads the landed buffer, the owned shard, or exactly 0.0;
+  reads the landed buffer, the owned shard, or exactly 0.0; given the
+  plan's ``DestTable`` (kept by a ``DestOrder`` beside the plan) the card
+  reads one code a slot, in the order of the positions it gathers;
+* ``unpack_dest_spmv`` — ``unpack_dest`` followed by the dest rungs' EllPack
+  slot product, the slots never written out;
 * ``accumulate_segments`` / ``accumulate_into`` — the push direction's
   combines (sender-side pack, own-target accumulate, blockwise block
   combine, landed-foreign fold) under ``add`` or ``max``, in ascending lane
@@ -34,8 +40,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref as kref
 
 __all__ = ["pack_gather", "unpack_scatter_set", "unpack_dest",
-           "SegmentTable", "segment_table", "accumulate_segments",
-           "accumulate_into"]
+           "unpack_dest_spmv", "TileTable", "tile_table", "ScatterTiles",
+           "DestTable", "dest_table", "DestOrder", "SegmentTable",
+           "segment_table", "accumulate_segments", "accumulate_into"]
 
 
 def require(cond: bool, what=None) -> None:
@@ -73,6 +80,15 @@ def _row_bytes(t: torch.Tensor) -> int:
     return math.prod(t.shape[2:]) * t.element_size()
 
 
+def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether ``a`` and ``b`` are the same array: one object, or views of
+    the same memory with one shape, stride and dtype.  The plan tables keep
+    the arrays they were built from alive, so their memory is never reused
+    while a table names it."""
+    return a is b or (a.data_ptr() == b.data_ptr() and a.shape == b.shape
+                      and a.stride() == b.stride() and a.dtype == b.dtype)
+
+
 def pack_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``out[q, k] = x[q, idx[q, k]]``: x ``(P, shard, ...)`` any dtype,
     idx ``(P, m)`` int32 -> ``(P, m, ...)``.  Bit-exact."""
@@ -91,16 +107,103 @@ def pack_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
+# a tile of the one-pass unpack holds about TILE_BYTES of one rank's output
+# in shared memory; rows of TILE_BYTES or more get a tile each and are
+# copied without it
+TILE_BYTES = 16384
+
+
+@dataclasses.dataclass(frozen=True)
+class TileTable:
+    """One landed index array ``idx (P, R)`` sorted by target, for the
+    one-pass unpack: rank q's landed rows in target order are ``perm[q]``
+    (their positions in recv), with targets ``tgt[q]``; the rows landing in
+    output tile t (rows ``[t * tile_rows, (t + 1) * tile_rows)``) are
+    entries ``[tile_ptr[q, t], tile_ptr[q, t + 1])``.  Of the landed rows
+    that share a target only the last in recv order is kept (the rest sort
+    after every tile, with target ``out_len``): the padding of every message
+    lands on one dump row, which would otherwise give one tile all of it.
+    ``idx`` is the array it was built from, ``out_len`` and ``row_bytes``
+    the output it serves."""
+
+    idx: torch.Tensor          # (P, R) int32
+    tgt: torch.Tensor          # (P, R) int32, ascending in each rank
+    perm: torch.Tensor         # (P, R) int32
+    tile_ptr: torch.Tensor     # (P, tiles + 1) int32
+    out_len: int
+    row_bytes: int
+    tile_rows: int
+
+
+def tile_table(idx: torch.Tensor, *, out_len: int,
+               row_bytes: int) -> TileTable:
+    """Build the ``TileTable`` of ``idx (P, R)`` (values in ``[0,
+    out_len)``) for rows of ``row_bytes`` on idx's device, once per plan:
+    stable ``torch.sort``s by target (before and after dropping all but the
+    last of each target's rows) and a ``searchsorted`` of the tile bounds,
+    ``TILE_BYTES // row_bytes`` rows a tile (at least one)."""
+    require(idx.dim() == 2 and out_len > 0 and row_bytes > 0,
+            (idx.shape, out_len, row_bytes))
+    p = idx.shape[0]
+    if idx.numel():
+        require(int(idx.min()) >= 0 and int(idx.max()) < out_len,
+                "idx outside [0, out_len)")
+    tile_rows = max(1, TILE_BYTES // row_bytes)
+    tiles = -(-out_len // tile_rows)
+    tgt, perm = torch.sort(idx.to(torch.int64), dim=1, stable=True)
+    last = torch.ones_like(tgt, dtype=torch.bool)
+    last[:, :-1] = tgt[:, :-1] != tgt[:, 1:]
+    tgt, kept = torch.sort(torch.where(last, tgt, out_len), dim=1,
+                           stable=True)
+    bounds = (torch.arange(tiles + 1, device=idx.device) * tile_rows
+              ).clamp_(max=out_len).expand(p, -1).contiguous()
+    tile_ptr = torch.searchsorted(tgt, bounds)
+    return TileTable(idx=idx, tgt=tgt.to(torch.int32),
+                     perm=perm.gather(1, kept).to(torch.int32),
+                     tile_ptr=tile_ptr.to(torch.int32), out_len=out_len,
+                     row_bytes=row_bytes, tile_rows=tile_rows)
+
+
+class ScatterTiles:
+    """A plan's ``tile_table``s on each card: built at the plan's first
+    call there for an output of ``out_len`` rows of ``row_bytes``, from the
+    landed index array that call gives, and kept beside the plan.  Calling
+    it with another array builds that array's table instead.  A build
+    syncs with the host (``tile_table``), so the plan's first call on a
+    card must run outside a CUDA-graph capture; later calls only look the
+    table up."""
+
+    def __init__(self):
+        self._by_key: dict = {}
+
+    def __call__(self, idx: torch.Tensor, *, out_len: int,
+                 row_bytes: int) -> TileTable | None:
+        """The table of ``idx``, or None for a tensor on the CPU."""
+        if not on_card(idx):
+            return None
+        key = (idx.device, out_len, row_bytes)
+        hit = self._by_key.get(key)
+        if hit is None or not _same(hit[0], idx):
+            hit = (idx, tile_table(idx, out_len=out_len,
+                                   row_bytes=row_bytes))
+            self._by_key[key] = hit
+        return hit[1]
+
+
 def unpack_scatter_set(recv: torch.Tensor, idx: torch.Tensor,
                        x_own: torch.Tensor, offsets: torch.Tensor, *,
-                       out_len: int, copy_own: bool = True) -> torch.Tensor:
+                       out_len: int, copy_own: bool = True,
+                       table: TileTable | None = None) -> torch.Tensor:
     """Per rank q: ``x_copy = zeros(out_len, ...)``, ``x_copy[idx[q]] =
     recv[q]``, then (``copy_own``) ``x_copy[offsets[q] : offsets[q] + rows]
     = x_own[q]`` — the own rows land after (win over) the scatter.
 
     recv ``(P, R, ...)``, idx ``(P, R)`` int32, x_own ``(P, rows, ...)``,
     offsets ``(P,)`` int32 -> ``(P, out_len, ...)``.  Bit-exact outside
-    duplicate targets (the dump rows), whose contents are unspecified."""
+    duplicate targets (the dump rows), whose contents are unspecified.
+    ``table``: ``tile_table(idx, ...)`` for this out_len and row width
+    (``ScatterTiles``), which the card's one-pass kernel reads; None runs
+    the three-phase kernel, and the CPU ignores it."""
     require(recv.dim() == x_own.dim()
             and recv.shape[2:] == x_own.shape[2:], (recv.shape, x_own.shape))
     require(idx.shape == recv.shape[:2], (idx.shape, recv.shape))
@@ -114,6 +217,18 @@ def unpack_scatter_set(recv: torch.Tensor, idx: torch.Tensor,
     p, rows = x_own.shape[:2]
     out = torch.empty((p, out_len) + tuple(x_own.shape[2:]),
                       dtype=x_own.dtype, device=x_own.device)
+    head = (recv.data_ptr(), x_own.data_ptr(), offsets.data_ptr())
+    if table is not None:
+        require(_same(table.idx, idx) and table.out_len == out_len
+                and table.row_bytes == _row_bytes(x_own),
+                "the table was built for another index array or output")
+        on_card(idx, table.tgt, table.perm, table.tile_ptr)
+        _build.launch("unpack_scatter_set", "rt_unpack_scatter_tiles",
+                      x_own.device, *head, table.tgt.data_ptr(),
+                      table.perm.data_ptr(), table.tile_ptr.data_ptr(),
+                      out.data_ptr(), p, recv.shape[1], rows, out_len,
+                      _row_bytes(x_own), table.tile_rows, int(copy_own))
+        return out
     _build.launch("unpack_scatter_set", "rt_unpack_scatter_set",
                   x_own.device, recv.data_ptr(), idx.data_ptr(),
                   x_own.data_ptr(), offsets.data_ptr(), out.data_ptr(), p,
@@ -123,19 +238,135 @@ def unpack_scatter_set(recv: torch.Tensor, idx: torch.Tensor,
 
 
 _DEST_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# slots a group of the planners' dest tables holds, the most a group may
+# hold (csrc kDestSlots: its values in shared memory, its slots in uint16),
+# and the code of a zero slot (csrc kZeroCode)
+GROUP_SLOTS = 49152
+MAX_GROUP_SLOTS = 57344
+ZERO_CODE = -(1 << 31)
 
 
-def unpack_dest(recv_flat: torch.Tensor, x_local: torch.Tensor,
-                src_idx: torch.Tensor, own_idx: torch.Tensor,
-                own_mask: torch.Tensor, rem_mask: torch.Tensor
-                ) -> torch.Tensor:
-    """Slot l of rank q gets ``recv_flat[q, src[q, l]]·rem[q, l] +
-    x_local[q, own[q, l]]·own[q, l]``.
+@dataclasses.dataclass(frozen=True)
+class DestTable:
+    """One plan's four dest arrays in the card's compact, sorted form.
 
-    recv_flat ``(P, R, ...)``, x_local ``(P, shard, ...)``, src/own ``(P, L)``
-    int32, masks ``(P, L)`` int8 -> ``(P, L, ...)``; float32 or bfloat16 on
-    the card.  Bit-exact, -0.0 and inf included; a NaN stays a NaN (its
-    payload bits are the platform's)."""
+    Each slot is one int32 code: a foreign slot its recv position, an owned
+    slot ``~own`` (its x position, complemented), a zero slot ``ZERO_CODE``.
+    The unselected index of every slot is 0, except that where ``shift`` is
+    given an owned slot's recv index is ``own + shift[q]`` (the replicate
+    rung, whose recv is the whole vector).  Within each group of ``group``
+    consecutive slots of a rank the entries are sorted by code (ties in slot
+    order), so each group's gathers walk positions in order; ``slot`` holds
+    the uint16 slot of each entry in its group.  ``arrays`` are the arrays
+    it was built from; the codes read recv below ``recv_len`` and x below
+    ``x_len``."""
+
+    arrays: tuple              # (src_idx, own_idx, own_mask, rem_mask)
+    code: torch.Tensor         # (P, L) int32
+    slot: torch.Tensor         # (P, L) int16 (uint16 bits)
+    shift: torch.Tensor | None  # (P,) int32
+    group: int
+    recv_len: int
+    x_len: int
+
+
+def dest_codes(src_idx, own_idx, own_mask, rem_mask):
+    """``(code (P, L) int32, shift (P,) int32 or None)`` where the arrays
+    have their planner's structure (``comm.plan.attach_destination``): masks
+    0/1 and never both 1, the unselected index 0 — except an owned slot's
+    recv index, which may be ``own + shift[q]`` for one shift a rank — and
+    positions that fit a code.  None where they do not: the kernels then
+    read the arrays themselves."""
+    own_i, rem_i = own_mask.to(torch.int32), rem_mask.to(torch.int32)
+    if bool(((own_i | rem_i) & ~1).any()):
+        return None                           # a mask other than 0/1
+    own, rem = own_i.bool(), rem_i.bool()
+    src, oidx = src_idx.to(torch.int64), own_idx.to(torch.int64)
+    if bool((own & rem).any()) or bool(torch.where(own, 0, oidx).any()) \
+            or bool(torch.where(own | rem, 0, src).any()):
+        return None
+    if bool((torch.where(rem, src, 0) < 0).any()) \
+            or bool((torch.where(own, oidx, 0) < 0).any()):
+        return None
+    shift = None
+    if bool(torch.where(own, src, 0).any()):
+        # the replicate rung: each owned slot reads recv at own + shift[q]
+        d = src - oidx
+        hi = torch.where(own, d, torch.iinfo(torch.int64).min).amax(1)
+        lo = torch.where(own, d, torch.iinfo(torch.int64).max).amin(1)
+        has = own.any(1)
+        if bool((has & (hi != lo)).any()) or bool((has & (lo < 0)).any()) \
+                or bool((hi >= 1 << 31).any()):
+            return None
+        shift = torch.where(has, hi, 0).to(torch.int32)
+    code = torch.where(rem, src, torch.where(own, ~oidx, ZERO_CODE))
+    return code.to(torch.int32), shift
+
+
+def dest_table(src_idx, own_idx, own_mask, rem_mask, *,
+               group: int = GROUP_SLOTS) -> DestTable | None:
+    """Build the ``DestTable`` of a plan's dest arrays ``(P, L)`` on their
+    device, once per plan, in groups of ``group`` slots (at most
+    ``MAX_GROUP_SLOTS``): ``dest_codes`` and a stable ``torch.sort`` of each
+    group by code.  None where ``dest_codes`` refuses the arrays."""
+    require(0 < group <= MAX_GROUP_SLOTS, group)
+    got = dest_codes(src_idx, own_idx, own_mask, rem_mask)
+    if got is None:
+        return None
+    code, shift = got
+    p, L = code.shape
+    rem = rem_mask != 0
+    own = own_mask != 0
+    reads = torch.where(rem, src_idx.to(torch.int64), 0)
+    if shift is not None:
+        reads = torch.maximum(reads, torch.where(
+            own, own_idx.to(torch.int64) + shift[:, None], 0))
+    x_reads = torch.where(own, own_idx.to(torch.int64), 0)
+    entry = torch.arange(L, device=code.device)
+    start = entry // group * group
+    order = torch.sort(entry // group * (1 << 32)
+                       + (code.to(torch.int64) + (1 << 31)),
+                       dim=1, stable=True).indices
+    slot = order - start
+    slot = torch.where(slot >= 1 << 15, slot - (1 << 16), slot)
+    return DestTable(
+        arrays=(src_idx, own_idx, own_mask, rem_mask),
+        code=code.gather(1, order).contiguous(),
+        slot=slot.to(torch.int16).contiguous(), shift=shift, group=group,
+        recv_len=int(reads.max()) + 1 if L else 1,
+        x_len=int(x_reads.max()) + 1 if L else 1)
+
+
+class DestOrder:
+    """A plan's ``dest_table`` on each card, in groups of whole rows of
+    ``row`` slots (``GROUP_SLOTS // row`` rows, so that ``unpack_dest_spmv``
+    can sum a group's rows): built at the plan's first call there, from the
+    dest arrays that call gives, and kept beside the plan.  Calling it with
+    other arrays builds their table instead.  A build syncs with the host
+    (``dest_codes`` checks the arrays' structure), so the plan's first call
+    on a card must run outside a CUDA-graph capture; later calls only look
+    the table up."""
+
+    def __init__(self, row: int = 1):
+        self.group = GROUP_SLOTS // row * row
+        self._by_device: dict = {}
+
+    def __call__(self, src_idx, own_idx, own_mask,
+                 rem_mask) -> DestTable | None:
+        """The table of the four arrays, or None where the card takes none
+        (tensors on the CPU, rows wider than ``GROUP_SLOTS``, arrays without
+        their planner's structure)."""
+        arrays = (src_idx, own_idx, own_mask, rem_mask)
+        if not on_card(*arrays) or not self.group:
+            return None
+        hit = self._by_device.get(src_idx.device)
+        if hit is None or not all(map(_same, hit[0], arrays)):
+            hit = (arrays, dest_table(*arrays, group=self.group))
+            self._by_device[src_idx.device] = hit
+        return hit[1]
+
+
+def _dest_checks(recv_flat, x_local, src_idx, own_idx, own_mask, rem_mask):
     require(recv_flat.shape[2:] == x_local.shape[2:],
             (recv_flat.shape, x_local.shape))
     require(recv_flat.dtype == x_local.dtype,
@@ -148,23 +379,110 @@ def unpack_dest(recv_flat: torch.Tensor, x_local: torch.Tensor,
     for m in (own_mask, rem_mask):
         if m.dtype != torch.int8:
             raise TypeError(f"masks must be int8, got {m.dtype}")
-    if not on_card(recv_flat, x_local, src_idx, own_idx, own_mask,
-                   rem_mask):
-        return kref.unpack_dest_ref(recv_flat, x_local, src_idx, own_idx,
-                                    own_mask, rem_mask)
+
+
+def _table_args(table: DestTable, recv_flat, x_local, arrays) -> tuple:
+    """The table's part of a launch, after checking that it was built from
+    these arrays and that recv and x hold every position it reads."""
+    require(all(map(_same, table.arrays, arrays)),
+            "the table was built for other dest arrays")
+    require(recv_flat.dim() == 2 and recv_flat.shape[1] >= table.recv_len
+            and x_local.shape[1] >= table.x_len,
+            "recv or x is shorter than the positions the table reads")
+    parts = (table.code, table.slot) + (
+        () if table.shift is None else (table.shift,))
+    on_card(recv_flat, *parts)
+    return (table.code.data_ptr(), table.slot.data_ptr(),
+            None if table.shift is None else table.shift.data_ptr())
+
+
+def unpack_dest(recv_flat: torch.Tensor, x_local: torch.Tensor,
+                src_idx: torch.Tensor, own_idx: torch.Tensor,
+                own_mask: torch.Tensor, rem_mask: torch.Tensor, *,
+                table: DestTable | None = None) -> torch.Tensor:
+    """Slot l of rank q gets ``recv_flat[q, src[q, l]]·rem[q, l] +
+    x_local[q, own[q, l]]·own[q, l]``.
+
+    recv_flat ``(P, R, ...)``, x_local ``(P, shard, ...)``, src/own ``(P, L)``
+    int32, masks ``(P, L)`` int8 -> ``(P, L, ...)``; float32 or bfloat16 on
+    the card.  Bit-exact, -0.0 and inf included; a NaN stays a NaN (its
+    payload bits are the platform's).  ``table``: the plan's ``dest_table``
+    of these four arrays (``DestOrder``), which the card reads in their
+    place where x has no trailing dimensions; None runs the kernel that
+    reads the arrays, and the CPU ignores it."""
+    arrays = (src_idx, own_idx, own_mask, rem_mask)
+    _dest_checks(recv_flat, x_local, *arrays)
+    if not on_card(recv_flat, x_local, *arrays):
+        return kref.unpack_dest_ref(recv_flat, x_local, *arrays)
     if x_local.dtype not in _DEST_DTYPES:
         raise TypeError(f"unpack_dest runs float32 or bfloat16 on the card, "
                         f"not {x_local.dtype}")
-    p, slots = shape
+    p, slots = src_idx.shape
     out = torch.empty((p, slots) + tuple(x_local.shape[2:]),
                       dtype=x_local.dtype, device=x_local.device)
+    dtype = _DEST_DTYPES[x_local.dtype]
+    if table is not None and x_local.dim() == 2:
+        _build.launch("unpack_dest", "rt_unpack_dest_sorted", x_local.device,
+                      recv_flat.data_ptr(), x_local.data_ptr(),
+                      *_table_args(table, recv_flat, x_local, arrays),
+                      out.data_ptr(), p, recv_flat.shape[1],
+                      x_local.shape[1], slots, table.group, dtype)
+        return out
     _build.launch("unpack_dest", "rt_unpack_dest", x_local.device,
                   recv_flat.data_ptr(), x_local.data_ptr(),
                   src_idx.data_ptr(), own_idx.data_ptr(),
                   own_mask.data_ptr(), rem_mask.data_ptr(), out.data_ptr(),
                   p, recv_flat.shape[1], x_local.shape[1], slots,
-                  math.prod(x_local.shape[2:]), _DEST_DTYPES[x_local.dtype])
+                  math.prod(x_local.shape[2:]), dtype)
     return out
+
+
+def unpack_dest_spmv(recv_flat: torch.Tensor, x_local: torch.Tensor,
+                     src_idx: torch.Tensor, own_idx: torch.Tensor,
+                     own_mask: torch.Tensor, rem_mask: torch.Tensor,
+                     vals: torch.Tensor, diag: torch.Tensor | None = None,
+                     *, table: DestTable | None = None) -> torch.Tensor:
+    """``y[q, i] = diag[q, i]·x_local[q, i] + Σ_j vals[q, i, j]·slot[q, i·r
+    + j]``, slot as ``unpack_dest`` computes it from the first six
+    arguments, never written out; float32 sums.
+
+    recv_flat ``(P, R)``, x_local ``(P, shard)``, the dest arrays ``(P,
+    rows·r)``, vals ``(P, rows, r)``, diag ``(P, shard)`` (rows = shard) or
+    None (no diagonal term) -> y ``(P, rows)``; on the card one dtype,
+    float32 or bfloat16.  ``table``: the plan's ``dest_table`` in groups of
+    whole rows (``DestOrder(row=r)``), which the card reads in place of the
+    arrays and cannot run without (a caller whose arrays get no table
+    composes ``unpack_dest`` with the product); the CPU ignores it.  The
+    card's launch counts as one of ``unpack_dest``."""
+    arrays = (src_idx, own_idx, own_mask, rem_mask)
+    _dest_checks(recv_flat, x_local, *arrays)
+    require(x_local.dim() == 2 and vals.dim() == 3, (x_local.shape,
+                                                     vals.shape))
+    p, rows, r = vals.shape
+    require(src_idx.shape == (p, rows * r), (src_idx.shape, vals.shape))
+    if diag is not None:
+        require(diag.shape == (p, rows) == x_local.shape,
+                (diag.shape, x_local.shape))
+    dense = (recv_flat, x_local, *arrays, vals) + (
+        () if diag is None else (diag,))
+    if not on_card(*dense):
+        return kref.unpack_dest_spmv_ref(recv_flat, x_local, *arrays, vals,
+                                         diag)
+    for t in dense[:2] + dense[6:]:
+        if t.dtype != x_local.dtype or t.dtype not in _DEST_DTYPES:
+            raise TypeError("unpack_dest_spmv runs float32 or bfloat16 on "
+                            "the card, one dtype for recv, x, vals and diag")
+    require(table is not None and table.group % r == 0,
+            "the card runs unpack_dest_spmv through a dest table in groups "
+            "of whole rows")
+    y = torch.empty((p, rows), dtype=vals.dtype, device=vals.device)
+    _build.launch("unpack_dest", "rt_unpack_dest_spmv_sorted", vals.device,
+                  recv_flat.data_ptr(), x_local.data_ptr(),
+                  *_table_args(table, recv_flat, x_local, arrays),
+                  vals.data_ptr(), None if diag is None else diag.data_ptr(),
+                  y.data_ptr(), p, recv_flat.shape[1], x_local.shape[1],
+                  rows, r, table.group // r, _DEST_DTYPES[vals.dtype])
+    return y
 
 
 # --------------------------------------------------------------------------

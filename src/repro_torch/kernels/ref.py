@@ -14,6 +14,7 @@ import math
 import torch
 
 __all__ = ["pack_gather_ref", "unpack_scatter_set_ref", "unpack_dest_ref",
+           "unpack_dest_spmv_ref",
            "ellpack_spmv_ref", "reduce_identity", "maximum",
            "accumulate_segments_ref", "accumulate_into_ref", "ordered_add",
            "fma_f32",
@@ -62,6 +63,18 @@ def unpack_dest_ref(recv_flat, x_local, src_idx, own_idx, own_mask,
 
     return (recv_flat[ranks, src_idx] * bmask(rem_mask)
             + x_local[ranks, own_idx] * bmask(own_mask))
+
+
+def unpack_dest_spmv_ref(recv_flat, x_local, src_idx, own_idx, own_mask,
+                         rem_mask, vals, diag=None):
+    """The dest rungs' slot product on ``unpack_dest_ref``'s slots: ``y[q,
+    i] = diag[q, i]·x_local[q, i] + Σ_j vals[q, i, j]·slot[q, i·r + j]``;
+    vals ``(P, rows, r)``, diag ``(P, rows)`` or None (no diagonal term)."""
+    p, rows, r = vals.shape
+    slots = unpack_dest_ref(recv_flat, x_local, src_idx, own_idx, own_mask,
+                            rem_mask).reshape(p, rows, r)
+    acc = (vals * slots).sum(-1)
+    return acc if diag is None else diag * x_local + acc
 
 
 def ellpack_spmv_ref(diag, vals, cols_rel, own_rel, win_blk, x, *, window,

@@ -21,7 +21,8 @@ from repro_torch.core.matrix import (make_mesh_like_matrix, spmv_ref_np,
 from repro_torch.core.heat2d import Heat2D
 from repro_torch.core.matrix import EllpackMatrix
 from repro_torch.core.solvers import ConjugateGradient
-from repro_torch.core.spmv import DistributedSpMV, normal_equations_step
+from repro_torch.core.spmv import (DistributedSpMV, _dest_product,
+                                   normal_equations_step)
 from repro_torch.kernels import decode_attention as kda
 from repro_torch.kernels import ellpack_spmv as kes
 from repro_torch.kernels import ops as kops
@@ -216,6 +217,298 @@ def test_spmv_engine_on_card(dev, strategy, materialize):
             2 if strategy == "overlap" else 1)
         assert counts["unpack_scatter_set"] == (
             0 if strategy == "replicate" else 1)
+
+
+# --------------------------------------------------------------------------
+# B3 / B2 through their plan tables, and B3 fused with the slot product
+# --------------------------------------------------------------------------
+
+STRATEGIES = ["replicate", "blockwise", "condensed", "overlap"]
+
+
+def _landed(dev, strategy, n=8192, seed=3, plant=True):
+    """A dest engine's landed exchange (``strategies.Landed``), its vals
+    and diag, with -0.0, inf and NaN planted in recv and x."""
+    m = make_mesh_like_matrix(n, 16, locality_window=n // 64,
+                              long_range_frac=0.02, seed=seed)
+    eng = DistributedSpMV(m, LoopbackComm(8, device=dev), strategy=strategy,
+                          blocksize=64, shards_per_node=4, use_kernel=True,
+                          materialize="dest")
+    x_host = np.random.default_rng(seed).standard_normal(n).astype(
+        np.float32)
+    x = eng.shard_vector(x_host)
+    landed = eng.gather.local(x, *eng.gather.plan_args, materialize="landed")
+    if plant:
+        recv, x = landed.recv_flat.clone(), landed.x_local.clone()
+        recv.view(-1)[:4] = torch.tensor([-0.0, float("inf"), float("nan"),
+                                          -1.5], device=dev)
+        x.view(-1)[:4] = torch.tensor([-0.0, float("-inf"), float("nan"),
+                                       2.5], device=dev)
+        landed = landed._replace(recv_flat=recv, x_local=x)
+    p = 8
+    rows = n // p
+    if strategy == "overlap":       # the foreign slots' own width
+        r = landed.src_idx.shape[1] // rows
+        vals = _rand(np.random.default_rng(seed), (p, rows, r),
+                     torch.float32, dev)
+    else:
+        vals = torch.as_tensor(m.vals).to(dev).reshape(p, rows, -1)
+    diag = torch.as_tensor(m.diag).to(dev).reshape(p, rows)
+    return m, x_host, landed, vals, diag
+
+
+@pytest.mark.parametrize("strategy", STRATEGIES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_unpack_dest_table_bit_exact(dev, strategy, dtype):
+    """B3 through the plan's dest table and through the plan's arrays, bit
+    for bit against the plain version, on every rung's real dest arrays
+    with -0.0, inf and NaN in both sources; the table variant launches."""
+    _, _, landed, _, _ = _landed(dev, strategy)
+    landed = landed._replace(recv_flat=landed.recv_flat.to(dtype),
+                             x_local=landed.x_local.to(dtype))
+    table = kops.DestOrder()(*landed[2:])
+    assert table is not None
+    assert (table.shift is not None) == (strategy == "replicate")
+    want = kref.unpack_dest_ref(*landed)
+    kops.reset_launch_counts()
+    with_table = kops.unpack_dest(*landed, table=table)
+    without = kops.unpack_dest(*landed)
+    torch.cuda.synchronize()
+    assert kops.entry_counts() == {"rt_unpack_dest_sorted": 1,
+                                   "rt_unpack_dest": 1}
+    assert _same_bits(with_table, want)
+    assert _same_bits(without, want)
+
+
+@pytest.mark.parametrize("strategy", STRATEGIES)
+@pytest.mark.parametrize("with_diag", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_unpack_dest_spmv_matches_plain(dev, strategy, with_diag, dtype):
+    """B3 fused with the slot product, through the table, against the
+    plain composition (float32 at 3e-5; bfloat16 against the composition on
+    float32 copies of the same slots, one bf16 rounding); the same bits on
+    a second call; refused on the card without a table."""
+    _, _, landed, vals, diag = _landed(dev, strategy, plant=False)
+    landed = landed._replace(recv_flat=landed.recv_flat.to(dtype),
+                             x_local=landed.x_local.to(dtype))
+    vals, diag = vals.to(dtype), diag.to(dtype) if with_diag else None
+    r = vals.shape[2]
+    table = kops.DestOrder(row=r)(*landed[2:])
+    assert table is not None and table.group % r == 0
+    slots = kref.unpack_dest_ref(*landed).float()
+    want = (vals.float() * slots.reshape(vals.shape)).sum(-1)
+    if with_diag:
+        want = diag.float() * landed.x_local.float() + want
+    kops.reset_launch_counts()
+    got = [kops.unpack_dest_spmv(*landed, vals, diag, table=table)
+           for _ in range(2)]
+    with pytest.raises(ValueError, match="dest table"):
+        kops.unpack_dest_spmv(*landed, vals, diag)
+    torch.cuda.synchronize()
+    assert kops.launch_counts()["unpack_dest"] == 2
+    assert kops.entry_counts() == {"rt_unpack_dest_spmv_sorted": 2}
+    assert _same_bits(got[0], got[1])
+    tol = TOL if dtype == torch.float32 else BF16_OUT_TOL
+    assert got[0].dtype == dtype
+    torch.testing.assert_close(got[0].float(), want, **tol)
+    if dtype == torch.float32:
+        plain = kref.unpack_dest_spmv_ref(*landed, vals, diag)
+        torch.testing.assert_close(got[0], plain, **TOL)
+
+
+def test_dest_table_refused_runs_the_array_kernel(dev):
+    """Dest arrays without their planner's structure (a slot both owned
+    and foreign) get no table; the wrapper then reads the arrays, and the
+    dest step composes that kernel with the plain slot product."""
+    _, _, landed, vals, diag = _landed(dev, "condensed", plant=False)
+    both = landed.own_mask.clone()
+    both[:, 0] = 1
+    rem = landed.rem_mask.clone()
+    rem[:, 0] = 1
+    broken = landed._replace(own_mask=both, rem_mask=rem)
+    assert kops.DestOrder()(*broken[2:]) is None
+    kops.reset_launch_counts()
+    got = kops.unpack_dest(*broken, table=None)
+    torch.cuda.synchronize()
+    assert _same_bits(got, kref.unpack_dest_ref(*broken))
+    assert kops.entry_counts() == {"rt_unpack_dest": 1}
+    for d in (diag, None):
+        kops.reset_launch_counts()
+        y = _dest_product(broken, vals, d, kops.DestOrder(
+            row=vals.shape[2])(*broken[2:]), use_kernel=True)
+        torch.cuda.synchronize()
+        assert kops.entry_counts() == {"rt_unpack_dest": 1}
+        torch.testing.assert_close(
+            y, kref.unpack_dest_spmv_ref(*broken, vals, d), **TOL)
+
+
+def test_dest_order_built_once_per_plan(dev):
+    _, _, landed, _, _ = _landed(dev, "blockwise", plant=False)
+    order = kops.DestOrder(row=16)
+    first = order(*landed[2:])
+    assert first is order(*landed[2:])
+    other = order(landed.src_idx.clone(), *landed[3:])
+    assert other is not first and torch.equal(other.code, first.code)
+
+
+def _tile_case(dev, rng, feat, dtype, p=4, rows=700, dups=True):
+    """Landed rows for B2: foreign targets across tile edges, own-range
+    targets (which lose), duplicates on the dump row n, and (``dups``) a
+    foreign target landed twice (its contents unspecified)."""
+    n = p * rows
+    n_recv = 900
+    idx = np.full((p, n_recv), n, np.int32)
+    for q in range(p):
+        foreign = np.setdiff1d(np.arange(n), np.arange(q * rows,
+                                                       (q + 1) * rows))
+        k = 600
+        idx[q, :k] = np.sort(rng.choice(foreign, k, replace=False))
+        idx[q, k:k + 40] = q * rows + rng.choice(rows, 40, replace=False)
+        if dups:
+            idx[q, k + 40] = idx[q, 0]
+    recv = _rand(rng, (p, n_recv) + feat, dtype, dev)
+    x_own = _rand(rng, (p, rows) + feat, dtype, dev)
+    offsets = torch.arange(0, n, rows, dtype=torch.int32, device=dev)
+    return n, torch.as_tensor(idx, device=dev), recv, x_own, offsets
+
+
+@pytest.mark.parametrize("copy_own", [True, False])
+@pytest.mark.parametrize("extra_slots", [0, 2])
+@pytest.mark.parametrize("feat", [(), (3,), (1024,), (8192,)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_unpack_scatter_set_tiles_bit_exact(dev, copy_own, extra_slots, feat,
+                                            dtype):
+    """B2 in one pass through the plan's tile table, against the plain
+    version outside the dump row and the twice-landed row: duplicates,
+    own-range targets, copy_own off, zero slots after the dump row, scalar,
+    3-wide and 1024-wide (blockwise) rows, and rows of a tile or more (the
+    wide-row kernel); the three-phase kernel too."""
+    rng = np.random.default_rng(4)
+    n, idx, recv, x_own, offsets = _tile_case(dev, rng, feat, dtype)
+    out_len = n + 1 + extra_slots
+    row_bytes = int(np.prod(feat, dtype=np.int64)) * recv.element_size()
+    table = kops.ScatterTiles()(idx, out_len=out_len, row_bytes=row_bytes)
+    assert table is not None
+    kw = dict(out_len=out_len, copy_own=copy_own)
+    want = kref.unpack_scatter_set_ref(recv, idx, x_own, offsets, **kw)
+    kops.reset_launch_counts()
+    got = kops.unpack_scatter_set(recv, idx, x_own, offsets, table=table,
+                                  **kw)
+    plain_kernel = kops.unpack_scatter_set(recv, idx, x_own, offsets, **kw)
+    torch.cuda.synchronize()
+    assert kops.entry_counts() == {"rt_unpack_scatter_tiles": 1,
+                                   "rt_unpack_scatter_set": 1}
+    twice = idx[:, 0].long()
+    keep = torch.ones((idx.shape[0], out_len), dtype=torch.bool, device=dev)
+    keep[:, n] = False
+    keep[torch.arange(idx.shape[0], device=dev), twice] = False
+    for out in (got, plain_kernel):
+        assert torch.equal(out[keep], want[keep])
+        assert not out[:, n + 1:].any()
+
+
+@pytest.mark.parametrize("strategy", STRATEGIES)
+@pytest.mark.parametrize("materialize", ["full", "dest"])
+def test_spmv_engine_runs_the_table_kernels(dev, strategy, materialize):
+    """On every rung the engines' unpacks launch the table variants, and
+    nothing else of B2/B3."""
+    n = 8 * 1024
+    m = make_mesh_like_matrix(n, 16, locality_window=n // 64,
+                              long_range_frac=0.02, seed=1)
+    x = np.random.default_rng(1).standard_normal(n).astype(np.float32)
+    eng = DistributedSpMV(m, LoopbackComm(8, device=dev), strategy=strategy,
+                          blocksize=64, shards_per_node=4, use_kernel=True,
+                          materialize=materialize)
+    xs = eng.shard_vector(x)
+    eng(xs)
+    kops.reset_launch_counts()
+    y = eng(xs)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(y.reshape(-1).cpu().numpy(), spmv_ref_np(m, x),
+                               rtol=2e-4, atol=2e-4)
+    entries = kops.entry_counts()
+    unpacks = {k: v for k, v in entries.items() if "unpack" in k}
+    if materialize == "dest":
+        assert unpacks == {"rt_unpack_dest_spmv_sorted": 1}
+    elif strategy != "replicate":
+        assert unpacks == {"rt_unpack_scatter_tiles": 1}
+    else:
+        assert unpacks == {}
+
+
+def test_table_kernels_in_a_cuda_graph(dev):
+    """With their tables built, B3, its fusion and B2 launch with no host
+    sync and allocate only their outputs: a CUDA graph captures them and
+    its replay gives the eager bits."""
+    _, _, landed, vals, diag = _landed(dev, "condensed", plant=False)
+    dtab = kops.DestOrder()(*landed[2:])
+    ftab = kops.DestOrder(row=vals.shape[2])(*landed[2:])
+    rng = np.random.default_rng(5)
+    n, idx, recv, x_own, offsets = _tile_case(dev, rng, (), torch.float32,
+                                              dups=False)
+    ttab = kops.ScatterTiles()(idx, out_len=n + 1, row_bytes=4)
+
+    def run():
+        return (kops.unpack_dest(*landed, table=dtab),
+                kops.unpack_dest_spmv(*landed, vals, diag, table=ftab),
+                kops.unpack_scatter_set(recv, idx, x_own, offsets,
+                                        out_len=n + 1, table=ttab))
+    side = torch.cuda.Stream(device=dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        eager = run()                     # warm-up off the capture
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = run()
+    graph.replay()
+    torch.cuda.synchronize()
+    for got, want in zip(captured, eager):
+        assert _same_bits(got, want)
+
+
+def test_exchange_tables_at_the_smoke_shape(dev):
+    """B3 (table and arrays), B3 fused with the slot product and B2 (table
+    and three phases) at the condensed rung of chip_smoke.py's n = 2^22
+    matrix, against their plain versions."""
+    n, p = 1 << 22, 8
+    m = make_mesh_like_matrix(n, 16, locality_window=n // 64,
+                              long_range_frac=0.02, seed=1)
+    x_host = np.random.default_rng(1).standard_normal(n).astype(np.float32)
+    comm = LoopbackComm(p, device=dev)
+    dest = DistributedSpMV(m, comm, strategy="condensed", shards_per_node=4,
+                           blocksize=1024, use_kernel=True,
+                           materialize="dest")
+    x = dest.shard_vector(x_host)
+    landed = dest.gather.local(x, *dest.gather.plan_args,
+                               materialize="landed")
+    want = kref.unpack_dest_ref(*landed)
+    assert _same_bits(kops.unpack_dest(*landed, table=kops.DestOrder()(
+        *landed[2:])), want)
+    assert _same_bits(kops.unpack_dest(*landed), want)
+    vals = torch.as_tensor(m.vals).to(dev).reshape(p, n // p, -1)
+    diag = torch.as_tensor(m.diag).to(dev).reshape(p, n // p)
+    y = kops.unpack_dest_spmv(*landed, vals, diag,
+                              table=kops.DestOrder(row=16)(*landed[2:]))
+    torch.testing.assert_close(
+        y, kref.unpack_dest_spmv_ref(*landed, vals, diag), **TOL)
+    np.testing.assert_allclose(y.reshape(-1).cpu().numpy(),
+                               spmv_ref_np(m, x_host), rtol=2e-4, atol=2e-4)
+    del landed, want, dest
+    full = DistributedSpMV(m, comm, strategy="condensed", shards_per_node=4,
+                           blocksize=1024, use_kernel=True,
+                           materialize="full")
+    send_idx, recv_idx = full.gather.plan_args
+    buf = kops.pack_gather(x, send_idx.reshape(p, -1))
+    recv = comm.all_to_all(buf.reshape(send_idx.shape)).wait().reshape(p, -1)
+    idx = recv_idx.reshape(p, -1)
+    offsets = torch.arange(0, n, n // p, dtype=torch.int32, device=dev)
+    kw = dict(out_len=n + 1)
+    want = kref.unpack_scatter_set_ref(recv, idx, x, offsets, **kw)
+    table = kops.ScatterTiles()(idx, out_len=n + 1, row_bytes=4)
+    for t in (table, None):
+        got = kops.unpack_scatter_set(recv, idx, x, offsets, table=t, **kw)
+        assert torch.equal(got[:, :n], want[:, :n])
 
 
 def _same_bits(got: torch.Tensor, want: torch.Tensor) -> bool:

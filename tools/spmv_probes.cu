@@ -1,11 +1,12 @@
 // Probe kernels for tools/spmv_kernel_bench.py and chip_smoke.py: they time
-// what bounds the SpMV (B4) and segment-fold (B5) kernels on the card, and
-// are no part of the port.  Built with the port's nvcc flags by
-// repro_torch.kernels._build.build_library; every entry point launches on
-// the given stream and returns cudaGetLastError().
+// what bounds the SpMV (B4), segment-fold (B5) and targeted-unpack (B3)
+// kernels on the card, and are no part of the port.  Built with the port's
+// nvcc flags by repro_torch.kernels._build.build_library; every entry point
+// launches on the given stream and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstdint>
 
 namespace {
@@ -69,9 +70,128 @@ __global__ void gather_list_kernel(const int32_t* pos, const float* x,
            ((__ldg(x + b.x) + __ldg(x + b.y)) + (__ldg(x + b.z) + __ldg(x + b.w)));
 }
 
+// B3's two layouts one at a time (the port's kernel combines them), float32:
+//   * sorted arrays (layout a alone): the plan's src, own and masks, and
+//     each entry's slot, permuted into the dest table's sorted order; a
+//     block stages a group of `group` slots in shared memory and writes it
+//     out in slot order;
+//   * codes (layout b alone): one int32 code a slot in slot order (the dest
+//     table's code before its sort), no staging.
+__device__ __forceinline__ float dest_value(const float* rr, const float* xr,
+                                            int c, int shift) {
+  const bool rem = c >= 0, own = !rem && c != INT_MIN;
+  const int ia = rem ? c : (own && shift >= 0 ? ~c + shift : 0);
+  const float a = __ldg(rr + ia), b = __ldg(xr + (own ? ~c : 0));
+  return __fadd_rn(__fmul_rn(a, rem ? 1.0f : 0.0f),
+                   __fmul_rn(b, own ? 1.0f : 0.0f));
+}
+
+__global__ void __launch_bounds__(1024)
+    dest_sorted_arrays_kernel(const float* recv, const float* x,
+                              const int32_t* src, const int32_t* own,
+                              const int8_t* own_m, const int8_t* rem_m,
+                              const uint16_t* slot, float* out,
+                              long long n_recv, long long shard,
+                              long long slots, unsigned group,
+                              unsigned per_rank) {
+  extern __shared__ float parked[];
+  const size_t rank = blockIdx.x / per_rank;
+  const size_t g0 = static_cast<size_t>(blockIdx.x - rank * per_rank) * group;
+  const size_t left = static_cast<size_t>(slots) - g0;
+  const unsigned n = left < group ? static_cast<unsigned>(left) : group;
+  const size_t e0 = rank * slots + g0;
+  const float* rr = recv + rank * n_recv;
+  const float* xr = x + rank * shard;
+  for (unsigned u0 = threadIdx.x; u0 < n; u0 += 8 * 1024) {
+    float v[8];
+    unsigned sl[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const unsigned u = u0 + k * 1024;
+      if (u < n) {
+        const size_t e = e0 + u;
+        sl[k] = __ldcs(slot + e);
+        const float a = __ldg(rr + __ldcs(src + e));
+        const float b = __ldg(xr + __ldcs(own + e));
+        v[k] = __fadd_rn(__fmul_rn(a, static_cast<float>(__ldcs(rem_m + e))),
+                         __fmul_rn(b, static_cast<float>(__ldcs(own_m + e))));
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      if (u0 + k * 1024 < n) parked[sl[k]] = v[k];
+    }
+  }
+  __syncthreads();
+  for (unsigned s = threadIdx.x; s < n; s += 1024) out[e0 + s] = parked[s];
+}
+
+__global__ void dest_codes_kernel(const float* recv, const float* x,
+                                  const int32_t* code, const int32_t* shift,
+                                  float* out, long long n_recv,
+                                  long long shard, long long slots) {
+  const size_t rank = blockIdx.y;
+  const float* rr = recv + rank * n_recv;
+  const float* xr = x + rank * shard;
+  const int sh = shift == nullptr ? -1 : shift[rank];
+  const size_t base = rank * slots;
+  const unsigned start = blockIdx.x * 1024 + threadIdx.x;
+  int c[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const unsigned l = start + u * 256;
+    c[u] = l < slots ? __ldcs(code + base + l) : INT_MIN;
+  }
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const unsigned l = start + u * 256;
+    if (l < slots) out[base + l] = dest_value(rr, xr, c[u], sh);
+  }
+}
+
 }  // namespace
 
 extern "C" {
+
+// recv (p, n_recv), x (p, shard), the four arrays (p, slots) and slot (p,
+// slots) uint16 in the dest table's order, out (p, slots); float32.
+int probe_dest_sorted_arrays(const void* recv, const void* x, const void* src,
+                             const void* own, const void* own_m,
+                             const void* rem_m, const void* slot, void* out,
+                             long long p, long long n_recv, long long shard,
+                             long long slots, long long group, void* stream) {
+  if (p == 0 || slots == 0) return cudaGetLastError();
+  if (group < 1 || group > 57344)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long per_rank = (slots + group - 1) / group;
+  const int smem = static_cast<int>(group * 4);
+  cudaFuncSetAttribute(dest_sorted_arrays_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  dest_sorted_arrays_kernel<<<static_cast<unsigned>(per_rank * p), 1024, smem,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(recv), static_cast<const float*>(x),
+      static_cast<const int32_t*>(src), static_cast<const int32_t*>(own),
+      static_cast<const int8_t*>(own_m), static_cast<const int8_t*>(rem_m),
+      static_cast<const uint16_t*>(slot), static_cast<float*>(out), n_recv,
+      shard, slots, static_cast<unsigned>(group),
+      static_cast<unsigned>(per_rank));
+  return cudaGetLastError();
+}
+
+// code (p, slots) int32 in slot order, shift (p,) int32 or null.
+int probe_dest_codes(const void* recv, const void* x, const void* code,
+                     const void* shift, void* out, long long p,
+                     long long n_recv, long long shard, long long slots,
+                     void* stream) {
+  if (p == 0 || slots == 0) return cudaGetLastError();
+  const dim3 grid(static_cast<unsigned>((slots + 1023) / 1024),
+                  static_cast<unsigned>(p));
+  dest_codes_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(recv), static_cast<const float*>(x),
+      static_cast<const int32_t*>(code), static_cast<const int32_t*>(shift),
+      static_cast<float*>(out), n_recv, shard, slots);
+  return cudaGetLastError();
+}
 
 int probe_add_chain(void* out, long long n, void* stream) {
   add_chain_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
