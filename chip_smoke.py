@@ -19,8 +19,9 @@ each:
    raw on a line of their own);
 2. build: the CUDA kernels, compiled from kernels/csrc/*.cu for sm_90a,
    and beside them the probes of tools/spmv_probes.cu;
-3. setup: the matrix, the base plan, the push plan (ScatterPlan), the
-   eight forward and four transposed engines (all sharing those plans);
+3. setup: the matrix, the base plan and the push plan (ScatterPlan) from
+   the plan cache (comm/plan_cache.py), the eight forward and four
+   transposed engines (all sharing those plans);
 4. kernels: each kernel against its plain PyTorch version at the inputs
    its path gives it, with its time, the plain version's on the card, one
    PyTorch library call's where one computes the same function, and the
@@ -70,6 +71,25 @@ each:
    to 1 for one card), ms per prefill, tokens/s, selective_scan launches
    (64 per prefill), and the logits with the kernel against the plain
    recurrence's at L = 1024 (relative L2 under 2e-2).
+The model lines (phase "model"; the §5 models of core/perfmodel.py on
+this card): right after setup, calibration (core/tune.py's four
+parameters for one rank of LoopbackComm(8), the stacked probes' raw
+times, tau's wall and event times, the card's copy and gather rates);
+after phase 5 and in phase 7, auto (DistributedSpMV(strategy="auto") with
+use_kernel for full and dest, Heat2D(strategy="auto") dest, each with its
+base plan a memory hit of the plan cache: its predicted_times, its pick,
+the measured-fastest rung of the phase and the regret, the pick's
+measured ms over the best's); after phase 8, one model_row for each
+measured configuration of phases 5 to 8 (the step time those phases
+measured beside the §5 prediction priced as the engine runs, model_error,
+error_budget, busy share) and plan_cache (the cache's counters and the
+seconds a memory hit saves over the build within the process, the base
+plan's bytes and whether its entry reached the disk tier). They fail the
+run when a prediction is not a positive number, a calibration value lies
+outside CALIBRATION_RANGE, an auto pick is not the argmin of its own
+ranking, or an auto engine's output differs from the fixed-rung engine it
+resolved to (bit for bit; the forward dest rungs may hold to
+unpack_dest_spmv's 3e-5 instead). A model miss, even past its budget, is printed, never a failure.
 In phases 5 to 10 the kernel launch counters are zeroed just before the
 path runs and read just after, and every kernel of the path must have
 launched; in phases 5, 7 and 8 every launch of unpack_dest and
@@ -89,6 +109,7 @@ script exits non-zero at once.
 import contextlib
 import gc
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -167,7 +188,14 @@ FORWARD_KERNELS = ("pack_gather", "unpack_scatter_set", "unpack_dest",
 PUSH_KERNELS = ("accumulate_segments", "accumulate_into")
 
 
+_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries the seconds since the start
+    of the run (``t_s``)."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - _START, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -811,9 +839,10 @@ def profile_steps(torch, step, steps: int = 3, lead: int = 2,
 
 def phase_main_path(torch, engines, x_host, y_ref, card):
     """Every rung x materialize forward, counters zeroed before and read
-    after."""
+    after; returns the launch counts and each engine's (timing, profile)."""
     from repro_torch.kernels import ops as kops
 
+    measured = {}
     kops.reset_launch_counts()
     for (strategy, mat), eng in engines.items():
         before = kops.launch_counts()
@@ -835,6 +864,7 @@ def phase_main_path(torch, engines, x_host, y_ref, card):
         check_table_variants(f"{strategy}/{mat}", step, entries)
         timing = time_steps(torch, lambda: eng(x))
         prof = profile_steps(torch, lambda: eng(x))
+        measured[(strategy, mat)] = (timing, prof)
         emit({"phase": "main_path", "strategy": strategy, "materialize": mat,
               "use_kernel": True, "max_abs_err": err, **timing, **prof,
               "launches_per_step": step, "entries_per_step": entries,
@@ -842,7 +872,7 @@ def phase_main_path(torch, engines, x_host, y_ref, card):
     counts = kops.launch_counts()
     for k in FORWARD_KERNELS:
         check(counts[k] > 0, f"the main path never launched {k}")
-    return counts
+    return counts, measured
 
 
 T_EXPECTED = {  # kernels each transposed rung launches with use_kernel
@@ -855,9 +885,11 @@ T_EXPECTED = {  # kernels each transposed rung launches with use_kernel
 
 def phase_transposed(torch, t_engines, x_host, y_t_ref, card):
     """Every rung of the transposed product, counters zeroed before and
-    read after."""
+    read after; returns the launch counts and each engine's (timing,
+    profile)."""
     from repro_torch.kernels import ops as kops
 
+    measured = {}
     kops.reset_launch_counts()
     for strategy, eng in t_engines.items():
         before = kops.launch_counts()
@@ -877,13 +909,14 @@ def phase_transposed(torch, t_engines, x_host, y_t_ref, card):
             check(step[k] > 0, f"{strategy}/transposed never launched {k}")
         timing = time_steps(torch, lambda: eng(x))
         prof = profile_steps(torch, lambda: eng(x))
+        measured[strategy] = (timing, prof)
         emit({"phase": "transposed", "strategy": strategy,
               "use_kernel": True, "max_abs_err": err, **timing, **prof,
               "launches_per_step": step, "card": card})
     counts = kops.launch_counts()
     for k in PUSH_KERNELS:
         check(counts[k] > 0, f"the transposed path never launched {k}")
-    return counts
+    return counts, measured
 
 
 def heat_field() -> np.ndarray:
@@ -960,25 +993,32 @@ for _s in ("blockwise", "condensed", "overlap"):
                                 "unpack_scatter_set")
 
 
-def phase_heat2d(torch, comm, card):
+def phase_heat2d(torch, comm, hw, card):
     """Every rung x {dest, full} of Heat2D on one shared stencil pattern
-    and base plan, counters zeroed before and read after."""
+    and base plan (the plan cache's), counters zeroed before and read
+    after; then the auto engine (dest).  Returns the launch counts and the
+    model rows."""
+    from repro_torch.comm import plan_cache
     from repro_torch.comm.pattern import AccessPattern
-    from repro_torch.comm.plan import Topology, build_comm_plan
-    from repro_torch.core.heat2d import Heat2D
+    from repro_torch.comm.plan import Topology
+    from repro_torch.core.heat2d import Heat2D, heat2d_predicted_times
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref as kref
 
     t0 = time.perf_counter()
     pattern = AccessPattern.from_stencil5(HEAT_N, HEAT_N, MPROCS, NPROCS)
     t1 = time.perf_counter()
-    base = build_comm_plan(pattern.indices, pattern.n, P,
-                           topology=Topology(P, SHARDS_PER_NODE))
+    base = plan_cache.get_comm_plan(pattern.indices, pattern.n, P,
+                                    topology=Topology(P, SHARDS_PER_NODE))
     t2 = time.perf_counter()
+    # the fixed rungs share the phase's plan explicitly, past the cache
+    # (hashing the 16M-cell pattern for each would cost more than the
+    # small halo Destination's attach)
     engines = {(s, m): Heat2D(
         comm, HEAT_N, HEAT_N, mprocs=MPROCS, nprocs=NPROCS, coef=HEAT_COEF,
         strategy=s, materialize=m, use_kernel=True,
-        shards_per_node=SHARDS_PER_NODE, pattern=pattern, base_plan=base)
+        shards_per_node=SHARDS_PER_NODE, pattern=pattern, base_plan=base,
+        use_plan_cache=False)
         for s in STRATEGIES for m in ("dest", "full")}
     torch.cuda.synchronize()
     t3 = time.perf_counter()
@@ -995,6 +1035,7 @@ def phase_heat2d(torch, comm, card):
           "condensed_volume": base.counts.total_condensed_volume(),
           "blockwise_volume": base.counts.total_blockwise_volume()})
 
+    rows = []
     kops.reset_launch_counts()
     for (strategy, mat), h in engines.items():
         phi = h.shard_field(field)
@@ -1019,6 +1060,15 @@ def phase_heat2d(torch, comm, card):
         timing = {k: v / HEAT_TIMED_STEPS for k, v in timing.items()}
         prof = profile_steps(torch, lambda: h.run(phi, 4), steps=1, lead=1,
                              per_call=4)
+        rows.append(dict(
+            path="heat2d", strategy=strategy, materialize=mat,
+            ms=timing["ms_per_iter"], busy_share=prof["busy_share"],
+            predicted_s=heat2d_predicted_times(
+                base, HEAT_N, HEAT_N, MPROCS, NPROCS, hw,
+                destination=h.gather.destination,
+                materialize=mat)[strategy],
+            cell={"rung": strategy, "dtype": "float32",
+                  "mesh": [MPROCS, NPROCS]}))
         emit({"phase": "heat2d", "strategy": strategy, "materialize": mat,
               "split": h.overlap, "use_kernel": True,
               "bit_equal_steps": HEAT_CHECK_STEPS, **timing, **prof,
@@ -1028,7 +1078,23 @@ def phase_heat2d(torch, comm, card):
     for k in ("stencil2d", "pack_gather", "unpack_scatter_set",
               "unpack_dest"):
         check(counts[k] > 0, f"the heat2d path never launched {k}")
-    return counts
+
+    # the auto engine: its base plan a memory hit of the plan cache
+    t0 = time.perf_counter()
+    auto = Heat2D(comm, HEAT_N, HEAT_N, mprocs=MPROCS, nprocs=NPROCS,
+                  coef=HEAT_COEF, strategy="auto", hw=hw, materialize="dest",
+                  use_kernel=True, shards_per_node=SHARDS_PER_NODE,
+                  pattern=pattern)
+    build_s = time.perf_counter() - t0
+    phi = auto.shard_field(field)
+    got = auto.run(phi, HEAT_CHECK_STEPS)
+    want_t = engines[(auto.strategy, "dest")].run(phi, HEAT_CHECK_STEPS)
+    torch.cuda.synchronize()
+    check_auto("heat2d/dest", auto.predicted_times, auto.strategy,
+               {r["strategy"]: r["ms"] for r in rows
+                if r["materialize"] == "dest"},
+               torch.equal(got, want_t), True, build_s, card)
+    return counts, rows
 
 
 NE_EXPECTED = {  # kernels each normal-equations rung launches
@@ -1039,9 +1105,12 @@ NE_EXPECTED = {  # kernels each normal-equations rung launches
 }
 
 
-def phase_normal_equations(torch, comm, matrix, base, splan, x_host, card):
+def phase_normal_equations(torch, comm, matrix, base, splan, x_host, hw,
+                           card):
     """normal_equations_step on every rung and CG on the condensed rung,
-    on the SpMV phases' plans, counters zeroed before and read after."""
+    on the SpMV phases' plans, counters zeroed before and read after.
+    Returns the model rows (the steps' predicted_window, CG's
+    predicted_loop)."""
     from repro_torch.comm.pattern import AccessPattern
     from repro_torch.comm.plan import Topology
     from repro_torch.comm.schedule import plan_key
@@ -1055,8 +1124,10 @@ def phase_normal_equations(torch, comm, matrix, base, splan, x_host, card):
     plans = {key: base, ("put", key): splan}
     z_ref = spmv_t_ref_np(matrix, spmv_ref_np(matrix, x_host))
     z_tol = dict(rtol=2e-4, atol=2e-4 * float(np.abs(z_ref).max()))
+    # the setup's plans (their Destination delta a memory hit of the
+    # cache); hw= prices the fixed rungs' window and loop
     kw = dict(blocksize=BLOCKSIZE, shards_per_node=SHARDS_PER_NODE,
-              plans=plans)
+              plans=plans, hw=hw)
     t0 = time.perf_counter()
     steps = {s: normal_equations_step(matrix, comm, strategy=s,
                                       use_kernel=True, **kw)
@@ -1067,6 +1138,8 @@ def phase_normal_equations(torch, comm, matrix, base, splan, x_host, card):
           "plans": len(plans)})
     check(len(plans) == 2, "the steps built plans of their own")
 
+    rows = []
+    cell = {"workload": "spmv_kernel", "dtype": "float32", "mesh": [P]}
     kops.reset_launch_counts()
     for strategy, step in steps.items():
         x = step.shard_vector(x_host)
@@ -1089,6 +1162,11 @@ def phase_normal_equations(torch, comm, matrix, base, splan, x_host, card):
         check_table_variants(f"{strategy}/normal", launched, entries)
         timing = time_steps(torch, lambda: step(x))
         prof = profile_steps(torch, lambda: step(x))
+        rows.append(dict(path="normal_equations", strategy=strategy,
+                         materialize="dest", ms=timing["ms_per_iter"],
+                         busy_share=prof["busy_share"],
+                         predicted_s=step.predicted_window["total"],
+                         cell=dict(cell, rung=strategy)))
         emit({"phase": "normal_equations", "strategy": strategy,
               "use_kernel": True, "max_abs_err": err,
               "ref_max_abs": float(np.abs(z_ref).max()), **timing, **prof,
@@ -1125,16 +1203,163 @@ def phase_normal_equations(torch, comm, matrix, base, splan, x_host, card):
     carries = cgs[True].carries(b)
     timing = time_steps(torch, lambda: cgs[True].schedule(
         *carries, n_steps=CG_ITERS), warmup=1, iters=3)
+    prof = profile_steps(torch, lambda: cgs[True].schedule(
+        *carries, n_steps=CG_ITERS), steps=1, lead=1, per_call=CG_ITERS)
+    loop = cgs[True].schedule.predicted_loop(CG_ITERS)
+    rows.append(dict(path="cg", strategy="condensed", materialize="dest",
+                     ms=timing["ms_per_iter"] / CG_ITERS,
+                     busy_share=prof["busy_share"],
+                     predicted_s=loop["total"] / CG_ITERS,
+                     cell=dict(cell, rung="condensed")))
     emit({"phase": "cg", "strategy": "condensed", "use_kernel": True,
           "iterations": CG_ITERS, "setup_s": round(setup_s, 3),
           "rel_vs_plain": rel, "residual_start": r0, "residual_end": r_end,
           "ms_per_iteration": timing["ms_per_iter"] / CG_ITERS,
           "host_enqueue_ms_per_iteration":
-              timing["host_enqueue_ms_per_iter"] / CG_ITERS, "card": card})
+              timing["host_enqueue_ms_per_iter"] / CG_ITERS,
+          "busy_share": prof["busy_share"], "card": card})
     counts = kops.launch_counts()
     for k in ("pack_gather", "unpack_dest") + PUSH_KERNELS:
         check(counts[k] > 0, f"the normal-equations path never launched {k}")
-    return counts
+    return rows
+
+
+# sane ranges of the calibration of ONE rank of LoopbackComm(P) on one
+# H100: a value outside fails the run.  The P ranks run stacked and share
+# the card's HBM, so a rank's copy rate is at most its 1/P share of it; its
+# all_to_all send is read and written once each (at most 1/(2P) of the HBM
+# rate), capped here at 1/P, the factor 2 left for the part of the 64 MB
+# working set that the 50 MB L2 serves.  A probe of one un-stacked tensor
+# credits the rank with the whole card and reads ~P times these caps.  tau
+# is the host's enqueue and synchronize of one tiny all_to_all.
+CALIBRATION_RANGE = {"w_private": (1e10, HBM_BYTES_PER_S / P),
+                     "w_remote": (1e10, HBM_BYTES_PER_S / P),
+                     "tau": (1e-6, 1e-2), "cacheline": (16, 4096)}
+
+
+def phase_calibration(torch, comm, card):
+    """The §5.4 parameters of one rank of ``comm`` (``tune.
+    measure_hardware``), with the stacked probes' raw times."""
+    from repro_torch.comm.exchange import measure_hw
+    from repro_torch.core import tune
+
+    t0 = time.perf_counter()
+    hw = measure_hw(comm)
+    seconds = time.perf_counter() - t0
+    raw = tune.calibration(comm)
+    values = {k: getattr(hw, k) for k in CALIBRATION_RANGE}
+    emit({"phase": "model", "kind": "calibration", **values, "raw": raw,
+          "seconds": round(seconds, 3), "card": card})
+    for k, (lo, hi) in CALIBRATION_RANGE.items():
+        check(lo <= values[k] <= hi,
+              f"calibration {k} = {values[k]} outside [{lo}, {hi}]")
+    return hw
+
+
+def spmv_prediction(eng, hw) -> float:
+    """Seconds the §5 models predict for one step of a fixed-rung
+    DistributedSpMV, priced as it runs: kernelized compute terms, the
+    put models for the transposed product, and the unpack its
+    materialize runs (the slots its Destination names under "dest")."""
+    from repro_torch.comm import select
+    from repro_torch.core import perfmodel as pm
+
+    if eng.transpose:
+        w = select.workload_from_plan(eng.splan, R_NZ, use_kernel=True)
+        return float(pm.PUT_STRATEGY_PREDICTORS[eng.strategy](w, hw))
+    w = select.workload_from_plan(eng.plan, R_NZ,
+                                  materialize=eng.materialize,
+                                  use_kernel=True)
+    return float(pm.STRATEGY_PREDICTORS[eng.strategy](w, hw))
+
+
+def path_rows(path, engines, measured, hw):
+    """Model rows of the SpMV engines of one path phase."""
+    rows = []
+    for key, eng in engines.items():
+        timing, prof = measured[key]
+        rows.append(dict(
+            path=path, strategy=eng.strategy, materialize=eng.materialize,
+            ms=timing["ms_per_iter"], busy_share=prof["busy_share"],
+            predicted_s=spmv_prediction(eng, hw),
+            cell={"rung": eng.strategy, "workload": "spmv_kernel",
+                  "dtype": "float32", "mesh": [P]}))
+    return rows
+
+
+def check_auto(what, predicted, pick, measured_ms, same, bit_equal, build_s,
+               card):
+    """One auto engine's line: its ranking, its pick, the measured-fastest
+    rung and the regret (the pick's measured ms over the best's).  Fails
+    when a prediction is not a positive number, when the pick is not the
+    argmin of its own ranking, or when its output differs from the
+    fixed-rung engine it resolved to."""
+    for rung, t in predicted.items():
+        check(np.isfinite(t) and t > 0,
+              f"{what}: auto predicted {t} s for {rung}")
+    check(pick == min(predicted, key=predicted.get),
+          f"{what}: auto picked {pick}, not the argmin of {predicted}")
+    check(same, f"{what}: the auto engine's output differs from the "
+          f"{pick} engine's")
+    best = min(measured_ms, key=measured_ms.get)
+    emit({"phase": "model", "kind": "auto", "path": what,
+          "predicted_ms": {k: v * 1e3 for k, v in predicted.items()},
+          "pick": pick, "measured_best": best,
+          "measured_ms": measured_ms,
+          "regret": measured_ms[pick] / measured_ms[best],
+          "bit_equal": bit_equal, "build_s": round(build_s, 3),
+          "card": card})
+
+
+def phase_auto_forward(torch, matrix, comm, engines, x_host, hw, measured,
+                       card):
+    """The auto forward engines (use_kernel, full and dest), base plan from
+    the plan cache's memory tier, against the fixed engine each resolved
+    to on the same input."""
+    from repro_torch.core.spmv import DistributedSpMV
+
+    for mat in ("full", "dest"):
+        t0 = time.perf_counter()
+        auto = DistributedSpMV(matrix, comm, strategy="auto", hw=hw,
+                               blocksize=BLOCKSIZE,
+                               shards_per_node=SHARDS_PER_NODE,
+                               use_kernel=True, materialize=mat)
+        build_s = time.perf_counter() - t0
+        x = auto.shard_vector(x_host)
+        got = auto(x)
+        want = engines[(auto.strategy, mat)](x)
+        torch.cuda.synchronize()
+        bit_equal = torch.equal(got, want)
+        # the dest rungs' fused product may hold to unpack_dest_spmv's 3e-5
+        same = bit_equal or (mat == "dest" and torch.allclose(
+            got, want, **SPMV_TOL))
+        check_auto(f"forward/{mat}", auto.predicted_times, auto.strategy,
+                   {s: measured[(s, mat)][0]["ms_per_iter"]
+                    for s in STRATEGIES}, same, bit_equal, build_s, card)
+        del auto
+
+
+def phase_model(rows, plan_first_s, card):
+    """Every measured configuration beside its §5 prediction, then the plan
+    cache's counters and the seconds its memory tier saves a second
+    construction.  A model miss, even past its budget, is printed, never a
+    failure; a prediction that is not a positive number fails."""
+    from repro_torch.comm import plan_cache
+    from repro_torch.core import perfmodel as pm
+
+    for r in rows:
+        t = r["predicted_s"]
+        where = f"{r['path']} {r['strategy']}/{r['materialize']}"
+        check(np.isfinite(t) and t > 0, f"{where}: predicted {t} s")
+        emit({"phase": "model", "kind": "model_row", "path": r["path"],
+              "strategy": r["strategy"], "materialize": r["materialize"],
+              "measured_ms": r["ms"], "predicted_ms": t * 1e3,
+              "model_error": pm.model_error(r["ms"] * 1e-3, t),
+              "error_budget": pm.error_budget(r["cell"]),
+              "busy_share": r["busy_share"], "card": card})
+    emit({"phase": "model", "kind": "plan_cache",
+          "stats": plan_cache.stats.snapshot(), **plan_first_s,
+          "card": card})
 
 
 def rel_l2(torch, got, want) -> float:
@@ -1572,9 +1797,13 @@ def main() -> None:
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"{src}/repro_torch not found: run from a checkout")
     sys.path.insert(0, str(src))
+    # the plan cache's disk tier stays inside the checkout (build/ is not
+    # committed); the smoke's plans are too large for it and stay in memory
+    os.environ.setdefault("REPRO_TORCH_PLAN_CACHE_DIR",
+                          str(src.parent / "build" / "plan_cache"))
+    from repro_torch.comm import plan_cache
     from repro_torch.comm.communicator import LoopbackComm
-    from repro_torch.comm.plan import (Topology, build_comm_plan,
-                                       derive_scatter_plan)
+    from repro_torch.comm.plan import Topology
     from repro_torch.core.matrix import (make_mesh_like_matrix, spmv_ref_np,
                                          spmv_t_ref_np)
     from repro_torch.core.spmv import DistributedSpMV
@@ -1590,30 +1819,51 @@ def main() -> None:
     y_ref = spmv_ref_np(matrix, x_host)
     y_t_ref = spmv_t_ref_np(matrix, x_host)
     t1 = time.perf_counter()
-    base = build_comm_plan(matrix.cols, N, P, blocksize=BLOCKSIZE,
-                           topology=Topology(P, SHARDS_PER_NODE))
+    plan_kw = dict(blocksize=BLOCKSIZE, topology=Topology(P, SHARDS_PER_NODE))
+    base = plan_cache.get_comm_plan(matrix.cols, N, P, **plan_kw)
     t2 = time.perf_counter()
-    splan = derive_scatter_plan(base)
+    splan = plan_cache.get_scatter_plan(matrix.cols, N, P, base=base,
+                                        **plan_kw)
+    t3 = time.perf_counter()
+    # a second construction's plan: a memory hit of the cache
+    check(plan_cache.get_comm_plan(matrix.cols, N, P, **plan_kw) is base,
+          "the plan cache rebuilt the base plan")
+    hit_s = time.perf_counter() - t3
+    # the memory tier saves a construction within this process only: a
+    # base plan over REPRO_TORCH_PLAN_CACHE_MAX_BYTES is never written to
+    # disk, so a new process builds it again (plan_on_disk says which)
+    plan_bytes = sum(v.nbytes for v in vars(base).values()
+                     if isinstance(v, np.ndarray))
+    plan_seconds = {"plan_build_s": t2 - t1, "plan_memory_hit_s": hit_s,
+                    "plan_saved_s": t2 - t1 - hit_s,
+                    "plan_bytes": plan_bytes,
+                    "plan_on_disk": os.path.exists(os.path.join(
+                        plan_cache.cache_dir(), plan_cache.plan_key(
+                            matrix.cols, N, P, BLOCKSIZE,
+                            plan_kw["topology"]) + ".npz"))}
+    scatter_plan_s = t3 - t2
     t3 = time.perf_counter()
     comm = LoopbackComm(P)
+    # the fixed rungs share the setup's plans; the cache serves their
+    # Destination deltas (one attach for every rung but overlap's)
+    fixed_kw = dict(shards_per_node=SHARDS_PER_NODE, use_kernel=True,
+                    base_plan=base)
     engines = {}
     for strategy in STRATEGIES:
         for mat in ("full", "dest"):
             engines[(strategy, mat)] = DistributedSpMV(
-                matrix, comm, strategy=strategy,
-                shards_per_node=SHARDS_PER_NODE, use_kernel=True,
-                materialize=mat, base_plan=base)
+                matrix, comm, strategy=strategy, materialize=mat,
+                **fixed_kw)
     t4 = time.perf_counter()
     t_engines = {strategy: DistributedSpMV(
-        matrix, comm, strategy=strategy, shards_per_node=SHARDS_PER_NODE,
-        use_kernel=True, transpose=True, base_plan=base, scatter_plan=splan)
-        for strategy in STRATEGIES}
+        matrix, comm, strategy=strategy, transpose=True, scatter_plan=splan,
+        **fixed_kw) for strategy in STRATEGIES}
     torch.cuda.synchronize()
     c, tc = base.counts, splan.counts
     emit({"phase": "setup", "n": N, "r_nz": R_NZ, "ranks": P,
           "blocksize": BLOCKSIZE, "shards_per_node": SHARDS_PER_NODE,
           "matrix_s": round(t1 - t0, 3), "plan_s": round(t2 - t1, 3),
-          "scatter_plan_s": round(t3 - t2, 3),
+          "scatter_plan_s": round(scatter_plan_s, 3),
           "engines_s": round(t4 - t3, 3),
           "transposed_engines_s": round(time.perf_counter() - t4, 3),
           "s_max": base.s_max, "b_max": base.b_max,
@@ -1623,21 +1873,33 @@ def main() -> None:
           "put_blockwise_volume": tc.total_blockwise_volume(),
           "device_mem_gb": round(torch.cuda.memory_allocated() / 1e9, 3)})
 
+    hw = phase_calibration(torch, comm, card)
     results = phase_kernels(torch, matrix, x_host, engines, y_ref)
     results.update(phase_push_kernels(torch, matrix, x_host, t_engines,
                                       probes))
     results.update(phase_stencil_kernel(torch, comm.device))
     results.update(phase_decode_attention_kernel(torch, comm.device))
     results.update(phase_selective_scan_kernel(torch, comm.device))
-    counts = phase_main_path(torch, engines, x_host, y_ref, card)
-    counts.update({k: v for k, v in phase_transposed(
-        torch, t_engines, x_host, y_t_ref, card).items()
-        if k in PUSH_KERNELS})
+    counts, measured = phase_main_path(torch, engines, x_host, y_ref, card)
+    phase_auto_forward(torch, matrix, comm, engines, x_host, hw, measured,
+                       card)
+    rows = path_rows("forward", engines, measured, hw)
+    t_counts, measured = phase_transposed(torch, t_engines, x_host, y_t_ref,
+                                          card)
+    counts.update({k: v for k, v in t_counts.items() if k in PUSH_KERNELS})
+    rows += path_rows("transposed", t_engines, measured, hw)
     del engines, t_engines
     torch.cuda.empty_cache()
-    counts["stencil2d"] = phase_heat2d(torch, comm, card)["stencil2d"]
+    h_counts, h_rows = phase_heat2d(torch, comm, hw, card)
+    counts["stencil2d"] = h_counts["stencil2d"]
+    rows += h_rows
     torch.cuda.empty_cache()
-    phase_normal_equations(torch, comm, matrix, base, splan, x_host, card)
+    rows += phase_normal_equations(torch, comm, matrix, base, splan, x_host,
+                                   hw, card)
+    phase_model(rows, plan_seconds, card)
+    del base, splan
+    plan_cache.clear_memory_cache()
+    gc.collect()
     torch.cuda.empty_cache()
     counts["decode_attention"] = phase_serve(torch, card)["decode_attention"]
     gc.collect()

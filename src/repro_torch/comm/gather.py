@@ -1,8 +1,10 @@
 """IrregularGather — the pull-direction front door to the strategy ladder.
 
 One object owns everything the paper's §4 machinery needs for one access
-pattern over one communicator: the one-time ``CommPlan``, the chosen rung,
-the device-resident plan arrays, and the rank-stacked gather functions.
+pattern over one communicator: the one-time ``CommPlan`` (persistently
+cached, ``comm.plan_cache``), the resolved rung (any ladder rung or
+``"auto"`` through the §5 models), the device-resident plan arrays, and the
+rank-stacked gather functions.
 
 Consumers compose it two ways:
 
@@ -31,15 +33,18 @@ dest arrays (``strategies.Landed``) for a consumer that fuses the delivery
 into its own compute (``kernels.unpack_dest_spmv``).  With
 ``use_kernel=True`` the delivery reads the plan's dest table, which a
 ``kernels.DestOrder`` of the gather builds at its first call on a card.
+``strategy="auto"`` prices whichever unpack the consumer will run: the
+targeted one with a ``Destination``, the paper's in-place one without.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.comm import plan_cache
 from repro_torch.comm import strategies as strat
 from repro_torch.comm.exchange import IrregularExchange, OverlapHandle
 from repro_torch.comm.pattern import AccessPattern, Destination
-from repro_torch.comm.plan import CommPlan, attach_destination
+from repro_torch.comm.plan import CommPlan
 from repro_torch.kernels import ops as kops
 
 __all__ = ["IrregularGather", "OverlapHandle"]
@@ -50,15 +55,43 @@ class IrregularGather(IrregularExchange):
     over the ranks of one communicator."""
 
     def __init__(self, pattern: AccessPattern, where, *,
-                 destination: Destination | None = None, **kwargs):
+                 destination: Destination | None = None,
+                 dest_slots: int | None = None, **kwargs):
         """``destination`` may be a ``Destination`` or a callable
-        ``(strategy, base_plan) -> Destination`` for consumers whose slot
-        layout depends on the rung (e.g. SpMV targets foreign slots only
-        under ``overlap``).  Remaining keyword arguments (``strategy``,
-        ``blocksize``, ``shards_per_node``, ``topology``, ``base_plan``,
+        ``(resolved_strategy, base_plan) -> Destination`` for consumers
+        whose slot layout depends on the resolved rung (e.g. SpMV targets
+        foreign slots only under ``overlap``); it is materialized and
+        attached once, after strategy resolution, so no throwaway plan
+        entry is ever cached.  ``dest_slots`` is the flattened slot count
+        the auto ranking prices when ``destination`` is a callable (a
+        plain ``Destination`` knows its own).  Remaining keyword arguments
+        (``strategy``, ``blocksize``, ``shards_per_node``, ``topology``,
+        ``hw``, ``use_plan_cache``, ``base_plan``, ``scan_steps``,
         ``use_kernel``) are the shared ``IrregularExchange`` surface."""
         self._destination_arg = destination
+        self._dest_slots = dest_slots
         super().__init__(pattern, where, **kwargs)
+
+    def _price_kwargs(self) -> dict:
+        kw = super()._price_kwargs()
+        destination = self._destination_arg
+        if destination is None:
+            return kw
+        # with a destination, price the targeted O(slots + recv) unpack
+        # instead of the O(n) full-copy assembly
+        if callable(destination):
+            if self._dest_slots is None:
+                raise ValueError(
+                    'strategy="auto" with a callable destination '
+                    "requires dest_slots= — the flattened slot "
+                    "count the ranking prices (otherwise the "
+                    "targeted unpack would be priced at 0 slots "
+                    "and skew the rung selection)")
+            slots = self._dest_slots
+        else:
+            slots = destination.num_slots
+        kw.update(materialize="dest", dest_slots=slots)
+        return kw
 
     def _bind(self, base_plan: CommPlan, strategy: str) -> None:
         p, n = self.p, self.pattern.n
@@ -71,7 +104,10 @@ class IrregularGather(IrregularExchange):
                 f"for {p} ranks")
             assert destination.indices.max() < n, (
                 "destination indices must lie in [-1, n)")
-            self.plan: CommPlan = attach_destination(base_plan, destination)
+            self.plan: CommPlan = plan_cache.get_comm_plan(
+                self.pattern.indices, n, p, blocksize=base_plan.blocksize,
+                topology=base_plan.topology, destination=destination,
+                base=base_plan, cache=self._use_plan_cache)
         else:
             self.plan = base_plan
         self.destination = destination

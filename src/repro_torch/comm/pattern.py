@@ -190,6 +190,14 @@ class Destination:
         """Flattened slots per device (the O(L) the targeted unpack pays)."""
         return self.indices.shape[1]
 
+    def key_bytes(self) -> bytes:
+        """Content bytes for the plan-cache key (the reference's, byte for
+        byte)."""
+        head = "|".join(
+            f"{n}:{','.join(map(str, s))}"
+            for n, s in zip(self.names, self.shapes)).encode()
+        return head + b"#" + np.ascontiguousarray(self.indices).tobytes()
+
     def split(self, flat):
         """Split a rank-stacked flat ``(P, L, ...)`` buffer back into named
         ``(P, *slot_shape, ...)`` slot arrays (numpy arrays and torch

@@ -34,11 +34,12 @@ Composition mirrors the gather:
   ``finish`` runs the own-shard accumulate first: it has no dependency on
   the collective, which on the card runs on a side stream meanwhile.
 
-This slice takes static patterns.  The reference's plan cache
-(``plan_cache.get_scatter_plan``) is not ported; an already-derived
-``ScatterPlan`` can be shared between engines with ``scatter_plan=``.
-Per-batch patterns (``derive_plan_args``, ``DynamicPattern``) come with
-ROADMAP A9.
+``strategy="auto"`` ranks the rungs with the put-direction §5 models on
+the ``ScatterPlan``'s transposed counts.  The ``ScatterPlan`` comes from
+the plan cache (``plan_cache.get_scatter_plan``: a delta derived from, and
+stored against, the base plan), or is shared between engines with
+``scatter_plan=``.  Per-batch patterns (``derive_plan_args``,
+``DynamicPattern``) come with ROADMAP A9.
 """
 from __future__ import annotations
 
@@ -48,9 +49,10 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch.comm import plan_cache
 from repro_torch.comm import strategies as strat
 from repro_torch.comm.exchange import IrregularExchange
-from repro_torch.comm.plan import CommPlan, ScatterPlan, derive_scatter_plan
+from repro_torch.comm.plan import CommPlan, ScatterPlan
 
 __all__ = ["IrregularScatter", "ScatterHandle"]
 
@@ -86,8 +88,9 @@ class IrregularScatter(IrregularExchange):
         ``"set"`` / ``"max"``).  ``scatter_plan`` shares an already-derived
         ``ScatterPlan`` (its ``base`` then serves as ``base_plan`` unless
         one is given).  Remaining keyword arguments (``strategy``,
-        ``blocksize``, ``shards_per_node``, ``topology``, ``base_plan``,
-        ``use_kernel``) are the shared ``IrregularExchange`` surface."""
+        ``blocksize``, ``shards_per_node``, ``topology``, ``hw``,
+        ``use_plan_cache``, ``base_plan``, ``scan_steps``, ``use_kernel``)
+        are the shared ``IrregularExchange`` surface."""
         if reduce not in strat.SCATTER_REDUCES:
             raise ValueError(
                 f"reduce must be one of {strat.SCATTER_REDUCES}")
@@ -98,11 +101,15 @@ class IrregularScatter(IrregularExchange):
         super().__init__(pattern, where, **kwargs)
 
     def _prepare(self, base_plan: CommPlan) -> None:
-        # the transpose-derived executor tables are strategy-independent:
-        # derived once here (O(m·r) passes over the base plan), or shared
+        # the transpose-derived executor tables are strategy-independent,
+        # so they are resolved (cached as a delta, or shared) before the §5
+        # ranking, whose put-direction counts they carry
         splan = self._scatter_plan_arg
         if splan is None:
-            splan = derive_scatter_plan(base_plan)
+            splan = plan_cache.get_scatter_plan(
+                self.pattern.indices, base_plan.n, base_plan.p,
+                blocksize=base_plan.blocksize, topology=base_plan.topology,
+                base=base_plan, cache=self._use_plan_cache)
         else:
             b = splan.base
             assert (b.n, b.p, b.m, b.blocksize, b.s_max, b.b_max) == (
@@ -110,6 +117,9 @@ class IrregularScatter(IrregularExchange):
                 base_plan.s_max, base_plan.b_max), (
                 "scatter_plan was derived from a different base plan")
         self.splan = splan
+
+    def _ranking_plan(self, base_plan: CommPlan):
+        return self.splan
 
     def _bind(self, base_plan: CommPlan, strategy: str) -> None:
         self.plan = base_plan  # the shared (direction-agnostic) base plan

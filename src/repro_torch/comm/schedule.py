@@ -5,13 +5,19 @@ of them: SpMV ``y = A x`` followed by ``z = Aᵀ y``, a halo exchange before
 every stencil step.  A ``Schedule`` declares the whole chain up front so
 that ``compile`` resolves every stage against one shared context:
 
+* one hardware-calibration memo hit (``exchange.measure_hw``) prices every
+  ``strategy="auto"`` stage;
 * each unique (pattern, blocksize) gets one destination-independent base
   ``CommPlan``, keyed by content (``plan_key``), shared by every stage over
-  it — and, through ``plans=``, by other schedules (the port has no plan
-  cache yet; the dict stands in for it);
+  it — and, through ``plans=``, by other schedules; a plan not in
+  ``plans`` comes from the persistent plan cache (``comm.plan_cache``);
 * a scatter stage over a pattern that a sibling gather uses derives its
   ``ScatterPlan`` from that gather's base plan, never a second O(nnz)
-  build.
+  build;
+* the §5 composition model (``perfmodel.predict_schedule``) prices the
+  window from the stages' resolved rungs (``predicted_window``; a
+  ``ScanSchedule`` also prices its loop, ``predicted_loop``) whenever
+  hardware parameters are in scope: an ``"auto"`` stage, or ``hw=``.
 
 The reference compiles the chain into one ``shard_map``; the port runs the
 stages eagerly, in declaration order, on rank-stacked ``(P, ...)`` tensors
@@ -30,12 +36,8 @@ loop.  A ``gather(double_buffer=True)`` stage reads the delivery of the
 exchange its ``feed()`` stage issued one iteration earlier, so the compute
 of one iteration hides inside the window opened during the previous one.
 
-What the port leaves out: ``strategy="auto"`` and ``blocksize="auto"``
-(the §5 models priced on the card, ROADMAP A5) raise
-``NotImplementedError``, and ``predicted_times``, ``predicted_window`` and
-``predicted_loop`` are ``None`` — as the reference's are when no hardware
-parameters are in scope.  ``spec`` is a placement function here, not a
-``PartitionSpec``; dynamic patterns are not ported (ROADMAP A9).
+``spec`` is a placement function here, not a ``PartitionSpec``; dynamic
+patterns are not ported (ROADMAP A9).
 
 >>> import numpy as np, torch
 >>> from repro_torch.comm.communicator import LoopbackComm
@@ -67,12 +69,13 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch.comm import plan_cache
+from repro_torch.comm import select
 from repro_torch.comm import strategies as strat
-from repro_torch.comm.exchange import _AUTO_LATER
+from repro_torch.comm.exchange import measure_hw
 from repro_torch.comm.gather import IrregularGather
 from repro_torch.comm.pattern import AccessPattern
-from repro_torch.comm.plan import (Topology, build_comm_plan,
-                                   derive_scatter_plan)
+from repro_torch.comm.plan import Topology
 from repro_torch.comm.scatter import IrregularScatter
 
 __all__ = ["Schedule", "ExchangeSchedule", "ScanSchedule", "StageRef",
@@ -203,7 +206,8 @@ class Schedule:
                          replicated=replicated)
 
     def gather(self, pattern: AccessPattern, *, src: StageRef | None = None,
-               destination=None, strategy: str | None = None,
+               destination=None, dest_slots: int | None = None,
+               strategy: str | None = None,
                blocksize=None, use_kernel: bool | None = None,
                finish_kwargs: dict | None = None,
                double_buffer: bool = False, prime: StageRef | None = None,
@@ -215,7 +219,8 @@ class Schedule:
         ``destination``, else every rank's full ``x_copy``.  ``strategy`` /
         ``blocksize`` / ``use_kernel`` override the schedule defaults per
         stage; ``finish_kwargs`` are forwarded to ``OverlapHandle.finish``
-        (``extra_slots=`` / ``copy_own=``).
+        (``extra_slots=`` / ``copy_own=``); ``dest_slots`` is the slot count
+        an ``"auto"`` stage prices for a callable ``destination``.
 
         ``double_buffer=True`` (only under ``Schedule.scan``): the stage's
         value is the delivery of the exchange issued by this schedule's
@@ -246,7 +251,8 @@ class Schedule:
                 src = self.input()
         self._check_ref(src, array_valued=True)
         return self._add("gather", name, pattern=pattern, src=src,
-                         destination=destination, strategy=strategy,
+                         destination=destination, dest_slots=dest_slots,
+                         strategy=strategy,
                          blocksize=blocksize, use_kernel=use_kernel,
                          double_buffer=double_buffer,
                          finish_kwargs=dict(finish_kwargs or {}))
@@ -310,60 +316,74 @@ class Schedule:
 
     def resolve(self, comm, *, strategy: str = "auto", blocksize=None,
                 use_kernel: bool = False, topology: Topology | None = None,
-                shards_per_node: int | None = None,
+                shards_per_node: int | None = None, hw=None,
+                use_plan_cache: bool = True, scan_steps: int | None = None,
                 plans: dict | None = None) -> "Schedule":
-        """Resolve every exchange stage over ``comm``'s ranks: one base plan
-        per unique (pattern, blocksize), ScatterPlans derived from the
-        sibling gather's base plan.
+        """Resolve every exchange stage over ``comm``'s ranks against one
+        shared context: one ``measure_hw`` memo hit for every ``"auto"``
+        stage, one base plan per unique (pattern, blocksize), ScatterPlans
+        derived from the sibling gather's base plan.
 
         ``use_kernel`` is the schedule-wide default for the CUDA pack /
         unpack / fold kernels (each stage's own ``use_kernel=`` wins when
-        set).  ``plans`` is a dict, keyed by ``plan_key`` (and ``("put",
-        key)`` for ScatterPlans), that resolve reads before building a plan
-        and fills with what it builds: pass one dict to several schedules
-        to share their plans.  Call it explicitly when a later stage's shape
-        depends on a resolved rung (``strategy_of(ref)``)."""
+        set); ``"auto"`` stages are priced with the kernelized compute terms
+        so the ranking matches what the window runs.  ``scan_steps`` (set
+        by ``Schedule.scan(n_steps_hint=...)``) makes every ``"auto"`` stage
+        rank rungs on the n-step steady-state loop cost
+        (``perfmodel.scan_loop_cost``) instead of the single-call cost.
+        ``plans`` is a dict, keyed by ``plan_key`` (and ``("put", key)``
+        for ScatterPlans), that resolve reads before acquiring a plan
+        (through the plan cache unless ``use_plan_cache=False``) and fills
+        with what it acquires: pass one dict to several schedules to share
+        their plans.  Call it explicitly when a later stage's shape depends
+        on a resolved rung (``strategy_of(ref)``)."""
         if self._ctx is not None:
             raise RuntimeError("schedule already resolved")
         exchanges = self._exchange_stages()
         if not exchanges:
             raise ValueError("a schedule needs at least one exchange stage")
-        for st in exchanges:
-            st_strategy = st.strategy if st.strategy is not None else strategy
-            bs = st.blocksize if st.blocksize is not None else blocksize
-            if st_strategy == "auto":
-                raise NotImplementedError(_AUTO_LATER.format(
-                    what="strategy", choice=f"one of {strat.STRATEGIES}"))
-            if bs == "auto":
-                raise NotImplementedError(_AUTO_LATER.format(
-                    what="blocksize", choice="an integer blocksize"))
         p = comm.p
         if topology is None:
             topology = Topology(p, shards_per_node or p)
+        needs_hw = any((s.strategy or strategy) == "auto"
+                       or (s.blocksize if s.blocksize is not None
+                           else blocksize) == "auto"
+                       for s in exchanges)
+        if needs_hw and hw is None:
+            hw = measure_hw(comm)   # ONE memo hit for all stages
         plans = {} if plans is None else plans
         for st in exchanges:
             bs = st.blocksize if st.blocksize is not None else blocksize
+            if bs == "auto":
+                bs = select.choose_blocksize(
+                    st.pattern.indices, st.pattern.n, p, topology=topology,
+                    hw=hw)
             key = plan_key(st.pattern, p, bs, topology)
             if key not in plans:
-                plans[key] = build_comm_plan(
+                plans[key] = plan_cache.get_comm_plan(
                     st.pattern.indices, st.pattern.n, p, blocksize=bs,
-                    topology=topology)
+                    topology=topology, cache=use_plan_cache)
             kwargs = dict(
                 strategy=st.strategy if st.strategy is not None else strategy,
-                topology=topology, base_plan=plans[key],
+                topology=topology, hw=hw, use_plan_cache=use_plan_cache,
+                base_plan=plans[key], scan_steps=scan_steps,
                 use_kernel=(st.use_kernel if st.use_kernel is not None
                             else use_kernel))
             if st.kind == "gather":
                 ex = IrregularGather(st.pattern, comm,
-                                     destination=st.destination, **kwargs)
+                                     destination=st.destination,
+                                     dest_slots=st.dest_slots, **kwargs)
             else:
                 put_key = ("put", key)
                 if put_key not in plans:
-                    plans[put_key] = derive_scatter_plan(plans[key])
+                    plans[put_key] = plan_cache.get_scatter_plan(
+                        st.pattern.indices, st.pattern.n, p,
+                        blocksize=plans[key].blocksize, topology=topology,
+                        base=plans[key], cache=use_plan_cache)
                 ex = IrregularScatter(st.pattern, comm, reduce=st.reduce,
                                       scatter_plan=plans[put_key], **kwargs)
             self._exchanges[st.sid] = ex
-        self._ctx = dict(comm=comm, topology=topology, plans=plans,
+        self._ctx = dict(comm=comm, topology=topology, plans=plans, hw=hw,
                          default_strategy=strategy)
         return self
 
@@ -377,6 +397,36 @@ class Schedule:
     def strategy_of(self, ref: StageRef) -> str:
         """The resolved rung of one exchange stage."""
         return self.exchange_of(ref).strategy
+
+    def _stage_specs(self):
+        """Per-exchange-stage §5 pricing specs: the ``(name, direction,
+        workload, strategy)`` rows ``perfmodel.predict_schedule`` /
+        ``predict_scan_schedule`` consume (available after ``resolve``)."""
+        specs = []
+        for st in self._exchange_stages():
+            ex = self._exchanges[st.sid]
+            if st.kind == "gather":
+                materialize = "dest" if ex.destination is not None else None
+                dest_slots = (ex.destination.num_slots
+                              if ex.destination is not None else None)
+                w = select.workload_from_plan(
+                    ex.plan, st.pattern.r, materialize=materialize,
+                    dest_slots=dest_slots, use_kernel=ex.use_kernel)
+                specs.append((st.name, "get", w, ex.strategy))
+            else:
+                w = select.workload_from_plan(ex.splan, st.pattern.r,
+                                              use_kernel=ex.use_kernel)
+                specs.append((st.name, "put", w, ex.strategy))
+        return specs
+
+    def _predict_window(self):
+        """§5 fused-window composition for the resolved rungs (None when
+        no hardware parameters are in scope)."""
+        hw = self._ctx["hw"]
+        if hw is None:
+            return None
+        from repro_torch.core import perfmodel as pm
+        return pm.predict_schedule(self._stage_specs(), hw)
 
     @property
     def plans(self) -> dict:
@@ -433,6 +483,7 @@ class Schedule:
         return ExchangeSchedule(self, outputs, single=single)
 
     def scan(self, comm=None, *, carry, output,
+             n_steps_hint: int | None = None,
              **resolve_kw) -> "ScanSchedule":
         """Finalize into a ``ScanSchedule``: the stage pipeline becomes the
         body of a time loop, with plans resolved once for the whole loop.
@@ -440,15 +491,20 @@ class Schedule:
         ``carry`` — every declared input stage, as a tuple of refs in call
         order (a bare ref for a single carry); ``output`` — a matching
         tuple: the stage whose value becomes the corresponding carry next
-        iteration (and the loop's final result).  The compiled object is
-        called as ``scan(*carries, n_steps=k)``."""
+        iteration (and the loop's final result).  ``n_steps_hint`` prices
+        ``strategy="auto"`` stages on the hinted steady-state loop cost
+        (setup amortized) instead of the single-call cost.  The compiled
+        object is called as ``scan(*carries, n_steps=k)``."""
         single = not isinstance(carry, (tuple, list))
         carry = (carry,) if single else tuple(carry)
         output = (output,) if not isinstance(output, (tuple, list)) \
             else tuple(output)
+        if self._ctx is None:
+            resolve_kw.setdefault("scan_steps", n_steps_hint)
         self._finish_build(comm, resolve_kw)
         self._compiled = True
-        return ScanSchedule(self, carry, output, single=single)
+        return ScanSchedule(self, carry, output, single=single,
+                            n_steps_hint=n_steps_hint)
 
 
 def _bind_operands(stages, exchanges, comm) -> dict[int, tuple]:
@@ -544,16 +600,18 @@ class _Compiled:
         self.comm = ctx["comm"]
         self.topology = ctx["topology"]
         self.plans = ctx["plans"]
+        self.hw = ctx["hw"]
         self._stages = sched._stages
         self._exchanges = sched._exchanges
         stages = self._stages
         self.strategies = {st.name: self._exchanges[st.sid].strategy
                            for st in stages
                            if st.kind in ("gather", "scatter")}
-        # the §5 pricing needs the card's measured hardware parameters,
-        # which come with ROADMAP A5
-        self.predicted_times = None
-        self.predicted_window = None
+        self.predicted_times = {
+            st.name: self._exchanges[st.sid].predicted_times
+            for st in stages if st.kind in ("gather", "scatter")}
+        self.predicted_window = sched._predict_window()
+        self._pricing_specs = sched._stage_specs()
         self._bound = _bind_operands(stages, self._exchanges, self.comm)
         self._input_sids = input_sids
         self._input_pos = {sid: i for i, sid in enumerate(input_sids)}
@@ -575,7 +633,11 @@ class ExchangeSchedule(_Compiled):
 
     * ``.strategies`` — resolved rung per exchange stage;
     * ``.plans`` — the base plans the stages share (``Schedule.resolve``);
-    * ``.predicted_times`` / ``.predicted_window`` — ``None`` (ROADMAP A5).
+    * ``.predicted_times`` — per-stage §5 rung rankings (``None`` for a
+      stage on a fixed rung);
+    * ``.predicted_window`` — the fused-window composition prediction
+      (``perfmodel.predict_schedule``), ``None`` when no hardware
+      parameters were in scope (every stage on a fixed rung, no ``hw=``).
     """
 
     def __init__(self, sched: Schedule, outputs: tuple, single: bool = True):
@@ -623,12 +685,15 @@ class ScanSchedule(_Compiled):
     feed issues one exchange that is finished and dropped.
 
     * ``.strategies`` / ``.predicted_times`` / ``.predicted_window`` — as
-      on ``ExchangeSchedule``; ``.predicted_loop(n_steps)`` is ``None``
-      (ROADMAP A5).
+      on ``ExchangeSchedule``;
+    * ``.predicted_loop(n_steps)`` — the eq.-23 steady-state extension
+      (``perfmodel.predict_scan_schedule``): setup paid once, per-iteration
+      window terms thereafter; ``None`` without hardware parameters.
     """
 
     def __init__(self, sched: Schedule, carry: tuple, outputs: tuple, *,
-                 single: bool):
+                 single: bool, n_steps_hint: int | None = None):
+        self.n_steps_hint = n_steps_hint
         stages = sched._stages
         for c in carry:
             sched._check_ref(c)
@@ -665,10 +730,19 @@ class ScanSchedule(_Compiled):
         self._outputs = outputs
         self._single = single
 
-    def predicted_loop(self, n_steps: int) -> None:
-        """The §5 steady-state loop pricing: ``None`` until the card's
-        hardware parameters are measured (ROADMAP A5)."""
-        return None
+    def predicted_loop(self, n_steps: int, *,
+                       overlap_credit: float = 0.0) -> dict | None:
+        """§5 steady-state loop pricing (``perfmodel.
+        predict_scan_schedule``): setup paid once, ``n_steps`` per-iteration
+        window terms, ``overlap_credit`` seconds of cross-step compute
+        hidden per iteration by double-buffered stages.  ``None`` when no
+        hardware parameters were in scope at resolve time."""
+        if self.hw is None:
+            return None
+        from repro_torch.core import perfmodel as pm
+        return pm.predict_scan_schedule(self._pricing_specs, self.hw,
+                                        n_steps,
+                                        overlap_credit=overlap_credit)
 
     def __call__(self, *carries, n_steps: int):
         if len(carries) != len(self._input_sids):

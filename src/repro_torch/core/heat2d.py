@@ -35,23 +35,26 @@ body, whose next exchange is issued before this step's interior stencil.
 ``use_kernel=True`` runs every stencil through the CUDA kernel
 (``kernels.ops.stencil2d``) and the exchange through the pack / unpack
 kernels; the reference's flag swaps the stencil only (its exchange stays
-plain, which is bit-identical).  ``strategy="auto"`` is not ported yet
-(ROADMAP A5).
+plain, which is bit-identical).  ``strategy="auto"`` ranks the rungs on the
+full per-step window (``heat2d_predicted_times``): the Heat2D window models
+for condensed / overlap, the generic §5 exchange models for replicate /
+blockwise shifted onto the window scale.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.comm.exchange import _AUTO_LATER
+from repro_torch.comm import plan_cache, select
+from repro_torch.comm.exchange import measure_hw
 from repro_torch.comm.pattern import AccessPattern, Destination
 from repro_torch.comm.plan import CommPlan, Topology
 from repro_torch.comm.schedule import Schedule, plan_key
-from repro_torch.comm.strategies import STRATEGIES
+from repro_torch.core import perfmodel as pm
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 
-__all__ = ["Heat2D"]
+__all__ = ["Heat2D", "heat2d_predicted_times"]
 
 
 def _halo_indices(big_m, big_n, mprocs, nprocs, zero_slot):
@@ -80,6 +83,50 @@ def _halo_indices(big_m, big_n, mprocs, nprocs, zero_slot):
     return up, down, left, right
 
 
+def heat2d_predicted_times(base_plan: CommPlan, big_m: int, big_n: int,
+                           mprocs: int, nprocs: int, hw, *,
+                           destination: Destination | None = None,
+                           materialize: str = "dest",
+                           n_steps_hint: int | None = None) -> dict:
+    """Seconds per Heat2D step of every rung, as ``Heat2D(strategy=
+    "auto")`` ranks them (the reference's ranking, term for term).
+
+    Overlap vs condensed are priced on the FULL per-step window — eqs.
+    19–22 plus the edge-ring recompute of the interior/edge split
+    (``perfmodel.predict_heat2d_window``).  The generic §5 exchange models
+    price replicate / blockwise, shifted onto the window scale by the delta
+    that maps the generic condensed price to its window price, so all four
+    entries carry the same (exchange + whole-tile compute) units.  With
+    ``n_steps_hint`` every rung is priced on the n-step loop instead
+    (``predict_heat2d_scan``, ``scan_loop_cost``)."""
+    topo = base_plan.topology
+    pred = dict(select.rank_strategies(
+        base_plan, 4, hw,
+        materialize="dest" if destination is not None else None,
+        dest_slots=(destination.num_slots
+                    if destination is not None else None)))
+    w2d = pm.Heat2DWorkload(big_m=big_m, big_n=big_n, mprocs=mprocs,
+                            nprocs=nprocs, topology=topo)
+    full = "full" if materialize == "full" else None
+    win = pm.predict_heat2d_window(w2d, hw, materialize=full)
+    offset = win["condensed"] - pred["condensed"]
+    for rung in ("replicate", "blockwise"):
+        pred[rung] = max(pred[rung] + offset, 0.0)
+    pred["condensed"] = win["condensed"]
+    pred["overlap"] = win["overlap"]
+    if n_steps_hint is not None:
+        # the n-step steady-state loop: window setup amortizes away and
+        # the overlap rung earns its double-buffer credit
+        setup = pm.window_setup_time(topo, hw)
+        for rung in ("replicate", "blockwise"):
+            pred[rung] = pm.scan_loop_cost(pred[rung], setup, n_steps_hint)
+        scn = pm.predict_heat2d_scan(w2d, hw, n_steps_hint,
+                                     materialize=full)
+        pred["condensed"] = scn["condensed"]
+        pred["overlap"] = scn["overlap"]
+    return pred
+
+
 def _per_rank(a):
     """Placement of a table that already has one row per rank."""
     return a
@@ -106,7 +153,10 @@ class Heat2D:
     of ``comm`` (a ``LoopbackComm`` with ``mprocs * nprocs`` ranks).
 
     ``strategy`` picks the gather rung for the halo exchange (default
-    ``condensed``); ``overlap=True`` additionally splits each step into the
+    ``condensed``; ``"auto"`` lets the §5 window models choose, from
+    ``hw=`` or from parameters measured on the communicator's device, on
+    the n-step loop under ``n_steps_hint``); ``overlap=True`` additionally
+    splits each step into the
     tile-interior update (which needs no halo and can hide the exchange)
     plus a thin edge-ring update that consumes the landed halos.
     ``materialize`` picks the unpack (``"dest"`` or ``"full"``, see the
@@ -115,24 +165,21 @@ class Heat2D:
     base plan built from it) share what engines over the same field can
     share, in place of the plan cache, as ``DistributedSpMV(base_plan=)``
     does; the step schedule and the scan schedule always share one.
+    ``use_plan_cache=False`` builds the plans without the plan cache.
     """
 
     def __init__(self, comm, big_m: int, big_n: int, *, mprocs: int,
                  nprocs: int, coef: float = 0.1, use_kernel: bool = False,
                  overlap: bool = False, strategy: str | None = None,
-                 blocksize: int | None = None,
+                 blocksize: int | str | None = None,
                  shards_per_node: int | None = None,
                  materialize: str = "dest",
                  pattern: AccessPattern | None = None,
-                 base_plan: CommPlan | None = None):
+                 base_plan: CommPlan | None = None, hw=None,
+                 n_steps_hint: int | None = None,
+                 use_plan_cache: bool = True):
         if strategy is None:
             strategy = "overlap" if overlap else "condensed"
-        if strategy == "auto":
-            raise NotImplementedError(_AUTO_LATER.format(
-                what="strategy", choice=f"one of {STRATEGIES}"))
-        if blocksize == "auto":
-            raise NotImplementedError(_AUTO_LATER.format(
-                what="blocksize", choice="an integer blocksize"))
         if materialize not in ("dest", "full"):
             raise ValueError(f"unknown materialize mode {materialize!r}")
         p = mprocs * nprocs
@@ -163,7 +210,7 @@ class Heat2D:
                     or base_plan.topology != topo:
                 raise ValueError("base_plan was built for another pattern, "
                                  "partitioning or topology")
-            if blocksize is not None and blocksize != base_plan.blocksize:
+            if blocksize not in (None, "auto", base_plan.blocksize):
                 raise ValueError(f"blocksize={blocksize} but base_plan has "
                                  f"{base_plan.blocksize}")
             blocksize = base_plan.blocksize
@@ -182,7 +229,28 @@ class Heat2D:
             # guaranteed-zero slot n + 1
             halo_idx = _halo_indices(big_m, big_n, mprocs, nprocs,
                                      zero_slot=n + 1)
+        self.predicted_times = None
+        if strategy == "auto":
+            if hw is None:
+                hw = measure_hw(comm)
+            if base_plan is None:
+                if blocksize == "auto":
+                    blocksize = select.choose_blocksize(
+                        pattern.indices, n, p, topology=topo, hw=hw)
+                base_plan = plan_cache.get_comm_plan(
+                    pattern.indices, n, p, blocksize=blocksize,
+                    topology=topo, cache=use_plan_cache)
+                blocksize = base_plan.blocksize
+                plans[plan_key(pattern, p, blocksize, topo)] = base_plan
+            self.predicted_times = heat2d_predicted_times(
+                base_plan, big_m, big_n, mprocs, nprocs, hw,
+                destination=destination, materialize=materialize,
+                n_steps_hint=n_steps_hint)
+            strategy = min(self.predicted_times,
+                           key=self.predicted_times.get)
         self.strategy = strategy
+        # split on the RESOLVED rung: "auto" may pick overlap, whose
+        # predicted win exists only if the interior/edge split runs
         self.overlap = split = overlap or strategy == "overlap"
 
         # global boundary cells keep their value (the paper copies the
@@ -312,10 +380,12 @@ class Heat2D:
             out = sched.compute(combine, half, inner, name="update")
             return sched, phi_ref, out
 
-        resolve_kw = dict(strategy=strategy, blocksize=blocksize,
-                          topology=topo, use_kernel=use_kernel, plans=plans)
+        resolve_kw = dict(strategy=strategy, topology=topo,
+                          use_kernel=use_kernel, plans=plans, hw=hw,
+                          use_plan_cache=use_plan_cache)
         sched, _, out = build_step()
-        self.schedule = sched.compile(comm, output=out, **resolve_kw)
+        self.schedule = sched.compile(comm, output=out, blocksize=blocksize,
+                                      **resolve_kw)
         self.gather = sched.exchange_of(
             next(s.ref for s in sched._stages if s.kind == "gather"))
         self.plans = plans
@@ -324,8 +394,9 @@ class Heat2D:
         # schedule's base plan
         builder = build_scan_overlap if split else build_step
         sscan, phi_in, sout = builder()
-        self.scan_schedule = sscan.scan(comm, carry=phi_in, output=sout,
-                                        **resolve_kw)
+        self.scan_schedule = sscan.scan(
+            comm, carry=phi_in, output=sout, n_steps_hint=n_steps_hint,
+            blocksize=self.gather.plan.blocksize, **resolve_kw)
 
     def _tiles(self, field: np.ndarray) -> np.ndarray:
         """Global ``(M, N)`` -> rank-stacked tiles ``(P, m_loc, n_loc)``."""

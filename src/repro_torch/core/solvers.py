@@ -50,16 +50,19 @@ class ConjugateGradient:
         α  = (r·r) / (p·z)        x' = x + α p      r' = r − α z
         β  = (r'·r') / (r·r)      p' = r' + β p
 
-    ``strategy`` takes any fixed rung (``"auto"`` comes with ROADMAP A5);
-    ``use_kernel`` routes both exchanges through the CUDA kernels;
-    ``plans`` shares base plans (``Schedule.resolve``).
+    ``strategy`` accepts any rung or ``"auto"``; with ``n_steps_hint`` the
+    auto ranking prices the n-step loop (window setup amortized) instead of
+    one call.  ``use_kernel`` routes both exchanges through the CUDA
+    kernels; ``plans`` shares base plans (``Schedule.resolve``).
     """
 
     def __init__(self, matrix: EllpackMatrix, comm, *,
                  strategy: str = "auto",
                  blocksize: int | str | None = None,
                  shards_per_node: int | None = None,
-                 use_kernel: bool = False, plans: dict | None = None):
+                 use_kernel: bool = False, plans: dict | None = None,
+                 hw=None, use_plan_cache: bool = True,
+                 n_steps_hint: int | None = None):
         p = comm.p
         self.matrix = matrix
         self.comm = comm
@@ -94,7 +97,8 @@ class ConjugateGradient:
         self.schedule = sched.scan(
             comm, carry=(x, r, pv), output=(x2, r2, p2), strategy=strategy,
             blocksize=blocksize, topology=Topology(p, shards_per_node or p),
-            use_kernel=use_kernel, plans=plans)
+            use_kernel=use_kernel, plans=plans, hw=hw,
+            use_plan_cache=use_plan_cache, n_steps_hint=n_steps_hint)
 
     @property
     def strategies(self):
@@ -121,5 +125,5 @@ def cg_solve(matrix: EllpackMatrix, b, comm, *, n_steps: int = 50,
              **kwargs) -> np.ndarray:
     """One-call convenience: build ``ConjugateGradient`` and solve
     ``(MᵀM) x = b``, returning a host array of length n."""
-    cg = ConjugateGradient(matrix, comm, **kwargs)
+    cg = ConjugateGradient(matrix, comm, n_steps_hint=n_steps, **kwargs)
     return cg.solve(b, n_steps).reshape(-1).cpu().numpy()

@@ -8,8 +8,14 @@ local EllPack compute of all ``P`` ranks as rank-stacked tensor code.  With
 port's CUDA kernels (``repro_torch.kernels``); otherwise through plain
 PyTorch.
 
-``strategy`` is any rung of the ladder (``replicate`` / ``blockwise`` /
-``condensed`` / ``overlap``); ``"auto"`` comes with a later slice.
+``strategy`` may be any rung of the ladder (``replicate`` / ``blockwise`` /
+``condensed`` / ``overlap``) or ``"auto"``, which prices the rungs with the
+§5 models from hardware parameters measured on the communicator's device
+(``hw=`` passes them instead) and picks the predicted-fastest.
+``blocksize`` may likewise be ``"auto"`` (eq.-11-minimizing BLOCKSIZE).
+The resolved choices are ``engine.strategy`` / ``engine.blocksize``; the
+request is kept in ``engine.requested_strategy`` and the ranking in
+``engine.predicted_times``.
 
 ``transpose=True`` computes ``y = (D + A)ᵀ x`` in the push direction:
 each rank forms its contributions ``vals * x[:, None]`` and scatters them to
@@ -103,6 +109,8 @@ class DistributedSpMV:
         transpose: bool = False,
         base_plan: CommPlan | None = None,
         scatter_plan: ScatterPlan | None = None,
+        hw=None,
+        use_plan_cache: bool = True,
     ):
         self.matrix = matrix
         self.comm = comm
@@ -120,7 +128,8 @@ class DistributedSpMV:
             self._init_transpose(matrix, comm, strategy=strategy,
                                  blocksize=blocksize, topology=topology,
                                  use_kernel=use_kernel, base_plan=base_plan,
-                                 scatter_plan=scatter_plan)
+                                 scatter_plan=scatter_plan, hw=hw,
+                                 use_plan_cache=use_plan_cache)
             return
         assert scatter_plan is None, "scatter_plan serves transpose=True"
         if materialize is None:
@@ -138,7 +147,8 @@ class DistributedSpMV:
             # land every gathered value in EllPack slot order: row i's slot
             # j reads x[J[i, j]].  The overlap rung resolves owned slots
             # from x inside the own partial, so there the destination
-            # targets the plan's foreign (rem) slots only
+            # targets the plan's foreign (rem) slots only; resolved per
+            # rung, after "auto" picks
             def destination(resolved, plan):
                 if resolved == "overlap":
                     rem = np.where(plan.rem_cols >= n, Destination.ZERO,
@@ -150,8 +160,14 @@ class DistributedSpMV:
         self.gather = gather = IrregularGather(
             AccessPattern.from_ellpack(matrix), comm, strategy=strategy,
             blocksize=blocksize, topology=topology, destination=destination,
-            base_plan=base_plan, use_kernel=use_kernel)
+            dest_slots=rows * matrix.cols.shape[1], hw=hw,
+            use_plan_cache=use_plan_cache, base_plan=base_plan,
+            use_kernel=use_kernel)
         self.plan: CommPlan = gather.plan
+        self.requested_strategy = strategy
+        self.predicted_times = gather.predicted_times
+        # the rung branches below build the resolved rung's step
+        strategy = gather.strategy
         self.strategy = strategy
         self.blocksize = self.plan.blocksize
         plan = self.plan
@@ -238,7 +254,8 @@ class DistributedSpMV:
         self._step = step
 
     def _init_transpose(self, matrix, comm, *, strategy, blocksize,
-                        topology, use_kernel, base_plan, scatter_plan):
+                        topology, use_kernel, base_plan, scatter_plan, hw,
+                        use_plan_cache):
         """y = (D + A)ᵀ x via scatter-accumulate of partial products.
 
         Each rank forms its contributions ``vals * x[:, None]`` (its rows'
@@ -253,12 +270,14 @@ class DistributedSpMV:
             AccessPattern.from_ellpack(matrix), comm, strategy=strategy,
             blocksize=blocksize, topology=topology, reduce="add",
             use_kernel=use_kernel, base_plan=base_plan,
-            scatter_plan=scatter_plan)
+            scatter_plan=scatter_plan, hw=hw, use_plan_cache=use_plan_cache)
         self.scatter = scatter
         self.gather = None
         self.plan: CommPlan = scatter.plan
         self.splan = scatter.splan
-        self.strategy = strategy
+        self.requested_strategy = strategy
+        self.predicted_times = scatter.predicted_times
+        self.strategy = scatter.strategy
         self.blocksize = self.plan.blocksize
         self.materialize = None
         rows = matrix.cols.shape[0] // p
@@ -347,19 +366,22 @@ def normal_equations_step(matrix: EllpackMatrix, comm, *,
                           blocksize: int | str | None = None,
                           shards_per_node: int | None = None,
                           use_kernel: bool = False,
-                          plans: dict | None = None):
+                          plans: dict | None = None, hw=None,
+                          use_plan_cache: bool = True):
     """z = MᵀM x with M = (D + A), as ONE ``ExchangeSchedule``.
 
     The normal-equations step (the CGNR / least-squares inner product)
     chains the forward gather-product ``y = M x`` and the transposed
     scatter-product ``z = Mᵀ y``: the scatter stage derives its executor
     tables from the gather stage's base plan (one O(nnz) preparation step
-    in all), and ``D·y`` runs inside the push window.  ``use_kernel``
+    in all), one hardware-calibration memo hit prices both ``"auto"``
+    stages, and ``D·y`` runs inside the push window.  ``use_kernel``
     routes both exchanges through the CUDA pack / unpack / fold kernels;
     ``plans`` shares base plans (``Schedule.resolve``).
 
     Returns the compiled ``ExchangeSchedule``: ``step(x) -> z``, both ``(P,
-    n / P)`` (``step.shard_vector`` places a host vector).
+    n / P)`` (``step.shard_vector`` places a host vector;
+    ``step.predicted_window`` holds the §5 fused-window pricing).
     """
     p = comm.p
     sched = Schedule()
@@ -368,4 +390,4 @@ def normal_equations_step(matrix: EllpackMatrix, comm, *,
     return sched.compile(
         comm, strategy=strategy, blocksize=blocksize,
         topology=Topology(p, shards_per_node or p), use_kernel=use_kernel,
-        plans=plans, output=z)
+        plans=plans, hw=hw, use_plan_cache=use_plan_cache, output=z)

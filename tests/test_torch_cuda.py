@@ -922,6 +922,104 @@ def test_normal_equations_and_cg_on_card(dev, strategy):
     torch.testing.assert_close(xs[True], xs[False], rtol=1e-4, atol=1e-4)
 
 
+# -- strategy="auto" on the card: calibration, auto engines, plan cache ----
+
+def test_calibration_on_card(dev):
+    from repro_torch.comm.exchange import measure_hw
+    from repro_torch.core import tune
+
+    comm = LoopbackComm(8, device=dev)
+    tune.clear_hardware_cache()
+    hw = tune.measure_hardware(comm)
+    assert tune.measure_hardware(comm) is hw is measure_hw(comm)
+    raw = tune.calibration(comm)
+    assert raw["timing"] == "cuda events" and raw["p"] == 8
+    # one rank of eight on one card: at most its eighth of the card's HBM
+    # rate (an un-stacked probe reads the whole card's)
+    assert 1e10 < hw.w_private < 3.35e12 / 8
+    assert 1e10 < hw.w_remote < 3.35e12 / 8
+    assert 16 <= hw.cacheline <= 4096
+    assert 1e-6 < hw.tau < 1e-2 and raw["tau_wall_s"] == hw.tau
+    assert raw["all_to_all_tiny_s"] < raw["all_to_all_big_s"]
+    assert raw["card_copy_bytes_per_s"] < 3.35e12
+
+
+@pytest.mark.parametrize("kw", [dict(materialize="full"),
+                                dict(materialize="dest"),
+                                dict(transpose=True)],
+                         ids=["full", "dest", "transposed"])
+def test_auto_engine_on_card_equals_its_rung(dev, kw):
+    n = 8 * 4096
+    m = make_mesh_like_matrix(n, 8, locality_window=n // 64,
+                              long_range_frac=0.02, seed=4)
+    comm = LoopbackComm(8, device=dev)
+    auto = DistributedSpMV(m, comm, strategy="auto", blocksize=256,
+                           use_kernel=True, **kw)
+    times = auto.predicted_times
+    assert auto.requested_strategy == "auto"
+    assert auto.strategy == min(times, key=times.get)
+    assert all(np.isfinite(t) and t > 0 for t in times.values())
+    fixed = DistributedSpMV(m, comm, strategy=auto.strategy, blocksize=256,
+                            use_kernel=True, **kw)
+    x = np.random.default_rng(4).standard_normal(n).astype(np.float32)
+    kops.reset_launch_counts()
+    y = auto(auto.shard_vector(x))
+    torch.cuda.synchronize()
+    assert sum(kops.launch_counts().values()) > 0
+    # the same kernels on the same plan: no atomics, the same bits
+    assert torch.equal(y, fixed(fixed.shard_vector(x)))
+    ref = spmv_t_ref_np(m, x) if kw.get("transpose") else spmv_ref_np(m, x)
+    np.testing.assert_allclose(y.reshape(-1).cpu().numpy(), ref, rtol=2e-4,
+                               atol=2e-4)
+
+
+def test_auto_defaults_and_heat2d_on_card(dev):
+    n = 8 * 1024
+    m = make_mesh_like_matrix(n, 8, locality_window=n // 64,
+                              long_range_frac=0.02, seed=5)
+    comm = LoopbackComm(8, device=dev)
+    step = normal_equations_step(m, comm, blocksize=64, use_kernel=True)
+    assert step.predicted_window["total"] > 0
+    x = np.random.default_rng(5).standard_normal(n).astype(np.float32)
+    z = step(step.shard_vector(x)).reshape(-1).cpu().numpy()
+    ref = spmv_t_ref_np(m, spmv_ref_np(m, x))
+    np.testing.assert_allclose(z, ref, rtol=2e-4,
+                               atol=2e-4 * np.abs(ref).max())
+    cg = ConjugateGradient(m, comm, blocksize=64, use_kernel=True,
+                           n_steps_hint=10)
+    loop = cg.schedule.predicted_loop(10)
+    assert loop["total"] > 0 and loop["n_steps"] == 10
+    assert bool(torch.isfinite(cg.solve(x, 10)).all())
+    h = Heat2D(comm, 256, 512, mprocs=2, nprocs=4, strategy="auto",
+               use_kernel=True)
+    fixed = Heat2D(comm, 256, 512, mprocs=2, nprocs=4, strategy=h.strategy,
+                   use_kernel=True)
+    phi = h.init_field(5)
+    assert torch.equal(h.run(phi, 4), fixed.run(phi, 4))
+
+
+def test_plan_cache_disk_round_trip_on_card(dev, tmp_path, monkeypatch):
+    from repro_torch.comm import plan_cache
+
+    monkeypatch.setenv("REPRO_TORCH_PLAN_CACHE_DIR", str(tmp_path))
+    plan_cache.clear_memory_cache()
+    n = 8 * 4096
+    m = make_mesh_like_matrix(n, 8, locality_window=n // 64,
+                              long_range_frac=0.02, seed=6)
+    comm = LoopbackComm(8, device=dev)
+    x = np.random.default_rng(6).standard_normal(n).astype(np.float32)
+    ys = []
+    with plan_cache.isolated() as stats:
+        for _ in range(2):
+            eng = DistributedSpMV(m, comm, strategy="condensed",
+                                  blocksize=256, use_kernel=True,
+                                  materialize="dest")
+            ys.append(eng(eng.shard_vector(x)))
+            plan_cache.clear_memory_cache()     # the second one: disk
+        assert stats.misses == 1 and stats.disk_hits >= 1
+    assert torch.equal(ys[0], ys[1])
+
+
 # -- B8 decode attention and B9 selective scan against their plain versions
 
 MODEL_TOL = dict(rtol=2e-4, atol=2e-4)   # float32 sums in another order

@@ -175,10 +175,13 @@ def test_refusals(comm):
     from repro_torch.comm.plan import build_comm_plan
     from repro_torch.comm.pattern import AccessPattern
 
-    with pytest.raises(NotImplementedError, match="A5"):
-        _heat(comm, strategy="auto")
-    with pytest.raises(NotImplementedError, match="A5"):
-        _heat(comm, blocksize="auto")
+    from repro_torch.core.perfmodel import ABEL
+
+    # "auto" resolves (the §5 window models) instead of refusing
+    h = _heat(comm, strategy="auto", hw=ABEL)
+    assert h.strategy == min(h.predicted_times, key=h.predicted_times.get)
+    assert h.overlap == (h.strategy == "overlap")
+    assert _heat(comm, blocksize="auto", hw=ABEL).strategy == "condensed"
     with pytest.raises(ValueError, match="materialize"):
         _heat(comm, materialize="slots")
     pattern = AccessPattern.from_stencil5(BIG_M, 2 * BIG_N, MPROCS, NPROCS)

@@ -195,7 +195,10 @@ def test_gather_compute_scatter_chain(comm, gather_rung):
     s = sched.scatter(pattern, c, reduce="add", name="s")
     step = sched.compile(comm, strategy="condensed", blocksize=8, output=s)
     assert step.strategies == {"g": gather_rung, "s": "condensed"}
-    assert step.predicted_times is None and step.predicted_window is None
+    # fixed rungs and no hw=: no ranking and no window pricing, as in the
+    # reference
+    assert step.predicted_times == {"g": None, "s": None}
+    assert step.predicted_window is None
     key = plan_key(pattern, P, 8, sched.exchange_of(g).plan.topology)
     assert set(step.plans) == {key, ("put", key)}
     assert sched.exchange_of(g).plan is step.plans[key]
@@ -348,13 +351,16 @@ def test_builder_refusals(comm):
     with pytest.raises(ValueError, match="at least one exchange"):
         empty.compile(comm, strategy="condensed")
 
-    # auto is not ported yet
+    # "auto" (rung or blocksize) resolves instead of refusing; the window
+    # is priced once hardware parameters are in scope
+    from repro_torch.core.perfmodel import ABEL
     for kw in (dict(strategy="auto"), dict(strategy="condensed",
                                            blocksize="auto")):
         s = Schedule()
-        s.gather(pattern)
-        with pytest.raises(NotImplementedError, match="A5"):
-            s.compile(comm, **kw)
+        g = s.gather(pattern)
+        step = s.compile(comm, hw=ABEL, use_plan_cache=False, **kw)
+        assert step.strategies[g.name] in STRATEGIES
+        assert step.predicted_window["total"] > 0
 
     # compile keywords after resolve, a second compile, another comm
     s = Schedule()

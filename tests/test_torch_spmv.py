@@ -119,12 +119,22 @@ def test_port_engine_refuses_later_slices(shared):
     from repro_torch.comm.communicator import LoopbackComm
     from repro_torch.core.spmv import DistributedSpMV
 
+    from repro_torch.core.perfmodel import ABEL
+
     tm, tp, _ = shared
     comm = LoopbackComm(P, device="cpu")
-    with pytest.raises(NotImplementedError, match="A5"):
-        DistributedSpMV(tm, comm, strategy="auto", base_plan=tp)
-    with pytest.raises(NotImplementedError, match="A5"):
-        DistributedSpMV(tm, comm, blocksize="auto")
+    # "auto" came with the §5 models (rung and blocksize resolve) ...
+    eng = DistributedSpMV(tm, comm, strategy="auto", base_plan=tp, hw=ABEL)
+    assert eng.requested_strategy == "auto" and eng.strategy in STRATEGIES
+    assert eng.predicted_times[eng.strategy] == min(
+        eng.predicted_times.values())
+    eng = DistributedSpMV(tm, comm, blocksize="auto", hw=ABEL,
+                          use_plan_cache=False)
+    assert tm.n // P % eng.blocksize == 0
+    # ... per-batch scatter tables still come with a later slice (A9)
+    t = DistributedSpMV(tm, comm, transpose=True, base_plan=tp)
+    with pytest.raises(NotImplementedError, match="A9"):
+        t.scatter.derive_plan_args(tm.cols)
 
 
 if __name__ == "__main__":
