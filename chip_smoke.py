@@ -70,7 +70,28 @@ each:
    build_prefill at B = 1 and L = 32768 (prefill_32k's length, batch cut
    to 1 for one card), ms per prefill, tokens/s, selective_scan launches
    (64 per prefill), and the logits with the kernel against the plain
-   recurrence's at L = 1024 (relative L2 under 2e-2).
+   recurrence's at L = 1024 (relative L2 under 2e-2);
+11. moe_serve: mixtral-8x22b at its published widths (d 6144, 48/8 heads
+   of 128, d_ff 16384, 8 experts top-2, vocab 32768), 8 of its 56 layers,
+   bf16, through launch.serve with --moe-comm --mesh 8: each decode step's
+   MoE FFN through one DynamicMoELayer over LoopbackComm(8), its tables
+   derived on the card from the step's routing, prefill through moe_fwd;
+   after a warm-up batch the serve phase's traffic (16 requests, 8 slots,
+   prompts in [1025, 2048], 32 tokens, chunks of 512, cache_len 2080, so
+   the 4096 window never binds); no host plan build and one device
+   derivation per layer and decode tick (telemetry), B8 launched once per
+   layer and tick; one tick's derivation under
+   torch.cuda.set_sync_debug_mode("error"), its tables equal to the host
+   planner's at the envelope s_max; the hook's ms per layer split into
+   derivation, dispatch, experts and combine; a float32 twin of 2 layers
+   whose decode logits through the hook are within 1e-3 (relative L2) of
+   moe_fwd's; B8 at group 6 against its plain version at 2e-4 (a kernel
+   line of its own, beside SDPA and its bound); and model_rows pricing the
+   dispatch and combine with the decode floors (eqs. 12δ-15δ);
+12. gnn: GNNNeighborAggregate over LoopbackComm(8) on a Zipf(1.1) graph of
+   2^19 nodes, 16 neighbors, 64 float32 features, on the condensed rung
+   and under auto, each against gnn_ref_np (rtol/atol 2e-4), timed, with
+   its busy share and a model_row.
 The model lines (phase "model"; the §5 models of core/perfmodel.py on
 this card): right after setup, calibration (core/tune.py's four
 parameters for one rank of LoopbackComm(8), the stacked probes' raw
@@ -107,6 +128,7 @@ line; with no CUDA device, or outside a checkout of the repository, the
 script exits non-zero at once.
 """
 import contextlib
+import dataclasses
 import gc
 import json
 import os
@@ -142,6 +164,26 @@ SSM_CHECK_L = 1024     # the plain recurrence loops in Python: a shorter L
 # layers (of 64) whose selective_scan call in the 32k prefill is held
 # against the plain recurrence on the very inputs the prefill gave it
 SSM_HELD_LAYERS = (0, 63)
+# MoE serving: mixtral-8x22b at its published widths through launch.serve
+# with --moe-comm over LoopbackComm(8) (one expert a rank), the serve
+# phase's traffic; its 56 layers cut to 8 (8 x 4.8 GB of bf16 experts on
+# one card); a warm-up batch of short prompts before the measured run; a
+# float32 twin of its first 2 layers holds the hook against moe_fwd
+MOE_ARGV = ["--arch", "mixtral-8x22b", "--requests", "16", "--slots", "8",
+            "--prompt-len", "2048", "--gen", "32", "--prefill-chunk", "512",
+            "--moe-comm", "--mesh", "8", "--seed", str(SEED)]
+MOE_LAYERS = 8
+MOE_TWIN_LAYERS = 2
+MOE_WARMUP = dict(requests=8, prompt_len=64, gen=4)
+# GNN: GNNNeighborAggregate over LoopbackComm(8) on a Zipf power-law graph
+# (ogbn-products' 2.4M nodes cut to 2^19: see PERF.md section 4), 16
+# neighbors, 64 float32 features; the condensed rung and auto, 3 timed
+# steps each after 2
+GNN_N = 1 << 19
+GNN_R = 16
+GNN_D = 64
+GNN_ALPHA = 1.1
+GNN_TOL = dict(rtol=2e-4, atol=2e-4)    # tests/test_gnn.py's
 MODEL_TOL = dict(rtol=2e-4, atol=2e-4)   # tests/test_kernels.py's, B8/B9
 BF16_OUT_TOL = dict(rtol=2.0 ** -8, atol=2e-4)   # plus one bf16 rounding
 # relative L2 error of the logits, kernel vs plain inside the whole model:
@@ -1389,15 +1431,15 @@ def ptxas_usage(log: str, keys) -> dict:
     return usage
 
 
-def decode_inputs(torch, dev, s: int, lo: int):
-    """One decode step's decode_attention inputs at llama3-8b's heads (8
-    lanes, 32 query and 8 KV heads of 128) on a bf16 ring of ``s`` slots,
-    lengths drawn from [lo, s]; with SDPA (boolean mask, GQA) on the same
-    inputs, and the bound: the valid K/V prefix read once, q and lengths
-    read, out written; a dot and an accumulate of D per (query head, live
-    slot)."""
+def decode_inputs(torch, dev, s: int, lo: int, heads=(32, 8)):
+    """One decode step's decode_attention inputs at ``heads`` (llama3-8b's
+    by default: 8 lanes, 32 query and 8 KV heads of 128) on a bf16 ring of
+    ``s`` slots, lengths drawn from [lo, s]; with SDPA (boolean mask, GQA)
+    on the same inputs, and the bound: the valid K/V prefix read once, q
+    and lengths read, out written; a dot and an accumulate of D per (query
+    head, live slot)."""
     import torch.nn.functional as F
-    b, h, hkv, d = 8, 32, 8, 128
+    (h, hkv), b, d = heads, 8, 128
     gen = torch.Generator(device=dev).manual_seed(SEED)
     q = torch.randn((b, h, d), generator=gen, device=dev).bfloat16()
     k = torch.randn((b, s, hkv, d), generator=gen, device=dev).bfloat16()
@@ -1674,6 +1716,308 @@ def phase_serve(torch, card):
     return counts
 
 
+def phase_moe_serve(torch, card, hw):
+    """mixtral-8x22b at its published widths (d 6144, 48/8 heads of 128,
+    d_ff 16384, 8 experts top-2, vocab 32768), 8 of its 56 layers, bf16,
+    random weights from the seed, through launch.serve's engine with
+    --moe-comm --mesh 8: every decode step's MoE FFN runs through one
+    DynamicMoELayer over LoopbackComm(8), its tables derived on the card
+    from the step's routing; prefill runs moe_fwd; attention decodes
+    through B8 at 48/8 heads (group 6).  After a warm-up batch, 16 requests
+    over 8 slots as in the serve phase, the counters zeroed before and read
+    after.  Then one tick's derivation under the sync debug mode, its
+    tables against the host planner's, the hook's pieces timed, a float32
+    twin of 2 layers holding the hook against moe_fwd, and B8 at group 6
+    against its plain version."""
+    from repro_torch.comm import select
+    from repro_torch.comm import strategies as strat
+    from repro_torch.comm.plan import build_comm_plan, derive_scatter_plan
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import perfmodel as pm
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.launch import serve as lserve
+    from repro_torch.models.transformer import Model, RunCtx, tree_map
+    from repro_torch.serve import Request
+    from repro_torch.serve.engine import _with_moe_hook
+
+    args = lserve.parse_args(MOE_ARGV)
+    cfg = dataclasses.replace(get_config(args.arch), num_layers=MOE_LAYERS)
+    t0 = time.perf_counter()
+    engine = lserve.build_engine(cfg, RunCtx(act_dtype=torch.bfloat16), args)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    layer, model, params = engine.moe_layer, engine.model, engine.params
+    dev = model.device
+    weights_gb = sum(t.numel() * t.element_size()
+                     for t in _leaves(params)) / 1e9
+    check(set(layer.strategies.values()) <= {"condensed", "overlap"},
+          f"the MoE layer resolved {layer.strategies}")
+
+    rng = np.random.default_rng(SEED + 1)
+    for i in range(MOE_WARMUP["requests"]):
+        engine.submit(Request(
+            id=f"warm{i}", prompt=rng.integers(
+                0, cfg.vocab_size, (MOE_WARMUP["prompt_len"],)).tolist(),
+            max_new_tokens=MOE_WARMUP["gen"], arrival_time=0.0))
+    t0 = time.perf_counter()
+    engine.run()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    n_ticks, n_tokens = len(engine._tick_seconds), len(engine._token_seconds)
+    snap = engine.snapshot()
+    lserve.submit_trace(engine, cfg, args)
+    prompt_tokens = sum(len(r.prompt) for r in engine.queue.ready(
+        float("inf")))
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    report = engine.run()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = kops.launch_counts()
+    delta = engine.assert_steady_state(snap)
+    ids = [f"req{i}" for i in range(args.requests)]
+    tick_s = report.tick_seconds[n_ticks:]
+    token_s = report.token_seconds[n_tokens:]
+    decode_ticks = len(tick_s)
+    check(all(i in report.completed for i in ids),
+          "a request of the trace did not complete")
+    check(all(len(report.outputs[i]) == args.gen for i in ids),
+          "a request did not get its tokens")
+    check(all(0 <= t < cfg.vocab_size for i in ids
+              for t in report.outputs[i]), "a token outside the vocabulary")
+    check(delta["host-build"] == 0 and delta["decode_steps"] == decode_ticks,
+          f"steady-state decode telemetry {delta}")
+    check(delta["device-derive"] == cfg.num_layers * decode_ticks,
+          f"{delta['device-derive']} device derivations in {decode_ticks} "
+          f"decode ticks of {cfg.num_layers} layers")
+    check(counts["decode_attention"] == cfg.num_layers * decode_ticks,
+          f"decode_attention launched {counts['decode_attention']} times "
+          f"in {decode_ticks} decode ticks of {cfg.num_layers} layers")
+
+    # one tick's hook inputs, held from a decode step on the final cache
+    held = []
+    saved_apply = layer.apply
+
+    def keep(x, top_e, top_w, *w):
+        if not held:
+            held.append((x, top_e, top_w, w))
+        return saved_apply(x, top_e, top_w, *w)
+    layer.apply = keep
+    try:
+        model.decode_step(params, engine.cache, engine._tokens)
+    finally:
+        layer.apply = saved_apply
+    x, top_e, top_w, w = held[0]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cols, w_slot = layer.pack(top_e, top_w)
+        gargs, sargs = layer.derive(cols)
+    except RuntimeError as e:
+        fail(f"the table derivation synchronised with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    n, p, s_max = layer.num_tokens, layer.p, layer.pattern.s_max
+    plan = build_comm_plan(cols.cpu().numpy().astype(np.int32).reshape(
+        -1, 1), n, p, s_max=s_max)
+    want = ((plan.send_local_idx, plan.recv_global_idx)
+            + strat.scatter_plan_device_args(derive_scatter_plan(plan),
+                                             layer.scatter.strategy))
+    got = tuple(gargs) + tuple(sargs)
+    check(len(got) == len(want) and all(
+        torch.equal(g.cpu(), torch.as_tensor(np.asarray(t)))
+        for g, t in zip(got, want)),
+        "the tables derived on the card differ from the host planner's")
+
+    xs = x.reshape(p, -1, x.shape[-1])
+    buf = layer.dispatch(xs, cols, gargs)
+    contrib = layer.experts(buf, w_slot, w)
+    hook_ms = {
+        "derive": cuda_ms(torch, lambda: layer.derive(
+            layer.pack(top_e, top_w)[0]), warmup=2, iters=10),
+        "dispatch": cuda_ms(torch, lambda: layer.dispatch(xs, cols, gargs),
+                            warmup=2, iters=10),
+        "experts": cuda_ms(torch, lambda: layer.experts(buf, w_slot, w),
+                           warmup=2, iters=10),
+        "combine": cuda_ms(torch, lambda: layer.combine(contrib, sargs),
+                           warmup=2, iters=10),
+        "layer": cuda_ms(torch, lambda: layer.apply(x, top_e, top_w, *w),
+                         warmup=2, iters=10)}
+
+    def step():
+        return model.decode_step(params, engine.cache, engine._tokens)[0]
+    timing = time_steps(torch, step, warmup=2, iters=5)
+    prof = profile_steps(torch, step, steps=2, lead=1)
+
+    # the float32 twin of the first layers: the hook against moe_fwd
+    tcfg = dataclasses.replace(cfg, num_layers=MOE_TWIN_LAYERS)
+    twin = Model(tcfg, RunCtx(act_dtype=torch.float32), device=dev)
+    p32 = {k_: (tree_map(lambda t: t[:MOE_TWIN_LAYERS].float(), v_)
+                if k_ == "layers" else tree_map(lambda t: t.float(), v_))
+           for k_, v_ in params.items()}
+    c32 = {"pos": engine.cache["pos"], "layers": tree_map(
+        lambda t: (t[:MOE_TWIN_LAYERS].float() if t.is_floating_point()
+                   else t[:MOE_TWIN_LAYERS].clone()), engine.cache["layers"])}
+    got = _with_moe_hook(twin, layer).decode_step(p32, c32,
+                                                  engine._tokens)[0]
+    want = twin.decode_step(p32, c32, engine._tokens)[0]
+    check(bool(torch.isfinite(got).all()), "hooked decode logits not finite")
+    twin_err = rel_l2(torch, got, want)
+    check(twin_err < LOGITS_REL_F32,
+          f"float32 decode logits through the MoE hook are {twin_err} "
+          "(relative L2) from moe_fwd's")
+    del twin, p32, c32, got, want
+
+    # B8 at mixtral's heads: group 6
+    q, k, v, lengths, sdpa, bnd = decode_inputs(torch, dev, 2080, 1025,
+                                                heads=(cfg.num_heads,
+                                                       cfg.num_kv_heads))
+    got = kops.decode_attention(q.float(), k, v, lengths)
+    want = kref.decode_attention_ref(q.float(), k, v, lengths)
+    g6_err = float((got - want).abs().max())
+    check(torch.allclose(got, want, **MODEL_TOL),
+          f"decode_attention at group 6 differs from its plain version: "
+          f"{g6_err}")
+    got = kops.decode_attention(q, k, v, lengths)
+    check(got.dtype == torch.bfloat16 and torch.allclose(
+        got.float(), want, **BF16_OUT_TOL),
+        "decode_attention's bf16 output at group 6 is more than one "
+        "rounding off")
+    g6 = dict(max_abs_err=g6_err, ms=cuda_ms(
+        torch, lambda: kops.decode_attention(q, k, v, lengths)),
+        plain_ms=cuda_ms(torch, lambda: kref.decode_attention_ref(
+            q, k, v, lengths)), library_ms=cuda_ms(torch, sdpa), bound=bnd)
+    emit({"phase": "kernel", "name": "decode_attention_g6",
+          **{k_: v_ for k_, v_ in g6.items() if k_ != "bound"},
+          "bound_ms": bnd[0], "bound_by": bnd[1],
+          "shape": f"q {tuple(q.shape)} bf16, k/v {tuple(k.shape)} bf16, "
+                   f"group {cfg.num_heads // cfg.num_kv_heads}, "
+                   f"{int(lengths.sum())} live slots"})
+    check_bound("decode_attention at group 6", g6)
+    del q, k, v
+
+    ttft = [report.ttft_seconds[i] for i in ids]
+    srt = sorted(token_s)
+    emit({"phase": "moe_serve", "arch": cfg.name, "layers": cfg.num_layers,
+          "published_layers": get_config(args.arch).num_layers,
+          "d_model": cfg.d_model, "d_ff": cfg.d_ff,
+          "heads": [cfg.num_heads, cfg.num_kv_heads],
+          "experts": [cfg.num_experts, cfg.experts_per_token],
+          "dtype": "bfloat16", "requests": args.requests,
+          "slots": args.slots, "cache_len": args.prompt_len + args.gen,
+          "prompt_tokens": prompt_tokens, "init_s": round(init_s, 3),
+          "weights_gb": round(weights_gb, 3), "warmup_s": round(warm_s, 3),
+          "wall_s": wall_s, "decode_ticks": decode_ticks,
+          "decode_tokens_per_s": len(token_s) / sum(tick_s),
+          "p50_token_ms": 1e3 * srt[len(srt) // 2],
+          "p99_token_ms": 1e3 * srt[min(len(srt) - 1,
+                                        int(round(0.99 * (len(srt) - 1))))],
+          "mean_ttft_ms": 1e3 * sum(ttft) / len(ttft),
+          "strategies": layer.strategies, "s_max": s_max,
+          "capacity": layer.capacity, "plan_time_us": layer.plan_time * 1e6,
+          "telemetry": delta,
+          "decode_attention_launches": counts["decode_attention"],
+          "hook_ms_per_layer": hook_ms,
+          "logits_rel_l2_hook_vs_moe_fwd_f32": twin_err,
+          "decode_step": {**timing, **prof}, "card": card})
+
+    # the dispatch and combine priced with the decode floors (12δ-15δ)
+    stages = [("dispatch", "get", select.workload_from_plan(
+        layer.gather.plan, 1), layer.gather.strategy),
+        ("combine", "put", select.workload_from_plan(
+            layer.scatter.splan, 1), layer.scatter.strategy)]
+    step_pred = pm.predict_decode_step(stages, hw)
+    rows = [(name, strategy, pm.predict_decode_exchange(
+        w_, hw, strategy=strategy, direction=d_), hook_ms[name])
+        for name, d_, w_, strategy in stages]
+    rows.append(("derive+dispatch+combine", layer.gather.strategy,
+                 step_pred["total"] + layer.plan_time,
+                 hook_ms["derive"] + hook_ms["dispatch"]
+                 + hook_ms["combine"]))
+    for name, strategy, t, ms in rows:
+        check(np.isfinite(t) and t > 0, f"moe {name}: predicted {t} s")
+        emit({"phase": "model", "kind": "model_row", "path": "moe_decode",
+              "stage": name, "strategy": strategy, "measured_ms": ms,
+              "predicted_ms": t * 1e3,
+              "model_error": pm.model_error(ms * 1e-3, t),
+              "error_budget": pm.error_budget(
+                  {"rung": strategy, "workload": "moe_decode",
+                   "dtype": "bfloat16", "mesh": [P]}),
+              "latency_bound": list(step_pred["latency_bound"]),
+              "card": card})
+    return counts
+
+
+def phase_gnn(torch, comm, hw, card):
+    """GNNNeighborAggregate over LoopbackComm(8) on a power-law graph
+    (GNN_N nodes, GNN_R Zipf(GNN_ALPHA) neighbors each, GNN_D float32
+    features), on the condensed rung and under auto (one base plan, the
+    plan cache's), each checked against gnn_ref_np and timed over 3 steps after
+    2, with its busy share and a model_row (the §5 window of both
+    exchanges)."""
+    from repro_torch.core import perfmodel as pm
+    from repro_torch.models.gnn import (GNNNeighborAggregate, gnn_ref_np,
+                                        random_neighbors)
+
+    t0 = time.perf_counter()
+    nbrs = random_neighbors(GNN_N, GNN_R, alpha=GNN_ALPHA, seed=SEED)
+    h = np.random.default_rng(SEED).standard_normal(
+        (GNN_N, GNN_D)).astype(np.float32)
+    t1 = time.perf_counter()
+    want = gnn_ref_np(h, nbrs)
+    ref_s = time.perf_counter() - t1
+    graph_s = t1 - t0
+    for strategy in ("condensed", "auto"):
+        t0 = time.perf_counter()
+        # the second construction's base plan: a memory hit of the cache
+        layer = GNNNeighborAggregate(nbrs, GNN_N, comm, strategy=strategy,
+                                     hw=hw)
+        build_s = time.perf_counter() - t0
+        hs = layer.shard_features(h)
+        out = layer(hs)
+        check(tuple(out.shape) == (P, GNN_N // P, GNN_D),
+              f"gnn {strategy}: output has shape {tuple(out.shape)}")
+        got = out.reshape(GNN_N, GNN_D).cpu().numpy()
+        check(np.isfinite(got).all(), f"gnn {strategy}: output not finite")
+        check(np.allclose(got, want, **GNN_TOL),
+              f"gnn {strategy} differs from gnn_ref_np: "
+              f"{float(np.abs(got - want).max())}")
+        del out, got
+        torch.cuda.reset_peak_memory_stats()
+        timing = time_steps(torch, lambda: layer(hs), warmup=2, iters=3)
+        prof = profile_steps(torch, lambda: layer(hs), steps=1, lead=1)
+        rungs = "/".join(sorted(set(layer.strategies.values())))
+        predicted = layer.predicted_window["total"]
+        check(np.isfinite(predicted) and predicted > 0,
+              f"gnn {strategy}: predicted {predicted} s")
+        emit({"phase": "gnn", "strategy": strategy,
+              "strategies": layer.strategies, "n": GNN_N, "r": GNN_R,
+              "d": GNN_D, "alpha": GNN_ALPHA, "ranks": P,
+              "graph_s": round(graph_s, 3), "ref_np_s": round(ref_s, 3),
+              "build_s": round(build_s, 3),
+              "ms_per_step": timing["ms_per_iter"],
+              "host_enqueue_ms": timing["host_enqueue_ms_per_iter"],
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+              **prof, "card": card})
+        emit({"phase": "model", "kind": "model_row", "path": "gnn",
+              "strategy": rungs, "requested": strategy,
+              "measured_ms": timing["ms_per_iter"],
+              "predicted_ms": predicted * 1e3,
+              "predicted_times_ms": {
+                  st: {r: t * 1e3 for r, t in (v or {}).items()}
+                  for st, v in layer.predicted_times.items()},
+              "model_error": pm.model_error(timing["ms_per_iter"] * 1e-3,
+                                            predicted),
+              "error_budget": pm.error_budget(
+                  {"rung": strategy, "workload": "gnn", "dtype": "float32",
+                   "mesh": [P]}),
+              "busy_share": prof["busy_share"], "card": card})
+        del layer, hs
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1906,6 +2250,13 @@ def main() -> None:
     torch.cuda.empty_cache()
     counts["selective_scan"] = phase_ssm_prefill(torch, card)[
         "selective_scan"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts["decode_attention"] += phase_moe_serve(torch, card, hw)[
+        "decode_attention"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_gnn(torch, comm, hw, card)
 
     kernels = []
     for name, res in results.items():

@@ -13,8 +13,10 @@ and ``IrregularScatter`` (``"put"``) — derive their direction's plan state
 in ``_prepare`` and implement ``_bind`` to wire the resolved rung to their
 direction's rank-stacked functions (``repro_torch.comm.strategies``).
 
-Per-batch patterns (the reference's ``DynamicPattern``) are not ported
-(ROADMAP A9).
+A ``DynamicPattern`` (``comm.dynamic``) stands wherever an
+``AccessPattern`` does: its base plan comes from the plan cache's
+envelope tier, the ladder narrows to ``dynamic.DYNAMIC_STRATEGIES``, and
+the per-batch tables come from ``derive_plan_args``.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import torch
 from repro_torch.comm import plan_cache
 from repro_torch.comm import select
 from repro_torch.comm import strategies as strat
+from repro_torch.comm.dynamic import DYNAMIC_STRATEGIES, DynamicPattern
 from repro_torch.comm.pattern import AccessPattern
 from repro_torch.comm.plan import CommPlan, Topology
 from repro_torch.comm.shared import SharedVector
@@ -106,16 +109,24 @@ class IrregularExchange:
         shards_per_node: int | None = None,
         topology: Topology | None = None,
         hw=None,
+        candidates=None,
         use_plan_cache: bool = True,
         base_plan: CommPlan | None = None,
         scan_steps: int | None = None,
+        plan_cost: float = 0.0,
         use_kernel: bool = False,
+        decode: bool = False,
     ):
         # ``use_kernel`` swaps the plain pack/unpack around the collective
         # for the CUDA kernels (repro_torch.kernels), bit-identical on
         # every rung; the §5 ranking prices the kernelized compute terms so
-        # strategy="auto" stays honest either way
+        # strategy="auto" stays honest either way.  ``decode`` prices the
+        # rungs for a token-by-token serving step instead (the eqs. 12δ–15δ
+        # latency floors, ``perfmodel.predict_decode_exchange``).
+        # ``plan_cost`` (the §5 T_plan term for however this exchange
+        # obtains its tables) is a flat addend of every rung's prediction
         self.use_kernel = use_kernel
+        self.decode = decode
         if isinstance(where, SharedVector):
             assert where.n == pattern.n, (where.n, pattern.n)
             comm = where.comm
@@ -125,6 +136,38 @@ class IrregularExchange:
         valid = strat.STRATEGIES + ("auto",)
         if strategy not in valid:
             raise ValueError(f"strategy must be one of {valid}")
+        # a DynamicPattern duck-types the AccessPattern surface (indices /
+        # n / m / r come from its template) but switches plan resolution to
+        # the bucketed envelope tier and restricts the ladder to the rungs
+        # whose executor tables comm.dynamic derives per batch
+        self.dynamic_pattern = (pattern if isinstance(pattern, DynamicPattern)
+                                else None)
+        if self.dynamic_pattern is not None:
+            if strategy == "auto":
+                if candidates is None:
+                    candidates = DYNAMIC_STRATEGIES
+                else:
+                    bad = tuple(c for c in candidates
+                                if c not in DYNAMIC_STRATEGIES)
+                    if bad:
+                        raise ValueError(
+                            f"candidates {bad} cannot serve a "
+                            f"DynamicPattern — device-side table "
+                            f"derivation covers {DYNAMIC_STRATEGIES}")
+            elif strategy not in DYNAMIC_STRATEGIES:
+                raise ValueError(
+                    f"strategy {strategy!r} cannot serve a DynamicPattern "
+                    f"— device-side table derivation covers "
+                    f"{DYNAMIC_STRATEGIES}")
+            if use_kernel:
+                # the card kernels read tables built on the host from the
+                # very index tensor they run on; a per-batch table cannot
+                # have one without a host sync
+                raise NotImplementedError(
+                    "use_kernel=True with a DynamicPattern: the kernels' "
+                    "per-plan tables are built on the host, which a "
+                    "per-batch pattern cannot do without a sync (ROADMAP "
+                    "A17); the plain pack, unpack and fold serve it")
         self.pattern = pattern
         self.comm = comm
         self.device = comm.device
@@ -156,9 +199,20 @@ class IrregularExchange:
             # against it, and any direction- or consumer-specific delta (the
             # scatter executor tables, a Destination descriptor) is attached
             # only afterwards
-            base_plan = plan_cache.get_comm_plan(
-                pattern.indices, n, p, blocksize=blocksize,
-                topology=topology, cache=use_plan_cache)
+            if self.dynamic_pattern is not None:
+                # the bucketed-reuse tier: an envelope plan keyed on
+                # quantized pattern stats, shared across routings — its
+                # static geometry and pricing serve this exchange while the
+                # exact tables are derived from the template / each batch
+                # on the device
+                base_plan = plan_cache.get_envelope_plan(
+                    pattern.indices, n, p, blocksize=blocksize,
+                    topology=topology, s_max=self.dynamic_pattern.s_max,
+                    cache=use_plan_cache)
+            else:
+                base_plan = plan_cache.get_comm_plan(
+                    pattern.indices, n, p, blocksize=blocksize,
+                    topology=topology, cache=use_plan_cache)
         self._use_plan_cache = use_plan_cache
         self._prepare(base_plan)
 
@@ -172,7 +226,8 @@ class IrregularExchange:
             # rungs on the n-step steady-state loop cost
             ranked = select.rank_strategies(
                 self._ranking_plan(base_plan), pattern.r, hw,
-                direction=self.direction, scan_steps=scan_steps,
+                candidates=candidates, direction=self.direction,
+                scan_steps=scan_steps, plan_cost=plan_cost, decode=decode,
                 **self._price_kwargs())
             self.predicted_times = dict(ranked)
             strategy = ranked[0][0]

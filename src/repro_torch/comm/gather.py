@@ -35,11 +35,18 @@ into its own compute (``kernels.unpack_dest_spmv``).  With
 ``kernels.DestOrder`` of the gather builds at its first call on a card.
 ``strategy="auto"`` prices whichever unpack the consumer will run: the
 targeted one with a ``Destination``, the paper's in-place one without.
+
+Per-batch patterns: with a ``DynamicPattern`` the gather's ``plan_args``
+are the template's tables derived on the device, and
+``derive_plan_args(cols)`` derives any batch's (``comm.dynamic``), bit
+for bit with a host build at the envelope ``s_max``; a ``Destination``
+(host-precomputed per pattern) cannot serve one.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.comm import dynamic as dyn
 from repro_torch.comm import plan_cache
 from repro_torch.comm import strategies as strat
 from repro_torch.comm.exchange import IrregularExchange, OverlapHandle
@@ -66,8 +73,9 @@ class IrregularGather(IrregularExchange):
         the auto ranking prices when ``destination`` is a callable (a
         plain ``Destination`` knows its own).  Remaining keyword arguments
         (``strategy``, ``blocksize``, ``shards_per_node``, ``topology``,
-        ``hw``, ``use_plan_cache``, ``base_plan``, ``scan_steps``,
-        ``use_kernel``) are the shared ``IrregularExchange`` surface."""
+        ``hw``, ``candidates``, ``use_plan_cache``, ``base_plan``,
+        ``scan_steps``, ``plan_cost``, ``use_kernel``, ``decode``) are the
+        shared ``IrregularExchange`` surface."""
         self._destination_arg = destination
         self._dest_slots = dest_slots
         super().__init__(pattern, where, **kwargs)
@@ -96,6 +104,11 @@ class IrregularGather(IrregularExchange):
     def _bind(self, base_plan: CommPlan, strategy: str) -> None:
         p, n = self.p, self.pattern.n
         destination = self._destination_arg
+        if self.dynamic_pattern is not None and destination is not None:
+            raise ValueError(
+                "Destination descriptors are host-precomputed per pattern "
+                "and cannot serve a DynamicPattern (whose tables change "
+                "every batch) — land with materialize='full' instead")
         if callable(destination):
             destination = destination(strategy, base_plan)
         if destination is not None:
@@ -111,10 +124,21 @@ class IrregularGather(IrregularExchange):
         else:
             self.plan = base_plan
         self.destination = destination
-        self.plan_args = strat.to_device(
-            strat.plan_device_args(self.plan, strategy,
-                                   with_dest=destination is not None),
-            self.device)
+        if self.dynamic_pattern is not None:
+            # on a bucket-reuse hit the envelope plan's index tables belong
+            # to the entry's founding routing, not this template: derive
+            # the template's own tables on the device (bit for bit with a
+            # host build at the envelope s_max); per-batch consumers swap
+            # in derive_plan_args(cols)
+            g = dyn.derive_gather_tables(
+                torch.as_tensor(self.pattern.indices, device=self.device),
+                n, p, self.plan.s_max)
+            self.plan_args = (g.send_local_idx, g.recv_global_idx)
+        else:
+            self.plan_args = strat.to_device(
+                strat.plan_device_args(self.plan, strategy,
+                                       with_dest=destination is not None),
+                self.device)
         self._start, self._finish = strat.make_start_local(
             self.plan, strategy, self.comm, use_kernel=self.use_kernel)
         self._dest_order = kops.DestOrder() if self.use_kernel else None
@@ -172,6 +196,30 @@ class IrregularGather(IrregularExchange):
             return self._deliver(out, mode)
 
         return OverlapHandle(x_local=x, _finish=finish)
+
+    # ---- dynamic surface (per-batch patterns, see comm.dynamic) ----
+    def derive_plan_args(self, cols) -> tuple:
+        """Per-batch replacement for ``plan_args``.
+
+        ``cols`` is this batch's (m, r) int32 global index table, a tensor
+        on the exchange's device.  Returns the condensed/overlap executor
+        tables ``(send_local_idx, recv_global_idx)`` computed there, bit
+        for bit with a host plan build at the envelope ``s_max``, with no
+        host sync; pass them to ``local`` / ``start_local`` in place of
+        ``plan_args``.  The caller records
+        ``telemetry.record("device-derive")`` once per executed step.
+        """
+        if self.strategy not in dyn.DYNAMIC_STRATEGIES:
+            raise ValueError(
+                f"derive_plan_args serves {dyn.DYNAMIC_STRATEGIES} "
+                f"executor tables, not {self.strategy!r}")
+        if self.destination is not None:
+            raise ValueError(
+                "derive_plan_args cannot rebuild host-precomputed "
+                "Destination arrays")
+        g = dyn.derive_gather_tables(cols, self.plan.n, self.p,
+                                     self.plan.s_max)
+        return (g.send_local_idx, g.recv_global_idx)
 
     # ---- standalone surface ----
     def __call__(self, x: torch.Tensor) -> torch.Tensor:

@@ -24,11 +24,18 @@ disk; entries are written with ``np.savez_compressed`` (plan arrays are
 mostly padding and compress well).  ``REPRO_TORCH_PLAN_CACHE_MEM_ENTRIES``
 (default 16) bounds the in-process LRU.
 
-A copy of ``repro.comm.plan_cache`` (format v5) for the port, without the
-reference's envelope tier for dynamic patterns (ROADMAP A9).  The key's hash
-input is the reference's byte for byte, so ``plan_key`` agrees across the
-two packages on the same inputs; the port keeps its own directory and
-variables, so neither package opens the other's entries.
+A third tier serves dynamic (per-batch) patterns: ``get_envelope_plan``
+keys a capacity-padded *envelope* plan on the pattern's quantized
+per-pair unique counts (``envelope_plan_key``), never its index bytes, so
+compatible routings share one entry (``bucket-reuse`` telemetry) and their
+exact executor tables come from the device derivation of
+``comm.dynamic``.
+
+A copy of ``repro.comm.plan_cache`` (format v5) for the port.  The keys'
+hash inputs are the reference's byte for byte, so ``plan_key`` and
+``envelope_plan_key`` agree across the two packages on the same inputs;
+the port keeps its own directory and variables, so neither package opens
+the other's entries.
 """
 from __future__ import annotations
 
@@ -50,6 +57,7 @@ from repro_torch.comm.plan import (CommPlan, GatherCounts, ScatterPlan,
                                    build_comm_plan, derive_scatter_plan)
 
 __all__ = ["plan_key", "get_comm_plan", "get_scatter_plan",
+           "envelope_plan_key", "get_envelope_plan",
            "clear_memory_cache", "stats", "CacheStats", "isolated",
            "cache_dir", "StalePlanCacheError"]
 
@@ -504,3 +512,118 @@ def get_scatter_plan(
     _store_disk_data(key, _serialize_scatter(
         splan, base_key=plan_key(cols, n, p, bs, topo)))
     return splan
+
+
+def _quantized_pattern_stats(
+    cols: np.ndarray, n: int, p: int, bucket: int,
+) -> np.ndarray:
+    """Per-(reader, owner) unique foreign counts, rounded UP to ``bucket``
+    multiples — the shape-stable fingerprint two routings share when one's
+    envelope plan can stand in for the other's."""
+    cols = np.asarray(cols)
+    if cols.ndim == 1:
+        cols = cols[:, None]
+    m = cols.shape[0]
+    shard_size = n // p
+    rows_per_shard = m // p
+    counts = np.zeros((p, p), np.int64)
+    for q in range(p):
+        cq = cols[q * rows_per_shard:(q + 1) * rows_per_shard].ravel()
+        uniq = np.unique(cq[(cq // shard_size) != q])
+        counts[q] = np.bincount(uniq // shard_size, minlength=p)
+    return (-(-counts // bucket) * bucket).astype(np.int64)
+
+
+def envelope_plan_key(
+    cols: np.ndarray, n: int, p: int, blocksize: int, topology: Topology,
+    s_max: int, bucket: int = 8,
+) -> str:
+    """Content key of the bucketed-reuse tier (format v5).
+
+    Unlike ``plan_key`` this never hashes the index bytes: two routings of
+    the same shape whose quantized per-destination unique counts round to
+    the same bucket boundaries — and that share the envelope ``s_max`` —
+    map to the same entry, so the second one reuses the first's envelope
+    plan instead of paying a host rebuild.
+    """
+    cols = np.asarray(cols)
+    if cols.ndim == 1:
+        cols = cols[:, None]
+    quant = _quantized_pattern_stats(cols, n, p, bucket)
+    h = hashlib.sha256()
+    h.update(f"env|v{_FORMAT_VERSION}|{n}|{p}|{cols.shape}|{blocksize}|"
+             f"{topology.num_shards}|{topology.shards_per_node}|"
+             f"{s_max}|{bucket}".encode())
+    h.update(np.ascontiguousarray(quant).tobytes())
+    return h.hexdigest()
+
+
+def get_envelope_plan(
+    cols: np.ndarray,
+    n: int,
+    p: int,
+    *,
+    blocksize: int | None = None,
+    topology: Topology | None = None,
+    s_max: int | None = None,
+    bucket: int = 8,
+    cache: bool = True,
+) -> CommPlan:
+    """The bucketed-reuse tier: a capacity-padded plan shared across routings.
+
+    Builds (or reuses) a ``build_comm_plan(..., s_max=s_max)`` *envelope*
+    plan keyed on ``envelope_plan_key`` — quantized pattern stats, never the
+    exact index bytes.  A hit means a compatible envelope already exists:
+    its static geometry (``s_max`` padding) and §5 pricing (volumes correct
+    to within one bucket per pair) stand in for this routing's, and the
+    *exact* executor tables come from ``comm.dynamic``'s derivation on the
+    batch's indices.  The hit is recorded as ``bucket-reuse`` telemetry; a
+    miss pays (and records) one ``host-build``.
+
+    The returned plan's index tables correspond to the entry's *founding*
+    routing, not necessarily ``cols`` — callers on the dynamic path must
+    override them with device-derived tables and must not read
+    ``send_local_idx`` / ``recv_global_idx`` et al. as this batch's truth.
+    ``s_max`` defaults to the shape's envelope bound
+    (``dynamic.envelope_s_max``), which every same-shaped routing satisfies.
+    """
+    from repro_torch.comm.dynamic import envelope_s_max
+
+    cols = np.asarray(cols)
+    if cols.ndim == 1:
+        cols = cols[:, None]
+    m, r = cols.shape
+    shard_size = n // p
+    bs = shard_size if blocksize is None else blocksize
+    topo = topology if topology is not None else Topology(p, p)
+    if s_max is None:
+        s_max = envelope_s_max(m, r, n, p)
+
+    def _build() -> CommPlan:
+        stats.bump("misses")
+        t0 = time.perf_counter()
+        plan = build_comm_plan(cols, n, p, blocksize=blocksize,
+                               topology=topology, s_max=s_max)
+        telemetry.record("host-build", time.perf_counter() - t0)
+        return plan
+
+    if not (cache and _enabled()):
+        return _build()
+
+    key = envelope_plan_key(cols, n, p, bs, topo, s_max, bucket)
+    plan = _memory_get(key)
+    if isinstance(plan, CommPlan):
+        stats.bump("memory_hits")
+        telemetry.record("bucket-reuse")
+        return plan
+    plan = _load_disk(key)
+    if plan is not None:
+        stats.bump("disk_hits")
+        telemetry.record("bucket-reuse")
+        _memory_put(key, plan)
+        return plan
+
+    plan = _build()
+    _memory_put(key, plan)
+    _store_disk(key, plan)
+    return plan

@@ -38,8 +38,11 @@ Composition mirrors the gather:
 the ``ScatterPlan``'s transposed counts.  The ``ScatterPlan`` comes from
 the plan cache (``plan_cache.get_scatter_plan``: a delta derived from, and
 stored against, the base plan), or is shared between engines with
-``scatter_plan=``.  Per-batch patterns (``derive_plan_args``,
-``DynamicPattern``) come with ROADMAP A9.
+``scatter_plan=``.  A ``DynamicPattern`` takes its put tables from the
+device derivation of ``comm.dynamic`` instead (the template's at
+construction, any batch's through ``derive_plan_args``), and runs the
+plain fold (``use_kernel=True`` is refused for it: the kernels' segment
+tables are built on the host).
 """
 from __future__ import annotations
 
@@ -49,10 +52,11 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch.comm import dynamic as dyn
 from repro_torch.comm import plan_cache
 from repro_torch.comm import strategies as strat
 from repro_torch.comm.exchange import IrregularExchange
-from repro_torch.comm.plan import CommPlan, ScatterPlan
+from repro_torch.comm.plan import CommPlan, ScatterPlan, transpose_counts
 
 __all__ = ["IrregularScatter", "ScatterHandle"]
 
@@ -89,8 +93,9 @@ class IrregularScatter(IrregularExchange):
         ``ScatterPlan`` (its ``base`` then serves as ``base_plan`` unless
         one is given).  Remaining keyword arguments (``strategy``,
         ``blocksize``, ``shards_per_node``, ``topology``, ``hw``,
-        ``use_plan_cache``, ``base_plan``, ``scan_steps``, ``use_kernel``)
-        are the shared ``IrregularExchange`` surface."""
+        ``candidates``, ``use_plan_cache``, ``base_plan``, ``scan_steps``,
+        ``plan_cost``, ``use_kernel``, ``decode``) are the shared
+        ``IrregularExchange`` surface."""
         if reduce not in strat.SCATTER_REDUCES:
             raise ValueError(
                 f"reduce must be one of {strat.SCATTER_REDUCES}")
@@ -105,6 +110,30 @@ class IrregularScatter(IrregularExchange):
         # so they are resolved (cached as a delta, or shared) before the §5
         # ranking, whose put-direction counts they carry
         splan = self._scatter_plan_arg
+        if self.dynamic_pattern is not None and splan is None:
+            # the envelope base plan's tables may belong to another
+            # founding routing (bucket reuse), so the host transpose-derive
+            # cannot probe them: derive the template's put tables on the
+            # device (bit for bit with the host derivation at the envelope
+            # s_max); blockwise is outside the dynamic ladder, its table
+            # stays all-dump
+            cols = self.pattern.indices
+            n, p, s_max = base_plan.n, base_plan.p, base_plan.s_max
+            g = dyn.derive_gather_tables(cols, n, p, s_max)
+            s = dyn.derive_scatter_tables(cols, n, p, s_max, gather=g)
+            m, r = cols.shape
+            dump_blk = base_plan.p * base_plan.b_max * base_plan.blocksize
+            self._dyn_send_local_idx = g.send_local_idx.to(self.device)
+            self.splan = ScatterPlan(
+                base=base_plan,
+                tgt_global=cols.astype(np.int32),
+                cond_msg_idx=s.cond_msg_idx.numpy(),
+                blk_msg_idx=np.full((m, r), dump_blk, np.int32),
+                own_tgt_idx=s.own_tgt_idx.numpy(),
+                win_mask=s.win_mask.numpy(),
+                touched=s.touched.numpy(),
+                counts=transpose_counts(base_plan))
+            return
         if splan is None:
             splan = plan_cache.get_scatter_plan(
                 self.pattern.indices, base_plan.n, base_plan.p,
@@ -126,6 +155,13 @@ class IrregularScatter(IrregularExchange):
         self.plan_args = strat.to_device(
             strat.scatter_plan_device_args(self.splan, strategy),
             self.device)
+        if self.dynamic_pattern is not None:
+            # same substitution as the gather: the envelope plan's
+            # accumulate-unpack table may belong to another founding
+            # routing, so the template's own derived table takes its place
+            self.plan_args = (self.plan_args[:1]
+                              + (self._dyn_send_local_idx,)
+                              + self.plan_args[2:])
         # the kernel arm's segment tables: built once here, on the device,
         # from the static plan arrays — never per step
         self.tables = (strat.scatter_segment_tables(self.splan, strategy,
@@ -158,12 +194,42 @@ class IrregularScatter(IrregularExchange):
 
         return ScatterHandle(vals_local=vals, _finish=finish)
 
+    # ---- dynamic surface (per-batch patterns, see comm.dynamic) ----
     def derive_plan_args(self, cols, gather_tables=None) -> tuple:
-        """Per-batch executor tables for a dynamic pattern: not ported."""
-        raise NotImplementedError(
-            "derive_plan_args (per-batch scatter tables derived on the "
-            "device) comes with the dynamic-pattern slice of the port "
-            "(ROADMAP A9)")
+        """Per-batch replacement for ``plan_args``.
+
+        ``cols`` is this batch's (m, r) int32 target table, a tensor on the
+        exchange's device.  Pass ``gather_tables`` (the
+        ``DynamicGatherTables`` a sibling gather of the same pattern
+        already derived) to share the one sort between both directions —
+        the ``CommPlan.transpose()`` economy, on the device.  Returns the
+        five condensed/overlap executor tables in the order and shapes of
+        ``plan_args``, with no host sync.  The plain fold runs them: the
+        kernels' segment tables are built on the host, so an exchange
+        built with ``use_kernel=True`` refuses.  The caller records
+        ``telemetry.record("device-derive")`` once per executed step.
+        """
+        if self.strategy not in dyn.DYNAMIC_STRATEGIES:
+            raise ValueError(
+                f"derive_plan_args serves {dyn.DYNAMIC_STRATEGIES} "
+                f"executor tables, not {self.strategy!r}")
+        if self.use_kernel:
+            raise NotImplementedError(
+                "derive_plan_args on a scatter built with use_kernel=True: "
+                "the fold kernels read segment tables built on the host "
+                "from the very index tensor they fold, which per-batch "
+                "tables cannot have without a sync (ROADMAP A17)")
+        n, p, s_max = self.plan.n, self.p, self.plan.s_max
+        g = gather_tables
+        if g is None:
+            g = dyn.derive_gather_tables(cols, n, p, s_max)
+        s = dyn.derive_scatter_tables(cols, n, p, s_max, gather=g)
+
+        def ranked(t):
+            return t.reshape((p, -1) + tuple(t.shape[1:]))
+
+        return (ranked(s.cond_msg_idx), g.send_local_idx,
+                ranked(s.own_tgt_idx), ranked(s.win_mask), s.touched)
 
     # ---- standalone surface ----
     def shard_values(self, vals) -> torch.Tensor:

@@ -36,8 +36,10 @@ loop.  A ``gather(double_buffer=True)`` stage reads the delivery of the
 exchange its ``feed()`` stage issued one iteration earlier, so the compute
 of one iteration hides inside the window opened during the previous one.
 
-``spec`` is a placement function here, not a ``PartitionSpec``; dynamic
-patterns are not ported (ROADMAP A9).
+``spec`` is a placement function here, not a ``PartitionSpec``.  A
+``DynamicPattern`` stage degrades to its template (``_unwrap_dynamic``):
+schedules resolve against host plans, and a per-batch consumer threads
+``derive_plan_args`` through its own step (``models.moe.DynamicMoELayer``).
 
 >>> import numpy as np, torch
 >>> from repro_torch.comm.communicator import LoopbackComm
@@ -72,6 +74,7 @@ import torch
 from repro_torch.comm import plan_cache
 from repro_torch.comm import select
 from repro_torch.comm import strategies as strat
+from repro_torch.comm.dynamic import DynamicPattern
 from repro_torch.comm.exchange import measure_hw
 from repro_torch.comm.gather import IrregularGather
 from repro_torch.comm.pattern import AccessPattern
@@ -89,6 +92,16 @@ def plan_key(pattern: AccessPattern, p: int, blocksize: int | None,
     ``build_comm_plan`` defaults) and the topology."""
     bs = pattern.n // p if blocksize is None else int(blocksize)
     return (pattern.digest, p, bs, topology)
+
+
+def _unwrap_dynamic(pattern) -> AccessPattern:
+    """Schedules resolve stages against host plans, so a ``DynamicPattern``
+    degrades to its template here (per-batch device-derived tables need
+    the consumer to thread ``derive_plan_args`` through its own step — see
+    ``models.moe.DynamicMoELayer``)."""
+    if isinstance(pattern, DynamicPattern):
+        return pattern.template
+    return pattern
 
 
 def _place(value, spec, p: int, device) -> torch.Tensor:
@@ -250,6 +263,7 @@ class Schedule:
             if src is None:
                 src = self.input()
         self._check_ref(src, array_valued=True)
+        pattern = _unwrap_dynamic(pattern)
         return self._add("gather", name, pattern=pattern, src=src,
                          destination=destination, dest_slots=dest_slots,
                          strategy=strategy,
@@ -306,6 +320,7 @@ class Schedule:
         self._check_ref(src, array_valued=True)
         if reduce not in strat.SCATTER_REDUCES:
             raise ValueError(f"reduce must be one of {strat.SCATTER_REDUCES}")
+        pattern = _unwrap_dynamic(pattern)
         return self._add("scatter", name, pattern=pattern, src=src,
                          reduce=reduce, strategy=strategy,
                          blocksize=blocksize, use_kernel=use_kernel)

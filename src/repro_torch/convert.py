@@ -64,8 +64,10 @@ def model_params_from_reference(cfg, params):
     """The reference's ``Model(cfg).init_params`` tree, given as numpy
     arrays (``jax.tree.map(np.asarray, params)``), as the port's master
     tree: float32 CPU tensors of the same structure, with the layers
-    stacked on the leading axis.  ``Model.load_params`` places it on the
-    model's device in its dtypes.  Checks the tree against ``cfg``."""
+    stacked on the leading axis (a MoE layer's ``router`` and expert
+    weights ``w1``/``w2``/``w3``, ``(L, E, ...)``, among them).
+    ``Model.load_params`` places it on the model's device in its dtypes.
+    Checks the tree against ``cfg``."""
     want = {"embed": (cfg.vocab_size, cfg.d_model)}
     if not cfg.tie_embeddings:
         want["lm_head"] = (cfg.d_model, cfg.vocab_size)

@@ -1,6 +1,6 @@
 """The serving model: the families of ``repro.models.transformer`` that the
-port runs so far, dense attention stacks (llama3-8b) and attention-free
-mamba-1 stacks (falcon-mamba-7b).
+port runs so far, dense attention stacks (llama3-8b), MoE attention stacks
+(mixtral-8x22b) and attention-free mamba-1 stacks (falcon-mamba-7b).
 
 Parameters are the reference's nested-dict tree with the layers stacked on
 a leading axis (``params["layers"]["attn"]["wq"]["w"]`` is ``(L, d, H·hd)``)
@@ -28,8 +28,18 @@ the ring, because an admitted prompt replaces the lane's whole
 slot.  Prefill attention stays plain PyTorch, as it is plain jnp in the
 reference.
 
-Not ported yet: the families ``moe`` (ROADMAP A10), ``hybrid``,
-``encdec`` and ``vlm``, sliding-window attention, the training forward of
+The MoE FFN runs ``models.moe.moe_fwd`` (groups of ``RunCtx.moe_groups``),
+or, for a one-token decode step, ``RunCtx.moe_step`` when it is set: the
+serving hook that ``serve.engine`` points at a ``DynamicMoELayer``.
+
+Sliding-window attention (``swa_window > 0``) runs where the window cannot
+bind: the cache is cut to the window (``cache_len <= swa_window``, as the
+reference cuts it) and no position reaches ``swa_window``; there the
+reference's window masks are true for every written slot.  A step that
+would reach it raises (ROADMAP A11).
+
+Not ported yet: the families ``hybrid``, ``encdec`` and ``vlm``,
+sliding-window attention past the window, the training forward of
 attention stacks, and the loss (ROADMAP A11).
 """
 from __future__ import annotations
@@ -42,11 +52,12 @@ import torch
 from repro_torch.comm.communicator import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
 
 __all__ = ["RunCtx", "Model", "tree_map"]
 
-_NOT_PORTED = {"moe": "A10", "hybrid": "A11", "encdec": "A11", "vlm": "A11"}
+_NOT_PORTED = {"hybrid": "A11", "encdec": "A11", "vlm": "A11"}
 # subtrees and leaves the reference reads in float32 at every use
 _FLOAT32_PARAMS = ("ln1", "ln2", "final_norm", "a_log", "d_skip")
 
@@ -55,11 +66,15 @@ _FLOAT32_PARAMS = ("ln1", "ln2", "final_norm", "a_log", "d_skip")
 class RunCtx:
     """Runtime context.  The reference's sharding, remat and scan-barrier
     hooks have no counterpart: the port runs one model on one card.
-    ``moe_step`` is the serving hook of the MoE FFN, which is not ported
-    (ROADMAP A10)."""
+    ``moe_groups`` splits the batch into groups whose tokens ``moe_fwd``
+    dispatches separately.  ``moe_step``, when set, routes the MoE FFN of
+    a one-token decode step through ``fn(moe_params, h) -> out`` (both (B,
+    1, D)) instead of ``moe_fwd``: ``serve.engine`` wires the per-batch
+    routed ``DynamicMoELayer`` in here.  Prefill keeps ``moe_fwd``."""
 
     act_dtype: torch.dtype = torch.bfloat16
     ssm_scan_dtype: torch.dtype = torch.float32
+    moe_groups: int = 1
     moe_step: Callable[[Any, torch.Tensor], torch.Tensor] | None = None
 
 
@@ -87,13 +102,33 @@ def _init_block(generator, cfg, *, kind: str):
         return p
     p["attn"] = L.init_attention(generator, cfg)
     p["ln2"] = L.init_norm(generator, cfg.d_model, kind=cfg.norm)
-    p["mlp"] = L.init_mlp(generator, cfg.d_model, cfg.d_ff, act=cfg.act)
+    if kind == "moe":
+        p["moe"] = M.init_moe(generator, cfg)
+        if cfg.dense_residual:
+            p["res_mlp"] = L.init_mlp(generator, cfg.d_model,
+                                      cfg.residual_d_ff, act=cfg.act)
+    else:
+        p["mlp"] = L.init_mlp(generator, cfg.d_model, cfg.d_ff, act=cfg.act)
     return p
 
 
-def _ffn(p, x, cfg):
+def _ffn(p, x, cfg, ctx, *, decode=False):
     h = L.norm_apply(p["ln2"], x, kind=cfg.norm)
-    return L.mlp_fwd(p["mlp"], h, act=cfg.act)
+    if "moe" not in p:
+        return L.mlp_fwd(p["mlp"], h, act=cfg.act)
+    b, s_len, d = h.shape
+    if ctx.moe_step is not None and decode:
+        # serving decode: the comm-scheduled per-step MoE exchange.  The
+        # reference takes it for any one-token step, a prefill chunk of
+        # one token too, where the hook's batch is not the engine's lanes
+        out = ctx.moe_step(p["moe"], h)
+    else:
+        g = min(ctx.moe_groups, b)
+        out = M.moe_fwd(p["moe"], h.reshape(g, (b // g) * s_len, d),
+                        cfg).reshape(b, s_len, d)
+    if cfg.dense_residual:
+        out = out + L.mlp_fwd(p["res_mlp"], h, act=cfg.act)
+    return out
 
 
 def _qkv(p, x, cfg):
@@ -181,7 +216,7 @@ def _attn_prefill(p, x, cfg, cache, pos):
     return L.linear(p["wo"], out)
 
 
-def _block_decode(p, x, cfg, cache, pos, *, kind):
+def _block_decode(p, x, cfg, ctx, cache, pos, *, kind):
     """One layer of one decode step; writes the layer's cache in place."""
     h = L.norm_apply(p["ln1"], x, kind=cfg.norm)
     if kind == "ssm":
@@ -190,7 +225,7 @@ def _block_decode(p, x, cfg, cache, pos, *, kind):
         cache["ssm"]["conv"].copy_(new["conv"])
         return x + y
     x = x + _attn_decode(p["attn"], h, cfg, cache, pos)
-    return x + _ffn(p, x, cfg)
+    return x + _ffn(p, x, cfg, ctx, decode=True)
 
 
 # ---------------------------------------------------------------------------
@@ -207,16 +242,22 @@ class Model:
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet: ROADMAP "
                 f"{_NOT_PORTED[cfg.family]}")
-        if cfg.swa_window:
-            raise NotImplementedError(
-                "sliding-window attention is not ported yet: ROADMAP A11")
         self.cfg = cfg
         self.ctx = ctx or RunCtx()
-        if self.ctx.moe_step is not None:
-            raise NotImplementedError(
-                "the MoE decode hook needs the MoE FFN: ROADMAP A10")
-        self.kind = cfg.family                    # dense | ssm
+        self.kind = cfg.family                    # dense | moe | ssm
         self.device = resolve_device(device)
+
+    def _check_window(self, pos, s_len: int) -> None:
+        """Refuse a step whose positions reach ``swa_window``: below it the
+        reference's window masks are true for every written slot, and
+        windowed attention past it is not ported.  Reads the positions on
+        the host (one sync a step, for windowed configs only)."""
+        window = self.cfg.swa_window
+        if window and int(pos.max()) + s_len > window:
+            raise NotImplementedError(
+                f"position {int(pos.max()) + s_len - 1} reaches the "
+                f"sliding window ({window}); sliding-window attention past "
+                "the window is not ported yet: ROADMAP A11")
 
     # ---- parameters ----
     def _load(self, tree, *, float32=False):
@@ -306,13 +347,15 @@ class Model:
         serving *slot*) tracks its own sequence.  Needs an attention
         stack."""
         cfg, dev = self.cfg, self.device
-        if per_slot and self.kind != "dense":
+        if cfg.swa_window:
+            cache_len = min(cache_len, cfg.swa_window)
+        if per_slot and self.kind not in ("dense", "moe"):
             raise NotImplementedError(
                 "per-slot caches (continuous batching) need an "
                 f"attention-only stack, got family {cfg.family!r}")
         n = cfg.num_layers
         c: dict[str, Any] = {}
-        if self.kind == "dense":
+        if self.kind in ("dense", "moe"):
             kv = (n, batch, cache_len, cfg.num_kv_heads, cfg.head_dim)
             c["k"] = torch.zeros(kv, dtype=dtype, device=dev)
             c["v"] = torch.zeros(kv, dtype=dtype, device=dev)
@@ -331,11 +374,12 @@ class Model:
         """tokens: (B, 1).  Returns (logits (B, 1, V), new_cache); the
         cache's tensors are written in place (module docstring)."""
         cfg = self.cfg
-        x = params["embed"]["w"][tokens]
         pos = cache["pos"]
+        self._check_window(pos, 1)
+        x = params["embed"]["w"][tokens]
         layers = cache["layers"]
         for i in range(cfg.num_layers):
-            x = _block_decode(_layer(params["layers"], i), x, cfg,
+            x = _block_decode(_layer(params["layers"], i), x, cfg, self.ctx,
                               _layer(layers, i), pos, kind=self.kind)
         return self._head(params, x), {"pos": pos + 1, "layers": layers}
 
@@ -343,11 +387,11 @@ class Model:
         """Fused prompt prefill: one forward over ``tokens`` (B, S) that
         also writes the prompt's K/V into the decode cache at positions
         [pos, pos+S).  Returns ``(last_logits (B, 1, V), new_cache)``;
-        chunked prefill is consecutive calls.  Attention stacks only (an
-        ssm stack prefills through the decode_step scan); ``S <=
-        cache_len``."""
+        chunked prefill is consecutive calls.  Attention stacks only (dense
+        and moe; an ssm stack prefills through the decode_step scan); ``S
+        <= cache_len``."""
         cfg = self.cfg
-        if self.kind != "dense":
+        if self.kind not in ("dense", "moe"):
             raise NotImplementedError(
                 "fused prefill supports attention-only stacks; family "
                 f"{cfg.family!r} prefills via the decode_step scan")
@@ -356,13 +400,14 @@ class Model:
             raise ValueError(
                 f"prefill chunk ({tokens.shape[1]} tokens) exceeds the ring "
                 f"cache ({cache_len} slots); chunk the prompt")
-        x = params["embed"]["w"][tokens]
         pos = cache["pos"]
+        self._check_window(pos, tokens.shape[1])
+        x = params["embed"]["w"][tokens]
         layers = cache["layers"]
         for i in range(cfg.num_layers):
             lp, lc = _layer(params["layers"], i), _layer(layers, i)
             h = L.norm_apply(lp["ln1"], x, kind=cfg.norm)
             x = x + _attn_prefill(lp["attn"], h, cfg, lc, pos)
-            x = x + _ffn(lp, x, cfg)
+            x = x + _ffn(lp, x, cfg, self.ctx)
         return self._head(params, x[:, -1:, :]), {
             "pos": pos + tokens.shape[1], "layers": layers}

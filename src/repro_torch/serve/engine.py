@@ -14,10 +14,17 @@ engine
    next tick's admission can refill them.
 
 The only host synchronisation of a tick is the read of its tokens at the
-tick boundary.  The engine's clock is the tick counter, so
+tick boundary (a windowed config adds the read of its positions,
+``Model._check_window``).  The engine's clock is the tick counter, so
 ``Request.arrival_time`` in tick units makes admission order
-deterministic.  The reference's MoE decode hook (``moe_layer``) waits for
-the MoE FFN (ROADMAP A10).
+deterministic.
+
+With ``moe_layer`` set (a ``models.moe.DynamicMoELayer`` built for
+``num_tokens == num_slots``), the transformer's MoE FFN of every decode
+step is routed through the §5-priced exchange via ``RunCtx.moe_step``:
+per-tick routing, executor tables derived on the device, no host plan
+build after construction — asserted through ``comm.telemetry``
+(``assert_steady_state``).  Prefill keeps the local ``moe_fwd``.
 """
 from __future__ import annotations
 
@@ -29,17 +36,52 @@ import numpy as np
 import torch
 
 from repro_torch.comm import telemetry
+from repro_torch.models import moe as M
 from repro_torch.models.transformer import Model, tree_map
 from repro_torch.serve.queue import Request, RequestQueue
 from repro_torch.serve.slots import SlotManager
 
-__all__ = ["ServeEngine", "ServeReport", "generate_batch_loop"]
+__all__ = ["ServeEngine", "ServeReport", "generate_batch_loop",
+           "moe_decode_hook"]
 
 
-def _no_moe_layer(moe_layer) -> None:
-    if moe_layer is not None:
-        raise NotImplementedError(
-            "the MoE decode hook (moe_layer) is not ported yet: ROADMAP A10")
+def moe_decode_hook(cfg, layer):
+    """``RunCtx.moe_step`` adapter: route one decode tick's (B, 1, D)
+    hidden batch through a ``DynamicMoELayer``.
+
+    The routing math is ``moe_fwd``'s (the router in the activation dtype,
+    a float32 softmax, ``moe.top_k``, renormalized); the dispatch→expert→
+    combine then runs through the layer with THIS layer's weights — one
+    ``DynamicMoELayer`` instance (template shapes) serves every layer of
+    the stack via ``DynamicMoELayer.apply``.
+    """
+    k = cfg.experts_per_token
+
+    def moe_step(p_moe, h):
+        b, _, d = h.shape
+        logits = (h.reshape(1, b, d)
+                  @ p_moe["router"]["w"].to(h.dtype)).float()
+        probs = torch.softmax(logits, dim=-1)
+        top_p, top_e = M.top_k(probs, k)
+        top_p = top_p / top_p.sum(-1, keepdim=True)
+        wx = [p_moe["w1"], p_moe["w2"]]
+        if cfg.act == "swiglu":
+            wx.append(p_moe["w3"])
+        y = layer.apply(h.reshape(b, d), top_e[0], top_p[0], *wx)
+        return y.reshape(b, 1, d).to(h.dtype)
+
+    return moe_step
+
+
+def _with_moe_hook(model: Model, moe_layer) -> Model:
+    if moe_layer is None:
+        return model
+    if model.cfg.family != "moe":
+        raise ValueError(
+            f"moe_layer needs a MoE model, got family {model.cfg.family!r}")
+    ctx = dataclasses.replace(
+        model.ctx, moe_step=moe_decode_hook(model.cfg, moe_layer))
+    return Model(model.cfg, ctx, device=model.device)
 
 
 def _insert(cache, prefix, slot: int, token, tokens):
@@ -123,13 +165,21 @@ class ServeEngine:
     def __init__(self, model: Model, params, *, num_slots: int,
                  cache_len: int, prefill_chunk: int | None = None,
                  moe_layer=None, cache_dtype=None):
-        _no_moe_layer(moe_layer)
-        self.model = model
+        if moe_layer is not None and moe_layer.num_tokens != num_slots:
+            raise ValueError(
+                f"moe_layer routes {moe_layer.num_tokens} tokens per step "
+                f"but the engine decodes {num_slots} lanes; build the "
+                f"DynamicMoELayer with num_tokens={num_slots}")
+        self.model = _with_moe_hook(model, moe_layer)
+        self.moe_layer = moe_layer
         self.params = params
         self.prefill_chunk = prefill_chunk
-        self.cache_dtype = cache_dtype or model.ctx.act_dtype
-        self.cache = model.init_cache(num_slots, cache_len, per_slot=True,
-                                      dtype=self.cache_dtype)
+        self.cache_dtype = cache_dtype or self.model.ctx.act_dtype
+        # one device derivation per MoE layer runs every decode tick
+        self._derives_per_tick = (
+            model.cfg.num_layers if moe_layer is not None else 0)
+        self.cache = self.model.init_cache(
+            num_slots, cache_len, per_slot=True, dtype=self.cache_dtype)
         self.cache_len = int(self.cache["layers"]["k"].shape[2])
         self.slots = SlotManager(num_slots)
         self.queue = RequestQueue()
@@ -177,6 +227,8 @@ class ServeEngine:
             nxt_host = nxt.cpu().numpy()        # blocks: tick boundary
             dt = time.perf_counter() - t0
             telemetry.record_tick("decode_steps")
+            for _ in range(self._derives_per_tick):
+                telemetry.record("device-derive")
             self._tick_seconds.append(dt)
             for s in active:
                 self._token_seconds.append(dt)
@@ -242,6 +294,21 @@ class ServeEngine:
             telemetry=telemetry.stats.since(self._snap0),
         )
 
+    # ---- steady-state invariant ----
+    def snapshot(self) -> dict:
+        """Telemetry snapshot for a later ``assert_steady_state``."""
+        return telemetry.stats.snapshot()
+
+    def assert_steady_state(self, snap: dict) -> dict:
+        """Assert that no host plan build happened across the decode ticks
+        since ``snap`` (the §5 T_plan tax must not recur once warm).
+        Returns the telemetry delta."""
+        delta = telemetry.stats.since(snap)
+        if not telemetry.stats.decode_host_free(snap):
+            raise AssertionError(
+                f"host plan builds during steady-state decode: {delta}")
+        return delta
+
 
 def generate_batch_loop(model: Model, params, requests, *, cache_len: int,
                         prefill_chunk: int | None = None, moe_layer=None,
@@ -255,7 +322,7 @@ def generate_batch_loop(model: Model, params, requests, *, cache_len: int,
     request at its ``max_new_tokens`` / ``eos_id``, so outputs compare
     directly against ``ServeReport.outputs``.
     """
-    _no_moe_layer(moe_layer)
+    model = _with_moe_hook(model, moe_layer)
     dtype = cache_dtype or model.ctx.act_dtype
     b = len(requests)
     cache = model.init_cache(b, cache_len, per_slot=True, dtype=dtype)

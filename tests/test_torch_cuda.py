@@ -1324,3 +1324,160 @@ def test_plain_fold_on_card_is_repeatable(dev, dtype):
         return
     # sums of ~3,000 terms of size 1e3 in another order: ~30 float32 ulps
     torch.testing.assert_close(runs[0], want, rtol=1e-4, atol=1.0)
+
+
+# -- dynamic patterns, the MoE consumers and the GNN on the card --
+
+def _routing_cols(seed, p, n_tok=64, e=8, cap=16, k=2):
+    from repro_torch.models.moe import moe_dispatch_pattern, random_router
+    te, tw = random_router(seed, n_tok, e, k)
+    idx, _ = moe_dispatch_pattern(te, n_tok, e, cap, p)
+    return te, tw, torch.as_tensor(idx.reshape(-1, 1))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("p", [2, 8])
+def test_dynamic_derivation_on_card_is_sync_free(dev, p, seed):
+    """Both directions' tables derived on the card make no host sync
+    (``set_sync_debug_mode("error")`` raises on one) and equal the CPU
+    derivation bit for bit, at the envelope and below it (overflow)."""
+    from repro_torch.comm import dynamic as dyn
+
+    _, _, cols = _routing_cols(seed, p)
+    n = 64
+    env = dyn.envelope_s_max(cols.shape[0], 1, n, p)
+    for s_max in (env, 1):
+        cols_d = cols.to(dev)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            g = dyn.derive_gather_tables(cols_d, n, p, s_max)
+            s = dyn.derive_scatter_tables(cols_d, n, p, s_max, gather=g)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        gc = dyn.derive_gather_tables(cols, n, p, s_max)
+        sc = dyn.derive_scatter_tables(cols, n, p, s_max, gather=gc)
+        for got, want in zip(tuple(g) + tuple(s), tuple(gc) + tuple(sc)):
+            assert got.device.type == "cuda"
+            assert torch.equal(got.cpu(), want)
+
+
+def _moe_case(seed=0, n_tok=64, d=8, f=16, e=8):
+    rng = np.random.default_rng(seed)
+    params = {k: (rng.standard_normal(shape) * 0.3).astype(np.float32)
+              for k, shape in (("w1", (e, d, f)), ("w2", (e, f, d)),
+                               ("w3", (e, d, f)))}
+    return params, rng.standard_normal((n_tok, d)).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dynamic_moe_layer_on_card(dev, dtype):
+    """A DynamicMoELayer step over LoopbackComm(8) on the card: its pack
+    and derivation sync-free, the same numbers as its composed host-planned
+    path on the card (bit for bit) and as the same layer on the CPU."""
+    from repro_torch.core import perfmodel as pm
+    from repro_torch.models import moe as M
+
+    n_tok, e, cap = 64, 8, 16
+    params, x = _moe_case()
+    te0, _, _ = _routing_cols(0, 8)
+    layers = {d: M.DynamicMoELayer(params, te0, n_tok, e, cap,
+                                   LoopbackComm(8, device=d), act="swiglu",
+                                   strategy="condensed", hw=pm.ABEL)
+              for d in ("cpu", dev)}
+    layer = layers[dev]
+    for seed in (1, 2):
+        te, tw, _ = _routing_cols(seed, 8)
+        te_d = torch.as_tensor(te, device=dev)
+        tw_d = torch.as_tensor(tw, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            cols, w_slot = layer.pack(te_d, tw_d)
+            layer.derive(cols)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        xs = layer.shard_tokens(x).to(dtype)
+        y = layer(xs, te_d, tw_d)
+        comm = layer.comm
+        g = M.MoEDispatchGather(te, n_tok, e, cap, comm, strategy="condensed",
+                                materialize="full", use_plan_cache=False)
+        buf = g(xs)
+        w = [t.reshape((8, -1) + tuple(t.shape[1:])) for t in layer._weights]
+        out = M.moe_expert_local(buf, *w, act="swiglu")
+        c = M.MoECombineScatter(te, tw, n_tok, e, cap, comm,
+                                strategy="condensed", use_plan_cache=False)
+        assert torch.equal(y, c(out))
+        if dtype == torch.float32:
+            want = layers["cpu"](layers["cpu"].shard_tokens(x), te, tw)
+            torch.testing.assert_close(y.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [77, 2080])
+def test_decode_attention_group_6(dev, s, dtype):
+    """B8 at mixtral-8x22b's heads: 48 query heads over 8 KV heads of 128,
+    a group of 6 (a partial tile of query heads), against its plain
+    version at 2e-4 (float32 query) or one bf16 rounding (bf16 query)."""
+    rng = np.random.default_rng(s)
+    b, h, hkv, d = 8, 48, 8, 128
+    lengths = rng.integers(1, s + 1, b)
+    lengths[:2] = (s, 1)
+    lengths = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
+    q = _rand(rng, (b, h, d), dtype, dev)
+    k = _rand(rng, (b, s, hkv, d), torch.bfloat16, dev)
+    v = _rand(rng, (b, s, hkv, d), torch.bfloat16, dev)
+    got = kops.decode_attention(q, k, v, lengths)
+    want = kref.decode_attention_ref(q.float(), k, v, lengths)
+    tol = MODEL_TOL if dtype == torch.float32 else BF16_OUT_TOL
+    torch.testing.assert_close(got.float(), want, **tol)
+
+
+def test_moe_serve_engine_on_card_matches_cpu(dev):
+    """Reduced mixtral-8x22b (8 experts, full attention, no drops),
+    float32, through the engine with the DynamicMoELayer hook over
+    LoopbackComm(8): the same greedy tokens on the card as on the CPU,
+    no host plan build after construction, B8 once per layer and tick."""
+    from repro_torch.launch.serve import build_moe_layer
+
+    cfg = get_config("mixtral-8x22b", reduced=True)
+    cfg = dataclasses.replace(cfg, num_experts=8, swa_window=0,
+                              capacity_factor=8.0 / cfg.experts_per_token)
+    rng = np.random.default_rng(3)
+    reqs = [dict(id=i, prompt=rng.integers(0, cfg.vocab_size, 8).tolist(),
+                 max_new_tokens=4, arrival_time=float(i // 4))
+            for i in range(8)]
+    reports = {}
+    for d, (model, params) in _model_pair(dev, cfg).items():
+        layer = build_moe_layer(model, params, 8, LoopbackComm(8, device=d))
+        engine = ServeEngine(model, params, num_slots=8, cache_len=16,
+                             prefill_chunk=4, moe_layer=layer,
+                             cache_dtype=torch.float32)
+        snap = engine.snapshot()
+        for r in reqs:
+            engine.submit(Request(**r))
+        kops.reset_launch_counts()
+        reports[d] = engine.run()
+        delta = engine.assert_steady_state(snap)
+        assert delta["device-derive"] == cfg.num_layers * delta[
+            "decode_steps"]
+        counts = kops.launch_counts()
+    assert counts["decode_attention"] == cfg.num_layers * len(
+        reports[dev].tick_seconds)
+    assert reports[dev].outputs == reports["cpu"].outputs
+
+
+@pytest.mark.parametrize("strategy", ["condensed", "auto"])
+def test_gnn_on_card_matches_oracle(dev, strategy):
+    from repro_torch.core import perfmodel as pm
+    from repro_torch.models.gnn import (GNNNeighborAggregate, gnn_ref_np,
+                                        random_neighbors)
+
+    n, r, d = 4096, 16, 64
+    nbrs = random_neighbors(n, r, alpha=1.1, seed=1)
+    h = np.random.default_rng(1).standard_normal((n, d)).astype(np.float32)
+    layer = GNNNeighborAggregate(nbrs, n, LoopbackComm(8, device=dev),
+                                 strategy=strategy, hw=pm.ABEL)
+    got = layer(layer.shard_features(h)).reshape(n, d).cpu().numpy()
+    np.testing.assert_allclose(got, gnn_ref_np(h, nbrs), rtol=2e-4,
+                               atol=2e-4)

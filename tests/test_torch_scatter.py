@@ -219,6 +219,8 @@ def test_transposed_spmv_matches_jax_engine(reference, spmv_plans, kind,
 
 
 def test_scatter_refusals(scatter_plans):
+    import torch
+
     from repro_torch.comm import plan as tplan
     from repro_torch.comm.communicator import LoopbackComm
     from repro_torch.comm.pattern import AccessPattern
@@ -233,8 +235,11 @@ def test_scatter_refusals(scatter_plans):
         IrregularScatter(pattern, comm, strategy="condensed", reduce="min")
     s = IrregularScatter(pattern, comm, strategy="condensed",
                          scatter_plan=scatter_plans["square"])
-    with pytest.raises(NotImplementedError, match="A9"):
-        s.derive_plan_args(idx)
+    # per-batch tables (A9): derived from the same indices, the plan's own
+    derived = s.derive_plan_args(torch.as_tensor(idx))
+    assert all(got.dtype == want.dtype and torch.equal(got, want)
+               for got, want in zip(derived, s.plan_args))
+    assert len(derived) == len(s.plan_args) == 5
     other = tplan.build_comm_plan(idx, CASES["square"][0], P, blocksize=32)
     with pytest.raises(AssertionError, match="different base plan"):
         IrregularScatter(pattern, comm, strategy="condensed", base_plan=other,

@@ -179,8 +179,13 @@ def test_engine_submit_validation(pair):
         engine.submit(Request(id="x", prompt=[1] * 5, max_new_tokens=1))
     with pytest.raises(ValueError, match="prompt length"):
         engine.submit(Request(id="x", prompt=[], max_new_tokens=1))
-    with pytest.raises(NotImplementedError, match="A10"):
-        ServeEngine(tm, tp, num_slots=2, cache_len=8, moe_layer=object())
+    # the MoE decode hook (A10) serves MoE models only
+    with pytest.raises(ValueError, match="MoE model"):
+        ServeEngine(tm, tp, num_slots=2, cache_len=8,
+                    moe_layer=type("Layer", (), {"num_tokens": 2})())
+    with pytest.raises(ValueError, match="num_tokens=2"):
+        ServeEngine(tm, tp, num_slots=2, cache_len=8,
+                    moe_layer=type("Layer", (), {"num_tokens": 4})())
 
 
 # -- the command-line entry point --
@@ -194,7 +199,8 @@ def test_launch_serve_runs_both_paths_on_the_cpu():
                        "cpu", "--batch", "2", "--prompt-len", "8", "--gen",
                        "3"])
     assert tuple(seq.shape) == (2, 3)
-    with pytest.raises(NotImplementedError, match="A10"):
+    # --moe-comm (A10) needs a MoE architecture
+    with pytest.raises(ValueError, match="MoE architecture"):
         tserve.main(["--arch", "llama3-8b", "--reduced", "--device", "cpu",
                      "--moe-comm"])
 

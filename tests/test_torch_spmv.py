@@ -116,6 +116,8 @@ def test_port_matches_jax_engine(reference, shared, strategy, materialize,
 
 
 def test_port_engine_refuses_later_slices(shared):
+    import torch
+
     from repro_torch.comm.communicator import LoopbackComm
     from repro_torch.core.spmv import DistributedSpMV
 
@@ -131,10 +133,14 @@ def test_port_engine_refuses_later_slices(shared):
     eng = DistributedSpMV(tm, comm, blocksize="auto", hw=ABEL,
                           use_plan_cache=False)
     assert tm.n // P % eng.blocksize == 0
-    # ... per-batch scatter tables still come with a later slice (A9)
+    # ... and per-batch scatter tables came with the dynamic patterns
+    # (A9): derived on the device from the matrix's own columns, they are
+    # the host plan's tables bit for bit
     t = DistributedSpMV(tm, comm, transpose=True, base_plan=tp)
-    with pytest.raises(NotImplementedError, match="A9"):
-        t.scatter.derive_plan_args(tm.cols)
+    derived = t.scatter.derive_plan_args(torch.as_tensor(tm.cols))
+    assert len(derived) == len(t.scatter.plan_args)
+    for got, want in zip(derived, t.scatter.plan_args):
+        assert got.dtype == want.dtype and torch.equal(got, want)
 
 
 if __name__ == "__main__":
