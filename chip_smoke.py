@@ -91,7 +91,29 @@ each:
 12. gnn: GNNNeighborAggregate over LoopbackComm(8) on a Zipf(1.1) graph of
    2^19 nodes, 16 neighbors, 64 float32 features, on the condensed rung
    and under auto, each against gnn_ref_np (rtol/atol 2e-4), timed, with
-   its busy share and a model_row.
+   its busy share and a model_row;
+13. train: llama3-8b at its published widths (d 4096, 32/8 heads of 128,
+   d_ff 14336, vocab 128256), 8 of its 32 layers (2.80B parameters: their
+   float32 master weights, gradients and two moments take ~45 GB),
+   trained through launch.train (setup and its Trainer's step) at
+   train_4k's length 4096 with the global batch cut to 8 (accumulation 4,
+   microbatch 2), remat full, bf16 activations, random master weights
+   from the seed: 1 warm-up and 3 timed steps (CUDA events), ms a step,
+   tokens/s, MFU against the bf16 spec peak and against a bf16 matmul
+   measured in the run, peak memory, every loss and gradient norm, and one
+   more step under torch.profiler split by region (the training
+   attention's einsums and elementwise passes, the fused CE, AdamW, the
+   rest's matmuls and elementwise; marker kernels bracket the regions)
+   with its busy share; every loss and gradient norm finite and the first
+   loss within 2 of ln(128256).  Then train_twin: a float32 twin of
+   reduced llama3-8b and of reduced mixtral-8x22b takes one train step on
+   the card and on the CPU (TF32 off), every leaf's gradient within 1e-4
+   of the leaf's largest element, loss, gradient norm and parameters
+   within 1e-4; and train_lm100m: launch.train.main on lm100m, 30 steps at
+   seq 256, batch 8, a checkpoint every 15 steps, the loss falling by more
+   than 0.3, then the run resumed from its step-15 checkpoint giving steps
+   15-29's losses bit for bit.  No kernel of the nine lies on the training
+   path (the reference trains through plain jnp).
 The model lines (phase "model"; the §5 models of core/perfmodel.py on
 this card): right after setup, calibration (core/tune.py's four
 parameters for one rank of LoopbackComm(8), the stacked probes' raw
@@ -185,6 +207,27 @@ GNN_D = 64
 GNN_ALPHA = 1.1
 GNN_TOL = dict(rtol=2e-4, atol=2e-4)    # tests/test_gnn.py's
 MODEL_TOL = dict(rtol=2e-4, atol=2e-4)   # tests/test_kernels.py's, B8/B9
+# Training: llama3-8b at its published widths through launch.train, 8 of
+# its 32 layers (float32 master weights, gradients and two moments take 16
+# B a parameter: 8 layers are 2.80B parameters, ~45 GB; 32 would need 128
+# GB), train_4k's length with its global batch 256 cut to 8 (accumulation
+# 4, microbatch 2); 1 warm-up step and 3 timed; then float32 twins of the
+# reduced llama3-8b and mixtral-8x22b, one step on the card against the
+# CPU, and lm100m end to end with a checkpoint and a resume
+TRAIN_ARGV = ["--arch", "llama3-8b", "--seq", "4096", "--batch", "8",
+              "--accum", "4", "--seed", str(SEED)]
+TRAIN_LAYERS = 8
+TRAIN_TIMED = 3
+TRAIN_TWINS = ("llama3-8b", "mixtral-8x22b")
+TRAIN_TWIN_ARGV = ["--seq", "64", "--batch", "8", "--accum", "2",
+                   "--seed", str(SEED)]
+TRAIN_TWIN_TOL = 1e-4
+LM100M_ARGV = ["--preset", "lm100m", "--steps", "30", "--seq", "256",
+               "--batch", "8", "--save-every", "15",
+               "--log-every", "10", "--seed", str(SEED)]
+LM100M_RESUME = 15
+# the H100 SXM's dense bf16 tensor-core peak (NVIDIA data sheet)
+BF16_FLOP_PER_S = 989e12
 BF16_OUT_TOL = dict(rtol=2.0 ** -8, atol=2e-4)   # plus one bf16 rounding
 # relative L2 error of the logits, kernel vs plain inside the whole model:
 # in float32 the two differ only in summation order; in bf16 a rounding
@@ -2133,6 +2176,314 @@ def phase_ssm_prefill(torch, card):
     return counts
 
 
+# --------------------------------------------------------------------------
+# training
+# --------------------------------------------------------------------------
+
+def region_marks(torch, log):
+    """An autograd function that launches a marker kernel (a 1-cycle
+    ``torch.cuda._sleep``) and appends ``(region, edge)`` to ``log`` in its
+    forward and again in its backward: placed on a region's inputs (edges
+    start/end) and outputs (end/start), its markers bracket the region's
+    forward and its backward on the stream, in launch order."""
+
+    def emit_mark(kind, edge):
+        log.append((kind, edge))
+        torch.cuda._sleep(1)
+
+    class Mark(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, kind, fwd_edge, bwd_edge, *ts):
+            ctx.kind, ctx.edge = kind, bwd_edge
+            emit_mark(kind, fwd_edge)
+            return tuple(t.view_as(t) for t in ts)
+
+        @staticmethod
+        def backward(ctx, *grads):
+            emit_mark(ctx.kind, ctx.edge)
+            return (None, None, None) + grads
+
+    def around(kind, fn, n_in):
+        """``fn`` with its first ``n_in`` tensor arguments and its tensor
+        result marked as the region ``kind``."""
+        def wrapped(*args, **kw):
+            marked = Mark.apply(kind, "start", "end", *args[:n_in])
+            out = fn(*marked, *args[n_in:], **kw)
+            return Mark.apply(kind, "end", "start", out)[0]
+        return wrapped
+    return emit_mark, around
+
+
+# kernel-name parts of the matmul kernels (cuBLAS's sm90 kernels are
+# "nvjet_*" in CUDA 12.8)
+GEMM_NAMES = ("gemm", "xmma", "cutlass", "cublas", "nvjet")
+
+
+def profile_train_step(torch, step_fn):
+    """One train step under torch.profiler, its device time split by
+    region: attention (the training attention's einsums and elementwise
+    passes, forward, recompute and backward), the fused CE loss, AdamW,
+    and the rest (matmuls and elementwise).  Marker kernels bracket each
+    region (``region_marks``); a kernel counts to the region whose markers
+    enclose it.  Also the busy share of the step: the union of the device
+    intervals over the span from the first to the last."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as TT
+    from repro_torch.optim import adamw as A
+
+    log = []
+    emit_mark, around = region_marks(torch, log)
+    saved = (L.attention, TT.fused_ce_loss, A.AdamW.apply)
+    real_apply = A.AdamW.apply
+
+    def apply(self, *args):
+        emit_mark("adamw", "start")
+        out = real_apply(self, *args)
+        emit_mark("adamw", "end")
+        return out
+    L.attention = around("attention", L.attention, 3)
+    TT.fused_ce_loss = around("fused_ce", TT.fused_ce_loss, 2)
+    A.AdamW.apply = apply
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            metrics = step_fn()
+            torch.cuda.synchronize()
+    finally:
+        L.attention, TT.fused_ce_loss, A.AdamW.apply = saved
+    acts = sorted((e.time_range.start, e.time_range.end, e.name)
+                  for e in prof.events() if e.device_type == DeviceType.CUDA)
+    marks = [a for a in acts if "spin_kernel" in a[2]]
+    check(len(marks) == len(log),
+          f"the profiler saw {len(marks)} markers, {len(log)} launched")
+    regions, open_at = [], {}
+    for (start, end, _), (kind, edge) in zip(marks, log):
+        if edge == "start":
+            check(kind not in open_at, f"region {kind} opened twice")
+            open_at[kind] = end
+        else:
+            regions.append((open_at.pop(kind), start, kind))
+    check(not open_at, f"regions left open: {sorted(open_at)}")
+    ms, by_name = {}, {}
+    kernels = [a for a in acts if "spin_kernel" not in a[2]]
+    for start, end, name in kernels:
+        kind = next((k for lo, hi, k in regions if lo <= start < hi),
+                    "other")
+        part = "gemm" if any(g in name.lower() for g in GEMM_NAMES) \
+            else "elementwise"
+        key = f"{kind}_{part}_ms"
+        ms[key] = ms.get(key, 0.0) + (end - start) / 1e3
+        names = by_name.setdefault(key, {})
+        names[name[:60]] = names.get(name[:60], 0.0) + (end - start) / 1e3
+    span = kernels[-1][1] - kernels[0][0] if kernels else 0.0
+    return metrics, {
+        "regions_ms": dict(sorted(ms.items())),
+        "top_kernels_ms": {k: sorted(v.items(), key=lambda r: -r[1])[:3]
+                           for k, v in sorted(by_name.items())},
+        "kernel_ms": sum(ms.values()),
+        "profiled_span_ms": span / 1e3,
+        "busy_share": busy_us((a, b) for a, b, _ in kernels) / span
+        if span else 0.0,
+        "regions": len(regions)}
+
+
+def matmul_rate(torch, dev, n: int = 8192) -> float:
+    """FLOP/s of one bf16 ``torch.matmul`` of two n x n matrices."""
+    a = torch.randn((n, n), device=dev, dtype=torch.bfloat16)
+    b = torch.randn((n, n), device=dev, dtype=torch.bfloat16)
+    ms = cuda_ms(torch, lambda: torch.matmul(a, b), warmup=3, iters=10)
+    return 2.0 * n ** 3 / (ms * 1e-3)
+
+
+def phase_train(torch, card):
+    """llama3-8b at its published widths, TRAIN_LAYERS of its 32 layers,
+    trained through launch.train (``setup`` and the Trainer's step, the
+    pieces ``main`` runs): 1 warm-up step, TRAIN_TIMED timed steps (CUDA
+    events), one profiled step split by region; tokens/s, MFU against the
+    bf16 spec peak and a bf16 matmul measured here, peak memory, every
+    loss and gradient norm finite, the first loss within 2 of ln(vocab)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import train as ltrain
+    from repro_torch.models.transformer import tree_leaves
+    from repro_torch.runtime.steps import model_flops
+
+    args = ltrain.parse_args(TRAIN_ARGV)
+    cfg = dataclasses.replace(get_config(args.arch), num_layers=TRAIN_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = ltrain.setup(cfg, args, retries=0)     # no failure retried away
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(tr.params))
+    losses, gnorms, step_ms = [], [], []
+    for i in range(1 + TRAIN_TIMED):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics = tr.step()
+        end.record()
+        torch.cuda.synchronize()
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+        if i:
+            step_ms.append(start.elapsed_time(end))
+    metrics, prof = profile_train_step(torch, tr.step)
+    losses.append(float(metrics["loss"]))
+    gnorms.append(float(metrics["grad_norm"]))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+          f"train: losses {losses}, grad norms {gnorms}")
+    ln_v = float(np.log(cfg.vocab_size))
+    check(abs(losses[0] - ln_v) <= 2.0,
+          f"train: step-0 loss {losses[0]} is not within 2 of ln(V) = {ln_v}")
+    del tr, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    rate = matmul_rate(torch, torch.device("cuda"))
+    ms = float(np.mean(step_ms))
+    tokens = args.batch * args.seq
+    flops = model_flops(cfg, mode="train", batch=args.batch, seq=args.seq)
+    emit({"phase": "train", "arch": cfg.name, "layers": cfg.num_layers,
+          "of_layers": get_config(args.arch).num_layers,
+          "d_model": cfg.d_model, "heads": [cfg.num_heads, cfg.num_kv_heads],
+          "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "params": n_params,
+          "seq": args.seq, "batch": args.batch, "accum": args.accum,
+          "remat": "full", "dtype": "bfloat16 activations, float32 master",
+          "init_s": round(init_s, 3), "step_ms": step_ms,
+          "ms_per_step": ms, "tokens_per_s": tokens / (ms * 1e-3),
+          "model_flops_per_step": flops,
+          "model_tflops_per_s": flops / (ms * 1e-3) / 1e12,
+          "mfu_vs_bf16_spec": flops / (ms * 1e-3) / BF16_FLOP_PER_S,
+          "bf16_matmul_tflops_per_s": rate / 1e12,
+          "mfu_vs_bf16_matmul": flops / (ms * 1e-3) / rate,
+          "peak_memory_gb": peak_gb, "losses": losses,
+          "grad_norms": gnorms, "loss0_minus_ln_vocab": losses[0] - ln_v,
+          "profiled_step": prof, "card": card})
+
+
+def phase_train_twins(torch, card):
+    """A float32 twin of each reduced TRAIN_TWINS model takes one train
+    step (launch.train's optimizer and schedule, accumulation 2) on the
+    card and on the CPU, TF32 off: every leaf's gradient (build_grad_fn,
+    the step's gradient half) within TRAIN_TWIN_TOL of the leaf's largest
+    CPU gradient element; loss, gradient norm and every updated parameter
+    within TRAIN_TWIN_TOL.  The gradients are held leaf by leaf because
+    the first step's update barely depends on them: its lr is lr/warmup
+    and Adam's first update is about lr times the gradient's sign."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import train as ltrain
+    from repro_torch.models.transformer import (Model, RunCtx, tree_leaves,
+                                                tree_map)
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.runtime.steps import build_grad_fn, build_train_step
+
+    args = ltrain.parse_args(TRAIN_TWIN_ARGV)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for arch in TRAIN_TWINS:
+            cfg = get_config(arch, reduced=True)
+            tokens, labels = SyntheticLM(cfg.vocab_size, args.seq,
+                                         args.batch,
+                                         seed=args.seed).batch_at(0)
+            master = Model(cfg, device="cpu").init_params(
+                torch.Generator().manual_seed(args.seed), master=True)
+            out = {}
+            for dev in ("cuda", "cpu"):
+                model = Model(cfg, RunCtx(act_dtype=torch.float32),
+                              device=dev)
+                opt = AdamW(lr=cosine_schedule(args.lr, args.warmup,
+                                               args.steps),
+                            weight_decay=0.01)
+                params = tree_map(lambda t: t.to(model.device, copy=True),
+                                  master)
+                batch = tuple(torch.from_numpy(a).to(model.device,
+                                                     torch.int64)
+                              for a in (tokens, labels))
+                grads, _ = build_grad_fn(model, accum_steps=args.accum)(
+                    params, batch)
+                grads = [g.cpu() for g in tree_leaves(grads)]
+                params, _, met = build_train_step(
+                    model, opt, accum_steps=args.accum)(
+                        params, opt.init(params), batch)
+                out[dev] = (float(met["loss"]), float(met["grad_norm"]),
+                            [t.cpu() for t in tree_leaves(params)], grads)
+            (lc, gc_, pc, dc), (lh, gh, ph, dh) = out["cuda"], out["cpu"]
+            err = max(float((a - b).abs().max()) for a, b in zip(pc, ph))
+            # each leaf's gradient error over its largest CPU element
+            grad_rel = [float((a - b).abs().max())
+                        / max(float(b.abs().max()), 1e-30)
+                        for a, b in zip(dc, dh)]
+            worst = int(np.argmax(grad_rel))
+            emit({"phase": "train_twin", "arch": arch, "loss_cuda": lc,
+                  "loss_cpu": lh, "grad_norm_cuda": gc_, "grad_norm_cpu": gh,
+                  "grad_leaves": len(dh),
+                  "grad_max_rel_err": grad_rel[worst],
+                  "grad_worst_leaf": worst,
+                  "param_max_abs_err": err, "tol": TRAIN_TWIN_TOL,
+                  "card": card})
+            check(len(dc) == len(dh) and grad_rel[worst] <= TRAIN_TWIN_TOL,
+                  f"train twin {arch}: leaf {worst}'s gradient is "
+                  f"{grad_rel[worst]} of its scale apart, card vs CPU")
+            check(abs(lc - lh) <= TRAIN_TWIN_TOL
+                  and abs(gc_ - gh) <= TRAIN_TWIN_TOL * max(1.0, gh)
+                  and err <= TRAIN_TWIN_TOL,
+                  f"train twin {arch}: card {lc}/{gc_} vs CPU {lh}/{gh}, "
+                  f"parameters {err} apart")
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+
+
+def phase_train_lm100m(torch, ckpt_dir, card):
+    """lm100m end to end through launch.train.main: 30 steps with a
+    checkpoint every 15, the loss falling by more than 0.3 (the mean of
+    the last 5 against the first 5); then the step-30 checkpoint removed
+    and the run started again, resuming at step 15 and giving steps 15-29's
+    losses bit for bit."""
+    import shutil
+
+    from repro_torch.launch import train as ltrain
+
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    argv = LM100M_ARGV + ["--ckpt-dir", str(ckpt_dir)]
+    try:
+        t0 = time.perf_counter()
+        hist = ltrain.main(argv, retries=0)
+        wall_s = time.perf_counter() - t0
+        first = float(np.mean([h["loss"] for h in hist[:5]]))
+        last = float(np.mean([h["loss"] for h in hist[-5:]]))
+        steps = len(hist)
+        shutil.rmtree(ckpt_dir / f"step_{steps}")
+        t0 = time.perf_counter()
+        resumed = ltrain.main(argv, retries=0)
+        resume_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    same = [h["loss"] for h in resumed] == [h["loss"] for h in
+                                            hist[LM100M_RESUME:]]
+    sec = sorted(h["sec"] for h in hist[1:])
+    emit({"phase": "train_lm100m", "steps": steps,
+          "loss_first5": first, "loss_last5": last,
+          "losses": [h["loss"] for h in hist],
+          "median_step_s": sec[len(sec) // 2], "wall_s": wall_s,
+          "resumed_at": resumed[0]["step"] if resumed else None,
+          "resume_wall_s": resume_s, "resume_bit_identical": same,
+          "card": card})
+    check(np.isfinite(last) and last < first - 0.3,
+          f"lm100m: loss {first} -> {last}, not down by 0.3")
+    check(resumed and resumed[0]["step"] == LM100M_RESUME and same,
+          f"lm100m: the resume at step {LM100M_RESUME} gave "
+          f"{[h['loss'] for h in resumed]}, the run "
+          f"{[h['loss'] for h in hist[LM100M_RESUME:]]}")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2257,6 +2608,11 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     phase_gnn(torch, comm, hw, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train(torch, card)
+    phase_train_twins(torch, card)
+    phase_train_lm100m(torch, src.parent / "build" / "train_ckpt", card)
 
     kernels = []
     for name, res in results.items():

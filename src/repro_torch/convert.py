@@ -8,8 +8,9 @@ both packages can run the same matrix through the same plan
 (``DistributedSpMV(..., base_plan=plan)``, ``IrregularScatter(...,
 scatter_plan=splan)``).  All of them are host (numpy) state in either
 package; they reach a device only when an engine is built on them.  The
-serving model's weights come across through
-``model_params_from_reference``.
+model's master weights come across through
+``model_params_from_reference``, and a training run's AdamW state through
+``opt_state_from_reference``.
 """
 from __future__ import annotations
 
@@ -21,7 +22,8 @@ import torch
 from repro_torch.comm.plan import CommPlan, GatherCounts, ScatterPlan, Topology
 from repro_torch.core.matrix import EllpackMatrix
 
-__all__ = ["from_reference", "model_params_from_reference"]
+__all__ = ["from_reference", "model_params_from_reference",
+           "opt_state_from_reference"]
 
 
 def _copy(cls, obj, **overrides):
@@ -87,3 +89,16 @@ def model_params_from_reference(cfg, params):
         return torch.from_numpy(a.copy())
 
     return copy(params, ())
+
+
+def opt_state_from_reference(cfg, state):
+    """The reference's ``AdamW.init``/``apply`` state, given as numpy
+    arrays (``jax.tree.map(np.asarray, state)``), as the port's: ``m``,
+    ``v`` (and ``master``, under mixed precision) float32 CPU trees of the
+    parameters' structure, checked as ``model_params_from_reference``
+    checks a parameter tree, and ``step`` a 0-d int32 tensor."""
+    out = {k: model_params_from_reference(cfg, state[k])
+           for k in ("m", "v", "master") if k in state}
+    out["step"] = torch.tensor(int(np.asarray(state["step"])),
+                               dtype=torch.int32)
+    return out

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels import decode_attention as _b8
 from repro_torch.kernels.ellpack_spmv import (PlanOrder,
                                               ellpack_spmv_windowed)
 from repro_torch.kernels.pack_gather import (DestOrder, ScatterTiles,
@@ -24,7 +24,7 @@ from repro_torch.kernels.pack_gather import (DestOrder, ScatterTiles,
                                              pack_gather, segment_table,
                                              unpack_dest, unpack_dest_spmv,
                                              unpack_scatter_set)
-from repro_torch.kernels.selective_scan import selective_scan
+from repro_torch.kernels import selective_scan as _b9
 from repro_torch.kernels.stencil2d import stencil2d
 
 __all__ = [
@@ -55,6 +55,35 @@ def reset_launch_counts() -> None:
     for k in _build.LAUNCHES:
         _build.LAUNCHES[k] = 0
     _build.ENTRIES.clear()
+
+
+# --------------------------------------------------------------------------
+# the model's kernels: no backward
+# --------------------------------------------------------------------------
+
+def _no_grad_inputs(name: str, *tensors) -> None:
+    """The card's kernels launch through ctypes and leave no autograd
+    graph: an input that requires grad would lose its gradient without a
+    word, so it is refused (on every device, so that a CPU run fails
+    where a card run would)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name} has no backward: an input requires grad (training "
+            "through it is ROADMAP A18)")
+
+
+def selective_scan(x, dt, bmat, cmat, a):
+    """``kernels.selective_scan.selective_scan`` (B9), refusing inputs
+    that require grad."""
+    _no_grad_inputs("selective_scan", x, dt, bmat, cmat, a)
+    return _b9.selective_scan(x, dt, bmat, cmat, a)
+
+
+def decode_attention(q, k, v, lengths):
+    """``kernels.decode_attention.decode_attention`` (B8), refusing inputs
+    that require grad."""
+    _no_grad_inputs("decode_attention", q, k, v)
+    return _b8.decode_attention(q, k, v, lengths)
 
 
 # --------------------------------------------------------------------------

@@ -31,8 +31,8 @@ import numpy as np
 import torch
 
 from repro_torch.comm.communicator import LoopbackComm, resolve_device
-from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.registry import get_config
+from repro_torch.launch.train import preset_lm100m
 from repro_torch.models import moe as M
 from repro_torch.models.transformer import Model, RunCtx
 from repro_torch.serve import Request, ServeEngine
@@ -53,15 +53,6 @@ def prefill_into_cache(model, params, cache, tokens):
     for t in range(tokens.shape[1]):
         logits, cache = model.decode_step(params, cache, tokens[:, t:t + 1])
     return cache, logits
-
-
-def preset_lm100m() -> ArchConfig:
-    """~100M-param dense LM (the reference's end-to-end example preset)."""
-    return ArchConfig(
-        name="lm100m", family="dense", num_layers=12, d_model=768,
-        num_heads=12, num_kv_heads=4, d_ff=3072, vocab_size=32768,
-        head_dim=64,
-    )
 
 
 def make_comm(spec: str, device) -> LoopbackComm:

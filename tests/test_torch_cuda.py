@@ -1481,3 +1481,106 @@ def test_gnn_on_card_matches_oracle(dev, strategy):
     got = layer(layer.shard_features(h)).reshape(n, d).cpu().numpy()
     np.testing.assert_allclose(got, gnn_ref_np(h, nbrs), rtol=2e-4,
                                atol=2e-4)
+
+
+# -- training (the trainer runs plain PyTorch: no kernel of the nine) --
+
+@pytest.fixture
+def no_tf32():
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = saved
+
+
+@pytest.mark.parametrize("accum", [1, 2])
+@pytest.mark.parametrize("name", ["llama3-8b", "mixtral-8x22b"])
+def test_train_step_on_card_matches_cpu(dev, no_tf32, name, accum):
+    """One float32 train step of a reduced model on the card and on the
+    CPU: loss, gradient norm and updated parameters within 1e-4."""
+    from repro_torch.models.transformer import tree_leaves, tree_map
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+    from repro_torch.runtime.steps import build_train_step
+
+    cfg = get_config(name, reduced=True)
+    master = Model(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(0), master=True)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, 33)).astype(np.int64))
+    out = {}
+    for d in (dev, "cpu"):
+        model = Model(cfg, RunCtx(act_dtype=torch.float32), device=d)
+        opt = AdamW(lr=cosine_schedule(3e-4, 20, 100), weight_decay=0.01)
+        params = tree_map(lambda t: t.to(model.device, copy=True), master)
+        batch = (toks[:, :-1].to(model.device), toks[:, 1:].to(model.device))
+        params, _, met = build_train_step(model, opt, accum_steps=accum)(
+            params, opt.init(params), batch)
+        out[str(d)] = (met, [t.cpu() for t in tree_leaves(params)])
+    (mc, pc), (mh, ph) = out[str(dev)], out["cpu"]
+    for k in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(mc[k]), float(mh[k]), rtol=1e-4,
+                                   atol=1e-4)
+    for a, b in zip(pc, ph):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
+                                   atol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["llama3-8b", "mixtral-8x22b"])
+def test_remat_on_card_is_bit_identical(dev, name):
+    """bf16 activations on float32 master weights: remat full, dots and
+    groups of 2 give the gradients of no remat, bit for bit."""
+    from repro_torch.models.transformer import tree_leaves, tree_map
+
+    cfg = get_config(name, reduced=True)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 65)).astype(np.int64)).to(dev)
+    master = None
+    grads = {}
+    for ctx in (dict(remat="none"), dict(remat="full"), dict(remat="dots"),
+                dict(remat="full", remat_groups=2)):
+        model = Model(cfg, RunCtx(act_dtype=torch.bfloat16, **ctx),
+                      device=dev)
+        if master is None:
+            master = model.init_params(
+                torch.Generator(device=dev).manual_seed(0), master=True)
+        leaves = tree_map(lambda t: t.detach().requires_grad_(True), master)
+        loss = model.loss(leaves, toks[:, :-1], toks[:, 1:], chunk=32)
+        loss.backward()
+        grads[str(ctx)] = [loss.detach()] + [t.grad for t in
+                                             tree_leaves(leaves)]
+    want = grads[str(dict(remat="none"))]
+    for got in grads.values():
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_train_resume_on_card_is_exact(dev, tmp_path):
+    """launch.train on the card (bf16 activations): an 8-step run and the
+    same run resumed from its step-5 checkpoint give the same losses."""
+    import shutil
+
+    from repro_torch.launch import train as ltrain
+
+    argv = ["--arch", "llama3-8b", "--reduced", "--batch", "4", "--seq",
+            "64", "--steps", "8", "--save-every", "5", "--ckpt-dir",
+            str(tmp_path)]
+    whole = ltrain.main(argv)
+    shutil.rmtree(tmp_path / "step_8")
+    resumed = ltrain.main(argv)
+    assert [h["step"] for h in resumed] == [5, 6, 7]
+    assert [h["loss"] for h in resumed] == [h["loss"] for h in whole[5:]]
+
+
+def test_card_kernels_refuse_grad_on_card(dev):
+    q = torch.zeros((2, 4, 16), device=dev, requires_grad=True)
+    kv = torch.zeros((2, 8, 2, 16), device=dev)
+    lengths = torch.full((2,), 8, dtype=torch.int32, device=dev)
+    with pytest.raises(NotImplementedError, match="A18"):
+        kops.decode_attention(q, kv, kv, lengths)
+    x = torch.ones((1, 8, 4), device=dev, requires_grad=True)
+    bm = torch.ones((1, 8, 3), device=dev)
+    with pytest.raises(NotImplementedError, match="A18"):
+        kops.selective_scan(x, x.detach(), bm, bm,
+                            -torch.ones((4, 3), device=dev))

@@ -29,7 +29,7 @@ from repro_torch.convert import model_params_from_reference
 from repro_torch.kernels import ops as tops
 from repro_torch.models import layers as TL
 from repro_torch.models import ssm as TS
-from repro_torch.models.transformer import Model, RunCtx
+from repro_torch.models.transformer import Model, RunCtx, tree_map
 from repro_torch.runtime import steps as tsteps
 
 TOL = dict(rtol=2e-4, atol=2e-4)
@@ -128,10 +128,14 @@ def test_layers_init_shapes_match_jax():
 
 
 def test_training_attention_is_refused():
-    with pytest.raises(NotImplementedError, match="A11"):
-        TL.attention(None, None, None)
-    with pytest.raises(NotImplementedError, match="A11"):
-        TL.attention_fwd(None, None, None)
+    """The training attention is ported (tests/test_torch_train.py); what
+    stays refused is training through the card's decode-attention kernel,
+    which has no backward (ROADMAP A18)."""
+    q = torch.zeros((2, 4, 16), requires_grad=True)
+    kv = torch.zeros((2, 8, 2, 16))
+    with pytest.raises(NotImplementedError, match="A18"):
+        tops.decode_attention(q, kv, kv, torch.full((2,), 8,
+                                                    dtype=torch.int32))
 
 
 # -- mamba-1 block --
@@ -305,8 +309,11 @@ def test_moe_family_matches_jax(groups):
 def test_windowed_decode_and_attention_training_are_refused():
     """A window (A11) runs while it cannot bind — the cache cut to the
     window, no position reaching it — and the step that reaches it is
-    refused; the training forward of attention stacks stays refused; a
-    MoE decode hook (A10) is a no-op on a stack without a MoE FFN."""
+    refused; the training forward of attention stacks is ported
+    (tests/test_torch_train.py), and what stays refused is a decode step
+    with weights that require grad, whose attention kernel (B8) has no
+    backward (A18); a MoE decode hook (A10) is a no-op on a stack without
+    a MoE FFN."""
     cfg = dataclasses.replace(llama_cfg(), swa_window=8)
     tm = Model(cfg, RunCtx(act_dtype=torch.float32), device="cpu")
     params = tm.init_params(torch.Generator().manual_seed(0))
@@ -317,9 +324,11 @@ def test_windowed_decode_and_attention_training_are_refused():
         _, cache = tm.decode_step(params, cache, tok)
     with pytest.raises(NotImplementedError, match="A11"):
         tm.decode_step(params, cache, tok)              # position 8
-    tm = Model(llama_cfg(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        tm.forward({}, torch.zeros((1, 2), dtype=torch.int32))
+    tm = Model(llama_cfg(), RunCtx(act_dtype=torch.float32), device="cpu")
+    grad_params = tree_map(lambda t: t.detach().requires_grad_(True),
+                           tm.init_params(torch.Generator().manual_seed(0)))
+    with pytest.raises(NotImplementedError, match="A18"):
+        tm.decode_step(grad_params, tm.init_cache(1, 4), tok)
     hooked = Model(llama_cfg(), RunCtx(act_dtype=torch.float32,
                                        moe_step=lambda p, h: h),
                    device="cpu")
