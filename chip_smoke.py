@@ -65,13 +65,39 @@ each:
    launches (32 per decode tick), one decode step's logits with
    decode_attention against the plain attention's (relative L2 under
    2e-2), and the busy share over three decode steps;
-10. ssm_prefill: falcon-mamba-7b at its published widths and depth (64
+10. hybrid_serve: hymba-1.5b at its published widths and depth (32
+   layers, d 1600, 25/5 heads of 64, d_ff 5504, d_inner 3200, window
+   1024), bf16, random weights from the seed, through launch.serve's
+   batched demo (setup_batch_demo, run_batch_demo): batch 4, a prompt of
+   1040 through the sequential decode scan on a ring cut to the window
+   (it wraps; decode runs past the window), 32 tokens; decode_attention
+   launches (32 a step), one decode step with B8 against the plain
+   attention (bf16 and a float32 twin: relative L2 under 5e-2 and 1e-3),
+   B8 on that step's own inputs at group 5 on the wrapped ring against
+   its plain version (a kernel line beside SDPA), decode tokens/s, step
+   ms, busy share, prefill s, weights GB and peak memory; then
+   build_prefill at B = 1, L = 4096 (the banded attention schedule):
+   selective_scan launches (32), layer 0's call against the plain
+   recurrence on its own inputs at 2e-4 (kernel line
+   selective_scan_di3200), ms per prefill;
+11. encdec_serve: whisper-tiny at its published widths (4 + 4 layers, d
+   384, 6 heads of 64, 1500 frames, vocab 51865) the same way: batch 8,
+   prompt 64, 32 tokens, the random frames encoded and prefill_cross run
+   once, B8 twice a layer and step (self, and cross over the 1500
+   frames), held at group 1 on both;
+12. vlm_serve: llama-3.2-vision-90b at its published widths (d 8192,
+   64/8 heads of 128, d_ff 28672, vocab 128256, 1601 image tokens), 20 of
+   its 100 layers (4 of its 20 cross-attention groups), the same way:
+   batch 4, prompt 128, 32 tokens, B8 held at group 8 on the
+   self-attention ring and on the 1601 image slots, the float32 twin of
+   one group;
+13. ssm_prefill: falcon-mamba-7b at its published widths and depth (64
    layers, d 4096, d_inner 8192, state 16, vocab 65024), bf16:
    build_prefill at B = 1 and L = 32768 (prefill_32k's length, batch cut
    to 1 for one card), ms per prefill, tokens/s, selective_scan launches
    (64 per prefill), and the logits with the kernel against the plain
    recurrence's at L = 1024 (relative L2 under 2e-2);
-11. moe_serve: mixtral-8x22b at its published widths (d 6144, 48/8 heads
+14. moe_serve: mixtral-8x22b at its published widths (d 6144, 48/8 heads
    of 128, d_ff 16384, 8 experts top-2, vocab 32768), 8 of its 56 layers,
    bf16, through launch.serve with --moe-comm --mesh 8: each decode step's
    MoE FFN through one DynamicMoELayer over LoopbackComm(8), its tables
@@ -88,11 +114,11 @@ each:
    moe_fwd's; B8 at group 6 against its plain version at 2e-4 (a kernel
    line of its own, beside SDPA and its bound); and model_rows pricing the
    dispatch and combine with the decode floors (eqs. 12δ-15δ);
-12. gnn: GNNNeighborAggregate over LoopbackComm(8) on a Zipf(1.1) graph of
+15. gnn: GNNNeighborAggregate over LoopbackComm(8) on a Zipf(1.1) graph of
    2^19 nodes, 16 neighbors, 64 float32 features, on the condensed rung
    and under auto, each against gnn_ref_np (rtol/atol 2e-4), timed, with
    its busy share and a model_row;
-13. train: llama3-8b at its published widths (d 4096, 32/8 heads of 128,
+16. train: llama3-8b at its published widths (d 4096, 32/8 heads of 128,
    d_ff 14336, vocab 128256), 8 of its 32 layers (2.80B parameters: their
    float32 master weights, gradients and two moments take ~45 GB),
    trained through launch.train (setup and its Trainer's step) at
@@ -104,8 +130,11 @@ each:
    more step under torch.profiler split by region (the training
    attention's einsums and elementwise passes, the fused CE, AdamW, the
    rest's matmuls and elementwise; marker kernels bracket the regions)
-   with its busy share; every loss and gradient norm finite and the first
-   loss within 2 of ln(128256).  Then train_twin: a float32 twin of
+   with its busy share (the embedding's gather and backward a region of
+   their own), and the embedding's backward at one microbatch timed
+   through the reference's bf16 add and through the float32 add it
+   replaced; every loss and gradient norm finite and the first loss
+   within 2 of ln(128256).  Then train_twin: a float32 twin of
    reduced llama3-8b and of reduced mixtral-8x22b takes one train step on
    the card and on the CPU (TF32 off), every leaf's gradient within 1e-4
    of the leaf's largest element, loss, gradient norm and parameters
@@ -133,7 +162,7 @@ outside CALIBRATION_RANGE, an auto pick is not the argmin of its own
 ranking, or an auto engine's output differs from the fixed-rung engine it
 resolved to (bit for bit; the forward dest rungs may hold to
 unpack_dest_spmv's 3e-5 instead). A model miss, even past its budget, is printed, never a failure.
-In phases 5 to 10 the kernel launch counters are zeroed just before the
+In phases 5 to 14 the kernel launch counters are zeroed just before the
 path runs and read just after, and every kernel of the path must have
 launched; in phases 5, 7 and 8 every launch of unpack_dest and
 unpack_scatter_set must have gone through its plan table (the counts by C
@@ -186,6 +215,23 @@ SSM_CHECK_L = 1024     # the plain recurrence loops in Python: a shorter L
 # layers (of 64) whose selective_scan call in the 32k prefill is held
 # against the plain recurrence on the very inputs the prefill gave it
 SSM_HELD_LAYERS = (0, 63)
+# The hybrid, encoder-decoder and vision families through launch.serve's
+# batched demo at their published widths: hymba-1.5b with a prompt of 1040
+# on a ring cut to its window of 1024 (the ring wraps and decode runs past
+# the window) and its forward at L = 4096 (the banded attention schedule,
+# B9 at d_inner 3200); whisper-tiny over its 1500 frames; the vision model
+# cut to 20 of its 100 layers (4 of 20 cross-attention groups: 19.2B
+# parameters, ~38 GB of bf16; the 100 would need 175 GB), its float32 twin
+# one group
+HYBRID_ARGV = ["--arch", "hymba-1.5b", "--batch", "4", "--prompt-len",
+               "1040", "--gen", "32", "--seed", str(SEED)]
+HYBRID_PREFILL_L = 4096
+ENCDEC_ARGV = ["--arch", "whisper-tiny", "--batch", "8", "--prompt-len",
+               "64", "--gen", "32", "--seed", str(SEED)]
+VLM_ARGV = ["--arch", "llama-3.2-vision-90b", "--batch", "4",
+            "--prompt-len", "128", "--gen", "32", "--seed", str(SEED)]
+VLM_LAYERS = 20
+VLM_TWIN_LAYERS = 5
 # MoE serving: mixtral-8x22b at its published widths through launch.serve
 # with --moe-comm over LoopbackComm(8) (one expert a rank), the serve
 # phase's traffic; its 56 layers cut to 8 (8 x 4.8 GB of bf16 experts on
@@ -1759,6 +1805,280 @@ def phase_serve(torch, card):
     return counts
 
 
+def b8_line(torch, name, q, k, v, lengths):
+    """decode_attention on one call's own inputs from a serving phase:
+    against its plain version with float32 outputs at 2e-4 (a float32
+    query on the cache, and all float32) and the path's bf16 output
+    within one bf16 rounding; timed beside the plain version and SDPA
+    (boolean mask, GQA) on the same inputs.  The bound: the attended K/V
+    read once, q and lengths read, out written; a dot and an accumulate
+    of D per (query head, attended slot).  Emits the kernel line."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+    b, h, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    errs = []
+    for qq, kk, vv in ((q.float(), k, v), (q.float(), k.float(), v.float())):
+        got = kops.decode_attention(qq, kk, vv, lengths)
+        want = kref.decode_attention_ref(qq, kk, vv, lengths)
+        errs.append(float((got - want).abs().max()))
+        check(torch.allclose(got, want, **MODEL_TOL),
+              f"{name} ({kk.dtype} cache) differs from its plain version: "
+              f"{errs[-1]}")
+    got = kops.decode_attention(q, k, v, lengths)
+    want = kref.decode_attention_ref(q.float(), k, v, lengths)
+    check(got.dtype == q.dtype and torch.allclose(
+        got.float(), want, **BF16_OUT_TOL),
+        f"{name}'s bf16 output is more than one rounding off")
+    attended = torch.clamp(lengths, max=s)
+    mask = (torch.arange(s, device=q.device)[None, :]
+            < attended[:, None])[:, None, None, :]
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q[:, :, None], kt, vt,
+                                              attn_mask=mask, enable_gqa=True)
+    live = int(attended.sum())
+    res = dict(max_abs_err=max(errs),
+               ms=cuda_ms(torch, lambda: kops.decode_attention(
+                   q, k, v, lengths)),
+               plain_ms=cuda_ms(torch, lambda: kref.decode_attention_ref(
+                   q, k, v, lengths)),
+               library_ms=cuda_ms(torch, sdpa),
+               bound=bound(2 * live * hkv * d * k.element_size()
+                           + 2 * b * h * d * q.element_size() + b * 4,
+                           flops=4.0 * live * h * d))
+    emit({"phase": "kernel", "name": name, "max_abs_err": res["max_abs_err"],
+          "ms": res["ms"], "plain_ms": res["plain_ms"],
+          "library_ms": res["library_ms"], "bound_ms": res["bound"][0],
+          "bound_by": res["bound"][1], "group": h // hkv,
+          "shape": f"q {tuple(q.shape)} {str(q.dtype)[6:]}, k/v "
+                   f"{tuple(k.shape)} {str(k.dtype)[6:]}, {live} attended "
+                   "slots"})
+    check_bound(name, res)
+    return res
+
+
+def family_twin(torch, model, params, cache, layers):
+    """A float32 twin of the batched demo's model, weights and cache (its
+    first ``layers`` layers: a vision stack keeps its first
+    ``layers // period`` groups)."""
+    from repro_torch.models.transformer import Model, RunCtx, tree_map
+    cfg = model.cfg
+    cut = (lambda t: t[:layers // cfg.cross_attn_period]) if model.groups \
+        else (lambda t: t[:layers])
+    params = dict(params)
+    params.update({k: tree_map(cut, params[k]) for k in ("groups", "layers")
+                   if k in params})
+    layers_c = tree_map(cut, cache["layers"])
+    twin = Model(dataclasses.replace(cfg, num_layers=layers),
+                 RunCtx(act_dtype=torch.float32), device=model.device)
+    return twin, tree_map(lambda t: t.float(), params), {
+        "pos": cache["pos"], "layers": tree_map(
+            lambda t: t.float() if t.is_floating_point() else t.clone(),
+            layers_c)}
+
+
+def phase_family_serve(torch, card, phase, argv, *, layers=None,
+                       twin_layers=None, held=()):
+    """One of the hybrid, encoder-decoder and vision families at its
+    published widths, bf16, random weights from the seed, through
+    launch.serve's batched demo (``setup_batch_demo``: the cross context
+    from the seed and ``prefill_cross``; ``run_batch_demo``: the prompt
+    through the sequential decode scan, then ``--gen`` steps), the
+    counters zeroed before and read after: every lane gets its tokens
+    inside the vocabulary, B8 launched once per attention a layer and
+    step.  Then one decode step with B8 against the same step through the
+    plain attention (bf16, and a float32 twin of ``twin_layers`` layers);
+    the B8 calls numbered ``held`` of one step held against their plain
+    version on their own inputs, each on a kernel line of its own; the
+    decode step timed and its busy share.  ``layers`` cuts the depth."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.launch import serve as lserve
+    from repro_torch.models.transformer import RunCtx, tree_map
+
+    args = lserve.parse_args(argv)
+    full = get_config(args.arch)
+    cfg = dataclasses.replace(full, num_layers=layers or full.num_layers)
+    per_step = cfg.num_layers * (2 if cfg.is_encdec else 1)
+    steps = args.prompt_len + args.gen
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    model, params, cache, prompt = lserve.setup_batch_demo(
+        cfg, RunCtx(act_dtype=torch.bfloat16), args)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    seq, cache, prefill_s, decode_s = lserve.run_batch_demo(
+        model, params, cache, prompt, args.gen)
+    torch.cuda.synchronize()
+    counts = kops.launch_counts()
+    n_params = sum(t.numel() for t in _leaves(params))
+    weights_gb = sum(t.numel() * t.element_size()
+                     for t in _leaves(params)) / 1e9
+    check(tuple(seq.shape) == (args.batch, args.gen),
+          f"{phase}: generated {tuple(seq.shape)}")
+    check(bool(((seq >= 0) & (seq < cfg.vocab_size)).all()),
+          f"{phase}: a token outside the vocabulary")
+    check(counts["decode_attention"] == per_step * steps,
+          f"{phase}: decode_attention launched {counts['decode_attention']} "
+          f"times in {steps} steps of {per_step} attentions")
+
+    tokens = seq[:, -1:].to(model.device, torch.int32)
+
+    def fresh(c):
+        """A copy of the cache: the recurrent states advance in place."""
+        return {"pos": c["pos"], "layers": tree_map(torch.clone,
+                                                    c["layers"])}
+    errs = {}
+    m32, p32, c32 = family_twin(torch, model, params, cache,
+                                twin_layers or cfg.num_layers)
+    for name, fn in (("bf16", lambda: model.decode_step(
+            params, fresh(cache), tokens)[0]),
+            ("f32", lambda: m32.decode_step(p32, fresh(c32), tokens)[0])):
+        got = fn()
+        with plain_kernel(kops, "decode_attention",
+                          kref.decode_attention_ref):
+            want = fn()
+        check(bool(torch.isfinite(got).all()),
+              f"{phase}: decode logits not finite")
+        errs[name] = rel_l2(torch, got, want)
+    del m32, p32, c32
+    check(errs["f32"] < LOGITS_REL_F32 and errs["bf16"] < LOGITS_REL_BF16,
+          f"{phase}: decode logits with B8 are {errs} (relative) from the "
+          "plain attention's")
+    with held_calls(kops, "decode_attention", [i for i, _ in held]) as got:
+        model.decode_step(params, fresh(cache), tokens)
+    kernels = {}
+    for i, name in held:
+        kernels[name] = b8_line(torch, name, *got.pop(i)[0])
+
+    def step():
+        return model.decode_step(params, cache, tokens)[0]
+    timing = time_steps(torch, step, warmup=2, iters=10)
+    prof = profile_steps(torch, step)
+    emit({"phase": phase, "arch": cfg.name, "layers": cfg.num_layers,
+          "of_layers": full.num_layers, "d_model": cfg.d_model,
+          "heads": [cfg.num_heads, cfg.num_kv_heads], "dtype": "bfloat16",
+          "params": n_params, "weights_gb": weights_gb,
+          "batch": args.batch, "prompt_len": args.prompt_len,
+          "gen": args.gen, "ring": int(cache["layers"]["self"]["k"].shape[3]
+                                       if model.groups else
+                                       cache["layers"]["k"].shape[2]),
+          "cross_len": cfg.encoder_seq or cfg.num_image_tokens,
+          "setup_s": setup_s, "prefill_s": prefill_s,
+          "decode_s": decode_s,
+          "decode_tokens_per_s": args.batch * args.gen / decode_s,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "decode_attention_launches": counts["decode_attention"],
+          "logits_rel_l2_vs_plain": errs,
+          "decode_step": {**timing, **prof}, "card": card})
+    return model, params, counts, kernels
+
+
+def phase_hybrid_serve(torch, card):
+    """hymba-1.5b (32 layers, d 1600, 25/5 heads of 64, d_inner 3200,
+    window 1024) through phase_family_serve: batch 4, prompt 1040, 32
+    tokens, the ring cut to the window, so it wraps and decode runs past
+    the window; B8 held at group 5 on the wrapped ring.  Then
+    build_prefill (the forward, last position only) at B = 1, L = 4096,
+    where the banded attention schedule applies: 32 selective_scan
+    launches, layer 0's call against the plain recurrence on its own
+    inputs at 2e-4 (a kernel line of its own, at d_inner 3200), the
+    prefill timed."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.runtime.steps import build_prefill
+
+    model, params, counts, kernels = phase_family_serve(
+        torch, card, "hybrid_serve", HYBRID_ARGV,
+        held=((0, "decode_attention_g5_ring1024"),))
+    cfg = model.cfg
+    gen = torch.Generator(device=model.device).manual_seed(SEED)
+    tokens = torch.randint(0, cfg.vocab_size, (1, HYBRID_PREFILL_L),
+                           generator=gen, device=model.device)
+    prefill = build_prefill(model)
+    kops.reset_launch_counts()
+    with held_calls(kops, "selective_scan", (0,)) as held:
+        logits = prefill(params, tokens)
+        torch.cuda.synchronize()
+    scans = kops.launch_counts()["selective_scan"]
+    check(scans == cfg.num_layers,
+          f"hybrid_serve: selective_scan launched {scans} times in one "
+          f"prefill of {cfg.num_layers} layers")
+    check(tuple(logits.shape) == (1, 1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          "hybrid_serve: prefill logits not finite or misshapen")
+    args, got = held.pop(0)
+    check(tuple(got.shape) == (1, HYBRID_PREFILL_L, cfg.d_inner),
+          f"hybrid_serve: the scan has shape {tuple(got.shape)}")
+    want = kref.selective_scan_ref(*args)
+    err = float((got - want).abs().max())
+    check(torch.allclose(got, want, **MODEL_TOL),
+          f"hybrid_serve: layer 0's selective_scan differs from the plain "
+          f"recurrence on its inputs: {err}")
+    b, l, di = got.shape
+    st = args[2].shape[2]
+    res = dict(max_abs_err=err,
+               ms=cuda_ms(torch, lambda: kops.selective_scan(*args)),
+               plain_ms=cuda_ms(torch, lambda: kref.selective_scan_ref(
+                   *args), warmup=0, iters=1),
+               library_ms=None,
+               bound=bound(3 * b * l * di * 4 + 2 * b * l * st * 4
+                           + di * st * 4, flops=7.0 * b * l * di * st))
+    emit({"phase": "kernel", "name": "selective_scan_di3200",
+          "max_abs_err": err, "ms": res["ms"], "plain_ms": res["plain_ms"],
+          "library_ms": None, "bound_ms": res["bound"][0],
+          "bound_by": res["bound"][1],
+          "shape": f"x/dt ({b}, {l}, {di}) f32, B/C ({b}, {l}, {st})"})
+    check_bound("selective_scan at d_inner 3200", res)
+    del args, got, want
+    timing = time_steps(torch, lambda: prefill(params, tokens), warmup=1,
+                        iters=2)
+    emit({"phase": "hybrid_prefill", "arch": cfg.name, "batch": 1,
+          "seq": HYBRID_PREFILL_L, "d_inner": cfg.d_inner,
+          "ms_per_prefill": timing["ms_per_iter"],
+          "tokens_per_s": HYBRID_PREFILL_L / (timing["ms_per_iter"] / 1e3),
+          "host_enqueue_ms": timing["host_enqueue_ms_per_iter"],
+          "selective_scan_launches": scans, "card": card})
+    counts["selective_scan"] = scans
+    return counts
+
+
+def phase_encdec_serve(torch, card):
+    """whisper-tiny (4 + 4 layers, d 384, 6 heads of 64, 1500 frames,
+    vocab 51865) through phase_family_serve: batch 8, prompt 64, 32
+    tokens; the encoder and prefill_cross run once, every decode step runs
+    B8 twice a layer (self, then cross over the 1500 encoded frames), held
+    at group 1 on both."""
+    return phase_family_serve(
+        torch, card, "encdec_serve", ENCDEC_ARGV,
+        held=((0, "decode_attention_g1"),
+              (1, "decode_attention_g1_cross1500")))[2]
+
+
+def phase_vlm_serve(torch, card):
+    """llama-3.2-vision-90b at its published widths (d 8192, 64/8 heads
+    of 128, d_ff 28672, vocab 128256, 1601 image tokens), VLM_LAYERS of
+    its 100 layers (4 of its 20 cross-attention groups), through
+    phase_family_serve: batch 4, prompt 128, 32 tokens; B8 held at group 8
+    on the self-attention ring and on the 1601 image slots; the float32
+    twin keeps the first group."""
+    from repro_torch.configs.registry import get_config
+
+    # a step's B8 calls: group 0's period - 1 self layers, then its cross
+    cross = get_config(VLM_ARGV[1]).cross_attn_period - 1
+    return phase_family_serve(
+        torch, card, "vlm_serve", VLM_ARGV, layers=VLM_LAYERS,
+        twin_layers=VLM_TWIN_LAYERS,
+        held=((0, "decode_attention_g8"),
+              (cross, "decode_attention_g8_cross1601")))[2]
+
+
 def phase_moe_serve(torch, card, hw):
     """mixtral-8x22b at its published widths (d 6144, 48/8 heads of 128,
     d_ff 16384, 8 experts top-2, vocab 32768), 8 of its 56 layers, bf16,
@@ -2222,7 +2542,8 @@ GEMM_NAMES = ("gemm", "xmma", "cutlass", "cublas", "nvjet")
 def profile_train_step(torch, step_fn):
     """One train step under torch.profiler, its device time split by
     region: attention (the training attention's einsums and elementwise
-    passes, forward, recompute and backward), the fused CE loss, AdamW,
+    passes, forward, recompute and backward), the fused CE loss, the
+    embedding (its gather and its backward, the bf16 ordered add), AdamW,
     and the rest (matmuls and elementwise).  Marker kernels bracket each
     region (``region_marks``); a kernel counts to the region whose markers
     enclose it.  Also the busy share of the step: the union of the device
@@ -2236,8 +2557,10 @@ def profile_train_step(torch, step_fn):
 
     log = []
     emit_mark, around = region_marks(torch, log)
-    saved = (L.attention, TT.fused_ce_loss, A.AdamW.apply)
-    real_apply = A.AdamW.apply
+    saved = (L.attention, TT.fused_ce_loss, A.AdamW.apply, TT._embed_fwd)
+    real_apply, real_embed = A.AdamW.apply, TT._embed_fwd
+    embed = around("embedding", lambda w, tokens, cfg, ctx: real_embed(
+        {"w": w}, tokens, cfg, ctx), 1)
 
     def apply(self, *args):
         emit_mark("adamw", "start")
@@ -2246,6 +2569,7 @@ def profile_train_step(torch, step_fn):
         return out
     L.attention = around("attention", L.attention, 3)
     TT.fused_ce_loss = around("fused_ce", TT.fused_ce_loss, 2)
+    TT._embed_fwd = lambda p, *args: embed(p["w"], *args)
     A.AdamW.apply = apply
     try:
         torch.cuda.synchronize()
@@ -2253,7 +2577,7 @@ def profile_train_step(torch, step_fn):
             metrics = step_fn()
             torch.cuda.synchronize()
     finally:
-        L.attention, TT.fused_ce_loss, A.AdamW.apply = saved
+        L.attention, TT.fused_ce_loss, A.AdamW.apply, TT._embed_fwd = saved
     acts = sorted((e.time_range.start, e.time_range.end, e.name)
                   for e in prof.events() if e.device_type == DeviceType.CUDA)
     marks = [a for a in acts if "spin_kernel" in a[2]]
@@ -2298,6 +2622,38 @@ def matmul_rate(torch, dev, n: int = 8192) -> float:
     return 2.0 * n ** 3 / (ms * 1e-3)
 
 
+def embedding_backward_ms(torch, tr, args) -> dict:
+    """Device ms of the embedding's forward and backward at one
+    microbatch of the train step (its tokens, float32 master table, a
+    bf16 cotangent): ``_embed_fwd``'s (the reference's bf16 ordered add)
+    and the float32 add of ``F.embedding(...).to(bf16)`` that it replaced.
+    CUDA events around 3 calls after one, no marker kernel: the ordered
+    add reads its round count on the host."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import transformer as TT
+    tokens = tr.batch()[0][:args.batch // args.accum]
+    w = tr.params["embed"]["w"].detach().requires_grad_(True)
+    cfg, ctx = tr.model.cfg, tr.model.ctx
+    ct = torch.randn(tuple(tokens.shape) + (cfg.d_model,),
+                     device=w.device).to(ctx.act_dtype)
+    out = {}
+    for name, fn in (("reference_bf16_add", lambda: TT._embed_fwd(
+            {"w": w}, tokens, cfg, ctx)), ("float32_add", lambda: F.embedding(
+                tokens, w).to(ctx.act_dtype))):
+        torch.autograd.grad(fn(), w, ct)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(3):
+            torch.autograd.grad(fn(), w, ct)
+        end.record()
+        torch.cuda.synchronize()
+        out[name] = start.elapsed_time(end) / 3
+    return out
+
+
 def phase_train(torch, card):
     """llama3-8b at its published widths, TRAIN_LAYERS of its 32 layers,
     trained through launch.train (``setup`` and the Trainer's step, the
@@ -2334,6 +2690,7 @@ def phase_train(torch, card):
     losses.append(float(metrics["loss"]))
     gnorms.append(float(metrics["grad_norm"]))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    embed_ms = embedding_backward_ms(torch, tr, args)
     check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
           f"train: losses {losses}, grad norms {gnorms}")
     ln_v = float(np.log(cfg.vocab_size))
@@ -2361,6 +2718,7 @@ def phase_train(torch, card):
           "mfu_vs_bf16_matmul": flops / (ms * 1e-3) / rate,
           "peak_memory_gb": peak_gb, "losses": losses,
           "grad_norms": gnorms, "loss0_minus_ln_vocab": losses[0] - ln_v,
+          "embedding_backward_ms": embed_ms,
           "profiled_step": prof, "card": card})
 
 
@@ -2599,7 +2957,14 @@ def main() -> None:
     counts["decode_attention"] = phase_serve(torch, card)["decode_attention"]
     gc.collect()
     torch.cuda.empty_cache()
-    counts["selective_scan"] = phase_ssm_prefill(torch, card)[
+    for phase in (phase_hybrid_serve, phase_encdec_serve, phase_vlm_serve):
+        got = phase(torch, card)
+        counts["decode_attention"] += got["decode_attention"]
+        counts["selective_scan"] = counts.get("selective_scan", 0) + got.get(
+            "selective_scan", 0)
+        gc.collect()
+        torch.cuda.empty_cache()
+    counts["selective_scan"] += phase_ssm_prefill(torch, card)[
         "selective_scan"]
     gc.collect()
     torch.cuda.empty_cache()

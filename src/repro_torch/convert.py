@@ -62,12 +62,27 @@ def from_reference(matrix, plan=None):
     return port_matrix, _comm_plan(plan)
 
 
+def _stacked(cfg) -> dict:
+    """The leading axes of each stacked subtree of ``cfg``'s parameters."""
+    if cfg.is_vlm and cfg.cross_attn_period:
+        g = cfg.num_layers // cfg.cross_attn_period
+        lead = {("groups", "self"): (g, cfg.cross_attn_period - 1),
+                ("groups", "cross"): (g,)}
+    else:
+        lead = {("layers",): (cfg.num_layers,)}
+    if cfg.is_encdec:
+        lead[("encoder", "layers")] = (cfg.encoder_layers,)
+    return lead
+
+
 def model_params_from_reference(cfg, params):
     """The reference's ``Model(cfg).init_params`` tree, given as numpy
     arrays (``jax.tree.map(np.asarray, params)``), as the port's master
     tree: float32 CPU tensors of the same structure, with the layers
     stacked on the leading axis (a MoE layer's ``router`` and expert
-    weights ``w1``/``w2``/``w3``, ``(L, E, ...)``, among them).
+    weights ``w1``/``w2``/``w3``, ``(L, E, ...)``, among them), the vision
+    stack's ``groups`` on ``(G, period − 1)`` (``self``) and ``(G,)``
+    (``cross``) and the encoder's ``layers`` on ``(encoder_layers,)``.
     ``Model.load_params`` places it on the model's device in its dtypes.
     Checks the tree against ``cfg``."""
     want = {"embed": (cfg.vocab_size, cfg.d_model)}
@@ -77,15 +92,24 @@ def model_params_from_reference(cfg, params):
         got = tuple(np.shape(params[name]["w"]))
         if got != shape:
             raise ValueError(f"{name} is {got}, the config says {shape}")
+    lead = _stacked(cfg)
+    for path in lead:
+        node = params
+        for k in path:
+            if not isinstance(node, dict) or k not in node:
+                raise ValueError(f"{'/'.join(path)} is missing: the config "
+                                 f"{cfg.name!r} stacks its layers there")
+            node = node[k]
 
     def copy(tree, path):
         if isinstance(tree, dict):
             return {k: copy(v, path + (k,)) for k, v in tree.items()}
         a = np.asarray(tree, dtype=np.float32)
-        if path[0] == "layers" and (a.ndim == 0
-                                    or a.shape[0] != cfg.num_layers):
-            raise ValueError(f"{'/'.join(path)} has shape {a.shape}, not "
-                             f"{cfg.num_layers} stacked layers")
+        for prefix, axes in lead.items():
+            if path[:len(prefix)] == prefix and \
+                    a.shape[:len(axes)] != axes:
+                raise ValueError(f"{'/'.join(path)} has shape {a.shape}, "
+                                 f"not stacked on {axes}")
         return torch.from_numpy(a.copy())
 
     return copy(params, ())

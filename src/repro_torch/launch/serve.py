@@ -2,15 +2,19 @@
 
     python -m repro_torch.launch.serve --arch llama3-8b
     python -m repro_torch.launch.serve --arch llama3-8b --reduced --device cpu
+    python -m repro_torch.launch.serve --arch whisper-tiny --batch 8
     python -m repro_torch.launch.serve --arch mixtral-8x22b --moe-comm \
         --mesh 8 --requests 16 --slots 8 --prompt-len 2048
 
 ``repro_torch.serve`` supplies the loop (queue → slots → engine); this
 module builds the model with random weights from ``--seed``, fabricates a
 staggered arrival trace of random token ids (no tokenizer), and prints the
-throughput and latency report.  The ssm family (no per-slot cache) runs
-the batched demo loop instead, its prompt prefilled through the
-sequential decode scan ``prefill_into_cache``.  The model runs on the card
+throughput and latency report.  The families without a per-slot cache
+(ssm, hybrid, encdec, vlm) run the batched demo loop instead, their
+cross-attention context (whisper's frames, the vision model's image
+embeddings: both front ends are stubs) random from the seed and their
+prompt prefilled through the sequential decode scan
+``prefill_into_cache``.  The model runs on the card
 unless ``--device cpu`` is given (then in float32, as the reference runs
 on its CPU backend).
 
@@ -39,7 +43,7 @@ from repro_torch.serve import Request, ServeEngine
 
 __all__ = ["prefill_into_cache", "preset_lm100m", "parse_args",
            "make_comm", "build_moe_layer", "build_engine", "submit_trace",
-           "make_engine", "main"]
+           "make_engine", "setup_batch_demo", "run_batch_demo", "main"]
 
 log = logging.getLogger("repro_torch.serve")
 
@@ -153,19 +157,40 @@ def _serve_main(cfg, ctx, args):
     return report
 
 
-def _batch_demo_main(cfg, ctx, args):
-    """Batched demo for families without a per-slot cache (ssm)."""
+def setup_batch_demo(cfg, ctx, args):
+    """The batched demo's model, its random parameters (a
+    ``torch.Generator`` seeded with ``args.seed`` on the device), a cache
+    of ``args.batch`` lanes and ``cache_len = prompt_len + gen`` (cut to
+    the window of a windowed config), its cross-attention K/V filled
+    (``prefill_cross``) from a random context of ``encoder_seq`` frames or
+    ``num_image_tokens`` image embeddings, and the prompt ``(batch,
+    prompt_len)``.  The context and then the prompt are drawn from
+    ``np.random.default_rng(args.seed)``, as the reference draws them.
+    Returns ``(model, params, cache, prompt)``."""
     device = resolve_device(args.device)
     model = Model(cfg, ctx, device=device)
     params = model.init_params(
         torch.Generator(device=device).manual_seed(args.seed))
+    cross_len = cfg.encoder_seq or cfg.num_image_tokens or 0
     cache = model.init_cache(args.batch, args.prompt_len + args.gen,
-                             dtype=ctx.act_dtype)
+                             cross_len=cross_len, dtype=ctx.act_dtype)
     rng = np.random.default_rng(args.seed)
+    if cross_len:
+        context = torch.as_tensor(rng.standard_normal(
+            (args.batch, cross_len, cfg.d_model)), device=device).to(
+                ctx.act_dtype)
+        cache = model.prefill_cross(params, cache, context)
     prompt = torch.as_tensor(rng.integers(
         0, cfg.vocab_size, (args.batch, args.prompt_len)), dtype=torch.int32,
         device=device)
+    return model, params, cache, prompt
 
+
+def run_batch_demo(model, params, cache, prompt, gen: int):
+    """The prompt prefilled through ``prefill_into_cache``, then ``gen``
+    greedy decode steps over the whole batch.  Returns ``(tokens (B, gen)
+    on the host, cache, prefill seconds, decode seconds)``; each time ends
+    with a read of the tokens on the host, which waits for the device."""
     t0 = time.time()
     cache, last_logits = prefill_into_cache(model, params, cache, prompt)
     last = torch.argmax(last_logits[:, -1], dim=-1).to(torch.int32)  # (B,)
@@ -174,14 +199,21 @@ def _batch_demo_main(cfg, ctx, args):
 
     out_tokens = [last]
     t0 = time.time()
-    for _ in range(args.gen):
+    for _ in range(gen):
         logits, cache = model.decode_step(params, cache,
                                           out_tokens[-1][:, None])
         out_tokens.append(torch.argmax(logits[:, -1], dim=-1).to(
             torch.int32))
     seq = torch.stack(out_tokens[1:], dim=1).cpu()
-    t_decode = time.time() - t0
+    return seq, cache, t_prefill, time.time() - t0
 
+
+def _batch_demo_main(cfg, ctx, args):
+    """Batched demo for families without a per-slot cache (ssm, hybrid,
+    encdec, vlm)."""
+    model, params, cache, prompt = setup_batch_demo(cfg, ctx, args)
+    seq, _, t_prefill, t_decode = run_batch_demo(model, params, cache,
+                                                 prompt, args.gen)
     toks = args.gen * args.batch
     log.info("prefill %.3fs (%d tokens); decode %.3fs "
              "(%.1f tok/s aggregate)", t_prefill,
@@ -197,7 +229,7 @@ def parse_args(argv=None):
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
-    ap.add_argument("--batch", type=int, default=4)     # ssm demo path
+    ap.add_argument("--batch", type=int, default=4)     # batched demo
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--prefill-chunk", type=int, default=None)

@@ -73,8 +73,10 @@ def parse_args(argv=None):
 @dataclasses.dataclass
 class Trainer:
     """What ``main``'s loop runs: the model and its optimizer, the state
-    (params, opt_state, data state, resumed step), the step, the data and
-    the checkpoint manager."""
+    (params, opt_state, data state, resumed step), the step, the data, the
+    checkpoint manager, and the cross-attention inputs of every step
+    (``extra``: the reference's zero frames or image embeddings for an
+    encdec or vlm stack, else None)."""
 
     model: Model
     opt: AdamW
@@ -85,6 +87,7 @@ class Trainer:
     dstate: DataState
     start_step: int
     mgr: CheckpointManager | None
+    extra: dict | None = None
 
     @property
     def device(self) -> torch.device:
@@ -100,7 +103,7 @@ class Trainer:
         """One train step on the next batch; returns its metrics (0-d
         tensors on the device)."""
         self.params, self.opt_state, metrics = self.step_fn(
-            self.params, self.opt_state, self.batch())
+            self.params, self.opt_state, self.batch(), self.extra)
         self.dstate.step += 1
         return metrics
 
@@ -149,8 +152,17 @@ def setup(cfg, args, *, retries: int = 1) -> Trainer:
             params, opt_state = tree["params"], tree["opt"]
             dstate = DataState.from_json(extra_state.get("data", {"step": 0}))
             log.info("resumed from step %d", start_step)
+    extra = None
+    if cfg.is_encdec:
+        extra = {"frames": torch.zeros(
+            (args.batch, cfg.encoder_seq, cfg.d_model), dtype=ctx.act_dtype,
+            device=device)}
+    if cfg.is_vlm:
+        extra = {"image_embeds": torch.zeros(
+            (args.batch, cfg.num_image_tokens, cfg.d_model),
+            dtype=ctx.act_dtype, device=device)}
     return Trainer(model, opt, params, opt_state, step_fn, data, dstate,
-                   start_step, mgr)
+                   start_step, mgr, extra)
 
 
 def main(argv=None, *, retries: int = 1):

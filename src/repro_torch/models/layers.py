@@ -11,7 +11,11 @@ reference's does: a serving model stores its weights in that dtype once
 training model keeps float32 master weights that the cast reads.
 
 The attention schedules are plain PyTorch in float32, as the reference's
-are plain jnp (no Pallas kernel lies on the training path).  The
+are plain jnp (no Pallas kernel lies on the training path).  At cross
+shapes (``Sq != Skv``) the pick is the reference's too: the banded
+schedule needs self-attention and flash needs both lengths a multiple of
+512, so whisper's 1500 frames and the vision model's 1601 image tokens
+take the dense one.  The
 reference's ``lax.scan`` over chunks becomes a Python loop over the same
 chunks in the same order; like the reference's scan, the flash schedule
 computes the fully masked chunks too.
@@ -244,23 +248,40 @@ def init_attention(generator, cfg, *, d_model=None):
     }
 
 
-def attention_fwd(p, x, cfg, *, positions=None, causal=True, window=0,
-                  use_rope=True):
-    """Self-attention without a cache (the training forward): the
-    reference's cache-less path.  Cross-attention and its cache path serve
-    the encdec and vlm families (ROADMAP A11); the serving model decodes
-    through ``models.transformer``'s ring cache."""
+def attention_fwd(p, x, cfg, *, kv_x=None, positions=None, causal=True,
+                  window=0, cache=None, cache_pos=None, use_rope=True):
+    """Self- or cross-attention, the reference's ``attention_fwd``.
+
+    ``kv_x`` (B, Skv, D): cross-attention, keys and values from ``kv_x``,
+    no RoPE and no causal mask.  ``cache``: a dict {k, v} of (B, Smax,
+    Hkv, D) buffers; the new k/v rows are written at ``cache_pos`` (an int
+    or a 0-d tensor; the start clamped into the buffer, as
+    ``dynamic_update_slice`` clamps it) in place, and the queries attend
+    positions ``< cache_pos + Sq`` of the whole buffer with the window
+    mask and no causal one, as the reference's cache path does.  Returns
+    ``y``, or ``(y, cache)`` with a cache (the same dict, written)."""
     b, sq, _ = x.shape
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    src = x if kv_x is None else kv_x
     q = linear(p["wq"], x).reshape(b, sq, h, hd)
-    k = linear(p["wk"], x).reshape(b, sq, hkv, hd)
-    v = linear(p["wv"], x).reshape(b, sq, hkv, hd)
+    k = linear(p["wk"], src).reshape(b, src.shape[1], hkv, hd)
+    v = linear(p["wv"], src).reshape(b, src.shape[1], hkv, hd)
     if positions is None:
         positions = torch.arange(sq, device=x.device)[None, :]
-    if use_rope:
+    if use_rope and kv_x is None:
         q = rope(q, positions, theta=cfg.rope_theta)
         k = rope(k, positions, theta=cfg.rope_theta)
-    out = attention(q, k, v, causal=causal, window=window)
+    if cache is not None:
+        ck, cv = cache["k"], cache["v"]
+        pos = torch.as_tensor(cache_pos, device=x.device)
+        start = torch.clamp(pos, 0, ck.shape[1] - k.shape[1])
+        rows = start + torch.arange(k.shape[1], device=x.device)
+        ck.index_copy_(1, rows, k.to(ck.dtype))
+        cv.index_copy_(1, rows, v.to(cv.dtype))
+        out = attention(q, ck, cv, causal=False, window=window, q_pos0=pos,
+                        kv_len=pos + sq)
+        return linear(p["wo"], out.reshape(b, sq, h * hd)), cache
+    out = attention(q, k, v, causal=causal and kv_x is None, window=window)
     return linear(p["wo"], out.reshape(b, sq, h * hd))
 
 

@@ -16,18 +16,21 @@ __all__ = ["build_grad_fn", "build_train_step", "build_decode_step",
 
 
 def build_grad_fn(model: Model, *, accum_steps: int = 1):
-    """``grads(params, batch) -> (grads, loss)``: the gradient half of the
-    train step, which writes nothing of ``params``.
+    """``grads(params, batch, extra=None) -> (grads, loss)``: the gradient
+    half of the train step, which writes nothing of ``params``.
 
-    ``batch`` = (tokens, labels) with shape (B, S); gradient accumulation
-    splits B into ``accum_steps`` microbatches in order and sums their
+    ``batch`` = (tokens, labels) with shape (B, S), ``extra`` the
+    cross-attention inputs of an encdec or vlm stack (``Model.hidden``'s,
+    each (B, T, D)); gradient accumulation splits B, and every tensor of
+    ``extra`` with it, into ``accum_steps`` microbatches in order and sums
+    their
     gradients in float32 (from the first; a float32 leaf's sum is the one
     its ``.grad`` collects), then divides by ``accum_steps``.  ``grads``
     is a tree like ``params``; ``loss`` is the float32 mean loss, a 0-d
     tensor on the device."""
     model.check_trainable()
 
-    def grads_of(params, batch):
+    def grads_of(params, batch, extra=None):
         tokens, labels = batch
         b = tokens.shape[0]
         if b % accum_steps:
@@ -41,7 +44,9 @@ def build_grad_fn(model: Model, *, accum_steps: int = 1):
         loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
         for i in range(accum_steps):
             sl = slice(i * mb, (i + 1) * mb)
-            loss_i = model.loss(tracked, tokens[sl], labels[sl])
+            kw = {} if extra is None else {
+                "extra": {k: t[sl] for k, t in extra.items()}}
+            loss_i = model.loss(tracked, tokens[sl], labels[sl], **kw)
             loss_i.backward()
             loss = loss + loss_i.detach().float()
             for t in leaves:
@@ -66,7 +71,8 @@ def build_grad_fn(model: Model, *, accum_steps: int = 1):
 
 def build_train_step(model: Model, opt: AdamW, *, accum_steps: int = 1,
                      retries: int = 0):
-    """``step(params, opt_state, batch) -> (params, opt_state, metrics)``.
+    """``step(params, opt_state, batch, extra=None) -> (params, opt_state,
+    metrics)``.
 
     The gradients are ``build_grad_fn``'s; ``params`` and ``opt_state``
     are then updated in place (``AdamW.apply``) and returned; ``metrics``
@@ -78,8 +84,8 @@ def build_train_step(model: Model, opt: AdamW, *, accum_steps: int = 1,
     grads_of = retrying(build_grad_fn(model, accum_steps=accum_steps),
                         retries=retries)
 
-    def step(params, opt_state, batch):
-        grads, loss = grads_of(params, batch)
+    def step(params, opt_state, batch, extra=None):
+        grads, loss = grads_of(params, batch, extra)
         params, opt_state, gnorm = opt.apply(params, grads, opt_state)
         return params, opt_state, {"loss": loss,
                                    "grad_norm": gnorm.float()}
@@ -98,8 +104,9 @@ def build_prefill(model: Model, *, fill_cache: bool = False):
     """Inference prefill: forward over the prompt; the head runs on the
     last position only (next-token logits), as real serving does.
 
-    Default (``fill_cache=False``): ``step(params, tokens) -> logits (B, 1,
-    V)``, the forward that measures prompt processing and keeps no cache.
+    Default (``fill_cache=False``): ``step(params, tokens, extra=None) ->
+    logits (B, 1, V)``, the forward that measures prompt processing and
+    keeps no cache (``extra``: ``Model.forward``'s).
 
     ``fill_cache=True``: the serving prefill, ``step(params, cache, tokens)
     -> (last_logits, new_cache)``: ``Model.prefill``, which also writes the
@@ -111,8 +118,8 @@ def build_prefill(model: Model, *, fill_cache: bool = False):
 
         return fill_step
 
-    def step(params, tokens):
-        return model.forward(params, tokens, last_only=True)
+    def step(params, tokens, extra=None):
+        return model.forward(params, tokens, extra=extra, last_only=True)
 
     return step
 

@@ -14,8 +14,7 @@ engine
    next tick's admission can refill them.
 
 The only host synchronisation of a tick is the read of its tokens at the
-tick boundary (a windowed config adds the read of its positions,
-``Model._check_window``).  The engine's clock is the tick counter, so
+tick boundary.  The engine's clock is the tick counter, so
 ``Request.arrival_time`` in tick units makes admission order
 deterministic.
 

@@ -1167,6 +1167,75 @@ def test_decode_attention_32k_cache(dev, split_plan):
     _check_decode(dev, b, 32, 8, 128, s, lengths, torch.bfloat16, seed=6)
 
 
+# (lanes, query heads, KV heads, D, cache slots, lengths) of the A11
+# families' decode attention: hymba's self-attention on its wrapped ring of
+# 1024 (group 5; two lanes past the ring, one short of it), whisper's self
+# (group 1) and cross over 1500 frames, the vision model's self (group 8)
+# and cross over 1601 image tokens, every slot attended
+FAMILY_B8 = {
+    "hymba_ring1024_g5": (4, 25, 5, 64, 1024, [1024, 1031, 1024, 700]),
+    "whisper_self_g1": (8, 6, 6, 64, 96, [96, 1, 50, 96, 7, 33, 96, 64]),
+    "whisper_cross1500_g1": (8, 6, 6, 64, 1500, [1500] * 8),
+    "vision_self_g8": (4, 64, 8, 128, 160, [160, 1, 129, 160]),
+    "vision_cross1601_g8": (4, 64, 8, 128, 1601, [1601] * 4),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", sorted(FAMILY_B8))
+def test_decode_attention_at_the_family_shapes(dev, split_plan, shape,
+                                               dtype):
+    """B8 at groups 1, 5 and 8, on caches of 1500 and 1601 slots (not a
+    multiple of the 32-slot tile) and a wrapped ring of 1024."""
+    b, h, hkv, d, s, lengths = FAMILY_B8[shape]
+    _check_decode(dev, b, h, hkv, d, s, lengths, dtype, seed=s + h)
+
+
+@pytest.mark.parametrize("name", ["hymba-1.5b", "whisper-tiny",
+                                  "llama-3.2-vision-90b"])
+def test_family_decode_on_card_matches_cpu(dev, name):
+    """Reduced hymba, whisper and vision models, float32: the cross K/V
+    from ``prefill_cross``, 20 tokens through ``prefill_into_cache`` (the
+    hybrid's ring of 16 wraps) and 6 greedy steps give the CPU's tokens,
+    the logits within 2e-4; B8 once per attention a layer and step; the
+    hybrid's forward through B9 within 2e-4 of the CPU's."""
+    from repro_torch.launch.serve import prefill_into_cache
+
+    cfg = get_config(name, reduced=True)
+    t = cfg.encoder_seq or cfg.num_image_tokens
+    rng = np.random.default_rng(2)
+    ctx = torch.as_tensor(rng.standard_normal((2, t, cfg.d_model)),
+                          dtype=torch.float32) if t else None
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 20)),
+                           dtype=torch.int32)
+    out = {}
+    for d, (model, params) in _model_pair(dev, cfg).items():
+        kops.reset_launch_counts()
+        cache = model.init_cache(2, 32, cross_len=t, dtype=torch.float32)
+        if ctx is not None:
+            cache = model.prefill_cross(params, cache, ctx.to(d))
+        cache, logits = prefill_into_cache(model, params, cache, toks.to(d))
+        seq, steps = [], [logits.cpu()]
+        for _ in range(6):
+            nxt = torch.argmax(logits[:, -1], -1).to(torch.int32)
+            seq.append(nxt.cpu())
+            logits, cache = model.decode_step(params, cache, nxt[:, None])
+            steps.append(logits.cpu())
+        fwd = build_prefill(model)(params, toks.to(d)).cpu() \
+            if cfg.is_hybrid else None
+        out[d] = (torch.stack(seq), steps, fwd, kops.launch_counts())
+    per_step = cfg.num_layers * (2 if cfg.is_encdec else 1)
+    counts = out[dev][3]
+    assert counts["decode_attention"] == per_step * (20 + 6)
+    assert counts["selective_scan"] == (cfg.num_layers if cfg.is_hybrid
+                                        else 0)
+    assert torch.equal(out[dev][0], out["cpu"][0])
+    for a, b in zip(out[dev][1], out["cpu"][1]):
+        torch.testing.assert_close(a, b, **MODEL_TOL)
+    if cfg.is_hybrid:
+        torch.testing.assert_close(out[dev][2], out["cpu"][2], **MODEL_TOL)
+
+
 def _scan_inputs(rng, b, l, di, st, dev):
     x = _rand(rng, (b, l, di), torch.float32, dev) * 0.3
     dt = torch.nn.functional.softplus(_rand(rng, (b, l, di), torch.float32,
@@ -1208,6 +1277,16 @@ def test_selective_scan_chunk_edges(dev, l):
 def test_selective_scan_every_state_width(dev, st):
     rng = np.random.default_rng(st)
     args = _scan_inputs(rng, 3, 70, 45, st, dev)
+    torch.testing.assert_close(kops.selective_scan(*args),
+                               kref.selective_scan_ref(*args), **MODEL_TOL)
+
+
+@pytest.mark.parametrize("l", [257, 4096])
+def test_selective_scan_at_hymba_width(dev, l):
+    """hymba-1.5b's d_inner 3200 (its state 16), at a short L and at the
+    smoke's prefill length."""
+    rng = np.random.default_rng(l)
+    args = _scan_inputs(rng, 1, l, 3200, 16, dev)
     torch.testing.assert_close(kops.selective_scan(*args),
                                kref.selective_scan_ref(*args), **MODEL_TOL)
 
@@ -1571,6 +1650,30 @@ def test_train_resume_on_card_is_exact(dev, tmp_path):
     resumed = ltrain.main(argv)
     assert [h["step"] for h in resumed] == [5, 6, 7]
     assert [h["loss"] for h in resumed] == [h["loss"] for h in whole[5:]]
+
+
+def test_bf16_embedding_backward_on_card_is_the_cpus(dev):
+    """``_embed_fwd``'s backward at bf16 activations over a float32 table
+    (each token's rows added in bf16 in ascending position order,
+    ``kref.ordered_add``) gives the CPU's gradient bit for bit, every
+    run."""
+    from repro_torch.models import transformer as TT
+
+    cfg = dataclasses.replace(get_config("llama3-8b", reduced=True),
+                              vocab_size=50, d_model=16)
+    rng = np.random.default_rng(12)
+    w = torch.as_tensor(rng.standard_normal((50, 16)), dtype=torch.float32)
+    tokens = torch.as_tensor(rng.integers(0, 50, (4, 1024)))
+    ct = torch.as_tensor(rng.standard_normal((4, 1024, 16)),
+                         dtype=torch.float32).bfloat16()
+    grads = []
+    for d in ("cpu", dev, dev):
+        wd = w.detach().to(d).requires_grad_(True)
+        TT._embed_fwd({"w": wd}, tokens.to(d), cfg,
+                      RunCtx(act_dtype=torch.bfloat16)).backward(ct.to(d))
+        grads.append(wd.grad.cpu())
+    assert torch.equal(grads[1], grads[0]) and torch.equal(grads[2],
+                                                           grads[0])
 
 
 def test_card_kernels_refuse_grad_on_card(dev):

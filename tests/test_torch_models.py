@@ -11,6 +11,7 @@ another where the reference runs an associative scan, its decode softmax
 over the valid prefix where the reference masks the whole ring).
 """
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -272,8 +273,30 @@ def test_params_store_act_dtype_once():
     ("hymba-1.5b", "A11"), ("whisper-tiny", "A11"),
     ("llama-3.2-vision-90b", "A11")])
 def test_other_families_are_refused(name, item):
-    with pytest.raises(NotImplementedError, match=item):
-        Model(tregistry.get_config(name, reduced=True), device="cpu")
+    """The families that ``item`` took to the port (once refused here)
+    build, with the reference's parameter tree and a cache of its shapes
+    (``tests/test_torch_families.py`` holds their outputs against JAX);
+    what stays refused is what the reference refuses too: a per-slot
+    cache and the fused prefill, which need an attention-only stack."""
+    cfg = tregistry.get_config(name, reduced=True)
+    jcfg = jregistry.get_config(name, reduced=True)
+    tm = Model(cfg, RunCtx(act_dtype=torch.float32), device="cpu")
+    jm = JModel(jcfg, JRunCtx(remat="none", act_dtype=jnp.float32))
+    got = tm.init_params(torch.Generator().manual_seed(0))
+    want = jax.eval_shape(jm.init_params, KEY)
+    assert jax.tree.map(lambda a: a.shape, want) == tree_map(
+        lambda t: tuple(t.shape), got), item
+    cross = cfg.encoder_seq or cfg.num_image_tokens
+    assert tree_map(lambda t: tuple(t.shape), tm.init_cache(
+        2, 8, cross_len=cross, dtype=torch.float32)) == jax.tree.map(
+        lambda a: a.shape, jax.eval_shape(functools.partial(
+            jm.init_cache, 2, 8, cross_len=cross, dtype=jnp.float32)))
+    with pytest.raises(NotImplementedError, match="fused prefill"):
+        tm.prefill(got, tm.init_cache(2, 8, cross_len=cross),
+                   torch.zeros((2, 4), dtype=torch.int32))
+    if not cfg.is_vlm:    # the reference lets the vision stack through
+        with pytest.raises(NotImplementedError, match="per-slot"):
+            tm.init_cache(2, 8, per_slot=True)
 
 
 @pytest.mark.parametrize("groups", [1, 2])
@@ -307,23 +330,23 @@ def test_moe_family_matches_jax(groups):
 
 
 def test_windowed_decode_and_attention_training_are_refused():
-    """A window (A11) runs while it cannot bind — the cache cut to the
-    window, no position reaching it — and the step that reaches it is
-    refused; the training forward of attention stacks is ported
-    (tests/test_torch_train.py), and what stays refused is a decode step
-    with weights that require grad, whose attention kernel (B8) has no
-    backward (A18); a MoE decode hook (A10) is a no-op on a stack without
-    a MoE FFN."""
+    """A window (A11) runs past its end — the cache cut to the window, the
+    step at position 8 and those after it the JAX model's
+    (``tests/test_torch_window.py`` holds every case); the training
+    forward of attention stacks is ported (tests/test_torch_train.py), and
+    what stays refused is a decode step with weights that require grad,
+    whose attention kernel (B8) has no backward (A18); a MoE decode hook
+    (A10) is a no-op on a stack without a MoE FFN."""
     cfg = dataclasses.replace(llama_cfg(), swa_window=8)
-    tm = Model(cfg, RunCtx(act_dtype=torch.float32), device="cpu")
-    params = tm.init_params(torch.Generator().manual_seed(0))
+    jm, jp, tm, params = models(cfg)
     cache = tm.init_cache(1, 32, dtype=torch.float32)
+    jc = jm.init_cache(1, 32, dtype=jnp.float32)
     assert cache["layers"]["k"].shape[2] == 8
     tok = torch.zeros((1, 1), dtype=torch.int32)
-    for _ in range(8):                                  # positions 0 .. 7
-        _, cache = tm.decode_step(params, cache, tok)
-    with pytest.raises(NotImplementedError, match="A11"):
-        tm.decode_step(params, cache, tok)              # position 8
+    for _ in range(12):                                 # positions 0 .. 11
+        got, cache = tm.decode_step(params, cache, tok)
+        want, jc = jm.decode_step(jp, jc, jnp.asarray(tok.numpy()))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     tm = Model(llama_cfg(), RunCtx(act_dtype=torch.float32), device="cpu")
     grad_params = tree_map(lambda t: t.detach().requires_grad_(True),
                            tm.init_params(torch.Generator().manual_seed(0)))

@@ -16,8 +16,9 @@ reference's weights carried across:
   ``moe_fwd``, the fused prefill of a moe stack within 2e-4 of the
   sequential ``prefill_into_cache`` (the reference's bit-for-bit version
   of that test fails on this tree: two summation orders);
-* sliding-window attention runs while no position reaches the window and
-  raises (ROADMAP A11) at the step that would.
+* the engine with the hook and the reduced config's window of 16 serves
+  past the window (positions up to 19, idle lanes advancing) to the JAX
+  engine's tokens exactly.
 """
 import dataclasses
 import json
@@ -30,6 +31,7 @@ import numpy as np
 import pytest
 
 NUM_SLOTS, CACHE_LEN, CHUNK = 8, 16, 4
+WINDOW, WINDOW_GEN = 16, 12
 TOL = dict(rtol=2e-4, atol=2e-4)
 
 
@@ -44,6 +46,11 @@ def _batch(cfg, rng, tag, gen):
     return [dict(id=f"{tag}{i}", prompt=rng.integers(
         0, cfg.vocab_size, (8,)).tolist(), max_new_tokens=gen,
         arrival_time=float(i // 4)) for i in range(8)]
+
+
+def _windowed(cfg):
+    """The same model with the reduced config's sliding window."""
+    return dataclasses.replace(cfg, swa_window=WINDOW)
 
 
 def _flat(tree, prefix=""):
@@ -95,6 +102,15 @@ def run_reference(out_dir: str) -> None:
         for r in reqs:
             engine.submit(Request(**r))
         out[tag] = {"requests": reqs, "outputs": engine.run().outputs}
+    wmodel = Model(_windowed(cfg), RunCtx(remat="none",
+                                          act_dtype=jnp.float32))
+    engine = ServeEngine(wmodel, params, num_slots=NUM_SLOTS,
+                         cache_len=CACHE_LEN, prefill_chunk=CHUNK,
+                         moe_layer=layer, cache_dtype=jnp.float32)
+    reqs = _batch(cfg, rng, "win", WINDOW_GEN)
+    for r in reqs:
+        engine.submit(Request(**r))
+    out["win"] = {"requests": reqs, "outputs": engine.run().outputs}
     np.savez(pathlib.Path(out_dir) / "params.npz",
              **_flat(jax.tree.map(np.asarray, params)))
     (pathlib.Path(out_dir) / "out.json").write_text(json.dumps(out))
@@ -255,41 +271,30 @@ def test_fused_prefill_of_a_moe_stack_matches_the_sequential_oracle(port):
                                    seq_cache["layers"][key].numpy(), **TOL)
 
 
-def test_sliding_window_runs_until_a_position_reaches_it():
-    """mixtral's reduced window (16): the cache is cut to the window, the
-    steps run while every position stays below it — the same logits as
-    the model without a window — and the step that would write position
-    16 raises naming ROADMAP A11."""
+def test_sliding_window_runs_until_a_position_reaches_it(reference, port):
+    """mixtral's reduced window (16), once refused at the step that
+    reached it (ROADMAP A11): the engine with the MoE decode hook serves
+    8 requests of 8 prompt and 12 generated tokens over a ring cut to the
+    window, the second four arriving a tick after the first, so positions
+    run to 19 and lanes advance idle; its tokens are the JAX engine's
+    with the same hook and window, exactly."""
     import torch
 
-    from repro_torch.configs import registry
     from repro_torch.models.transformer import Model, RunCtx
+    from repro_torch.serve import Request, ServeEngine
 
-    cfg = registry.get_config("mixtral-8x22b", reduced=True)
-    assert cfg.swa_window == 16
-    model = Model(cfg, RunCtx(act_dtype=torch.float32), device="cpu")
-    full = Model(dataclasses.replace(cfg, swa_window=0),
-                 RunCtx(act_dtype=torch.float32), device="cpu")
-    params = model.init_params(torch.Generator().manual_seed(0))
-    cache = model.init_cache(2, 64, per_slot=True, dtype=torch.float32)
-    assert cache["layers"]["k"].shape[2] == cfg.swa_window
-    ref = full.init_cache(2, 16, per_slot=True, dtype=torch.float32)
-    tokens = torch.as_tensor(np.random.default_rng(1).integers(
-        0, cfg.vocab_size, (2, 12)), dtype=torch.int32)
-    got, cache = model.prefill(params, cache, tokens)
-    want, ref = full.prefill(params, ref, tokens)
-    assert torch.equal(got, want)
-    tok = tokens[:, :1]
-    for _ in range(4):                          # positions 12 .. 15
-        got, cache = model.decode_step(params, cache, tok)
-        want, ref = full.decode_step(params, ref, tok)
-        assert torch.equal(got, want)
-    with pytest.raises(NotImplementedError, match="A11"):
-        model.decode_step(params, cache, tok)   # position 16
-    fresh = model.init_cache(1, 64, per_slot=True, dtype=torch.float32)
-    _, fresh = model.prefill(params, fresh, tokens[:1, :10])
-    with pytest.raises(NotImplementedError, match="A11"):
-        model.prefill(params, fresh, tokens[:1, :7])   # positions 10 .. 16
+    ref, _ = reference
+    cfg, _, params, layer = port
+    model = Model(_windowed(cfg), RunCtx(act_dtype=torch.float32),
+                  device="cpu")
+    engine = ServeEngine(model, params, num_slots=NUM_SLOTS,
+                         cache_len=CACHE_LEN, prefill_chunk=CHUNK,
+                         moe_layer=layer, cache_dtype=torch.float32)
+    assert engine.cache["layers"]["k"].shape[2] == WINDOW
+    for r in ref["win"]["requests"]:
+        engine.submit(Request(**r))
+    assert engine.run().outputs == ref["win"]["outputs"]
+    assert int(engine.cache["pos"].max()) >= 8 + WINDOW_GEN - 1 >= WINDOW
 
 
 def test_launch_serve_moe_comm_on_the_cpu():
