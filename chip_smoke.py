@@ -141,8 +141,31 @@ each:
    within 1e-4; and train_lm100m: launch.train.main on lm100m, 30 steps at
    seq 256, batch 8, a checkpoint every 15 steps, the loss falling by more
    than 0.3, then the run resumed from its step-15 checkpoint giving steps
-   15-29's losses bit for bit.  No kernel of the nine lies on the training
-   path (the reference trains through plain jnp).
+   15-29's losses bit for bit.  The dense and MoE training paths launch no
+   kernel (the reference trains through plain jnp);
+17. train_ssm: falcon-mamba-7b at its published widths (d 4096, d_inner
+   8192, state 16, dt rank 256, vocab 65024), 16 of its 64 layers (~2.2B
+   parameters, ~36 GB at 16 B a parameter; 64 would need ~117 GB), trained
+   through launch.train as phase 16 (seq 4096, batch 8, accum 4, remat
+   full, bf16 over float32 master weights): 1 warm-up and 3 timed steps,
+   one profiled step split by region (selective_scan for B9's forward,
+   selective_scan_bwd for its backward kernel); B9's forward launched
+   layers x microbatches x 2 a step (remat full runs it again in the
+   backward), its backward layers x microbatches, the plain scan and the
+   plain backward never called; the backward kernel on the inputs of the
+   warm-up's first backward call (the kernel line selective_scan_bwd:
+   every gradient within 2e-4 of the plain backward's largest element,
+   two more launches bit for bit with the step's, its bound from the
+   function's own bytes and one exponential a (step, channel, state) over
+   the SMs' special-function lanes) and, beside it, the checkpointing
+   forward on the inputs of the warm-up's first forward call (y within
+   2e-4 of the plain recurrence, bit for bit with the serving entry's,
+   its ms beside the serving entry's); then train_hybrid: hymba-1.5b at
+   its published widths and depth the same way with 2 timed steps (B9's
+   backward at d_inner 3200 beside the banded attention; kernel line
+   selective_scan_bwd_di3200).  The train_twin phase holds reduced
+   falcon-mamba-7b and hymba-1.5b too.  MFU counts 6 N tokens
+   (runtime/steps.model_flops): the scan's own work is outside it.
 The model lines (phase "model"; the §5 models of core/perfmodel.py on
 this card): right after setup, calibration (core/tune.py's four
 parameters for one rank of LoopbackComm(8), the stacked probes' raw
@@ -162,9 +185,9 @@ outside CALIBRATION_RANGE, an auto pick is not the argmin of its own
 ranking, or an auto engine's output differs from the fixed-rung engine it
 resolved to (bit for bit; the forward dest rungs may hold to
 unpack_dest_spmv's 3e-5 instead). A model miss, even past its budget, is printed, never a failure.
-In phases 5 to 14 the kernel launch counters are zeroed just before the
-path runs and read just after, and every kernel of the path must have
-launched; in phases 5, 7 and 8 every launch of unpack_dest and
+In phases 5 to 14 and 17 the kernel launch counters are zeroed just
+before the path runs and read just after, and every kernel of the path
+must have launched; in phases 5, 7 and 8 every launch of unpack_dest and
 unpack_scatter_set must have gone through its plan table (the counts by C
 entry point show it).  The kernel phase also holds decode_attention (one
 decode step of phase 9: 8 lanes, a bf16 ring of 2080 slots; then, on a
@@ -173,7 +196,9 @@ cut to 8) and selective_scan (one falcon-mamba layer at L = 32768)
 against their plain versions at 2e-4, each with the device time of every
 kernel it launches (torch.profiler) and ptxas's registers and spills.
 
-Then one line {"kernels": [...]} with all nine kernels' numbers, and last
+Then one line {"kernels": [...]} with all ten kernels' numbers (the nine
+TPU kernels' and B9's backward, whose launches are the train phases'), and
+last
 {"ok": true, "device": {...}}.  Any failure exits non-zero before the last
 line; with no CUDA device, or outside a checkout of the repository, the
 script exits non-zero at once.
@@ -264,10 +289,28 @@ TRAIN_ARGV = ["--arch", "llama3-8b", "--seq", "4096", "--batch", "8",
               "--accum", "4", "--seed", str(SEED)]
 TRAIN_LAYERS = 8
 TRAIN_TIMED = 3
-TRAIN_TWINS = ("llama3-8b", "mixtral-8x22b")
+TRAIN_TWINS = ("llama3-8b", "mixtral-8x22b", "falcon-mamba-7b",
+               "hymba-1.5b")
 TRAIN_TWIN_ARGV = ["--seq", "64", "--batch", "8", "--accum", "2",
                    "--seed", str(SEED)]
 TRAIN_TWIN_TOL = 1e-4
+# Training the ssm and hybrid families through B9 and its backward:
+# falcon-mamba-7b at its published widths, 16 of its 64 layers (~105M
+# parameters a layer and 0.53B for the embedding and head: ~2.2B, ~36 GB at
+# 16 B a parameter; 64 layers would need ~117 GB), and hymba-1.5b at its
+# published widths and depth (1.66B, ~27 GB), both at train_4k's length
+# with the global batch 256 cut to 8 (accumulation 4, microbatch 2), remat
+# full, bf16 activations over float32 master weights
+TRAIN_SSM_ARGV = ["--arch", "falcon-mamba-7b", "--seq", "4096", "--batch",
+                  "8", "--accum", "4", "--seed", str(SEED)]
+TRAIN_SSM_LAYERS = 16
+TRAIN_SSM_TIMED = 3
+TRAIN_HYBRID_ARGV = ["--arch", "hymba-1.5b", "--seq", "4096", "--batch",
+                     "8", "--accum", "4", "--seed", str(SEED)]
+TRAIN_HYBRID_TIMED = 2
+# the backward kernel against the plain backward: each gradient within
+# this share of its largest element
+SCAN_BWD_TOL = 2e-4
 LM100M_ARGV = ["--preset", "lm100m", "--steps", "30", "--seq", "256",
                "--batch", "8", "--save-every", "15",
                "--log-every", "10", "--seed", str(SEED)]
@@ -287,6 +330,9 @@ LOGITS_REL_BF16 = 5e-2
 # 67 TFLOP/s float32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+# exponentials a second: 16 special-function lanes an SM a clock, 132 SMs
+# at the 1.98 GHz boost clock (H100 SXM)
+SFU_OPS_PER_S = 16 * 132 * 1.98e9
 # cycles a second of torch.cuda._sleep's spin: the H100's top clock (1.98
 # GHz) rounded up, so a spin lasts at least the time asked for
 SPIN_CYCLES_PER_S = 2e9
@@ -313,6 +359,10 @@ SOURCE = {
                          "src/repro/kernels/decode_attention.py:95"),
     "selective_scan": ("src/repro_torch/kernels/csrc/selective_scan.cu",
                        "src/repro/kernels/selective_scan.py:71"),
+    # the reference differentiates its chunked associative scan with
+    # jax.grad: no Pallas kernel, the backward of the scan at ssm.py:67
+    "selective_scan_bwd": ("src/repro_torch/kernels/csrc/selective_scan.cu",
+                           "src/repro/models/ssm.py:67"),
 }
 FORWARD_KERNELS = ("pack_gather", "unpack_scatter_set", "unpack_dest",
                    "ellpack_spmv_windowed")
@@ -2389,18 +2439,23 @@ def _leaves(tree):
         yield tree
 
 
+class _Held(dict):
+    """The calls ``held_calls`` kept, by number; ``calls`` counts all."""
+    calls = 0
+
+
 @contextlib.contextmanager
-def held_calls(kops, name, which):
+def held_calls(kops, name, which=()):
     """Keep the arguments and result of the calls numbered ``which`` (from
-    0) of ``kops.<name>`` inside the block, in the dict it yields; the
-    calls themselves go on as before."""
-    saved, held, seen = getattr(kops, name), {}, [0]
+    0) of ``kops.<name>`` inside the block, in the dict it yields (its
+    ``calls`` counts every call); the calls themselves go on as before."""
+    saved, held = getattr(kops, name), _Held()
 
     def keep(*args):
         out = saved(*args)
-        if seen[0] in which:
-            held[seen[0]] = (args, out)
-        seen[0] += 1
+        if held.calls in which:
+            held[held.calls] = (args, out)
+        held.calls += 1
         return out
     setattr(kops, name, keep)
     try:
@@ -2500,36 +2555,53 @@ def phase_ssm_prefill(torch, card):
 # training
 # --------------------------------------------------------------------------
 
+# marker kernels spin MARK_SPIN_US x 2^(their number mod MARK_CODES), so
+# that the profiler's durations tell which event a kept marker follows
+MARK_CODES = 6
+MARK_SPIN_US = 2.0
+
+
 def region_marks(torch, log):
-    """An autograd function that launches a marker kernel (a 1-cycle
-    ``torch.cuda._sleep``) and appends ``(region, edge)`` to ``log`` in its
-    forward and again in its backward: placed on a region's inputs (edges
-    start/end) and outputs (end/start), its markers bracket the region's
-    forward and its backward on the stream, in launch order."""
+    """An autograd function that records a CUDA event, launches a marker
+    kernel (a ``torch.cuda._sleep`` of MARK_SPIN_US x 2^code, code its
+    number mod MARK_CODES) and appends ``(region, edge, event)`` to
+    ``log`` in its forward and again in its backward: placed on
+    a region's inputs (edges start/end) and outputs (end/start), its
+    events bracket the region's forward and its backward on the stream, in
+    launch order, and the marker kernels place the events on the
+    profiler's clock.  The backward's region may have a name of its
+    own."""
 
     def emit_mark(kind, edge):
-        log.append((kind, edge))
-        torch.cuda._sleep(1)
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        code = len(log) % MARK_CODES
+        log.append((kind, edge, event))
+        torch.cuda._sleep(int(SPIN_CYCLES_PER_S * 1e-6 * MARK_SPIN_US
+                              * 2 ** code))
 
     class Mark(torch.autograd.Function):
         @staticmethod
-        def forward(ctx, kind, fwd_edge, bwd_edge, *ts):
-            ctx.kind, ctx.edge = kind, bwd_edge
+        def forward(ctx, kind, bwd_kind, fwd_edge, bwd_edge, *ts):
+            ctx.kind, ctx.edge = bwd_kind, bwd_edge
             emit_mark(kind, fwd_edge)
             return tuple(t.view_as(t) for t in ts)
 
         @staticmethod
         def backward(ctx, *grads):
             emit_mark(ctx.kind, ctx.edge)
-            return (None, None, None) + grads
+            return (None, None, None, None) + grads
 
-    def around(kind, fn, n_in):
+    def around(kind, fn, n_in, bwd_kind=None):
         """``fn`` with its first ``n_in`` tensor arguments and its tensor
-        result marked as the region ``kind``."""
+        result marked as the region ``kind`` (its backward ``bwd_kind``,
+        by default ``kind`` too)."""
+        back = bwd_kind or kind
+
         def wrapped(*args, **kw):
-            marked = Mark.apply(kind, "start", "end", *args[:n_in])
+            marked = Mark.apply(kind, back, "start", "end", *args[:n_in])
             out = fn(*marked, *args[n_in:], **kw)
-            return Mark.apply(kind, "end", "start", out)[0]
+            return Mark.apply(kind, back, "end", "start", out)[0]
         return wrapped
     return emit_mark, around
 
@@ -2542,22 +2614,28 @@ GEMM_NAMES = ("gemm", "xmma", "cutlass", "cublas", "nvjet")
 def profile_train_step(torch, step_fn):
     """One train step under torch.profiler, its device time split by
     region: attention (the training attention's einsums and elementwise
-    passes, forward, recompute and backward), the fused CE loss, the
-    embedding (its gather and its backward, the bf16 ordered add), AdamW,
-    and the rest (matmuls and elementwise).  Marker kernels bracket each
-    region (``region_marks``); a kernel counts to the region whose markers
+    passes, forward, recompute and backward), the selective scan (B9's
+    forward, recompute included: ``selective_scan``) and its backward
+    kernel (``selective_scan_bwd``), the fused CE loss, the embedding (its
+    gather and its backward, the bf16 ordered add), AdamW, and the rest
+    (matmuls and elementwise).  Marker kernels bracket each region
+    (``region_marks``); a kernel counts to the region whose markers
     enclose it.  Also the busy share of the step: the union of the device
     intervals over the span from the first to the last."""
+    import bisect
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.kernels import ops as kops
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as TT
     from repro_torch.optim import adamw as A
 
     log = []
     emit_mark, around = region_marks(torch, log)
-    saved = (L.attention, TT.fused_ce_loss, A.AdamW.apply, TT._embed_fwd)
+    saved = (L.attention, TT.fused_ce_loss, A.AdamW.apply, TT._embed_fwd,
+             kops.selective_scan)
     real_apply, real_embed = A.AdamW.apply, TT._embed_fwd
     embed = around("embedding", lambda w, tokens, cfg, ctx: real_embed(
         {"w": w}, tokens, cfg, ctx), 1)
@@ -2571,31 +2649,46 @@ def profile_train_step(torch, step_fn):
     TT.fused_ce_loss = around("fused_ce", TT.fused_ce_loss, 2)
     TT._embed_fwd = lambda p, *args: embed(p["w"], *args)
     A.AdamW.apply = apply
+    kops.selective_scan = around("selective_scan", kops.selective_scan, 5,
+                                 bwd_kind="selective_scan_bwd")
     try:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             metrics = step_fn()
             torch.cuda.synchronize()
     finally:
-        L.attention, TT.fused_ce_loss, A.AdamW.apply, TT._embed_fwd = saved
-    acts = sorted((e.time_range.start, e.time_range.end, e.name)
-                  for e in prof.events() if e.device_type == DeviceType.CUDA)
+        (L.attention, TT.fused_ce_loss, A.AdamW.apply, TT._embed_fwd,
+         kops.selective_scan) = saved
+    # the profiler's raw device events (us): building prof.events()' tree
+    # of a step's ~10^5 kernels takes the host tens of seconds
+    acts = sorted((e.start_ns() / 1e3, e.end_ns() / 1e3, e.name())
+                  for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == DeviceType.CUDA)
     marks = [a for a in acts if "spin_kernel" in a[2]]
-    check(len(marks) == len(log),
-          f"the profiler saw {len(marks)} markers, {len(log)} launched")
+    seen = [a[0] for a in marks]
+    # the profiler now and then drops kernels, markers too: the events
+    # and the markers' codes say which markers it kept and where the
+    # missing ones were
+    rel = [log[0][2].elapsed_time(e) * 1e3 for _, _, e in log]   # us
+    edges = align_marks(seen, rel, mark_codes([b - a for a, b, _ in marks]))
+    check(edges is not None,
+          f"the profiler saw {len(seen)} markers, {len(log)} launched")
     regions, open_at = [], {}
-    for (start, end, _), (kind, edge) in zip(marks, log):
+    for (kind, edge, _), t in zip(log, edges):
         if edge == "start":
             check(kind not in open_at, f"region {kind} opened twice")
-            open_at[kind] = end
+            open_at[kind] = t
         else:
-            regions.append((open_at.pop(kind), start, kind))
+            regions.append((open_at.pop(kind), t, kind))
     check(not open_at, f"regions left open: {sorted(open_at)}")
     ms, by_name = {}, {}
     kernels = [a for a in acts if "spin_kernel" not in a[2]]
+    regions.sort()                  # disjoint: one stream, no nesting
+    los = [lo for lo, _, _ in regions]
     for start, end, name in kernels:
-        kind = next((k for lo, hi, k in regions if lo <= start < hi),
-                    "other")
+        i = bisect.bisect_right(los, start) - 1
+        kind = regions[i][2] if i >= 0 and start < regions[i][1] \
+            else "other"
         part = "gemm" if any(g in name.lower() for g in GEMM_NAMES) \
             else "elementwise"
         key = f"{kind}_{part}_ms"
@@ -2611,7 +2704,71 @@ def profile_train_step(torch, step_fn):
         "profiled_span_ms": span / 1e3,
         "busy_share": busy_us((a, b) for a, b, _ in kernels) / span
         if span else 0.0,
-        "regions": len(regions)}
+        "regions": len(regions), "markers": len(log),
+        "markers_profiled": len(seen)}
+
+
+def mark_codes(durations):
+    """Each kept marker's code (its number mod MARK_CODES) read from its
+    duration in us: a duration is o + u * 2^code, o the kernel's own time
+    and u the spin's MARK_SPIN_US at the card's clock, both fitted to the
+    middles of the shortest and the longest code's share of the sorted
+    durations; each marker takes the code whose duration is nearest."""
+    ds, part = sorted(durations), 2 * MARK_CODES
+    lo, hi = ds[len(ds) // part], ds[(part - 1) * len(ds) // part]
+    unit = (hi - lo) / (2 ** (MARK_CODES - 1) - 1)
+    return [min(range(MARK_CODES),
+                key=lambda k: abs(d - lo - unit * (2 ** k - 1)))
+            for d in durations]
+
+
+def align_marks(seen, rel, codes):
+    """The profiler's time of every event, or None.  ``rel`` are the
+    events' times after the first (us, CUDA events, every one), ``seen``
+    the start times of the marker kernels the profiler kept, each launched
+    right after its event, and ``codes`` their codes (event k's marker has
+    k mod MARK_CODES).  With none missing they pair in order.  When the
+    profiler dropped some, the markers are walked in order: each goes to
+    one of the next events (skipping at most the markers still unaccounted
+    for) whose code is its own; with fewer than MARK_CODES drops that
+    event is the only one, else the one nearest to it at the offset of the
+    marker before (the offset moves with the host's launch delays and the
+    clocks' drift, so only locally).  The first marker goes to the event
+    that gives the least total miss.  An event whose marker is missing
+    takes the offset of the marker before it (after it, at the start)."""
+    drops = len(rel) - len(seen)
+    if not seen or drops < 0:
+        return None
+    if not drops:
+        return list(seen)
+
+    def of_code(m, events):
+        # a misread code (none of the events has it) leaves them all
+        return [k for k in events if k % MARK_CODES == codes[m]] \
+            or list(events)
+
+    def walk(i0):
+        offs, i, miss = {i0: seen[0] - rel[i0]}, i0, 0.0
+        for m in range(1, len(seen)):
+            left = drops - (i + 1 - len(offs))
+            near = of_code(m, range(i + 1, min(i + 2 + left, len(rel))))
+            if not near:
+                return None, 0.0
+            t = seen[m]
+            j = min(near, key=lambda k: abs(t - offs[i] - rel[k]))
+            miss += abs(t - offs[i] - rel[j])
+            offs[j], i = t - rel[j], j
+        return offs, miss
+    walks = [w for w in map(walk, of_code(0, range(drops + 1)))
+             if w[0] is not None]
+    if not walks:
+        return None
+    offs = min(walks, key=lambda w: w[1])[0]
+    out, off = [], offs[min(offs)]
+    for k, r in enumerate(rel):
+        off = offs.get(k, off)
+        out.append(r + off)
+    return out
 
 
 def matmul_rate(torch, dev, n: int = 8192) -> float:
@@ -2654,28 +2811,11 @@ def embedding_backward_ms(torch, tr, args) -> dict:
     return out
 
 
-def phase_train(torch, card):
-    """llama3-8b at its published widths, TRAIN_LAYERS of its 32 layers,
-    trained through launch.train (``setup`` and the Trainer's step, the
-    pieces ``main`` runs): 1 warm-up step, TRAIN_TIMED timed steps (CUDA
-    events), one profiled step split by region; tokens/s, MFU against the
-    bf16 spec peak and a bf16 matmul measured here, peak memory, every
-    loss and gradient norm finite, the first loss within 2 of ln(vocab)."""
-    from repro_torch.configs.registry import get_config
-    from repro_torch.launch import train as ltrain
-    from repro_torch.models.transformer import tree_leaves
-    from repro_torch.runtime.steps import model_flops
-
-    args = ltrain.parse_args(TRAIN_ARGV)
-    cfg = dataclasses.replace(get_config(args.arch), num_layers=TRAIN_LAYERS)
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    tr = ltrain.setup(cfg, args, retries=0)     # no failure retried away
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    n_params = sum(t.numel() for t in tree_leaves(tr.params))
+def train_steps(torch, tr, timed: int):
+    """One warm-up step and ``timed`` timed ones (CUDA events): every
+    step's loss and gradient norm, and the timed steps' ms."""
     losses, gnorms, step_ms = [], [], []
-    for i in range(1 + TRAIN_TIMED):
+    for i in range(1 + timed):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -2686,40 +2826,271 @@ def phase_train(torch, card):
         gnorms.append(float(metrics["grad_norm"]))
         if i:
             step_ms.append(start.elapsed_time(end))
+    return losses, gnorms, step_ms
+
+
+def train_phase(torch, phase, argv, layers, timed, watch=None,
+                with_trainer=None):
+    """A model trained through launch.train (``setup`` and the Trainer's
+    step, the pieces ``main`` runs) at ``layers`` of its layers (all of
+    them for None): 1 warm-up step and ``timed`` timed ones (CUDA events)
+    inside the context ``watch()``, the kernel counters zeroed before the
+    warm-up and read after the last timed step; then one profiled step
+    split by region; every loss and gradient norm finite, the first loss
+    within 2 of ln(vocab).  ``with_trainer(tr, args)`` runs before the
+    trainer is dropped and gives fields of the phase's line.  Returns the
+    config, the steps' launch counts, what ``watch`` yielded and the
+    line's fields: ms a step, tokens/s, MFU against the bf16 spec, peak
+    memory, every loss and gradient norm, the profiled step's regions and
+    the wall seconds of each part."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import train as ltrain
+    from repro_torch.models.transformer import tree_leaves
+    from repro_torch.runtime.steps import model_flops
+
+    args = ltrain.parse_args(argv)
+    full = get_config(args.arch)
+    cfg = dataclasses.replace(full, num_layers=layers or full.num_layers)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = ltrain.setup(cfg, args, retries=0)     # no failure retried away
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    n_params = sum(t.numel() for t in tree_leaves(tr.params))
+    kops.reset_launch_counts()
+    with (watch or contextlib.nullcontext)() as seen:
+        losses, gnorms, step_ms = train_steps(torch, tr, timed)
+    counts = kops.launch_counts()
+    t2 = time.perf_counter()
     metrics, prof = profile_train_step(torch, tr.step)
+    t3 = time.perf_counter()
     losses.append(float(metrics["loss"]))
     gnorms.append(float(metrics["grad_norm"]))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    embed_ms = embedding_backward_ms(torch, tr, args)
     check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
-          f"train: losses {losses}, grad norms {gnorms}")
+          f"{phase}: losses {losses}, grad norms {gnorms}")
     ln_v = float(np.log(cfg.vocab_size))
     check(abs(losses[0] - ln_v) <= 2.0,
-          f"train: step-0 loss {losses[0]} is not within 2 of ln(V) = {ln_v}")
+          f"{phase}: step-0 loss {losses[0]} is not within 2 of ln(V) = "
+          f"{ln_v}")
+    extra = with_trainer(tr, args) if with_trainer else {}
     del tr, metrics
     gc.collect()
     torch.cuda.empty_cache()
-    rate = matmul_rate(torch, torch.device("cuda"))
     ms = float(np.mean(step_ms))
-    tokens = args.batch * args.seq
     flops = model_flops(cfg, mode="train", batch=args.batch, seq=args.seq)
-    emit({"phase": "train", "arch": cfg.name, "layers": cfg.num_layers,
-          "of_layers": get_config(args.arch).num_layers,
-          "d_model": cfg.d_model, "heads": [cfg.num_heads, cfg.num_kv_heads],
-          "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "params": n_params,
-          "seq": args.seq, "batch": args.batch, "accum": args.accum,
-          "remat": "full", "dtype": "bfloat16 activations, float32 master",
-          "init_s": round(init_s, 3), "step_ms": step_ms,
-          "ms_per_step": ms, "tokens_per_s": tokens / (ms * 1e-3),
-          "model_flops_per_step": flops,
-          "model_tflops_per_s": flops / (ms * 1e-3) / 1e12,
-          "mfu_vs_bf16_spec": flops / (ms * 1e-3) / BF16_FLOP_PER_S,
-          "bf16_matmul_tflops_per_s": rate / 1e12,
-          "mfu_vs_bf16_matmul": flops / (ms * 1e-3) / rate,
-          "peak_memory_gb": peak_gb, "losses": losses,
-          "grad_norms": gnorms, "loss0_minus_ln_vocab": losses[0] - ln_v,
-          "embedding_backward_ms": embed_ms,
-          "profiled_step": prof, "card": card})
+    return cfg, counts, seen, {
+        "phase": phase, "arch": cfg.name, "layers": cfg.num_layers,
+        "of_layers": full.num_layers, "d_model": cfg.d_model,
+        "vocab": cfg.vocab_size, "params": n_params, "seq": args.seq,
+        "batch": args.batch, "accum": args.accum, "remat": "full",
+        "dtype": "bfloat16 activations, float32 master",
+        "init_s": round(t1 - t0, 3), "step_ms": step_ms, "ms_per_step": ms,
+        "tokens_per_s": args.batch * args.seq / (ms * 1e-3),
+        "model_flops_per_step": flops,
+        "model_tflops_per_s": flops / (ms * 1e-3) / 1e12,
+        "mfu_vs_bf16_spec": flops / (ms * 1e-3) / BF16_FLOP_PER_S,
+        "peak_memory_gb": peak_gb, "losses": losses, "grad_norms": gnorms,
+        "loss0_minus_ln_vocab": losses[0] - ln_v, "profiled_step": prof,
+        "wall_s": {"setup": round(t1 - t0, 1), "steps": round(t2 - t1, 1),
+                   "profiled_step": round(t3 - t2, 1),
+                   "rest": round(time.perf_counter() - t3, 1)},
+        **extra}
+
+
+def phase_train(torch, card):
+    """llama3-8b at its published widths, TRAIN_LAYERS of its 32 layers,
+    through train_phase with TRAIN_TIMED timed steps; beside the MFU
+    against the bf16 spec the MFU against a bf16 matmul measured here, and
+    the embedding's backward at one microbatch."""
+    cfg, _, _, fields = train_phase(
+        torch, "train", TRAIN_ARGV, TRAIN_LAYERS, TRAIN_TIMED,
+        with_trainer=lambda tr, args: {
+            "embedding_backward_ms": embedding_backward_ms(torch, tr, args)})
+    rate = matmul_rate(torch, torch.device("cuda"))
+    achieved = fields["model_flops_per_step"] / (fields["ms_per_step"] * 1e-3)
+    emit({**fields, "heads": [cfg.num_heads, cfg.num_kv_heads],
+          "d_ff": cfg.d_ff, "bf16_matmul_tflops_per_s": rate / 1e12,
+          "mfu_vs_bf16_matmul": achieved / rate, "card": card})
+
+
+def scan_bwd_bound(b: int, l: int, di: int, st: int):
+    """(bound_ms, bound_by) of the scan's backward, counting the
+    function's own traffic and work only: x, dt, dy, B, C, a and the
+    forward's checkpoints read once and dx, ddt, dB, dC and dA written
+    once, float32; one exponential, exp(dt·a), a (step, channel, state)
+    over the SMs' special-function lanes.  The kernel's dB/dC/dA partials
+    and its second rebuild of the decays are its design's cost, not the
+    function's."""
+    from repro_torch.kernels.selective_scan import CKPT_STEPS
+    nseg = -(-l // CKPT_STEPS)
+    nbytes = 4 * (5 * b * l * di + 4 * b * l * st + 2 * di * st
+                  + b * nseg * di * st)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_exp = b * l * di * st / SFU_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_exp else (t_exp, "operations")
+
+
+def scan_ckpt_check(torch, name, args, out):
+    """The checkpointing forward (``selective_scan_ckpt``, the forward the
+    train path launches) on one call's own inputs from a train step
+    (``out`` its y and checkpoints in that step): y within MODEL_TOL of the
+    plain recurrence's (timed once) and bit for bit with the serving
+    entry's on the same inputs, a repeat launch bit for bit in y and the
+    checkpoints; its ms beside the serving entry's, and its bound (the
+    serving forward's bytes and operations, and the checkpoints
+    written)."""
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels import selective_scan as b9
+    args = tuple(t.detach() for t in args)
+    y, hck = out[0].detach(), out[1]
+    b, l, di = y.shape
+    st = args[2].shape[2]
+    t0 = time.perf_counter()
+    want = kref.selective_scan_ref(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = float((y - want).abs().max())
+    check(torch.allclose(y, want, **MODEL_TOL),
+          f"{name}: the checkpointing forward differs from the plain "
+          f"recurrence on its inputs: {err}")
+    del want
+    serving = torch.equal(b9.selective_scan(*args), y)
+    y2, hck2 = b9.selective_scan_ckpt(*args)
+    repeat = torch.equal(y2, y) and (hck is None or torch.equal(hck2, hck))
+    check(serving, f"{name}: the checkpointing forward's y is not the "
+          "serving entry's bit for bit")
+    check(repeat, f"{name}: two checkpointing forwards differ in bits")
+    del y2, hck2
+    nseg = 0 if hck is None else hck.shape[1]
+    res = dict(
+        max_abs_err=err, plain_ms=plain_ms,
+        ms=cuda_ms(torch, lambda: b9.selective_scan_ckpt(*args), warmup=2,
+                   iters=10),
+        serving_ms=cuda_ms(torch, lambda: b9.selective_scan(*args),
+                           warmup=2, iters=10),
+        bound=bound(4 * (3 * b * l * di + 2 * b * l * st + di * st
+                         + b * nseg * di * st), flops=7.0 * b * l * di * st))
+    check_bound(f"{name}'s checkpointing forward", res)
+    return {"max_abs_err": err, "ms": res["ms"],
+            "serving_ms": res["serving_ms"], "plain_ms": plain_ms,
+            "bound_ms": res["bound"][0], "bound_by": res["bound"][1],
+            "bit_identical_to_serving": serving,
+            "bit_identical_repeat": repeat}
+
+
+def scan_bwd_line(torch, name, args, held_out, fwd_args, fwd_out):
+    """The backward kernel on one call's own inputs from a train step
+    (``args`` = x, dt, B, C, a, the checkpoints, dy; ``held_out`` its
+    gradients in that step): against the plain backward on the card,
+    every gradient within SCAN_BWD_TOL of its largest element; two more
+    launches bit for bit with the step's; ms, the plain backward's ms
+    (once), the bound and what sets it; no single PyTorch call computes
+    the scan's gradient.  Beside it the checkpointing forward on the
+    step's first forward call (``fwd_args``, ``fwd_out``; scan_ckpt_check)."""
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels import selective_scan as b9
+    ckpt = scan_ckpt_check(torch, name, fwd_args, fwd_out)
+    # the step saved its inputs for autograd: no graph of the plain loop
+    args = tuple(t if t is None else t.detach() for t in args)
+    x, dt, bm, cm, a, hck, dy = args
+    b, l, di = x.shape
+    st = bm.shape[2]
+    runs = [b9.selective_scan_bwd(*args) for _ in range(2)]
+    torch.cuda.synchronize()
+    same = all(torch.equal(g, h) for run in runs
+               for g, h in zip(run, held_out))
+    check(same, f"{name}: two launches on the same inputs differ in bits")
+    t0 = time.perf_counter()
+    want = kref.selective_scan_bwd_ref(x, dt, bm, cm, a, dy)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    rel = [float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+           for g, w in zip(held_out, want)]
+    check(max(rel) <= SCAN_BWD_TOL,
+          f"{name} differs from the plain backward: {rel} of each "
+          "gradient's largest element")
+    del runs, want
+    res = dict(max_abs_err=max(rel), ms=cuda_ms(
+        torch, lambda: b9.selective_scan_bwd(*args), warmup=2, iters=10),
+        plain_ms=plain_ms, library_ms=None, bound=scan_bwd_bound(b, l, di,
+                                                                  st),
+        ckpt_forward=ckpt)
+    emit({"phase": "kernel", "name": name, **{
+        k_: v_ for k_, v_ in res.items() if k_ != "bound"},
+        "bound_ms": res["bound"][0], "bound_by": res["bound"][1],
+        "rel_err_by_grad": dict(zip(("dx", "ddt", "dB", "dC", "dA"), rel)),
+        "bit_identical_repeat": same,
+        "shape": f"x/dt/dy ({b}, {l}, {di}) f32, B/C ({b}, {l}, {st}), "
+                 f"checkpoints {hck if hck is None else tuple(hck.shape)}",
+        "max_abs_err_is": "relative to each gradient's largest element"})
+    check_bound(name, res)
+    return res
+
+
+def phase_train_scan(torch, card, phase, argv, layers, timed, kernel_name):
+    """A model with mamba layers through train_phase: B9's forward
+    launched layers x microbatches x 2 a step (remat full runs each
+    layer's forward again in the backward), its backward layers x
+    microbatches, the plain scan and the plain backward never called.  The
+    warm-up's first checkpointing forward (the first layer's, first
+    microbatch) and first backward (the last layer's) are held, and the
+    kernel line ``kernel_name`` runs on their inputs."""
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels import selective_scan as b9
+
+    @contextlib.contextmanager
+    def watch():
+        with held_calls(kref, "selective_scan_ref") as plain, \
+                held_calls(kref, "selective_scan_bwd_ref") as plain_bwd, \
+                held_calls(b9, "selective_scan_ckpt", (0,)) as fwd, \
+                held_calls(b9, "selective_scan_bwd", (0,)) as bwd:
+            yield plain, plain_bwd, fwd, bwd
+
+    cfg, counts, seen, fields = train_phase(torch, phase, argv, layers,
+                                            timed, watch)
+    plain, plain_bwd, fwd, bwd = seen
+    per_step = cfg.num_layers * fields["accum"]
+    want = {"selective_scan": 2 * per_step * (1 + timed),
+            "selective_scan_bwd": per_step * (1 + timed)}
+    got = {k: counts[k] for k in want}
+    check(got == want, f"{phase}: B9 launched {got} times in {1 + timed} "
+          f"steps of {cfg.num_layers} layers x {fields['accum']} "
+          f"microbatches, not {want}")
+    plain_calls = {"selective_scan_ref": plain.calls,
+                   "selective_scan_bwd_ref": plain_bwd.calls}
+    check(not any(plain_calls.values()),
+          f"{phase}: the plain scan ran on the card path: {plain_calls}")
+    check(0 in fwd and 0 in bwd, f"{phase}: no held B9 call")
+    t0 = time.perf_counter()
+    res = scan_bwd_line(torch, kernel_name, *bwd.pop(0), *fwd.pop(0))
+    del seen, fwd, bwd
+    gc.collect()
+    torch.cuda.empty_cache()
+    fields["wall_s"]["kernel_line"] = round(time.perf_counter() - t0, 1)
+    emit({**fields, "d_inner": cfg.d_inner, "state": cfg.ssm_state,
+          "mfu_counts": "6 N tokens (runtime/steps.model_flops): the "
+                        "selective scan's own work is outside it",
+          "launches": got, "plain_scan_calls": plain_calls, "card": card})
+    return got, res
+
+
+def phase_train_ssm(torch, card):
+    """falcon-mamba-7b, TRAIN_SSM_LAYERS of its 64 layers, through
+    phase_train_scan; the kernel line selective_scan_bwd."""
+    return phase_train_scan(torch, card, "train_ssm", TRAIN_SSM_ARGV,
+                            TRAIN_SSM_LAYERS, TRAIN_SSM_TIMED,
+                            "selective_scan_bwd")
+
+
+def phase_train_hybrid(torch, card):
+    """hymba-1.5b at its published depth through phase_train_scan, B9's
+    backward at d_inner 3200 beside the banded attention; the kernel line
+    selective_scan_bwd_di3200."""
+    return phase_train_scan(torch, card, "train_hybrid", TRAIN_HYBRID_ARGV,
+                            None, TRAIN_HYBRID_TIMED,
+                            "selective_scan_bwd_di3200")
 
 
 def phase_train_twins(torch, card):
@@ -2976,6 +3347,17 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     phase_train(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ssm_counts, results["selective_scan_bwd"] = phase_train_ssm(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    hybrid_counts, _ = phase_train_hybrid(torch, card)
+    for name in ("selective_scan", "selective_scan_bwd"):
+        counts[name] = counts.get(name, 0) + ssm_counts[name] \
+            + hybrid_counts[name]
+    gc.collect()
+    torch.cuda.empty_cache()
     phase_train_twins(torch, card)
     phase_train_lm100m(torch, src.parent / "build" / "train_ckpt", card)
 
@@ -2987,7 +3369,9 @@ def main() -> None:
             "replaces": replaces, "launches": counts[name],
             "max_abs_err": res["max_abs_err"], "ms": res["ms"],
             "plain_ms": res["plain_ms"], "bound_ms": res["bound"][0],
-            "bound_by": res["bound"][1], "library_ms": res["library_ms"]})
+            "bound_by": res["bound"][1], "library_ms": res["library_ms"],
+            **({"ckpt_forward": res["ckpt_forward"]}
+               if "ckpt_forward" in res else {})})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -62,6 +62,9 @@ _SIGNATURES = {
                             _I, _I, _I, ctypes.c_int, ctypes.c_int,
                             ctypes.c_float, _P),
     "rt_selective_scan_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "rt_selective_scan_ckpt_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                   _I, _P),
+    "rt_selective_scan_bwd_f32": (_P,) * 15 + (_I,) * 5 + (_P,),
 }
 
 _lib = None
@@ -71,7 +74,7 @@ _info: dict = {}
 LAUNCHES = {"pack_gather": 0, "unpack_scatter_set": 0, "unpack_dest": 0,
             "ellpack_spmv_windowed": 0, "accumulate_segments": 0,
             "accumulate_into": 0, "stencil2d": 0, "decode_attention": 0,
-            "selective_scan": 0}
+            "selective_scan": 0, "selective_scan_bwd": 0}
 # C entry point -> launches so far: which variant of a kernel ran
 ENTRIES: dict[str, int] = {}
 

@@ -58,31 +58,32 @@ def reset_launch_counts() -> None:
 
 
 # --------------------------------------------------------------------------
-# the model's kernels: no backward
+# the model's kernels
 # --------------------------------------------------------------------------
 
-def _no_grad_inputs(name: str, *tensors) -> None:
-    """The card's kernels launch through ctypes and leave no autograd
-    graph: an input that requires grad would lose its gradient without a
-    word, so it is refused (on every device, so that a CPU run fails
-    where a card run would)."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{name} has no backward: an input requires grad (training "
-            "through it is ROADMAP A18)")
-
-
 def selective_scan(x, dt, bmat, cmat, a):
-    """``kernels.selective_scan.selective_scan`` (B9), refusing inputs
-    that require grad."""
-    _no_grad_inputs("selective_scan", x, dt, bmat, cmat, a)
+    """B9: in grad mode with an input that requires grad, the scan with
+    its backward (``kernels.selective_scan.selective_scan_train``: the
+    checkpointing forward and the backward kernel on the card);
+    otherwise the serving kernel ``kernels.selective_scan.selective_scan``."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, bmat, cmat, a)):
+        return _b9.selective_scan_train(x, dt, bmat, cmat, a)
     return _b9.selective_scan(x, dt, bmat, cmat, a)
 
 
 def decode_attention(q, k, v, lengths):
     """``kernels.decode_attention.decode_attention`` (B8), refusing inputs
-    that require grad."""
-    _no_grad_inputs("decode_attention", q, k, v)
+    that require grad.  B8 is a serving kernel: it launches through ctypes
+    and leaves no autograd graph, and the reference never differentiates
+    one-token decode, so an input that would lose its gradient without a
+    word raises instead (on every device, so that a CPU run fails where a
+    card run would)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "decode_attention has no backward: it is a serving kernel, and "
+            "one-token decode is never differentiated (train through "
+            "Model.loss, whose attention is plain PyTorch)")
     return _b8.decode_attention(q, k, v, lengths)
 
 

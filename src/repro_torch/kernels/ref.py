@@ -18,7 +18,8 @@ __all__ = ["pack_gather_ref", "unpack_scatter_set_ref", "unpack_dest_ref",
            "ellpack_spmv_ref", "reduce_identity", "maximum",
            "accumulate_segments_ref", "accumulate_into_ref", "ordered_add",
            "fma_f32",
-           "stencil2d_ref", "decode_attention_ref", "selective_scan_ref"]
+           "stencil2d_ref", "decode_attention_ref", "selective_scan_ref",
+           "selective_scan_bwd_ref"]
 
 
 def _ranks(t: torch.Tensor) -> torch.Tensor:
@@ -310,3 +311,44 @@ def selective_scan_ref(x, dt, bmat, cmat, a):
         h = da * h + (dtf[:, t] * xf[:, t])[..., None] * bf[:, t, None, :]
         ys[:, t] = torch.einsum("bds,bs->bd", h, cf[:, t])
     return ys.to(x.dtype)
+
+
+def selective_scan_bwd_ref(x, dt, bmat, cmat, a, dy):
+    """The gradients of ``selective_scan_ref`` for the cotangent ``dy``
+    ``(B, L, di)``: ``(dx, ddt, dB, dC, dA)`` in the inputs' dtypes, from
+    the reverse-time recurrence one step after another in float32.  With
+    ``dA_t = exp(dt_t·a)`` and ``g_t`` the gradient reaching ``h_t``::
+
+        g_t   = dy_t ⊗ C_t + dA_{t+1} ⊙ g_{t+1}
+        dC_t  = Σ_c dy_t[c]·h_t[c]        dB_t = Σ_c g_t[c]·dt_t[c]·x_t[c]
+        dx_t  = dt_t·Σ_n g_t·B_t          ddt_t = Σ_n g_t ⊙ (x_t B_t
+                                                  + a ⊙ dA_t ⊙ h_{t−1})
+        dA    = Σ_{b,t} g_t ⊙ dA_t ⊙ h_{t−1}·dt_t
+
+    The forward's states are kept, every one of them."""
+    bsz, l, di = x.shape
+    xf, dtf, bf, cf, af, dyf = (t.float() for t in (x, dt, bmat, cmat, a,
+                                                    dy))
+    hs = [torch.zeros((bsz, di, bmat.shape[-1]), dtype=torch.float32,
+                      device=x.device)]
+    for t in range(l):
+        da = torch.exp(dtf[:, t, :, None] * af[None])
+        hs.append(da * hs[-1]
+                  + (dtf[:, t] * xf[:, t])[..., None] * bf[:, t, None, :])
+    dx, ddt = torch.empty_like(xf), torch.empty_like(xf)
+    db, dc = torch.empty_like(bf), torch.empty_like(cf)
+    da_sum = torch.zeros_like(af)
+    q = torch.zeros_like(hs[0])             # dA_{t+1} ⊙ g_{t+1}
+    for t in range(l - 1, -1, -1):
+        da = torch.exp(dtf[:, t, :, None] * af[None])
+        g = dyf[:, t, :, None] * cf[:, t, None, :] + q
+        dh = da * hs[t]                      # dA_t ⊙ h_{t−1}
+        dc[:, t] = torch.einsum("bd,bds->bs", dyf[:, t], hs[t + 1])
+        db[:, t] = torch.einsum("bds,bd->bs", g, dtf[:, t] * xf[:, t])
+        dx[:, t] = dtf[:, t] * torch.einsum("bds,bs->bd", g, bf[:, t])
+        ddt[:, t] = (g * (xf[:, t, :, None] * bf[:, t, None, :]
+                          + af[None] * dh)).sum(-1)
+        da_sum += (g * dh * dtf[:, t, :, None]).sum(0)
+        q = da * g
+    return (dx.to(x.dtype), ddt.to(dt.dtype), db.to(bmat.dtype),
+            dc.to(cmat.dtype), da_sum.to(a.dtype))

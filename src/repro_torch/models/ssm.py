@@ -5,8 +5,12 @@ the x/dt projections and the gate as plain PyTorch, as the reference does in
 jnp, and the recurrence through ``kernels.ops.selective_scan`` (the card's
 selective-scan kernel; its plain version on the CPU).  The reference
 computes the recurrence as a chunked associative scan whose ``chunk`` is a
-blocking knob of that scan; the port has no such knob.  The decode path is
-the exact single-step recurrence with a rolling conv window.
+blocking knob of that scan; the port has no such knob.  Training runs
+``ssm_fwd`` as it stands: in grad mode ``ops.selective_scan`` gives the
+recurrence its backward (the card's backward kernel, which the reference
+gets from ``jax.grad`` of its scan), and autograd carries the gradients
+through the rest.  The decode path is the exact single-step recurrence
+with a rolling conv window.
 """
 from __future__ import annotations
 

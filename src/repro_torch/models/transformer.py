@@ -27,9 +27,10 @@ The training forward is the reference's: ``_block_fwd`` (``_mixer_fwd``,
 ``_ffn_fwd``) under the ``RunCtx.remat`` policy (``torch.utils.checkpoint``,
 a layer or a group of layers at a time) and the fused chunked cross-entropy
 (``fused_ce_loss``).  The ssm and hybrid stacks run their recurrence
-through the card kernel B9, which has no backward (ROADMAP A18):
-``kernels.ops`` refuses an input that requires grad and
-``check_trainable`` refuses the two families.
+through the card kernel B9 with its backward (``kernels.ops.
+selective_scan`` in grad mode: the checkpointing forward and the backward
+kernel on the card, the plain versions on the CPU), so every family
+trains.
 
 Serving caches are the reference's too: ``{"pos", "layers"}`` with ring
 K/V buffers ``(L, B, cache_len, Hkv, hd)`` and per-slot positions
@@ -572,13 +573,6 @@ class Model:
         x = L.norm_apply(params["final_norm"], x, kind=self.cfg.norm)
         return x @ self.head_weight(params).to(x.dtype)
 
-    def check_trainable(self) -> None:
-        """Raise unless this family has a backward in the port."""
-        if self.kind in ("ssm", "hybrid"):
-            raise NotImplementedError(
-                f"training the {self.kind} family is not ported yet: ROADMAP "
-                "A18 (the card's selective scan B9 has no backward)")
-
     # ---- training forward ----
     def _policy(self, params) -> str:
         """``RunCtx.remat`` where a backward will run, else ``none``."""
@@ -666,7 +660,6 @@ class Model:
 
     def loss(self, params, tokens, labels, *, extra=None, chunk=512):
         """Fused chunked cross-entropy (never materializes full logits)."""
-        self.check_trainable()
         x = self.hidden(params, tokens, extra=extra)
         return fused_ce_loss(x, self.head_weight(params), labels,
                              chunk=chunk)

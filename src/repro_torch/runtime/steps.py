@@ -28,8 +28,6 @@ def build_grad_fn(model: Model, *, accum_steps: int = 1):
     its ``.grad`` collects), then divides by ``accum_steps``.  ``grads``
     is a tree like ``params``; ``loss`` is the float32 mean loss, a 0-d
     tensor on the device."""
-    model.check_trainable()
-
     def grads_of(params, batch, extra=None):
         tokens, labels = batch
         b = tokens.shape[0]

@@ -1321,6 +1321,67 @@ def test_selective_scan_unaligned_rows(dev):
                                **MODEL_TOL)
 
 
+def _rel_err(got, want):
+    """Each gradient's largest error over its largest element."""
+    return [float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+            for g, w in zip(got, want)]
+
+
+@pytest.mark.parametrize("b,l,di,st,scale", [
+    (1, 1, 1, 1, 1.0), (1, 7, 3, 5, 1.0), (1, 33, 136, 4, 1.0),
+    (2, 129, 24, 8, 1.0), (1, 300, 40, 16, 1.0), (1, 257, 45, 32, 1.0),
+    (2, 200, 16, 16, 200.0), (2, 4096, 3200, 16, 1.0),
+    (2, 4096, 8192, 16, 1.0)],
+    ids=["one", "tiny", "st4", "st8", "segments", "st32", "underflow",
+         "hymba", "falcon"])
+def test_selective_scan_bwd_matches_plain(dev, b, l, di, st, scale):
+    """The backward kernel against the plain backward, each gradient within
+    2e-4 of its largest element: ragged L against the 128-step
+    checkpoints and 8-step sub-chunks, channels that leave a block
+    part-empty, st 1 to 32, a carry that underflows, and the shapes of
+    falcon-mamba-7b's and hymba-1.5b's train microbatch (B 2, L 4096, di
+    8192 and 3200, st 16).  The checkpointing forward's y is the serving
+    kernel's bit for bit, and a second backward gives the same bits."""
+    from repro_torch.kernels import selective_scan as b9
+
+    rng = np.random.default_rng(l + di)
+    x, dt, bm, cm, a = _scan_inputs(rng, b, l, di, st, dev)
+    a = a * scale
+    dy = _rand(rng, (b, l, di), torch.float32, dev)
+    y, hck = b9.selective_scan_ckpt(x, dt, bm, cm, a)
+    assert torch.equal(y, b9.selective_scan(x, dt, bm, cm, a))
+    before = kops.launch_counts()["selective_scan_bwd"]
+    got = b9.selective_scan_bwd(x, dt, bm, cm, a, hck, dy)
+    again = b9.selective_scan_bwd(x, dt, bm, cm, a, hck, dy)
+    torch.cuda.synchronize()
+    assert kops.launch_counts()["selective_scan_bwd"] == before + 2
+    assert all(torch.equal(g, h) for g, h in zip(got, again))
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    want = kref.selective_scan_bwd_ref(x, dt, bm, cm, a, dy)
+    assert max(_rel_err(got, want)) <= 2e-4, _rel_err(got, want)
+
+
+def test_selective_scan_grad_through_ops_on_card(dev):
+    """``ops.selective_scan`` in grad mode on the card: the checkpointing
+    forward and the backward kernel, one launch each, every input's
+    gradient within 2e-4 of the CPU's plain autograd; a non-contiguous
+    cotangent is taken."""
+    rng = np.random.default_rng(5)
+    args = _scan_inputs(rng, 2, 150, 70, 16, dev)
+    ct = _rand(rng, (2, 70, 150), torch.float32, dev).transpose(1, 2)
+    ins = [t.clone().requires_grad_(True) for t in args]
+    before = kops.launch_counts()
+    y = kops.selective_scan(*ins)
+    got = torch.autograd.grad(y, ins, ct)
+    torch.cuda.synchronize()
+    after = kops.launch_counts()
+    assert after["selective_scan"] == before["selective_scan"] + 1
+    assert after["selective_scan_bwd"] == before["selective_scan_bwd"] + 1
+    cpu = [t.detach().cpu().requires_grad_(True) for t in args]
+    want = torch.autograd.grad(kref.selective_scan_ref(*cpu), cpu, ct.cpu())
+    assert max(_rel_err([g.cpu() for g in got], want)) <= 2e-4
+
+
 def test_selective_scan_refusals(dev):
     rng = np.random.default_rng(0)
     x, dt, bm, cm, a = _scan_inputs(rng, 1, 8, 16, 4, dev)
@@ -1562,7 +1623,8 @@ def test_gnn_on_card_matches_oracle(dev, strategy):
                                atol=2e-4)
 
 
-# -- training (the trainer runs plain PyTorch: no kernel of the nine) --
+# -- training (plain PyTorch, and B9 with its backward in the ssm and hybrid
+# stacks) --
 
 @pytest.fixture
 def no_tf32():
@@ -1576,7 +1638,8 @@ def no_tf32():
 
 
 @pytest.mark.parametrize("accum", [1, 2])
-@pytest.mark.parametrize("name", ["llama3-8b", "mixtral-8x22b"])
+@pytest.mark.parametrize("name", ["llama3-8b", "mixtral-8x22b",
+                                  "falcon-mamba-7b", "hymba-1.5b"])
 def test_train_step_on_card_matches_cpu(dev, no_tf32, name, accum):
     """One float32 train step of a reduced model on the card and on the
     CPU: loss, gradient norm and updated parameters within 1e-4."""
@@ -1607,7 +1670,8 @@ def test_train_step_on_card_matches_cpu(dev, no_tf32, name, accum):
                                    atol=1e-4)
 
 
-@pytest.mark.parametrize("name", ["llama3-8b", "mixtral-8x22b"])
+@pytest.mark.parametrize("name", ["llama3-8b", "mixtral-8x22b",
+                                  "falcon-mamba-7b", "hymba-1.5b"])
 def test_remat_on_card_is_bit_identical(dev, name):
     """bf16 activations on float32 master weights: remat full, dots and
     groups of 2 give the gradients of no remat, bit for bit."""
@@ -1677,13 +1741,22 @@ def test_bf16_embedding_backward_on_card_is_the_cpus(dev):
 
 
 def test_card_kernels_refuse_grad_on_card(dev):
+    """B8 refuses an input that requires grad on the card as on the CPU;
+    B9 gives it its gradient through the backward kernel."""
     q = torch.zeros((2, 4, 16), device=dev, requires_grad=True)
     kv = torch.zeros((2, 8, 2, 16), device=dev)
     lengths = torch.full((2,), 8, dtype=torch.int32, device=dev)
-    with pytest.raises(NotImplementedError, match="A18"):
+    with pytest.raises(NotImplementedError, match="serving kernel"):
         kops.decode_attention(q, kv, kv, lengths)
     x = torch.ones((1, 8, 4), device=dev, requires_grad=True)
     bm = torch.ones((1, 8, 3), device=dev)
-    with pytest.raises(NotImplementedError, match="A18"):
-        kops.selective_scan(x, x.detach(), bm, bm,
-                            -torch.ones((4, 3), device=dev))
+    a = -torch.ones((4, 3), device=dev)
+    before = kops.launch_counts()["selective_scan_bwd"]
+    got, = torch.autograd.grad(
+        kops.selective_scan(x, x.detach(), bm, bm, a).sum(), x)
+    torch.cuda.synchronize()
+    assert kops.launch_counts()["selective_scan_bwd"] == before + 1
+    xc = x.detach().cpu().requires_grad_(True)
+    want, = torch.autograd.grad(kref.selective_scan_ref(
+        xc, xc.detach(), bm.cpu(), bm.cpu(), a.cpu()).sum(), xc)
+    torch.testing.assert_close(got.cpu(), want, **MODEL_TOL)

@@ -156,26 +156,31 @@ def test_prefill_cross_and_decode_match_jax(name):
     assert int(tc["pos"]) == int(jc["pos"]) == s + gen
 
 
-@pytest.mark.parametrize("name", ["whisper-tiny", "llama-3.2-vision-90b"])
+@pytest.mark.parametrize("name", ["whisper-tiny", "llama-3.2-vision-90b",
+                                  "falcon-mamba-7b", "hymba-1.5b"])
 def test_loss_and_every_gradient_match_jax(name):
     """The encoder-decoder and the vision stack train through plain
-    attention, as the reference does; the frames' or image embeddings'
-    gradient too."""
+    attention, as the reference does, the frames' or image embeddings'
+    gradient too; the mamba and hybrid stacks through B9's backward (on
+    the CPU the plain backward) against ``jax.grad`` of the reference's
+    chunked associative scan."""
     cfg, jm, jp, tm, tp = _models(name)
     toks = _tokens(cfg, 2, 33)
     ctx = _context(cfg, 2)
     key = "frames" if cfg.is_encdec else "image_embeds"
 
     def jloss(p, c):
+        extra = None if c is None else {key: c}
         return jm.loss(p, jnp.asarray(toks[:, :-1]), jnp.asarray(toks[:, 1:]),
-                       extra={key: c}, chunk=16)
+                       extra=extra, chunk=16)
 
     want, (jg, jgc) = jax.value_and_grad(jloss, argnums=(0, 1))(
-        jp, jnp.asarray(ctx))
+        jp, None if ctx is None else jnp.asarray(ctx))
     leaves = TT.tree_map(lambda t: t.detach().requires_grad_(True), tp)
-    c = torch.from_numpy(ctx).requires_grad_(True)
+    c = None if ctx is None else torch.from_numpy(ctx).requires_grad_(True)
     got = tm.loss(leaves, torch.from_numpy(toks[:, :-1]),
-                  torch.from_numpy(toks[:, 1:]), extra={key: c}, chunk=16)
+                  torch.from_numpy(toks[:, 1:]),
+                  extra=None if c is None else {key: c}, chunk=16)
     got.backward()
     np.testing.assert_allclose(got.item(), float(want), **GRAD_TOL)
     g_leaves = TT.tree_leaves(TT.tree_map(lambda t: t.grad, leaves))
@@ -183,7 +188,9 @@ def test_loss_and_every_gradient_match_jax(name):
     assert len(g_leaves) == len(j_leaves)
     for g, w in zip(g_leaves, j_leaves):
         np.testing.assert_allclose(g.numpy(), w, **GRAD_TOL)
-    np.testing.assert_allclose(c.grad.numpy(), np.asarray(jgc), **GRAD_TOL)
+    if c is not None:
+        np.testing.assert_allclose(c.grad.numpy(), np.asarray(jgc),
+                                   **GRAD_TOL)
 
 
 @pytest.mark.parametrize("cached", [False, True])
@@ -291,20 +298,21 @@ def test_batch_demo_draws_the_context_then_the_prompt(name):
 def test_launch_train_on_the_cpu(name):
     """``launch.train`` feeds the encoder-decoder and the vision stack the
     reference's zero frames or image embeddings, a step at a time, and
-    the loss falls; the hybrid stays refused (A18)."""
+    the loss falls; the hybrid trains with no extra inputs, its mamba
+    head through B9's backward."""
     argv = ["--arch", name, "--reduced", "--device", "cpu", "--steps", "6",
             "--batch", "4", "--seq", "16", "--accum", "2", "--lr", "1e-2",
             "--warmup", "1", "--log-every", "5"]
-    if name == "hymba-1.5b":
-        with pytest.raises(NotImplementedError, match="A18"):
-            ltrain.main(argv)
-        return
     cfg = tregistry.get_config(name, reduced=True)
     tr = ltrain.setup(cfg, ltrain.parse_args(argv))
-    (key, ctx), = tr.extra.items()
-    assert key == ("frames" if cfg.is_encdec else "image_embeds")
-    assert tuple(ctx.shape) == (4, cfg.encoder_seq or cfg.num_image_tokens,
-                                cfg.d_model) and not bool(ctx.any())
+    if name == "hymba-1.5b":
+        assert tr.extra is None
+    else:
+        (key, ctx), = tr.extra.items()
+        assert key == ("frames" if cfg.is_encdec else "image_embeds")
+        assert tuple(ctx.shape) == (
+            4, cfg.encoder_seq or cfg.num_image_tokens, cfg.d_model) \
+            and not bool(ctx.any())
     hist = ltrain.main(argv)
     losses = [h["loss"] for h in hist]
     assert len(losses) == 6 and all(np.isfinite(losses))

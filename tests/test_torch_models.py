@@ -130,11 +130,12 @@ def test_layers_init_shapes_match_jax():
 
 def test_training_attention_is_refused():
     """The training attention is ported (tests/test_torch_train.py); what
-    stays refused is training through the card's decode-attention kernel,
-    which has no backward (ROADMAP A18)."""
+    stays refused is a gradient through the card's decode-attention
+    kernel B8, a serving kernel with no backward (the reference never
+    differentiates one-token decode)."""
     q = torch.zeros((2, 4, 16), requires_grad=True)
     kv = torch.zeros((2, 8, 2, 16))
-    with pytest.raises(NotImplementedError, match="A18"):
+    with pytest.raises(NotImplementedError, match="serving kernel"):
         tops.decode_attention(q, kv, kv, torch.full((2,), 8,
                                                     dtype=torch.int32))
 
@@ -335,7 +336,8 @@ def test_windowed_decode_and_attention_training_are_refused():
     (``tests/test_torch_window.py`` holds every case); the training
     forward of attention stacks is ported (tests/test_torch_train.py), and
     what stays refused is a decode step with weights that require grad,
-    whose attention kernel (B8) has no backward (A18); a MoE decode hook
+    whose attention kernel (B8) is a serving kernel with no backward; a
+    MoE decode hook
     (A10) is a no-op on a stack without a MoE FFN."""
     cfg = dataclasses.replace(llama_cfg(), swa_window=8)
     jm, jp, tm, params = models(cfg)
@@ -350,7 +352,7 @@ def test_windowed_decode_and_attention_training_are_refused():
     tm = Model(llama_cfg(), RunCtx(act_dtype=torch.float32), device="cpu")
     grad_params = tree_map(lambda t: t.detach().requires_grad_(True),
                            tm.init_params(torch.Generator().manual_seed(0)))
-    with pytest.raises(NotImplementedError, match="A18"):
+    with pytest.raises(NotImplementedError, match="serving kernel"):
         tm.decode_step(grad_params, tm.init_cache(1, 4), tok)
     hooked = Model(llama_cfg(), RunCtx(act_dtype=torch.float32,
                                        moe_step=lambda p, h: h),

@@ -3,9 +3,10 @@ the attention schedules (dense, flash at chunked shapes, banded
 sliding-window) and the dispatcher's pick, ``Model.hidden``/``forward``/
 ``loss`` with the gradient of every leaf for reduced llama3-8b,
 granite-20b, qwen2.5-32b (``qkv_bias``) and mixtral-8x22b (moe), the
-remat policies bit for bit against no remat, the refusals on the way to
-training (ssm through B9, the other families, the card kernels given an
-input that requires grad), and the plain fold's gradient.
+remat policies bit for bit against no remat (falcon-mamba-7b and
+hymba-1.5b too), every family's train step, B9's gradients in grad mode
+and B8's refusal of an input that requires grad, and the plain fold's
+gradient.
 
 Both sides get the same numpy inputs made from a seed and the same master
 weights (the reference's ``init_params`` carried across by
@@ -243,7 +244,8 @@ def _loss_and_grads(name, **ctx):
     return loss.detach(), [t.grad for t in TT.tree_leaves(leaves)]
 
 
-@pytest.mark.parametrize("name", ["llama3-8b", "mixtral-8x22b"])
+@pytest.mark.parametrize("name", ["llama3-8b", "mixtral-8x22b",
+                                  "falcon-mamba-7b", "hymba-1.5b"])
 @pytest.mark.parametrize("ctx", [
     dict(remat="full"), dict(remat="dots"),
     dict(remat="full", remat_groups=2), dict(remat="dots", remat_groups=2),
@@ -288,29 +290,34 @@ def test_master_params_cast_at_use_and_serving_stays_stored():
 # -- refusals on the way to training --
 
 def test_card_kernels_refuse_inputs_that_require_grad():
-    """B9 and B8 launch through ctypes and leave no autograd graph: an
-    input that requires grad raises (naming ROADMAP A18) instead of losing
-    its gradient; without grad mode they run."""
+    """B9 in grad mode goes through its backward: with any of its five
+    inputs requiring grad, the gradients are the plain autograd's through
+    the plain recurrence.  B8 is a serving kernel with no backward: an
+    input that requires grad raises (it would lose its gradient without a
+    word); without grad mode both run."""
     rng = np.random.default_rng(9)
     x, dt = (torch.from_numpy(rng.random((1, 8, 4), np.float32))
              for _ in range(2))
     bm, cm = (torch.from_numpy(rng.random((1, 8, 3), np.float32))
               for _ in range(2))
     a = -torch.ones((4, 3))
+    dy = torch.from_numpy(rng.standard_normal((1, 8, 4)).astype(np.float32))
     q = torch.zeros((2, 4, 16))
     kv = torch.zeros((2, 8, 2, 16))
     lengths = torch.full((2,), 8, dtype=torch.int32)
     for i in range(5):
         args = [x, dt, bm, cm, a]
         args[i] = args[i].clone().requires_grad_(True)
-        with pytest.raises(NotImplementedError, match="A18"):
-            tops.selective_scan(*args)
+        got = torch.autograd.grad(tops.selective_scan(*args), args[i], dy)
+        want = torch.autograd.grad(tref.selective_scan_ref(*args), args[i],
+                                   dy)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
         with torch.no_grad():
             tops.selective_scan(*args)
     for i in range(3):
         args = [q, kv, kv]
         args[i] = args[i].clone().requires_grad_(True)
-        with pytest.raises(NotImplementedError, match="A18"):
+        with pytest.raises(NotImplementedError, match="serving kernel"):
             tops.decode_attention(*args, lengths)
         with torch.no_grad():
             tops.decode_attention(*args, lengths)
@@ -320,32 +327,29 @@ def test_card_kernels_refuse_inputs_that_require_grad():
     ("falcon-mamba-7b", "A18"), ("hymba-1.5b", "A11"),
     ("whisper-tiny", "A11"), ("llama-3.2-vision-90b", "A11")])
 def test_untrainable_families_raise_in_loss_and_train_step(name, item):
-    """``item`` is the ROADMAP item that took the family to the port.  The
-    ssm family, and the hybrid one ported with A11, run their recurrence
-    through B9, which has no backward: both stay refused naming A18, in
-    the train step, the loss and a forward with gradients.  A11's
-    encoder-decoder and vision stacks train through plain attention, as
-    the reference does: their train step builds and runs
-    (``tests/test_torch_families.py`` holds their gradients against
+    """``item`` is the ROADMAP item that took the family to the port; no
+    family is refused any more.  The ssm and hybrid stacks run their
+    recurrence through B9 and its backward (A18); A11's encoder-decoder
+    and vision stacks train through plain attention, as the reference
+    does.  The train step builds and runs, the loss and a forward with
+    gradients too (``tests/test_torch_families.py`` and
+    ``tests/test_torch_ssm_train.py`` hold the gradients against
     ``jax.grad``)."""
     cfg = tregistry.get_config(name, reduced=True)
+    assert item == ("A18" if cfg.family == "ssm" else "A11")
     opt = AdamW()
     tm = Model(cfg, RunCtx(act_dtype=torch.float32), device="cpu")
     tp = tm.init_params(torch.Generator().manual_seed(0), master=True)
     toks = torch.zeros((2, 8), dtype=torch.int64)
-    if cfg.family in ("ssm", "hybrid"):
-        with pytest.raises(NotImplementedError, match="A18"):
-            tsteps.build_train_step(Model(cfg, device="cpu"), opt)
-        with pytest.raises(NotImplementedError, match="A18"):
-            tm.loss(tp, toks, toks)
-        # the forward with gradients reaches B9's refusal too
-        with pytest.raises(NotImplementedError, match="A18"):
-            tm.hidden(_grad_leaves(tp), toks)
-        return
-    assert item == "A11"
+    extra = None
     t = cfg.encoder_seq or cfg.num_image_tokens
-    extra = {"frames" if cfg.is_encdec else "image_embeds":
-             torch.zeros((2, t, cfg.d_model))}
+    if t:
+        extra = {"frames" if cfg.is_encdec else "image_embeds":
+                 torch.zeros((2, t, cfg.d_model))}
+    else:
+        loss = tm.loss(_grad_leaves(tp), toks, toks)
+        assert loss.requires_grad and bool(torch.isfinite(loss))
+        assert tm.hidden(_grad_leaves(tp), toks).requires_grad
     step = tsteps.build_train_step(tm, opt, accum_steps=2)
     _, _, metrics = step(tp, opt.init(tp), (toks, toks), extra)
     assert bool(torch.isfinite(metrics["loss"])) and \

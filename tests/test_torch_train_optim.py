@@ -3,11 +3,11 @@ against the JAX reference on the CPU.
 
 AdamW over 5 steps (with and without ``clip_norm``, ``mixed_precision``
 both ways, weight decay) and the schedules: parameters, moments and
-``gnorm`` within 1e-6.  One ``build_train_step`` step of reduced llama3-8b
-and mixtral-8x22b at ``accum_steps`` 1 and 4: loss, ``grad_norm``, the
-updated parameters and moments within 1e-5 (with AdamW's ``eps`` above
-the gradients' scale: the test's docstring says why).  ``SyntheticLM.batch_at`` bit for bit;
-``model_flops`` equal; ``StragglerWatch`` and ``retrying`` behaving as the
+``gnorm`` within 1e-6.  One ``build_train_step`` step of reduced llama3-8b,
+mixtral-8x22b, falcon-mamba-7b and hymba-1.5b at ``accum_steps`` 1 and 4:
+loss, ``grad_norm``, the updated parameters and moments within 1e-5 (with
+AdamW's ``eps`` above the gradients' scale: the test's docstring says
+why).  ``SyntheticLM.batch_at`` bit for bit; ``model_flops`` equal; ``StragglerWatch`` and ``retrying`` behaving as the
 reference's.  Float32 throughout (the mixed-precision compute copy is
 bfloat16 on both sides).
 """
@@ -137,7 +137,8 @@ def _step_models(name):
     return cfg, jm, tm
 
 
-@pytest.mark.parametrize("name", ["llama3-8b", "mixtral-8x22b"])
+@pytest.mark.parametrize("name", ["llama3-8b", "mixtral-8x22b",
+                                  "falcon-mamba-7b", "hymba-1.5b"])
 @pytest.mark.parametrize("accum", [1, 4])
 def test_train_step_matches_jax(name, accum):
     """One step of each package on the same weights and batch.
