@@ -361,8 +361,9 @@ SOURCE = {
                        "src/repro/kernels/selective_scan.py:71"),
     # the reference differentiates its chunked associative scan with
     # jax.grad: no Pallas kernel, the backward of the scan at ssm.py:67
-    "selective_scan_bwd": ("src/repro_torch/kernels/csrc/selective_scan.cu",
-                           "src/repro/models/ssm.py:67"),
+    "selective_scan_bwd": (
+        "src/repro_torch/kernels/csrc/selective_scan_bwd.cu",
+        "src/repro/models/ssm.py:67"),
 }
 FORWARD_KERNELS = ("pack_gather", "unpack_scatter_set", "unpack_dest",
                    "ellpack_spmv_windowed")
@@ -2986,9 +2987,10 @@ def scan_bwd_line(torch, name, args, held_out, fwd_args, fwd_out):
     gradients in that step): against the plain backward on the card,
     every gradient within SCAN_BWD_TOL of its largest element; two more
     launches bit for bit with the step's; ms, the plain backward's ms
-    (once), the bound and what sets it; no single PyTorch call computes
-    the scan's gradient.  Beside it the checkpointing forward on the
-    step's first forward call (``fwd_args``, ``fwd_out``; scan_ckpt_check)."""
+    (once), the bound and what sets it, the kernel's block and the bytes
+    of its dB/dC partials; no single PyTorch call computes the scan's
+    gradient.  Beside it the checkpointing forward on the step's
+    first forward call (``fwd_args``, ``fwd_out``; scan_ckpt_check)."""
     from repro_torch.kernels import ref as kref
     from repro_torch.kernels import selective_scan as b9
     ckpt = scan_ckpt_check(torch, name, fwd_args, fwd_out)
@@ -3022,6 +3024,8 @@ def scan_bwd_line(torch, name, args, held_out, fwd_args, fwd_out):
         "bound_ms": res["bound"][0], "bound_by": res["bound"][1],
         "rel_err_by_grad": dict(zip(("dx", "ddt", "dB", "dC", "dA"), rel)),
         "bit_identical_repeat": same,
+        "layout": {"threads": 256, "partials_bytes": 4 * 2 * b * l * st
+                   * b9.bwd_partials(di, st)},
         "shape": f"x/dt/dy ({b}, {l}, {di}) f32, B/C ({b}, {l}, {st}), "
                  f"checkpoints {hck if hck is None else tuple(hck.shape)}",
         "max_abs_err_is": "relative to each gradient's largest element"})

@@ -64,7 +64,8 @@ _SIGNATURES = {
     "rt_selective_scan_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "rt_selective_scan_ckpt_f32": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                    _I, _P),
-    "rt_selective_scan_bwd_f32": (_P,) * 15 + (_I,) * 5 + (_P,),
+    "rt_selective_scan_bwd_f32": (_P,) * 15 + (_I,) * 4 + (_P,),
+    "rt_selective_scan_bwd_occupancy": (_I,) * 3 + (_P,),
 }
 
 _lib = None
@@ -94,8 +95,10 @@ def _sources() -> list[pathlib.Path]:
 
 
 def _digest(srcs) -> str:
+    """The sources', their directories' headers' and the flags' hash."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    headers = sorted({c for s in srcs for c in s.parent.glob("*.cuh")})
+    for s in [*srcs, *headers]:
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return h.hexdigest()[:16]

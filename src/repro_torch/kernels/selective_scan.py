@@ -1,7 +1,8 @@
 """The mamba-1 selective scan (the recurrence inside ``models.ssm``) and
 its gradient.
 
-Wrapper of the CUDA kernels in ``csrc/selective_scan.cu``: the forward
+Wrapper of the CUDA kernels in ``csrc/selective_scan.cu`` (the forward)
+and ``csrc/selective_scan_bwd.cu`` (the backward): the forward
 replaces the Pallas kernel ``selective_scan`` of
 ``repro/kernels/selective_scan.py``, the backward replaces what the
 reference gets from ``jax.grad`` of its chunked associative scan
@@ -28,12 +29,13 @@ from repro_torch.kernels.pack_gather import on_card, require
 
 __all__ = ["selective_scan", "selective_scan_ckpt", "selective_scan_bwd",
            "selective_scan_train", "CKPT_STEPS", "lanes_per_channel",
-           "bwd_blocks"]
+           "bwd_partials"]
 
-# csrc/selective_scan.cu's kCkptSteps, kSpt and kThreads
+# csrc/selective_scan_common.cuh's kCkptSteps and kSpt, and the backward's
+# block (csrc/selective_scan_bwd.cu's kThreads)
 CKPT_STEPS = 128
 _SPT = 4
-_THREADS = 128
+_BWD_THREADS = 256
 
 
 def lanes_per_channel(st: int) -> int:
@@ -42,10 +44,10 @@ def lanes_per_channel(st: int) -> int:
     return 1 << max(0, math.ceil(math.log2(-(-st // _SPT))))
 
 
-def bwd_blocks(di: int, st: int) -> int:
-    """Channel blocks of the backward kernel (each sums dB and dC over its
-    channels into one partial)."""
-    return -(-di // (_THREADS // lanes_per_channel(st)))
+def bwd_partials(di: int, st: int) -> int:
+    """dB/dC partials a lane of the backward kernel leaves: one a block of
+    ``256 / lanes_per_channel(st)`` channels."""
+    return -(-di // (_BWD_THREADS // lanes_per_channel(st)))
 
 
 def _shapes(x, dt, bmat, cmat, a):
@@ -126,7 +128,7 @@ def selective_scan_bwd(x, dt, bmat, cmat, a, hck, dy):
             and tuple(hck.shape) == (bsz, -(-l // CKPT_STEPS), di, st)
             and hck.device == x.device and hck.is_contiguous(),
             None if hck is None else hck.shape)
-    nblk = bwd_blocks(di, st)
+    nblk = bwd_partials(di, st)
     dx, ddt = torch.empty_like(x), torch.empty_like(x)
     db, dc = torch.empty_like(bmat), torch.empty_like(cmat)
     da = torch.empty_like(a)
@@ -139,7 +141,7 @@ def selective_scan_bwd(x, dt, bmat, cmat, a, hck, dy):
                   dy.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
                   db.data_ptr(), dc.data_ptr(), da.data_ptr(),
                   pb[0].data_ptr(), pb[1].data_ptr(), pa.data_ptr(), bsz, l,
-                  di, st, nblk)
+                  di, st)
     return dx, ddt, db, dc, da
 
 

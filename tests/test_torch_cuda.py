@@ -1331,17 +1331,21 @@ def _rel_err(got, want):
     (1, 1, 1, 1, 1.0), (1, 7, 3, 5, 1.0), (1, 33, 136, 4, 1.0),
     (2, 129, 24, 8, 1.0), (1, 300, 40, 16, 1.0), (1, 257, 45, 32, 1.0),
     (2, 200, 16, 16, 200.0), (2, 4096, 3200, 16, 1.0),
-    (2, 4096, 8192, 16, 1.0)],
+    (2, 4096, 8192, 16, 1.0), (2, 257, 300, 16, 1.0),
+    (1, 20, 4500, 32, 1.0), (1, 9, 34000, 4, 1.0)],
     ids=["one", "tiny", "st4", "st8", "segments", "st32", "underflow",
-         "hymba", "falcon"])
+         "hymba", "falcon", "part_di300", "narrow_st32", "narrow_st4"])
 def test_selective_scan_bwd_matches_plain(dev, b, l, di, st, scale):
     """The backward kernel against the plain backward, each gradient within
     2e-4 of its largest element: ragged L against the 128-step
     checkpoints and 8-step sub-chunks, channels that leave a block
-    part-empty, st 1 to 32, a carry that underflows, and the shapes of
+    part-empty, st 1 to 32, a carry that underflows, the shapes of
     falcon-mamba-7b's and hymba-1.5b's train microbatch (B 2, L 4096, di
-    8192 and 3200, st 16).  The checkpointing forward's y is the serving
-    kernel's bit for bit, and a second backward gives the same bits."""
+    8192 and 3200, st 16), and grids past one block an SM at st 32 and 4
+    (which the narrow build takes where the wide one fits one block an
+    SM; small grids take the wide one).  The checkpointing
+    forward's y is the serving kernel's bit for bit, and a second
+    backward gives the same bits."""
     from repro_torch.kernels import selective_scan as b9
 
     rng = np.random.default_rng(l + di)

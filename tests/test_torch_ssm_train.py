@@ -6,9 +6,10 @@ another) against ``jax.vjp`` of the reference oracle
 ``repro.kernels.ref.selective_scan_ref`` and against ``torch.autograd``
 through the port's plain scan, at 1e-5: the same float32 operations summed
 in other orders.  A torch model of the card's backward kernel
-(``csrc/selective_scan.cu``: checkpoints every 128 steps, the segments
+(``csrc/selective_scan_bwd.cu``: checkpoints every 128 steps, the segments
 last first, sub-checkpoints every 8 steps, the reverse walk, dB and dC
-summed per channel block into partials reduced in block order, dA per
+summed by a butterfly over a warp's channels, then over the block's warps
+in order into one partial a block, the partials reduced in order, dA per
 lane) against the plain backward at 2e-4 of each gradient's largest
 element, the card's tolerance (the model decays by ``exp2`` of a
 pre-scaled rate, as the kernel does).  ``ssm_fwd``'s gradients against
@@ -35,7 +36,7 @@ from repro_torch.convert import model_params_from_reference
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels import selective_scan as b9
-from repro_torch.kernels.selective_scan import (CKPT_STEPS, bwd_blocks,
+from repro_torch.kernels.selective_scan import (CKPT_STEPS, bwd_partials,
                                                 lanes_per_channel)
 from repro_torch.models import ssm as TS
 from repro_torch.models import transformer as TT
@@ -43,6 +44,7 @@ from repro_torch.models import transformer as TT
 REF_TOL = dict(rtol=1e-5, atol=1e-5)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
 CARD_TOL = 2e-4            # of each gradient's largest element
+BWD_THREADS = 256          # the backward kernel's block
 KEY = jax.random.PRNGKey(0)
 SHAPES = [(2, 129, 16, 16), (1, 127, 8, 16), (2, 65, 8, 5), (1, 40, 8, 32),
           (1, 33, 8, 1)]
@@ -127,23 +129,28 @@ def _lane_sum(parts):
 
 
 def _scan_bwd_model(x, dt, bm, cm, a, dy, sub=8):
-    """csrc/selective_scan.cu's backward in float32 torch.  The
+    """csrc/selective_scan_bwd.cu's backward in float32 torch.  The
     checkpointing forward writes h entering every CKPT_STEPS-th step; the
     backward takes the segments last first: from the segment's checkpoint
     forward, h entering every ``sub``-th step (pass 1); then the
     sub-chunks last first, each rebuilt from its sub-checkpoint with its
     decays, and walked in reverse with ``q = exp(dt[t+1] a) g[t+1]``
     carried across sub-chunks and segments.  States are padded to the
-    lanes' width (a = B = C = 0), channels to whole blocks and steps to
-    whole segments (zeros: dt = 0 keeps h); a sub-chunk wholly past L is
-    skipped.  dx and ddt: each lane's 4 states summed in order, times dt
-    (dx), then the lanes' butterfly; dB and dC: each block's channels
-    summed into a partial (B, nblk, L, st), the partials summed in block
-    order; dA summed per lane over its steps, then over the lanes."""
+    lanes' width (a = B = C = 0), channels to whole blocks of 256 threads
+    and steps to whole segments (zeros: dt = 0 keeps h); a sub-chunk wholly
+    past L is skipped.  dx and ddt: each lane's 4 states summed in order
+    (``sx = Σ g B``, ``sa = Σ g·exp(dt a)h·a``; dx = sx·dt, ddt = x·sx +
+    sa), then the lanes' butterfly.  dB and dC of a step: the warp's
+    channels summed by the butterfly over their lane bits (highest first),
+    the block's warps in order into its partial (B, nblk, L, st), the
+    partials in order.  dA summed per lane over its steps, then over the
+    lanes."""
     bsz, l, di = x.shape
     st = bm.shape[2]
     tpc = lanes_per_channel(st)
-    w, kc, nblk = 4 * tpc, 128 // tpc, bwd_blocks(di, st)
+    w, kc = 4 * tpc, BWD_THREADS // tpc
+    warps, cpw = BWD_THREADS // 32, 32 // tpc
+    nblk = bwd_partials(di, st)
     dip, nseg = nblk * kc, -(-l // CKPT_STEPS)
     lp = nseg * CKPT_STEPS
     pad_bc = lambda t: torch.nn.functional.pad(  # noqa: E731
@@ -161,6 +168,17 @@ def _scan_bwd_model(x, dt, bm, cm, a, dy, sub=8):
     def step(h, t, da):
         return da * h + (dt[:, t] * x[:, t])[..., None] * bm[:, t, None, :]
 
+    def fold(v, dim):                         # in order along dim
+        acc = v.select(dim, 0)
+        for i in range(1, v.shape[dim]):
+            acc = acc + v.select(dim, i)
+        return acc
+
+    def channel_sum(v):                       # (B, dip, w) -> (B, nblk, w)
+        v = v.reshape(bsz, nblk, warps, cpw, w)
+        v = _lane_sum(v.permute(3, 0, 1, 2, 4))        # the warp's butterfly
+        return fold(v, 2)                              # then the warps
+
     h, hck = torch.zeros((bsz, dip, w)), []
     for t in range(lp):
         if t % CKPT_STEPS == 0:
@@ -170,9 +188,8 @@ def _scan_bwd_model(x, dt, bm, cm, a, dy, sub=8):
     part = torch.zeros((2, bsz, nblk, lp, w))
     q, dacc = torch.zeros((bsz, dip, w)), torch.zeros((bsz, dip, w))
 
-    def lanes(v):                             # (B, dip, w) -> (B, dip)
-        return _lane_sum(v.reshape(bsz, dip, tpc, 4).sum(-1).permute(
-            2, 0, 1))
+    def lanes(v):                             # (B, dip, w) -> (B, dip, tpc)
+        return v.reshape(bsz, dip, tpc, 4).sum(-1)
 
     for seg in range(nseg - 1, -1, -1):
         s0, h, subs = seg * CKPT_STEPS, hck[seg], []
@@ -191,27 +208,20 @@ def _scan_bwd_model(x, dt, bm, cm, a, dy, sub=8):
             for k in range(sub - 1, -1, -1):
                 t = tu + k
                 g = dy[:, t, :, None] * cm[:, t, None, :] + q
-                dh = das[k] * hs[k]
-                dx[:, t] = lanes(g * bm[:, t, None, :]
-                                 * dt[:, t, :, None])
-                ddt[:, t] = lanes(g * (av * dh + x[:, t, :, None]
-                                       * bm[:, t, None, :]))
-                dacc += g * dt[:, t, :, None] * dh
-                gb = g * (dt[:, t] * x[:, t])[..., None]
-                hc = dy[:, t, :, None] * hs[k + 1]
-                for i, v in enumerate((gb, hc)):
-                    blocks = v.reshape(bsz, nblk, kc, w)
-                    acc = blocks[:, :, 0]
-                    for cc in range(1, kc):
-                        acc = acc + blocks[:, :, cc]
-                    part[i, :, :, t] = acc
+                e = g * (das[k] * hs[k])
+                sx = lanes(g * bm[:, t, None, :])
+                sa = lanes(e * av)
+                dx[:, t] = _lane_sum((sx * dt[:, t, :, None]).permute(
+                    2, 0, 1))
+                ddt[:, t] = _lane_sum((x[:, t, :, None] * sx + sa).permute(
+                    2, 0, 1))
+                dacc += e * dt[:, t, :, None]
+                part[0, :, :, t] = channel_sum(
+                    g * (dt[:, t] * x[:, t])[..., None])
+                part[1, :, :, t] = channel_sum(dy[:, t, :, None] * hs[k + 1])
                 q = das[k] * g
-    sums = part[:, :, 0]
-    for blk in range(1, nblk):
-        sums = sums + part[:, :, blk]
-    da = dacc[0]
-    for b in range(1, bsz):
-        da = da + dacc[b]
+    sums = fold(part, 2)
+    da = fold(dacc, 0)
     return (dx[:, :l, :di], ddt[:, :l, :di], sums[0, :, :l, :st],
             sums[1, :, :l, :st], da[:di, :st])
 
@@ -220,13 +230,41 @@ def _scan_bwd_model(x, dt, bm, cm, a, dy, sub=8):
     (2, 300, 40, 16), (1, 256, 136, 4), (1, 129, 24, 8), (2, 7, 3, 16)])
 def test_backward_model_matches_the_plain_backward(b, l, di, st):
     """L inside one segment, across segment edges (129, 256, 300),
-    channels that leave a block part-empty (40 at 32 a block, 136 at 128),
+    channels that leave a block part-empty (40 at 8 a block, 136 at 32),
     st from 1 to 32, B 1 and 2."""
     args = [torch.from_numpy(t) for t in _scan_inputs(b, l, di, st, l + di)]
     got = _scan_bwd_model(*args)
     want = kref.selective_scan_bwd_ref(*args)
     _rel_close([g.numpy() for g in got], [w.numpy() for w in want],
                CARD_TOL)
+
+
+@pytest.mark.parametrize("b,l,di,st", [
+    (1, 140, 40, 16), (2, 130, 300, 16), (1, 150, 136, 4),
+    (1, 129, 300, 32), (2, 72, 70, 16), (1, 135, 136, 8)],
+    ids=["di40", "di300", "di136_st4", "di300_st32", "di70", "di136_st8"])
+def test_backward_model_partial_blocks(b, l, di, st):
+    """Channels that leave the last block part-empty (its padding channels
+    add zeros), at st 4 to 32 (256 to 32 channels a block), against the
+    plain backward."""
+    assert di % (BWD_THREADS // lanes_per_channel(st)) != 0
+    args = [torch.from_numpy(t) for t in _scan_inputs(b, l, di, st, di)]
+    got = _scan_bwd_model(*args)
+    want = kref.selective_scan_bwd_ref(*args)
+    _rel_close([g.numpy() for g in got], [w.numpy() for w in want],
+               CARD_TOL)
+
+
+def test_backward_partials_one_a_block():
+    """One dB/dC partial a block of 256 threads: 64 channels at st 16
+    (falcon-mamba-7b's d_inner 8192, hymba-1.5b's 3200), 256 at st 4, 32
+    at st 32."""
+    assert bwd_partials(8192, 16) == 128
+    assert bwd_partials(3200, 16) == 50
+    assert bwd_partials(40, 16) == 1
+    assert bwd_partials(136, 4) == 1
+    assert bwd_partials(300, 32) == 10
+    assert bwd_partials(136, 8) == 2
 
 
 def test_backward_model_carry_underflows():

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time B8 (decode_attention) and B9 (selective_scan) on one NVIDIA GPU over
-their launch layouts, at the shapes chip_smoke.py gives them.
+"""Time B8 (decode_attention), B9 (selective_scan) and B9's backward on one
+NVIDIA GPU over their launch layouts, at the shapes chip_smoke.py gives
+them.
 
-    python3 tools/lm_kernel_bench.py [--src DIR] [--only b8|b9]
+    python3 tools/lm_kernel_bench.py [--src DIR] [--only b8|b9|b9bwd]
 
 ``--src`` names the ``src`` directory of the checkout whose kernels are
 timed (default: this checkout's).  A checkout whose wrappers lack the
@@ -22,7 +23,18 @@ limit:
   the device time of each launched kernel (torch.profiler), the bound,
   and SDPA's ms;
 - ``b9``: one falcon-mamba-7b layer at L = 32768 (di 8192, st 16), held
-  against the plain recurrence at 2e-4.
+  against the plain recurrence at 2e-4;
+- ``b9bwd``: B9's backward (``selective_scan_bwd``) at the train
+  microbatches of falcon-mamba-7b and hymba-1.5b (B 2, L 4096, st 16, di
+  8192 and 3200), on inputs from the seed: every gradient within 2e-4 of
+  the plain backward's largest element and a second launch bit for bit,
+  then device ms beside the bound (chip_smoke.scan_bwd_bound) and, where
+  the checkout's library reports it (``rt_selective_scan_bwd_occupancy``),
+  a block's shared memory, resident blocks and warps an SM and whether the
+  wide-register build or the narrow one launched; the build line carries
+  ptxas's registers of each backward instantiation.  ``--src`` of an
+  older checkout times its backward in the same call, so two designs
+  compare on one card.
 
 Every layout is held against the plain version before it is timed.
 """
@@ -36,7 +48,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
-    ap.add_argument("--only", choices=("b8", "b9"),
+    ap.add_argument("--only", choices=("b8", "b9", "b9bwd"),
                     help="time one kernel only")
     args = ap.parse_args()
     import torch
@@ -61,7 +73,7 @@ def main() -> None:
     dev = torch.device("cuda")
 
     shapes = (("serve", 2080, 1025), ("32k", 32768, 16385))
-    for shape, s, lo in shapes if args.only != "b9" else ():
+    for shape, s, lo in shapes if args.only in (None, "b8") else ():
         q, k, v, lengths, sdpa, bnd = cs.decode_inputs(torch, dev, s, lo)
         want = kref.decode_attention_ref(q.float(), k, v, lengths)
         plans = [{}]
@@ -92,18 +104,75 @@ def main() -> None:
         del q, k, v, want
         torch.cuda.empty_cache()
 
-    if args.only == "b8":
-        return
-    x = cs.scan_inputs(torch, dev, cs.SSM_L)
-    want = kref.selective_scan_ref(*x)
-    got = kops.selective_scan(*x)
-    emit({"bench": "b9", "src": src,
-          "max_abs_err": float((got - want).abs().max()),
-          "ok": bool(torch.allclose(got, want, **cs.MODEL_TOL)),
-          "ms": cs.cuda_ms(torch, lambda: kops.selective_scan(*x)),
-          "kernels": cs.kernel_split(
-              torch, lambda: kops.selective_scan(*x), iters=3),
-          "card": card})
+    if args.only in (None, "b9"):
+        x = cs.scan_inputs(torch, dev, cs.SSM_L)
+        want = kref.selective_scan_ref(*x)
+        got = kops.selective_scan(*x)
+        emit({"bench": "b9", "src": src,
+              "max_abs_err": float((got - want).abs().max()),
+              "ok": bool(torch.allclose(got, want, **cs.MODEL_TOL)),
+              "ms": cs.cuda_ms(torch, lambda: kops.selective_scan(*x)),
+              "kernels": cs.kernel_split(
+                  torch, lambda: kops.selective_scan(*x), iters=3),
+              "card": card})
+        del x, want, got
+        torch.cuda.empty_cache()
+    if args.only in (None, "b9bwd"):
+        b9_bwd(torch, cs, card, src, _build.load())
+
+
+def b9_bwd(torch, cs, card, src, lib) -> None:
+    """The ``b9bwd`` lines (see the module's docstring)."""
+    import ctypes
+
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels import selective_scan as b9
+
+    def occupancy(b, di, st):
+        if not hasattr(lib, "rt_selective_scan_bwd_occupancy"):
+            return None
+        out = (ctypes.c_int * 3)()
+        status = lib.rt_selective_scan_bwd_occupancy(
+            b, di, st, ctypes.cast(out, ctypes.c_void_p))
+        return None if status else {"smem_bytes": out[0],
+                                    "blocks_per_sm": out[1],
+                                    "warps_per_sm": out[1] * 256 // 32,
+                                    "wide_registers": bool(out[2])}
+
+    dev = torch.device("cuda")
+    b, l, st = 2, 4096, 16
+    for shape, di in (("falcon", 8192), ("hymba", 3200)):
+        gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+        x = torch.randn((b, l, di), generator=gen, device=dev) * 0.3
+        dt = torch.nn.functional.softplus(torch.randn(
+            (b, l, di), generator=gen, device=dev))
+        bm = torch.randn((b, l, st), generator=gen, device=dev) * 0.5
+        cm = torch.randn((b, l, st), generator=gen, device=dev) * 0.5
+        a = -torch.exp(torch.randn((di, st), generator=gen, device=dev)
+                       * 0.3)
+        dy = torch.randn((b, l, di), generator=gen, device=dev)
+        _, hck = b9.selective_scan_ckpt(x, dt, bm, cm, a)
+        want = kref.selective_scan_bwd_ref(x, dt, bm, cm, a, dy)
+        args = (x, dt, bm, cm, a, hck, dy)
+        got = b9.selective_scan_bwd(*args)
+        again = b9.selective_scan_bwd(*args)
+        torch.cuda.synchronize()
+        same = all(torch.equal(g, h) for g, h in zip(got, again))
+        rel = [float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+               for g, w in zip(got, want)]
+        del got, again
+        ms = cs.cuda_ms(torch, lambda: b9.selective_scan_bwd(*args),
+                        warmup=2, iters=10)
+        bnd = cs.scan_bwd_bound(b, l, di, st)
+        cs.emit({"bench": "b9bwd", "src": src, "shape": shape,
+                 "b_l_di_st": [b, l, di, st],
+                 "occupancy": occupancy(b, di, st),
+                 "ok": same and max(rel) <= cs.SCAN_BWD_TOL,
+                 "bit_identical_repeat": same, "rel_err": max(rel),
+                 "ms": ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+                 "card": card})
+        del x, dt, bm, cm, a, dy, hck, want, args
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":
