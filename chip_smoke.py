@@ -114,11 +114,28 @@ each:
    moe_fwd's; B8 at group 6 against its plain version at 2e-4 (a kernel
    line of its own, beside SDPA and its bound); and model_rows pricing the
    dispatch and combine with the decode floors (eqs. 12δ-15δ);
-15. gnn: GNNNeighborAggregate over LoopbackComm(8) on a Zipf(1.1) graph of
+15. dynamic_exchange: per-batch patterns (DynamicPattern) through the
+   card's kernels over LoopbackComm(8): mixtral-8x22b's MoE dispatch and
+   combine (4096 tokens, 8 experts top-2, capacity 1280, d 6144 bf16) and a
+   scalar float32 edge-to-node scatter-add with its node-to-edge gather on
+   a Zipf(1.1) graph of 2^19 nodes and 16 neighbors, a new routing or
+   graph each of 4 batches, on the condensed and overlap rungs with
+   use_kernel=True and use_kernel=False on the same batches: the kernel
+   arm's batches after the first derive their tables (the segment and
+   tile tables included), gather and scatter under
+   torch.cuda.set_sync_debug_mode("error"); pack_gather, unpack_scatter_set
+   (through its tile order), accumulate_segments (twice) and
+   accumulate_into launch every step and no plain version runs; outputs
+   equal the plain arm's bit for bit (the gather's n rows; the float32
+   scatter against the plain arm on the CPU); ms a step of both arms, its
+   derivation, gather and scatter, the busy share, and the four kernels on
+   one batch's derived tables against their plain versions with ms,
+   library ms and bound (kernel lines <kernel>_dyn_moe, _dyn_gnn);
+16. gnn: GNNNeighborAggregate over LoopbackComm(8) on a Zipf(1.1) graph of
    2^19 nodes, 16 neighbors, 64 float32 features, on the condensed rung
    and under auto, each against gnn_ref_np (rtol/atol 2e-4), timed, with
    its busy share and a model_row;
-16. train: llama3-8b at its published widths (d 4096, 32/8 heads of 128,
+17. train: llama3-8b at its published widths (d 4096, 32/8 heads of 128,
    d_ff 14336, vocab 128256), 8 of its 32 layers (2.80B parameters: their
    float32 master weights, gradients and two moments take ~45 GB),
    trained through launch.train (setup and its Trainer's step) at
@@ -143,10 +160,10 @@ each:
    than 0.3, then the run resumed from its step-15 checkpoint giving steps
    15-29's losses bit for bit.  The dense and MoE training paths launch no
    kernel (the reference trains through plain jnp);
-17. train_ssm: falcon-mamba-7b at its published widths (d 4096, d_inner
+18. train_ssm: falcon-mamba-7b at its published widths (d 4096, d_inner
    8192, state 16, dt rank 256, vocab 65024), 16 of its 64 layers (~2.2B
    parameters, ~36 GB at 16 B a parameter; 64 would need ~117 GB), trained
-   through launch.train as phase 16 (seq 4096, batch 8, accum 4, remat
+   through launch.train as phase 17 (seq 4096, batch 8, accum 4, remat
    full, bf16 over float32 master weights): 1 warm-up and 3 timed steps,
    one profiled step split by region (selective_scan for B9's forward,
    selective_scan_bwd for its backward kernel); B9's forward launched
@@ -185,7 +202,7 @@ outside CALIBRATION_RANGE, an auto pick is not the argmin of its own
 ranking, or an auto engine's output differs from the fixed-rung engine it
 resolved to (bit for bit; the forward dest rungs may hold to
 unpack_dest_spmv's 3e-5 instead). A model miss, even past its budget, is printed, never a failure.
-In phases 5 to 14 and 17 the kernel launch counters are zeroed just
+In phases 5 to 15 and 18 the kernel launch counters are zeroed just
 before the path runs and read just after, and every kernel of the path
 must have launched; in phases 5, 7 and 8 every launch of unpack_dest and
 unpack_scatter_set must have gone through its plan table (the counts by C
@@ -197,8 +214,9 @@ against their plain versions at 2e-4, each with the device time of every
 kernel it launches (torch.profiler) and ptxas's registers and spills.
 
 Then one line {"kernels": [...]} with all ten kernels' numbers (the nine
-TPU kernels' and B9's backward, whose launches are the train phases'), and
-last
+TPU kernels' and B9's backward, whose launches are the train phases') and,
+beside them, the four exchange kernels at phase 15's two shapes on derived
+tables (launches: that phase's kernel-arm run), and last
 {"ok": true, "device": {...}}.  Any failure exits non-zero before the last
 line; with no CUDA device, or outside a checkout of the repository, the
 script exits non-zero at once.
@@ -277,6 +295,25 @@ GNN_R = 16
 GNN_D = 64
 GNN_ALPHA = 1.1
 GNN_TOL = dict(rtol=2e-4, atol=2e-4)    # tests/test_gnn.py's
+# Per-batch patterns on the card's kernels (DynamicPattern exchanges over
+# LoopbackComm(8), a new routing or graph every batch): (a) mixtral-8x22b's
+# MoE dispatch and combine, 4096 tokens (8 lanes x one 512-token prefill
+# chunk), 8 experts top-2, capacity moe_capacity(4096) = 1280, rows of
+# d 6144 in bfloat16; (b) an edge softmax's denominators in GAT-style
+# mini-batch training: a scalar float32 edge-to-node scatter-add (and the
+# node-to-edge gather of a score) on a Zipf(1.1) graph of 2^19 nodes, 16
+# neighbors each, resampled every batch
+DYN_MOE_TOKENS = 4096
+DYN_BATCHES = 4
+DYN_GNN_N = 1 << 19
+DYN_GNN_R = 16
+DYN_RUNGS = ("condensed", "overlap")
+DYN_KERNELS = ("pack_gather", "unpack_scatter_set", "accumulate_segments",
+               "accumulate_into")
+# launches of each a step: the pack, the unpack, the pack and own folds,
+# the landed-foreign fold
+DYN_STEP_LAUNCHES = {"pack_gather": 1, "unpack_scatter_set": 1,
+                     "accumulate_segments": 2, "accumulate_into": 1}
 MODEL_TOL = dict(rtol=2e-4, atol=2e-4)   # tests/test_kernels.py's, B8/B9
 # Training: llama3-8b at its published widths through launch.train, 8 of
 # its 32 layers (float32 master weights, gradients and two moments take 16
@@ -2432,6 +2469,420 @@ def phase_gnn(torch, comm, hw, card):
         torch.cuda.empty_cache()
 
 
+def same_bits(torch, got, want) -> bool:
+    """Bit for bit (floats compared as their bits)."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return False
+    if got.dtype.is_floating_point:
+        bits = {2: torch.int16, 4: torch.int32}[got.element_size()]
+        return torch.equal(got.view(bits), want.view(bits))
+    return torch.equal(got, want)
+
+
+def timed_once(torch, fn):
+    """``(fn(), device ms of that one call)``, CUDA events around it."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def plain_time(torch, fn):
+    """``(fn(), its device ms)``: one call where it takes 20 ms or more (a
+    plain bf16 fold takes up to a second), else ``cuda_ms``'s mean."""
+    out, ms = timed_once(torch, fn)
+    return out, (ms if ms >= 20.0 else cuda_ms(torch, fn))
+
+
+def dyn_workloads(torch, dev):
+    """The two per-batch workloads, DYN_BATCHES batches each made from the
+    seed on the card (the first batch's pattern is the template):
+    ``{name: dict(n, template (m, r) int32, cols [(m, r) int32 on dev], x
+    [(P, n / P, ...)], vals [(P, m / P, r, ...)], shape)}``."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.gnn import random_neighbors
+    from repro_torch.models.moe import (moe_capacity, moe_dispatch_pattern,
+                                        random_router)
+
+    cfg = get_config("mixtral-8x22b")
+    e, k, d = cfg.num_experts, cfg.experts_per_token, cfg.d_model
+    t = DYN_MOE_TOKENS
+    cap = moe_capacity(t, cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    moe, gnn = [], []
+    for b in range(DYN_BATCHES):
+        top_e, _ = random_router(SEED + 10 + b, t, e, k)
+        idx, _ = moe_dispatch_pattern(top_e, t, e, cap, P)
+        moe.append(torch.as_tensor(idx.reshape(-1, 1), device=dev))
+        gnn.append(random_neighbors(DYN_GNN_N, DYN_GNN_R, alpha=GNN_ALPHA,
+                                    seed=SEED + 20 + b, device=dev))
+    out = {
+        "moe": dict(n=t, cols=moe, x=[torch.randn(
+            (P, t // P, d), generator=gen, device=dev,
+            dtype=torch.bfloat16) for _ in moe], vals=[torch.randn(
+                (P, c.shape[0] // P, 1, d), generator=gen, device=dev,
+                dtype=torch.bfloat16) for c in moe],
+            shape=f"{cfg.name}: {t} tokens, {e} experts top-{k}, capacity "
+                  f"{cap} ({e * cap} slots), d {d} bf16"),
+        # a node's score term gathered to its edges; exp of the edge
+        # scores added into the target nodes (the softmax denominators)
+        "gnn": dict(n=DYN_GNN_N, cols=gnn, x=[torch.randn(
+            (P, DYN_GNN_N // P), generator=gen, device=dev) for _ in gnn],
+            vals=[torch.randn((P, DYN_GNN_N // P, DYN_GNN_R), generator=gen,
+                              device=dev).exp_() for _ in gnn],
+            shape=f"{DYN_GNN_N} nodes, {DYN_GNN_R} Zipf({GNN_ALPHA}) "
+                  f"neighbors, scalar float32"),
+    }
+    for w in out.values():
+        w["template"] = w["cols"][0].cpu().numpy()
+    return out
+
+
+def dyn_kernel_lines(torch, name, w, g, s, dp):
+    """B1, B2, B5 and B6 on one batch's derived tables (batch 1, the
+    condensed kernel arm's own inputs), each against its plain version
+    (B5/B6 in float32 on the CPU: the card's plain add sums in its own
+    order), with its ms, the plain version's, a library call's and its
+    bound: ``{kernel: result}``, B5's two sites summed."""
+    from repro_torch.comm import dynamic as dyn
+    from repro_torch.comm.strategies import own_offsets
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+
+    comm, dev = g.comm, g.comm.device
+    n, s_max, shard = w["n"], dp.s_max, w["n"] // P
+    cols, x, vals = w["cols"][1], w["x"][1], w["vals"][1]
+    tables = dyn.derive_gather_tables(cols, n, P, s_max)
+    send, recv_idx, order = g.derive_plan_args(cols, gather_tables=tables)
+    sargs = s.derive_plan_args(cols, gather_tables=tables)
+    feat = tuple(x.shape[2:])
+    rb = int(np.prod(feat, dtype=np.int64)) * x.element_size()
+    dtype = str(x.dtype)[6:]
+    send_flat, recv_gidx = send.reshape(P, -1), recv_idx.reshape(P, -1)
+    m = send_flat.shape[1]
+    lines = []
+
+    buf = kops.pack_gather(x, send_flat)
+    want, plain_ms = plain_time(torch, lambda: kref.pack_gather_ref(
+        x, send_flat))
+    check(same_bits(torch, buf, want),
+          f"pack_gather ({name}, derived tables) differs from plain")
+    gidx = (send_flat.long() + (torch.arange(P, device=dev) * shard)[:, None]
+            ).reshape(-1)
+    x_rows = x.reshape((-1,) + feat)
+    lines.append(("pack_gather", dict(
+        site="pack", max_abs_err=0.0,
+        ms=cuda_ms(torch, lambda: kops.pack_gather(x, send_flat)),
+        plain_ms=plain_ms,
+        library_ms=cuda_ms(torch, lambda: torch.index_select(x_rows, 0,
+                                                             gidx)),
+        # the index array read, every lane written (the padded messages
+        # too), each distinct row read once
+        bound=bound(P * m * (4 + rb) + unique_rows(torch, send_flat) * rb),
+        shape=f"x {tuple(x.shape)} {dtype}, idx ({P}, {m}) int32")))
+
+    recv = comm.all_to_all(buf.reshape((P, P, s_max) + feat)).wait()
+    recv = recv.reshape((P, -1) + feat)
+    offsets = own_offsets(P, shard, dev)
+    tiles = order.table(out_len=n + 1, row_bytes=rb)
+
+    def b2(fn, **kw):
+        return fn(recv, recv_gidx, x, offsets, out_len=n + 1, **kw)
+    want, plain_ms = plain_time(torch, lambda: b2(
+        kref.unpack_scatter_set_ref))
+    check(same_bits(torch, b2(kops.unpack_scatter_set, table=tiles)[:, :n],
+                    want[:, :n]),
+          f"unpack_scatter_set ({name}, derived tables) differs from plain")
+    kept = int(tiles.tile_ptr[:, -1].sum())
+    lines.append(("unpack_scatter_set", dict(
+        site="unpack", max_abs_err=0.0,
+        ms=cuda_ms(torch, lambda: b2(kops.unpack_scatter_set, table=tiles)),
+        plain_ms=plain_ms, library_ms=None,
+        # as B3's line: the table it reads (a target and a position for
+        # each landed row it keeps, the tile bounds) in place of the
+        # padded index array, those rows, the own rows and the output
+        bound=bound(kept * (8 + rb) + tiles.tile_ptr.numel() * 4
+                    + P * shard * rb + P * (n + 1) * rb),
+        kept_rows=kept,
+        shape=f"recv {tuple(recv.shape)} -> x_copy ({P}, {n + 1}"
+              f"{''.join(', ' + str(f) for f in feat)}) {dtype}")))
+
+    lanes = vals.reshape((P, -1) + tuple(vals.shape[3:]))
+    msg, unpack, own = (a.reshape(P, -1) for a in sargs[:3])
+    seg = sargs[5]
+    pack_out = kops.accumulate_segments(lanes, msg, out_len=P * s_max + 1,
+                                        table=seg["pack"])
+    landed = comm.all_to_all(pack_out[:, :P * s_max].reshape(
+        (P, P, s_max) + tuple(lanes.shape[2:]))).wait()
+    landed = landed.reshape((P, -1) + tuple(lanes.shape[2:]))
+    own_out = kops.accumulate_segments(lanes, own, out_len=shard + 1,
+                                       table=seg["own"])
+    on_cpu = vals.dtype == torch.float32
+    sites = (("pack", None, lanes, msg, seg["pack"], P * s_max + 1),
+             ("own", None, lanes, own, seg["own"], shard + 1),
+             ("into", own_out, landed, unpack, seg["into"], shard + 1))
+    for site, init, src, idx, table, out_len in sites:
+        live = table.live_len
+        if init is None:
+            def kernel():
+                return kops.accumulate_segments(src, idx, out_len=out_len,
+                                                table=table)
+
+            def plain(init, src, idx):
+                return kref.accumulate_segments_ref(src, idx,
+                                                    out_len=out_len)
+        else:
+            def kernel():
+                return kops.accumulate_into(init, src, idx, table=table)
+
+            def plain(init, src, idx):
+                return kref.accumulate_into_ref(init, src, idx)
+        args = (init, src, idx)
+        want, plain_ms = plain_time(torch, lambda: plain(*args))
+        if on_cpu:
+            want = plain(*(None if a is None else a.cpu() for a in args))
+        check(same_bits(torch, kernel()[:, :live].cpu(),
+                        want[:, :live].cpu()),
+              f"{site} fold ({name}, derived tables) differs from its plain "
+              "version")
+        f = tuple(src.shape[2:])
+        rows = (idx.long() + (torch.arange(P, device=dev) * out_len)[:, None]
+                ).reshape(-1)
+        flat_src = src.reshape((-1,) + f)
+        acc = (init.clone() if init is not None else torch.zeros(
+            (P, out_len) + f, dtype=src.dtype, device=dev)).reshape(
+            (-1,) + f)
+        site_bound, folded = push_bound(table, src, init)
+        lines.append(("accumulate_segments" if init is None
+                      else "accumulate_into", dict(
+                          site=site, max_abs_err=0.0,
+                          ms=cuda_ms(torch, kernel), plain_ms=plain_ms,
+                          library_ms=cuda_ms(torch, lambda: acc.index_add_(
+                              0, rows, flat_src)),
+                          bound=site_bound, folded_lanes=folded,
+                          live_counts=table.live_counts.tolist(),
+                          shape=f"vals ({P}, {idx.shape[1]}"
+                                f"{''.join(', ' + str(v) for v in f)}) "
+                                f"{dtype} -> ({P}, {out_len}), live {live}")))
+    per = {}
+    for kernel, res in lines:
+        emit({"phase": "kernel", "name": f"{kernel}_dyn_{name}", **{
+            k: v for k, v in res.items() if k != "bound"},
+            "bound_ms": res["bound"][0], "bound_by": res["bound"][1]})
+        check_bound(f"{kernel} ({name}, {res['site']})", res)
+        per.setdefault(kernel, []).append(res)
+    return {k: dict(kernel=k, max_abs_err=0.0,
+                    ms=sum(r["ms"] for r in rs),
+                    plain_ms=sum(r["plain_ms"] for r in rs),
+                    library_ms=(None if rs[0]["library_ms"] is None else
+                                sum(r["library_ms"] for r in rs)),
+                    bound=(sum(r["bound"][0] for r in rs), "bytes"))
+            for k, rs in per.items()}
+
+
+def phase_dynamic_exchange(torch, card):
+    """Per-batch patterns through the card's kernels: each workload of
+    dyn_workloads over LoopbackComm(8) on the condensed and overlap rungs,
+    with use_kernel=True and use_kernel=False on the same batches.  Every
+    kernel-arm batch after the first derives, gathers and scatters under
+    torch.cuda.set_sync_debug_mode("error"); its outputs equal the plain
+    arm's bit for bit (the gather's n rows; a float32 scatter against the
+    plain arm run on the CPU from the same tables, whose add runs in lane
+    order); B1, B2, B5 and B6 launch every step and no plain version runs.
+    Then ms a step of both arms (the plain arm's from its checked steps,
+    one call each), its pieces, the busy share and the kernel lines on one
+    batch's derived tables.  Returns (kernel results, launches) keyed
+    ``<kernel>_dyn_<workload>``."""
+    import itertools
+
+    from repro_torch.comm import dynamic as dyn
+    from repro_torch.comm import plan_cache
+    from repro_torch.comm import strategies as strat
+    from repro_torch.comm.communicator import LoopbackComm
+    from repro_torch.comm.gather import IrregularGather
+    from repro_torch.comm.pattern import AccessPattern
+    from repro_torch.comm.plan import Topology
+    from repro_torch.comm.scatter import IrregularScatter
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+
+    comm = LoopbackComm(P)
+    dev = comm.device
+    t0 = time.perf_counter()
+    workloads = dyn_workloads(torch, dev)
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    results, counts = {}, {}
+    for name, w in workloads.items():
+        wall = {"start": time.perf_counter()}
+        n = w["n"]
+        dp = dyn.DynamicPattern.from_template(
+            AccessPattern.from_indices(w["template"], n=n), P)
+        # one envelope plan serves the four exchanges of each direction
+        base = plan_cache.get_envelope_plan(
+            w["template"], n, P, topology=Topology(P, P), s_max=dp.s_max,
+            cache=False)
+        arms = {(rung, kernel): (
+            IrregularGather(dp, comm, strategy=rung, use_kernel=kernel,
+                            base_plan=base),
+            IrregularScatter(dp, comm, strategy=rung, reduce="add",
+                             use_kernel=kernel, base_plan=base))
+            for rung in DYN_RUNGS for kernel in (True, False)}
+        float32 = w["vals"][0].dtype == torch.float32
+        # a float32 scatter's plain arm on the CPU, on the card's tables
+        cpu_fold = strat.make_scatter_start_local(
+            arms[("condensed", False)][1].splan, "condensed",
+            LoopbackComm(P, device="cpu"), "add") if float32 else None
+        torch.cuda.synchronize()
+        wall["build"] = time.perf_counter()
+
+        def derive(rung, kernel, b):
+            g, s = arms[(rung, kernel)]
+            cols = w["cols"][b]
+            tables = dyn.derive_gather_tables(cols, n, P, dp.s_max)
+            return (g.derive_plan_args(cols, gather_tables=tables),
+                    s.derive_plan_args(cols, gather_tables=tables))
+
+        def exchange(rung, kernel, b, gargs, sargs):
+            g, s = arms[(rung, kernel)]
+            x, vals = w["x"][b], w["vals"][b]
+            if rung == "overlap":
+                hg = g.start_local(x, *gargs)
+                hs = s.start_local(vals, *sargs)
+                return hg.finish(), hs.finish()
+            return g.local(x, *gargs), s.local(vals, *sargs)
+
+        def step(rung, kernel, b):
+            return exchange(rung, kernel, b, *derive(rung, kernel, b))
+
+        def plain_step(rung, b):
+            gargs, sargs = derive(rung, False, b)
+            return exchange(rung, False, b, gargs, sargs), sargs
+
+        # the path: the kernel arm, every batch, counters zeroed before
+        kops.reset_launch_counts()
+        outs = {}
+        plain_names = ("pack_gather_ref", "unpack_scatter_set_ref",
+                       "accumulate_segments_ref", "accumulate_into_ref")
+        with contextlib.ExitStack() as stack:
+            plain_calls = [stack.enter_context(held_calls(kref, f))
+                           for f in plain_names]
+            for rung in DYN_RUNGS:
+                for b in range(DYN_BATCHES):
+                    torch.cuda.synchronize()
+                    if b:
+                        torch.cuda.set_sync_debug_mode("error")
+                    try:
+                        x_copy, y = step(rung, True, b)
+                    except RuntimeError as exc:
+                        fail(f"dynamic_exchange {name} {rung} batch {b}: "
+                             f"{exc}")
+                    finally:
+                        torch.cuda.set_sync_debug_mode(0)
+                    outs[(rung, b)] = (x_copy[:, :n], y)
+        torch.cuda.synchronize()
+        wall["path"] = time.perf_counter()
+        launched, entries = kops.launch_counts(), kops.entry_counts()
+        steps = len(DYN_RUNGS) * DYN_BATCHES
+        want_counts = {k: DYN_STEP_LAUNCHES.get(k, 0) * steps
+                       for k in launched}
+        check(launched == want_counts,
+              f"dynamic_exchange {name}: launches {launched}, expected "
+              f"{want_counts}")
+        check(entries.get("rt_unpack_scatter_tiles") == steps
+              and "rt_unpack_scatter_set" not in entries,
+              f"dynamic_exchange {name}: B2 ran {entries}")
+        check(all(h.calls == 0 for h in plain_calls),
+              f"dynamic_exchange {name}: a plain version ran on the "
+              f"kernel path: {[h.calls for h in plain_calls]}")
+        # the plain arm on the same batches, each step timed once
+        plain_ms, on_cpu = {}, {}
+        for rung in DYN_RUNGS:
+            for b in range(DYN_BATCHES):
+                ((x_copy, y), sargs), ms = timed_once(
+                    torch, lambda: plain_step(rung, b))
+                if b:
+                    plain_ms.setdefault(rung, []).append(ms)
+                kx, ky = outs[(rung, b)]
+                check(same_bits(torch, kx, x_copy[:, :n]),
+                      f"dynamic_exchange {name} {rung} batch {b}: the "
+                      "gather differs from the plain arm")
+                if float32:
+                    # the rungs' plain folds are one function of the batch
+                    if b not in on_cpu:
+                        sargs = [a.cpu() for a in sargs]
+                        vals = w["vals"][b].cpu()
+                        on_cpu[b] = cpu_fold[1](cpu_fold[0](vals, *sargs),
+                                                vals, *sargs)
+                    y = on_cpu[b]
+                check(same_bits(torch, ky.cpu(), y.cpu()),
+                      f"dynamic_exchange {name} {rung} batch {b}: the "
+                      "scatter differs from the plain arm")
+                check(bool(torch.isfinite(ky).all()),
+                      f"dynamic_exchange {name}: a scatter not finite")
+        del outs, on_cpu, x_copy, y, kx, ky
+        wall["plain"] = time.perf_counter()
+        # ms a step: the kernel arm cycling over the batches after the
+        # first (CUDA events), the plain arm's checked steps
+        step_ms = {}
+        for rung in DYN_RUNGS:
+            it = itertools.count()
+            step_ms[rung] = {
+                "kernel": time_steps(torch, lambda: step(
+                    rung, True, 1 + next(it) % (DYN_BATCHES - 1)),
+                    warmup=2, iters=2 * DYN_BATCHES)["ms_per_iter"],
+                "plain": float(np.mean(plain_ms[rung]))}
+        pieces = {}
+        for kernel in (True, False):
+            g, s = arms[("condensed", kernel)]
+            gargs, sargs = derive("condensed", kernel, 1)
+            x, vals = w["x"][1], w["vals"][1]
+            pieces["kernel" if kernel else "plain"] = {
+                "derive_ms": cuda_ms(torch, lambda: derive(
+                    "condensed", kernel, 1), warmup=2, iters=5),
+                "gather_ms": cuda_ms(torch, lambda: g.local(x, *gargs),
+                                     warmup=2, iters=5),
+                "scatter_ms": (cuda_ms(torch, lambda: s.local(vals, *sargs),
+                                       warmup=2, iters=5) if kernel else
+                               plain_time(torch, lambda: s.local(
+                                   vals, *sargs))[1])}
+        it = itertools.count()
+        prof = profile_steps(torch, lambda: step(
+            "condensed", True, 1 + next(it) % (DYN_BATCHES - 1)), steps=2,
+            lead=1)
+        wall["timing"] = time.perf_counter()
+        g, s = arms[("condensed", True)]
+        lines = dyn_kernel_lines(torch, name, w, g, s, dp)
+        for k, res in lines.items():
+            results[f"{k}_dyn_{name}"] = res
+            counts[f"{k}_dyn_{name}"] = launched[k]
+        wall["lines"] = time.perf_counter()
+        marks = list(wall.values())
+        emit({"phase": "dynamic_exchange", "workload": name,
+              "shape": w["shape"], "ranks": P, "batches": DYN_BATCHES,
+              "rungs": list(DYN_RUNGS), "m": int(w["template"].shape[0]),
+              "r": int(w["template"].shape[1]), "n": n, "s_max": dp.s_max,
+              "sync_free_batches": steps - len(DYN_RUNGS),
+              "launches": {k: launched[k] for k in DYN_STEP_LAUNCHES},
+              "step_ms": step_ms, "pieces_ms": pieces,
+              "busy_share": prof["busy_share"],
+              "kernel_ms_per_step": prof["kernel_ms_per_step"],
+              "top_kernels_ms_per_step": prof["top_kernels_ms_per_step"],
+              "data_s": round(data_s, 3),
+              "wall_s": {k: round(b - a, 3) for k, a, b in zip(
+                  list(wall)[1:], marks, marks[1:])},
+              "card": card})
+        del arms, cpu_fold, g, s
+        gc.collect()
+        torch.cuda.empty_cache()
+    return results, counts
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2452,8 +2903,8 @@ def held_calls(kops, name, which=()):
     ``calls`` counts every call); the calls themselves go on as before."""
     saved, held = getattr(kops, name), _Held()
 
-    def keep(*args):
-        out = saved(*args)
+    def keep(*args, **kwargs):
+        out = saved(*args, **kwargs)
         if held.calls in which:
             held[held.calls] = (args, out)
         held.calls += 1
@@ -3347,6 +3798,11 @@ def main() -> None:
         "decode_attention"]
     gc.collect()
     torch.cuda.empty_cache()
+    dyn_results, dyn_counts = phase_dynamic_exchange(torch, card)
+    results.update(dyn_results)
+    counts.update(dyn_counts)
+    gc.collect()
+    torch.cuda.empty_cache()
     phase_gnn(torch, comm, hw, card)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3367,7 +3823,7 @@ def main() -> None:
 
     kernels = []
     for name, res in results.items():
-        source, replaces = SOURCE[name]
+        source, replaces = SOURCE[res.get("kernel", name)]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": counts[name],

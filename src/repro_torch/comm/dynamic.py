@@ -150,6 +150,13 @@ def _cols(cols) -> torch.Tensor:
     return cols[:, None] if cols.dim() == 1 else cols
 
 
+def _row_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """``x.cumsum(1)`` of an integer ``(P, K)`` tensor as one flat scan:
+    the card scans a few long rows one block a row."""
+    flat = x.reshape(-1).cumsum(0).reshape(x.shape)
+    return flat - torch.cat([flat.new_zeros(1), flat[:-1, -1]])[:, None]
+
+
 def derive_gather_tables(cols, n: int, p: int,
                          s_max: int) -> DynamicGatherTables:
     """The condensed tables of §4.3.1 as a fixed-shape computation on the
@@ -165,8 +172,8 @@ def derive_gather_tables(cols, n: int, p: int,
     globals sort ascending (own accesses keyed to ``n`` fall to the end),
     first-occurrence masking dedups, and a per-owner segment rank places
     each unique at ``(owner, rank)``.  A rank past ``s_max`` (a routing
-    outside the envelope) lands in the dump slot ``p·s_max``, the only slot
-    that takes more than one write, which is cut off.
+    outside the envelope), like every entry that is no unique, lands in a
+    dump slot of its own past ``p·s_max``, which is cut off.
     """
     cols = _cols(cols)
     m = cols.shape[0]
@@ -183,13 +190,22 @@ def derive_gather_tables(cols, n: int, p: int,
     first[:, 1:] = skey[:, 1:] != skey[:, :-1]
     uniq = (first & (skey < n)).to(i64)
     sowner = torch.clamp(skey // shard, 0, p - 1)
-    per_owner = torch.zeros((p, p), dtype=i64, device=dev).scatter_add_(
-        1, sowner, uniq)
+    # each owner's keys are one stretch of the sorted row: its unique
+    # count is the cumulative sum's rise over the stretch (a scatter_add_
+    # would pile a hot owner's adds onto one counter)
+    seen = torch.cat([uniq.new_zeros((p, 1)), _row_cumsum(uniq)], dim=1)
+    edges = torch.searchsorted(skey, (torch.arange(
+        p + 1, device=dev, dtype=i64) * shard).expand(p, -1).contiguous())
+    per_owner = seen.gather(1, edges[:, 1:]) - seen.gather(1, edges[:, :-1])
     start = per_owner.cumsum(1) - per_owner
-    rank = uniq.cumsum(1) - 1 - start.gather(1, sowner)
+    rank = seen[:, 1:] - 1 - start.gather(1, sowner)
+    # every entry that places no unique lands in a dump slot of its own,
+    # cut off with the rest (one shared slot would serialize the writes)
+    lane = torch.arange(skey.shape[1], device=dev, dtype=i64)
     pos = torch.where((uniq > 0) & (rank < s_max), sowner * s_max + rank,
-                      p * s_max)
-    recv = torch.full((p, p * s_max + 1), n, dtype=i64, device=dev)
+                      p * s_max + lane)
+    recv = torch.full((p, p * s_max + skey.shape[1]), n, dtype=i64,
+                      device=dev)
     recv.scatter_(1, pos, skey)
     recv_global_idx = recv[:, :p * s_max].reshape(p, p, s_max)
     owner_base = (torch.arange(p, device=dev, dtype=i64) * shard)[None, :,
@@ -229,22 +245,31 @@ def derive_scatter_tables(cols, n: int, p: int, s_max: int,
     owner = flat // shard
     own = owner == reader
     # rank of each foreign target inside its (reader <- owner) sorted
-    # unique list; rows pad with n > any target, so the probe lands exactly
-    rows = recv.gather(1, torch.clamp(owner, 0, p - 1)[..., None].expand(
-        -1, -1, s_max))                                    # (P, rows*r, s)
-    pos = torch.searchsorted(rows, flat[..., None]).squeeze(-1)
-    cond = torch.where(own, p * s_max, owner * s_max + pos)
+    # unique list; rows pad with n > any target, so the probe lands
+    # exactly.  Keyed owner·(n+1) + value, a reader's P lists in owner
+    # order are one ascending row, so one probe of owner·(n+1) + target
+    # counts the owner·s_max entries before its list and the ones below it
+    # in it: owner·s_max + rank, in O(rows·r) memory a reader
+    base = torch.arange(p, device=dev, dtype=i64)[None, :, None] * (n + 1)
+    keys = (recv + base).reshape(p, p * s_max)
+    probe = torch.clamp(owner, 0, p - 1) * (n + 1) + flat
+    cond = torch.where(own, p * s_max, torch.searchsorted(keys, probe))
     own_tgt = torch.where(own, flat - reader * shard, shard)
 
     # reduce="set" winner: the last contribution in row-major accessor
-    # order, global across shards (duplicates may span senders)
+    # order, global across shards (duplicates may span senders): the last
+    # of its target's stretch in a stable sort, and a target is touched
+    # where the sorted targets hold it (no scatter onto a hot target)
     flat_t = cols.reshape(-1).to(i64)
-    order = torch.arange(m * r, device=dev, dtype=i64)
-    last = torch.full((n,), -1, dtype=i64, device=dev).scatter_reduce_(
-        0, flat_t, order, "amax", include_self=True)
-    win_mask = (last[flat_t] == order).reshape(m, r).to(torch.int8)
-    touched = torch.zeros(n, dtype=torch.int8, device=dev).scatter_(
-        0, flat_t, 1)
+    st, order = torch.sort(flat_t, stable=True)
+    last = torch.ones_like(st, dtype=torch.int8)
+    last[:-1] = (st[:-1] != st[1:]).to(torch.int8)
+    win_mask = torch.zeros(m * r, dtype=torch.int8, device=dev).scatter_(
+        0, order, last).reshape(m, r)
+    targets = torch.arange(n, device=dev, dtype=i64)
+    at = torch.searchsorted(st, targets).clamp_(max=max(m * r - 1, 0))
+    touched = ((st[at] == targets) if m * r else torch.zeros_like(
+        targets, dtype=torch.bool)).to(torch.int8)
     return DynamicScatterTables(
         cond_msg_idx=cond.reshape(m, r).to(torch.int32),
         own_tgt_idx=own_tgt.reshape(m, r).to(torch.int32),

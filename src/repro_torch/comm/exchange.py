@@ -16,7 +16,8 @@ direction's rank-stacked functions (``repro_torch.comm.strategies``).
 A ``DynamicPattern`` (``comm.dynamic``) stands wherever an
 ``AccessPattern`` does: its base plan comes from the plan cache's
 envelope tier, the ladder narrows to ``dynamic.DYNAMIC_STRATEGIES``, and
-the per-batch tables come from ``derive_plan_args``.
+the per-batch tables come from ``derive_plan_args``, which with
+``use_kernel=True`` also derives the tables the card kernels read.
 """
 from __future__ import annotations
 
@@ -159,15 +160,6 @@ class IrregularExchange:
                     f"strategy {strategy!r} cannot serve a DynamicPattern "
                     f"— device-side table derivation covers "
                     f"{DYNAMIC_STRATEGIES}")
-            if use_kernel:
-                # the card kernels read tables built on the host from the
-                # very index tensor they run on; a per-batch table cannot
-                # have one without a host sync
-                raise NotImplementedError(
-                    "use_kernel=True with a DynamicPattern: the kernels' "
-                    "per-plan tables are built on the host, which a "
-                    "per-batch pattern cannot do without a sync (ROADMAP "
-                    "A17); the plain pack, unpack and fold serve it")
         self.pattern = pattern
         self.comm = comm
         self.device = comm.device

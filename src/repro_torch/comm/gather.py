@@ -40,7 +40,10 @@ Per-batch patterns: with a ``DynamicPattern`` the gather's ``plan_args``
 are the template's tables derived on the device, and
 ``derive_plan_args(cols)`` derives any batch's (``comm.dynamic``), bit
 for bit with a host build at the envelope ``s_max``; a ``Destination``
-(host-precomputed per pattern) cannot serve one.
+(host-precomputed per pattern) cannot serve one.  With ``use_kernel=True``
+the tables carry a third entry, the batch's ``kernels.TileOrder`` (derived
+on the device with no host sync), through which the card's one-pass
+unpack runs.
 """
 from __future__ import annotations
 
@@ -130,17 +133,16 @@ class IrregularGather(IrregularExchange):
             # the template's own tables on the device (bit for bit with a
             # host build at the envelope s_max); per-batch consumers swap
             # in derive_plan_args(cols)
-            g = dyn.derive_gather_tables(
-                torch.as_tensor(self.pattern.indices, device=self.device),
-                n, p, self.plan.s_max)
-            self.plan_args = (g.send_local_idx, g.recv_global_idx)
+            self.plan_args = self._derived_args(torch.as_tensor(
+                self.pattern.indices, device=self.device))
         else:
             self.plan_args = strat.to_device(
                 strat.plan_device_args(self.plan, strategy,
                                        with_dest=destination is not None),
                 self.device)
         self._start, self._finish = strat.make_start_local(
-            self.plan, strategy, self.comm, use_kernel=self.use_kernel)
+            self.plan, strategy, self.comm, use_kernel=self.use_kernel,
+            per_batch=self.dynamic_pattern is not None)
         self._dest_order = kops.DestOrder() if self.use_kernel else None
 
     def _resolve_materialize(self, materialize: str | None) -> str:
@@ -198,7 +200,7 @@ class IrregularGather(IrregularExchange):
         return OverlapHandle(x_local=x, _finish=finish)
 
     # ---- dynamic surface (per-batch patterns, see comm.dynamic) ----
-    def derive_plan_args(self, cols) -> tuple:
+    def derive_plan_args(self, cols, gather_tables=None) -> tuple:
         """Per-batch replacement for ``plan_args``.
 
         ``cols`` is this batch's (m, r) int32 global index table, a tensor
@@ -206,8 +208,13 @@ class IrregularGather(IrregularExchange):
         tables ``(send_local_idx, recv_global_idx)`` computed there, bit
         for bit with a host plan build at the envelope ``s_max``, with no
         host sync; pass them to ``local`` / ``start_local`` in place of
-        ``plan_args``.  The caller records
-        ``telemetry.record("device-derive")`` once per executed step.
+        ``plan_args``.  An exchange built with ``use_kernel=True`` gets a
+        third entry, the ``kernels.TileOrder`` of the landed index array,
+        which the card's unpack reads.  ``gather_tables``: this batch's
+        ``DynamicGatherTables``, derived once for both directions (pass
+        the same to a sibling scatter's ``derive_plan_args``).  The caller
+        records ``telemetry.record("device-derive")`` once per executed
+        step.
         """
         if self.strategy not in dyn.DYNAMIC_STRATEGIES:
             raise ValueError(
@@ -217,9 +224,17 @@ class IrregularGather(IrregularExchange):
             raise ValueError(
                 "derive_plan_args cannot rebuild host-precomputed "
                 "Destination arrays")
-        g = dyn.derive_gather_tables(cols, self.plan.n, self.p,
-                                     self.plan.s_max)
-        return (g.send_local_idx, g.recv_global_idx)
+        return self._derived_args(cols, gather_tables)
+
+    def _derived_args(self, cols, g=None) -> tuple:
+        if g is None:
+            g = dyn.derive_gather_tables(cols, self.plan.n, self.p,
+                                         self.plan.s_max)
+        args = (g.send_local_idx, g.recv_global_idx)
+        if self.use_kernel:
+            args += (kops.derive_tile_order(
+                g.recv_global_idx.reshape(self.p, -1)),)
+        return args
 
     # ---- standalone surface ----
     def __call__(self, x: torch.Tensor) -> torch.Tensor:

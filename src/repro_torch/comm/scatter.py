@@ -40,9 +40,9 @@ the plan cache (``plan_cache.get_scatter_plan``: a delta derived from, and
 stored against, the base plan), or is shared between engines with
 ``scatter_plan=``.  A ``DynamicPattern`` takes its put tables from the
 device derivation of ``comm.dynamic`` instead (the template's at
-construction, any batch's through ``derive_plan_args``), and runs the
-plain fold (``use_kernel=True`` is refused for it: the kernels' segment
-tables are built on the host).
+construction, any batch's through ``derive_plan_args``); with
+``use_kernel=True`` the fold kernels' segment tables are derived beside
+them on the device (``strategies.derive_scatter_segment_tables``).
 """
 from __future__ import annotations
 
@@ -114,24 +114,26 @@ class IrregularScatter(IrregularExchange):
             # the envelope base plan's tables may belong to another
             # founding routing (bucket reuse), so the host transpose-derive
             # cannot probe them: derive the template's put tables on the
-            # device (bit for bit with the host derivation at the envelope
-            # s_max); blockwise is outside the dynamic ladder, its table
-            # stays all-dump
+            # exchange's device (bit for bit with the host derivation at the
+            # envelope s_max); blockwise is outside the dynamic ladder, its
+            # table stays all-dump
             cols = self.pattern.indices
             n, p, s_max = base_plan.n, base_plan.p, base_plan.s_max
-            g = dyn.derive_gather_tables(cols, n, p, s_max)
-            s = dyn.derive_scatter_tables(cols, n, p, s_max, gather=g)
+            tcols = torch.as_tensor(cols, device=self.device)
+            g = dyn.derive_gather_tables(tcols, n, p, s_max)
+            s = dyn.derive_scatter_tables(tcols, n, p, s_max, gather=g)
             m, r = cols.shape
             dump_blk = base_plan.p * base_plan.b_max * base_plan.blocksize
-            self._dyn_send_local_idx = g.send_local_idx.to(self.device)
+            self._dyn_send_local_idx = g.send_local_idx
+            self._dyn_send_counts = g.send_counts
             self.splan = ScatterPlan(
                 base=base_plan,
                 tgt_global=cols.astype(np.int32),
-                cond_msg_idx=s.cond_msg_idx.numpy(),
+                cond_msg_idx=s.cond_msg_idx.cpu().numpy(),
                 blk_msg_idx=np.full((m, r), dump_blk, np.int32),
-                own_tgt_idx=s.own_tgt_idx.numpy(),
-                win_mask=s.win_mask.numpy(),
-                touched=s.touched.numpy(),
+                own_tgt_idx=s.own_tgt_idx.cpu().numpy(),
+                win_mask=s.win_mask.cpu().numpy(),
+                touched=s.touched.cpu().numpy(),
                 counts=transpose_counts(base_plan))
             return
         if splan is None:
@@ -163,13 +165,21 @@ class IrregularScatter(IrregularExchange):
                               + (self._dyn_send_local_idx,)
                               + self.plan_args[2:])
         # the kernel arm's segment tables: built once here, on the device,
-        # from the static plan arrays — never per step
-        self.tables = (strat.scatter_segment_tables(self.splan, strategy,
-                                                    self.plan_args)
-                       if self.use_kernel else None)
+        # from the static plan arrays — never per step; a per-batch
+        # pattern's are derived with its tables and ride in its plan args
+        self.tables = None
+        per_batch = self.dynamic_pattern is not None
+        if self.use_kernel and per_batch:
+            self.tables = strat.derive_scatter_segment_tables(
+                self.splan, self.plan_args, self._dyn_send_counts)
+            self.plan_args += (self.tables,)
+        elif self.use_kernel:
+            self.tables = strat.scatter_segment_tables(
+                self.splan, strategy, self.plan_args)
         self._start, self._finish = strat.make_scatter_start_local(
             self.splan, strategy, self.comm, self.reduce,
-            use_kernel=self.use_kernel, tables=self.tables)
+            use_kernel=self.use_kernel,
+            tables=None if per_batch else self.tables, per_batch=per_batch)
 
     @property
     def counts(self):
@@ -204,21 +214,18 @@ class IrregularScatter(IrregularExchange):
         already derived) to share the one sort between both directions —
         the ``CommPlan.transpose()`` economy, on the device.  Returns the
         five condensed/overlap executor tables in the order and shapes of
-        ``plan_args``, with no host sync.  The plain fold runs them: the
-        kernels' segment tables are built on the host, so an exchange
-        built with ``use_kernel=True`` refuses.  The caller records
+        ``plan_args``, with no host sync.  An exchange built with
+        ``use_kernel=True`` gets a sixth entry, the fold kernels'
+        ``"pack"``/``"own"``/``"into"`` segment tables derived from the
+        five (``strategies.derive_scatter_segment_tables``), the
+        ``"into"`` padding from the batch's ``send_counts``; only a
+        ``DynamicPattern``'s exchange runs them.  The caller records
         ``telemetry.record("device-derive")`` once per executed step.
         """
         if self.strategy not in dyn.DYNAMIC_STRATEGIES:
             raise ValueError(
                 f"derive_plan_args serves {dyn.DYNAMIC_STRATEGIES} "
                 f"executor tables, not {self.strategy!r}")
-        if self.use_kernel:
-            raise NotImplementedError(
-                "derive_plan_args on a scatter built with use_kernel=True: "
-                "the fold kernels read segment tables built on the host "
-                "from the very index tensor they fold, which per-batch "
-                "tables cannot have without a sync (ROADMAP A17)")
         n, p, s_max = self.plan.n, self.p, self.plan.s_max
         g = gather_tables
         if g is None:
@@ -228,8 +235,12 @@ class IrregularScatter(IrregularExchange):
         def ranked(t):
             return t.reshape((p, -1) + tuple(t.shape[1:]))
 
-        return (ranked(s.cond_msg_idx), g.send_local_idx,
+        args = (ranked(s.cond_msg_idx), g.send_local_idx,
                 ranked(s.own_tgt_idx), ranked(s.win_mask), s.touched)
+        if self.use_kernel:
+            args += (strat.derive_scatter_segment_tables(
+                self.splan, args, g.send_counts),)
+        return args
 
     # ---- standalone surface ----
     def shard_values(self, vals) -> torch.Tensor:

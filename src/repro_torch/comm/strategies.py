@@ -69,6 +69,7 @@ __all__ = [
     "blockwise_scatter_finish_local",
     "scatter_plan_device_args",
     "scatter_segment_tables",
+    "derive_scatter_segment_tables",
     "make_scatter_start_local",
 ]
 
@@ -77,16 +78,32 @@ STRATEGIES = ("replicate", "blockwise", "condensed", "overlap")
 
 def _tiled_unpack():
     """The kernel arm's full unpack: ``kops.unpack_scatter_set`` through
-    the tile tables of the plan it serves (a ``ScatterTiles`` of its own)."""
+    the tile tables of the plan it serves (a ``ScatterTiles`` of its own),
+    or through a per-batch ``kops.TileOrder`` given as ``order``."""
     tiles = kops.ScatterTiles()
 
-    def unpack(recv, idx, x_own, offsets, *, out_len, copy_own=True):
+    def unpack(recv, idx, x_own, offsets, *, out_len, copy_own=True,
+               order=None):
         row_bytes = math.prod(x_own.shape[2:]) * x_own.element_size()
+        table = (tiles(idx, out_len=out_len, row_bytes=row_bytes)
+                 if order is None
+                 else order.table(out_len=out_len, row_bytes=row_bytes))
         return kops.unpack_scatter_set(
             recv, idx, x_own, offsets, out_len=out_len, copy_own=copy_own,
-            table=tiles(idx, out_len=out_len, row_bytes=row_bytes))
+            table=table)
 
     return unpack
+
+
+def _batch_order(extra) -> "kops.TileOrder":
+    """The per-batch tile order that ``IrregularGather.derive_plan_args``
+    appends to the condensed tables of a kernel exchange."""
+    if not extra or not isinstance(extra[0], kops.TileOrder):
+        raise ValueError(
+            "a per-batch gather with use_kernel=True unpacks through the "
+            "tile order its derive_plan_args(cols) derives: pass those "
+            "plan args")
+    return extra[0]
 
 
 def own_offsets(p: int, rows: int, device) -> torch.Tensor:
@@ -232,7 +249,7 @@ def plan_device_args(plan: CommPlan, strategy: str,
 
 
 def make_start_local(plan: CommPlan, strategy: str, comm, *,
-                     use_kernel: bool = False):
+                     use_kernel: bool = False, per_batch: bool = False):
     """Returns (start_fn, finish_fn) splitting the strategy at its collective.
 
     ``start_fn(x, *plan_args, async_op=False) -> Work``; ``finish_fn(work,
@@ -250,6 +267,9 @@ def make_start_local(plan: CommPlan, strategy: str, comm, *,
     ``use_kernel=True`` swaps the plain pack/unpack around the (unchanged)
     collective for the CUDA kernels (``kernels.ops``): bit-identical to the
     plain arm.  Replicate has no pack side and its full finish no unpack.
+    ``per_batch=True`` (a ``DynamicPattern``'s condensed/overlap exchange):
+    the kernel arm's plan args carry a third entry, the batch's
+    ``kops.TileOrder``, through which the full finish unpacks.
     """
     if use_kernel:
         pack, unpack_set = kops.pack_gather, _tiled_unpack()
@@ -290,9 +310,13 @@ def make_start_local(plan: CommPlan, strategy: str, comm, *,
             if materialize == "dest":
                 return deliver(recv.reshape((p, -1) + tuple(x.shape[2:])),
                                x, dest)
+            unpack = unpack_set
+            if per_batch and use_kernel:
+                unpack = functools.partial(unpack_set,
+                                           order=_batch_order(dest))
             return condensed_finish_local(
                 recv, x, recv_idx, offsets, n=n, extra_slots=extra_slots,
-                copy_own=copy_own, unpack=unpack_set)
+                copy_own=copy_own, unpack=unpack)
 
         return start, finish
     if strategy == "blockwise":
@@ -528,9 +552,9 @@ def scatter_plan_device_args(splan: ScatterPlan, strategy: str):
     raise ValueError(f"unknown strategy {strategy!r}")
 
 
-def _padding_lanes(counts: np.ndarray, width: int, device) -> torch.Tensor:
+def _padding_lanes(counts, width: int, device) -> torch.Tensor:
     """``(P, P * width)`` bool: lane j of rank q's row d is padding when
-    ``j >= counts[q, d]``."""
+    ``j >= counts[q, d]`` (a host array, or a tensor on the device)."""
     lane = torch.arange(width, device=device)
     filled = torch.as_tensor(counts, device=device)[:, :, None]
     return (lane >= filled).reshape(counts.shape[0], -1)
@@ -579,9 +603,32 @@ def scatter_segment_tables(splan: ScatterPlan, strategy: str,
     raise ValueError(f"unknown strategy {strategy!r}")
 
 
+def derive_scatter_segment_tables(splan: ScatterPlan, plan_args,
+                                  send_counts: torch.Tensor) -> dict:
+    """The condensed/overlap rung's ``"pack"``, ``"own"`` and ``"into"``
+    tables (as ``scatter_segment_tables`` builds them) for one batch's
+    derived plan args, on their device with no host sync
+    (``kops.derive_segment_table``): ``send_counts`` is the batch's
+    ``DynamicGatherTables.send_counts``, whose padded pack lanes the
+    ``"into"`` table leaves out."""
+    p, shard, s_max = splan.p, splan.shard_size, splan.s_max
+    msg, unpack, own = plan_args[:3]
+    table = kops.derive_segment_table
+    live = p * s_max
+    return {
+        "pack": table(msg.reshape(p, -1), out_len=live + 1, live_len=live),
+        "own": table(own.reshape(p, -1), out_len=shard + 1,
+                     live_len=shard),
+        "into": table(unpack.reshape(p, -1), out_len=shard + 1,
+                      live_len=shard,
+                      pad=_padding_lanes(send_counts, s_max, msg.device)),
+    }
+
+
 def make_scatter_start_local(splan: ScatterPlan, strategy: str, comm,
                              reduce: str, *, use_kernel: bool = False,
-                             tables: dict | None = None):
+                             tables: dict | None = None,
+                             per_batch: bool = False):
     """Returns (start_fn, finish_fn) splitting the scatter at its collective.
 
     ``start_fn(vals, *plan_args, async_op=False) -> Work`` packs
@@ -600,18 +647,22 @@ def make_scatter_start_local(splan: ScatterPlan, strategy: str, comm,
     plain arm on every rung × reduce (same combines, same lane order).  The
     winner mask for ``reduce="set"`` stays a PyTorch multiply outside the
     kernels, exactly where the plain arm applies it.
+
+    ``per_batch=True`` (a ``DynamicPattern``'s condensed/overlap exchange):
+    the kernel arm takes its tables from the plan args instead, whose sixth
+    entry is the batch's ``derive_scatter_segment_tables``.
     """
     if reduce not in SCATTER_REDUCES:
         raise ValueError(f"reduce must be one of {SCATTER_REDUCES}")
-    if use_kernel and tables is None:
+    if use_kernel and tables is None and not per_batch:
         raise ValueError("use_kernel=True needs the rung's segment tables "
                          "(scatter_segment_tables)")
 
-    def seg(name):
+    def seg(name, tabs=None):
         if not use_kernel:
             return kref.accumulate_segments_ref
         return functools.partial(kops.accumulate_segments,
-                                 table=tables[name])
+                                 table=(tabs or tables)[name])
 
     p, shard = splan.p, splan.shard_size
     if strategy == "replicate":
@@ -627,25 +678,37 @@ def make_scatter_start_local(splan: ScatterPlan, strategy: str, comm,
                 work, touched, shard_size=shard, reduce=reduce)
 
         return start, finish
-    acc_pack, acc_own = seg("pack"), seg("own")
     if strategy in ("condensed", "overlap"):
-        acc_into = (functools.partial(kops.accumulate_into,
-                                      table=tables["into"])
-                    if use_kernel else kref.accumulate_into_ref)
+        def batch(extra) -> dict | None:
+            if not (per_batch and use_kernel):
+                return None
+            if not extra or not isinstance(extra[0], dict):
+                raise ValueError(
+                    "a per-batch scatter with use_kernel=True folds through "
+                    "the segment tables its derive_plan_args(cols) derives: "
+                    "pass those plan args")
+            return extra[0]
 
-        def start(vals, msg_idx, unpack_idx, own_idx, win, touched, *,
+        def start(vals, msg_idx, unpack_idx, own_idx, win, touched, *extra,
                   async_op=False):
             return condensed_scatter_start_local(
                 vals, msg_idx, win, comm=comm, p=p, s_max=splan.s_max,
-                reduce=reduce, async_op=async_op, accumulate=acc_pack)
+                reduce=reduce, async_op=async_op,
+                accumulate=seg("pack", batch(extra)))
 
-        def finish(work, vals, msg_idx, unpack_idx, own_idx, win, touched):
+        def finish(work, vals, msg_idx, unpack_idx, own_idx, win, touched,
+                   *extra):
+            tabs = batch(extra)
+            acc_into = (functools.partial(kops.accumulate_into,
+                                          table=(tabs or tables)["into"])
+                        if use_kernel else kref.accumulate_into_ref)
             return condensed_scatter_finish_local(
                 work, vals, unpack_idx, own_idx, win, touched,
-                shard_size=shard, reduce=reduce, accumulate=acc_own,
-                accumulate_into=acc_into)
+                shard_size=shard, reduce=reduce,
+                accumulate=seg("own", tabs), accumulate_into=acc_into)
 
         return start, finish
+    acc_pack, acc_own = seg("pack"), seg("own")
     if strategy == "blockwise":
         acc_blocks = seg("blocks")
 

@@ -50,12 +50,12 @@ _SIGNATURES = {
                         ctypes.c_int, ctypes.c_int, _P),
     "rt_ellpack_spmv_sorted": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _I, _I, ctypes.c_int, ctypes.c_int, _P),
-    "rt_accumulate_segments": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               _I, ctypes.c_int, ctypes.c_int, _P),
-    "rt_accumulate_into": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                           _I, ctypes.c_int, ctypes.c_int, _P),
-    "rt_fold_long_rows": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                          ctypes.c_int, ctypes.c_int, _P, _P),
+    "rt_accumulate_segments": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _I, _I, ctypes.c_int, ctypes.c_int, _P),
+    "rt_accumulate_into": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _I, _I, ctypes.c_int, ctypes.c_int, _P),
+    "rt_fold_long_rows": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                          _I, ctypes.c_int, ctypes.c_int, _P, _P),
     "rt_fold_gate": (_P, _I, _P),
     "rt_stencil2d_f32": (_P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P),
     "rt_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

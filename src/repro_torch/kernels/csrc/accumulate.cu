@@ -50,6 +50,16 @@
 //     1024-float rows of the blockwise block combine are read coalesced;
 //     each thread issues the loads of four lanes before it folds them.
 //
+// A per-batch pattern's table (kernels/pack_gather.py derive_segment_table)
+// is derived on the device with no host sync, so the host knows only the
+// capacities of its runs and long rows, not how many are live: the device
+// holds the counts (counts[0] runs, counts[1] long rows).  The host then
+// launches a grid of its own choosing and each block strides over the live
+// entries; a block past the count returns (a long-row block still counts
+// itself as started first, so the gate's target stays the grid the host
+// launched).  With a host-built table (counts null) every block folds the
+// one run or long row of its index, as it always did.
+//
 // Rows at or above live_len (the dump rows the callers slice off) are never
 // folded, and their contents are unspecified: at the main path's shapes
 // 93% of a rank's condensed-pack lanes target one dump row, which one thread
@@ -168,6 +178,7 @@ struct Fold {
   const int4* runs;         // (n_runs,) {first row, end row, first lane,
                             // end lane}: rows as rank * live_len + row,
                             // lanes as positions in the rank's perm
+  const int32_t* counts;    // null, or {live runs, live long rows}
   unsigned k_lanes, live_len, out_len, feat;
   unsigned blocks;          // blocks per rank of the wide-row kernel
 };
@@ -213,28 +224,17 @@ __device__ __forceinline__ void stage_chunk(typename Elem<T>::Acc* dst,
   }
 }
 
-// One block folds one long row (feat == 1): warps 1.. stage the next chunk
-// of the row's values in shared memory while thread 0 folds the current
-// one in order, reading four values per shared-memory load, so the serial
-// chain runs at the combine's latency instead of a dependent gather's.  The
-// block takes all the shared memory a block may have, so no other block
-// shares its SM's issue slots and memory pipeline with the chain (beside
-// short-row blocks the chain runs some 55% slower).  Such a block starts
-// only on an empty SM, so the short rows' thousands of blocks must not be
-// dispatched before it: the host launches it first, on a stream of higher
-// priority, and holds the short-row kernel behind gate_kernel until every
-// long-row block has counted itself in `started`.
+// The fold of long row id (rank * live_len + row) by one block.  It ends
+// with every thread past its last barrier, so a block may fold another.
 template <typename T, int kReduce>
-__global__ void long_fold_kernel(const Fold<T> a, int chunk,
-                                 unsigned long long* started) {
-  if (threadIdx.x == 0 && started != nullptr) atomicAdd(started, 1ULL);
+__device__ __forceinline__ void long_fold_row(const Fold<T>& a, int chunk,
+                                              unsigned id) {
   using E = Elem<T>;
   using Acc = typename E::Acc;
   using V4 = typename Vec4<Acc>::type;
   extern __shared__ __align__(16) unsigned char smem[];
   Acc* const buf0 = reinterpret_cast<Acc*>(smem);
   Acc* const buf1 = buf0 + chunk;
-  const unsigned id = a.long_rows[blockIdx.x];
   const size_t rank = id / a.live_len;
   const unsigned t = id - rank * a.live_len;
   const T* vr = a.vals + rank * a.k_lanes;
@@ -293,6 +293,34 @@ __global__ void long_fold_kernel(const Fold<T> a, int chunk,
   }
 }
 
+// One block folds one long row at a time (feat == 1; long_fold_row, one
+// row a block with a host-built table): warps 1.. stage the next chunk
+// of the row's values in shared memory while thread 0 folds the current
+// one in order, reading four values per shared-memory load, so the serial
+// chain runs at the combine's latency instead of a dependent gather's.  The
+// block takes all the shared memory a block may have, so no other block
+// shares its SM's issue slots and memory pipeline with the chain (beside
+// short-row blocks the chain runs some 55% slower).  Such a block starts
+// only on an empty SM, so the short rows' thousands of blocks must not be
+// dispatched before it: the host launches it first, on a stream of higher
+// priority, and holds the short-row kernel behind gate_kernel until every
+// long-row block has counted itself in `started`.
+// kStrided (a derived table): the blocks stride over the counts[1] live
+// long rows; otherwise block b folds long row b.
+template <typename T, int kReduce, bool kStrided>
+__global__ void long_fold_kernel(const Fold<T> a, int chunk,
+                                 unsigned long long* started) {
+  if (threadIdx.x == 0 && started != nullptr) atomicAdd(started, 1ULL);
+  if (!kStrided) {
+    long_fold_row<T, kReduce>(a, chunk, a.long_rows[blockIdx.x]);
+    return;
+  }
+  const unsigned n_long = static_cast<unsigned>(a.counts[1]);
+  for (unsigned b = blockIdx.x; b < n_long; b += gridDim.x) {
+    long_fold_row<T, kReduce>(a, chunk, a.long_rows[b]);
+  }
+}
+
 // Short scalar rows (feat == 1), one run a block: the run's lanes are one
 // contiguous range of the rank's perm (fewer than kRunLanes of them, at most
 // kRunRows * kThreads rows).  The block parks the run's slice of seg_ptr in
@@ -301,16 +329,16 @@ __global__ void long_fold_kernel(const Fold<T> a, int chunk,
 // the values beside it; after the barrier thread i folds rows first + i,
 // first + i + kThreads, ... from there in ascending lane order, each from
 // its start value.  Long rows belong to no run.  Little state a thread (40
-// registers): six blocks fill an SM.
+// registers): six blocks fill an SM.  With a derived table the blocks
+// stride over the live runs, a barrier between two.
 template <typename T, int kReduce>
-__global__ void __launch_bounds__(kThreads) run_fold_kernel(const Fold<T> a) {
+__device__ __forceinline__ void run_fold(const Fold<T>& a, const int4 run) {
   using E = Elem<T>;
   using Acc = typename E::Acc;
   extern __shared__ __align__(16) unsigned char smem[];
   int* const spp = reinterpret_cast<int*>(smem);          // rows + 1
   Acc* const parked = reinterpret_cast<Acc*>(smem) + kRunRows * kThreads + 4;
   static_assert(sizeof(Acc) == sizeof(int), "the parked values follow spp");
-  const int4 run = a.runs[blockIdx.x];
   const unsigned rank = static_cast<unsigned>(run.x) / a.live_len;
   const unsigned t0 = static_cast<unsigned>(run.x) - rank * a.live_len;
   const int rows = run.y - run.x;
@@ -349,6 +377,21 @@ __global__ void __launch_bounds__(kThreads) run_fold_kernel(const Fold<T> a) {
     }
     if (padded) acc = E::add(acc, E::zero());
     a.out[out0 + i] = E::store(acc);
+  }
+}
+
+// kStrided (a derived table): the blocks stride over the counts[0] live
+// runs; otherwise block b folds run b.
+template <typename T, int kReduce, bool kStrided>
+__global__ void __launch_bounds__(kThreads) run_fold_kernel(const Fold<T> a) {
+  if (!kStrided) {
+    run_fold<T, kReduce>(a, a.runs[blockIdx.x]);
+    return;
+  }
+  const unsigned n_runs = static_cast<unsigned>(a.counts[0]);
+  for (unsigned b = blockIdx.x; b < n_runs; b += gridDim.x) {
+    if (b != blockIdx.x) __syncthreads();   // the last run's reads are done
+    run_fold<T, kReduce>(a, a.runs[b]);
   }
 }
 
@@ -397,9 +440,9 @@ __global__ void segment_fold_kernel(const Fold<T> a) {
 template <typename T>
 Fold<T> make_fold(const void* vals, const void* perm, const void* seg_ptr,
                   const void* pad_rows, const void* long_rows,
-                  const void* runs, const void* init, void* out,
-                  long long p, long long k_lanes, long long live_len,
-                  long long out_len, long long feat) {
+                  const void* runs, const void* counts, const void* init,
+                  void* out, long long p, long long k_lanes,
+                  long long live_len, long long out_len, long long feat) {
   long long blocks = (live_len * feat + kThreads - 1) / kThreads;
   blocks = blocks < 1 ? 1 : (blocks > kMaxBlocks ? kMaxBlocks : blocks);
   return Fold<T>{static_cast<const T*>(vals),
@@ -410,6 +453,7 @@ Fold<T> make_fold(const void* vals, const void* perm, const void* seg_ptr,
                  static_cast<T*>(out),
                  static_cast<const int32_t*>(long_rows),
                  static_cast<const int4*>(runs),
+                 static_cast<const int32_t*>(counts),
                  static_cast<unsigned>(k_lanes),
                  static_cast<unsigned>(live_len),
                  static_cast<unsigned>(out_len),
@@ -428,8 +472,15 @@ int launch_short(const Fold<T>& a, long long p, long long n_runs,
     const size_t smem = (kRunRows * kThreads + 4) * sizeof(int) +
                         kRunLanes * sizeof(Acc);
     const unsigned grid = static_cast<unsigned>(n_runs);
-    if (reduce == kAdd) run_fold_kernel<T, kAdd><<<grid, kThreads, smem, s>>>(a);
-    else run_fold_kernel<T, kMax><<<grid, kThreads, smem, s>>>(a);
+    const bool strided = a.counts != nullptr;
+    if (reduce == kAdd && strided)
+      run_fold_kernel<T, kAdd, true><<<grid, kThreads, smem, s>>>(a);
+    else if (reduce == kAdd)
+      run_fold_kernel<T, kAdd, false><<<grid, kThreads, smem, s>>>(a);
+    else if (strided)
+      run_fold_kernel<T, kMax, true><<<grid, kThreads, smem, s>>>(a);
+    else
+      run_fold_kernel<T, kMax, false><<<grid, kThreads, smem, s>>>(a);
     return static_cast<int>(cudaGetLastError());
   }
   const dim3 grid(a.blocks, static_cast<unsigned>(p));
@@ -456,8 +507,12 @@ int launch_long(const Fold<T>& a, long long n_long, int reduce,
                                                                started);
     return static_cast<int>(cudaGetLastError());
   };
-  return reduce == kAdd ? go(long_fold_kernel<T, kAdd>)
-                        : go(long_fold_kernel<T, kMax>);
+  if (a.counts != nullptr) {
+    return reduce == kAdd ? go(long_fold_kernel<T, kAdd, true>)
+                          : go(long_fold_kernel<T, kMax, true>);
+  }
+  return reduce == kAdd ? go(long_fold_kernel<T, kAdd, false>)
+                        : go(long_fold_kernel<T, kMax, false>);
 }
 
 bool bad_extents(long long p, long long k_lanes, long long live_len,
@@ -469,8 +524,8 @@ bool bad_extents(long long p, long long k_lanes, long long live_len,
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = int32; reduce: 0 = add, 1 = max.
 int fold(const void* vals, const void* perm, const void* seg_ptr,
-         const void* pad_rows, const void* runs, const void* init, void* out,
-         long long p, long long k_lanes, long long live_len,
+         const void* pad_rows, const void* runs, const void* counts,
+         const void* init, void* out, long long p, long long k_lanes, long long live_len,
          long long out_len, long long feat, long long n_runs, int dtype,
          int reduce, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -480,8 +535,8 @@ int fold(const void* vals, const void* perm, const void* seg_ptr,
     return static_cast<int>(cudaErrorInvalidValue);
 #define FOLD_SHORT(T)                                                       \
   return launch_short<T>(make_fold<T>(vals, perm, seg_ptr, pad_rows,        \
-                                      nullptr, runs, init, out, p, k_lanes, \
-                                      live_len, out_len, feat),             \
+                                      nullptr, runs, counts, init, out, p,  \
+                                      k_lanes, live_len, out_len, feat),    \
                          p, n_runs, reduce, s)
   switch (dtype) {
     case 0: FOLD_SHORT(float);
@@ -493,8 +548,8 @@ int fold(const void* vals, const void* perm, const void* seg_ptr,
 }
 
 int fold_long(const void* vals, const void* perm, const void* seg_ptr,
-              const void* pad_rows, const void* long_rows, const void* init,
-              void* out, long long p, long long k_lanes, long long live_len,
+              const void* pad_rows, const void* long_rows,
+              const void* counts, const void* init, void* out, long long p, long long k_lanes, long long live_len,
               long long out_len, long long n_long, int dtype, int reduce,
               void* started, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -504,8 +559,8 @@ int fold_long(const void* vals, const void* perm, const void* seg_ptr,
     return static_cast<int>(cudaErrorInvalidValue);
 #define FOLD_LONG(T)                                                         \
   return launch_long<T>(make_fold<T>(vals, perm, seg_ptr, pad_rows,          \
-                                     long_rows, nullptr, init, out, p,       \
-                                     k_lanes, live_len, out_len, 1),         \
+                                     long_rows, nullptr, counts, init, out,  \
+                                     p, k_lanes, live_len, out_len, 1),      \
                         n_long, reduce,                                       \
                         static_cast<unsigned long long*>(started), s)
   switch (dtype) {
@@ -533,41 +588,47 @@ extern "C" {
 
 // out[q, t] = identity (+)= vals[q, perm[q, j]] for j in [seg_ptr[q, t],
 // seg_ptr[q, t + 1]), rows feat elements wide: for feat == 1 over the rows
-// of the n_runs runs (fewer than kRunLanes lanes each), for feat > 1 over
-// every live row t < live_len.  pad_rows may be null.
+// of the runs (fewer than kRunLanes lanes each), for feat > 1 over every
+// live row t < live_len.  pad_rows may be null.  counts null: n_runs runs,
+// a block each; else the counts[0] live runs (device memory) over a grid of
+// n_runs blocks.
 int rt_accumulate_segments(const void* vals, const void* perm,
                            const void* seg_ptr, const void* pad_rows,
-                           const void* runs, void* out, long long p,
-                           long long k_lanes, long long live_len,
-                           long long out_len, long long feat,
-                           long long n_runs, int dtype, int reduce,
-                           void* stream) {
-  return fold(vals, perm, seg_ptr, pad_rows, runs, nullptr, out, p, k_lanes,
-              live_len, out_len, feat, n_runs, dtype, reduce, stream);
+                           const void* runs, const void* counts, void* out,
+                           long long p, long long k_lanes,
+                           long long live_len, long long out_len,
+                           long long feat, long long n_runs, int dtype,
+                           int reduce, void* stream) {
+  return fold(vals, perm, seg_ptr, pad_rows, runs, counts, nullptr, out, p,
+              k_lanes, live_len, out_len, feat, n_runs, dtype, reduce,
+              stream);
 }
 
 // The same fold, starting from init[q, t] (out_len rows, like out).
 int rt_accumulate_into(const void* init, const void* vals, const void* perm,
                        const void* seg_ptr, const void* pad_rows,
-                       const void* runs, void* out, long long p,
-                       long long k_lanes, long long live_len,
+                       const void* runs, const void* counts, void* out,
+                       long long p, long long k_lanes, long long live_len,
                        long long out_len, long long feat, long long n_runs,
                        int dtype, int reduce, void* stream) {
-  return fold(vals, perm, seg_ptr, pad_rows, runs, init, out, p, k_lanes,
-              live_len, out_len, feat, n_runs, dtype, reduce, stream);
+  return fold(vals, perm, seg_ptr, pad_rows, runs, counts, init, out, p,
+              k_lanes, live_len, out_len, feat, n_runs, dtype, reduce,
+              stream);
 }
 
-// The long rows of either fold (feat == 1): long_rows lists n_long rows as
-// rank * live_len + row; init may be null (start from the identity).  Each
-// block adds one to *started (a device counter, or null) as it starts.
+// The long rows of either fold (feat == 1): long_rows lists rows as
+// rank * live_len + row, n_long of them with a block each (counts null) or
+// counts[1] (device memory) over a grid of n_long blocks; init may be null
+// (start from the identity).  Each launched block adds one to *started (a
+// device counter, or null) as it starts.
 int rt_fold_long_rows(const void* init, const void* vals, const void* perm,
                       const void* seg_ptr, const void* pad_rows,
-                      const void* long_rows, void* out, long long p,
-                      long long k_lanes, long long live_len,
+                      const void* long_rows, const void* counts, void* out,
+                      long long p, long long k_lanes, long long live_len,
                       long long out_len, long long n_long, int dtype,
                       int reduce, void* started, void* stream) {
-  return fold_long(vals, perm, seg_ptr, pad_rows, long_rows, init, out, p,
-                   k_lanes, live_len, out_len, n_long, dtype, reduce,
+  return fold_long(vals, perm, seg_ptr, pad_rows, long_rows, counts, init,
+                   out, p, k_lanes, live_len, out_len, n_long, dtype, reduce,
                    started, stream);
 }
 

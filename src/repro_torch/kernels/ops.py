@@ -18,9 +18,11 @@ from repro_torch.kernels import decode_attention as _b8
 from repro_torch.kernels.ellpack_spmv import (PlanOrder,
                                               ellpack_spmv_windowed)
 from repro_torch.kernels.pack_gather import (DestOrder, ScatterTiles,
-                                             SegmentTable,
+                                             SegmentTable, TileOrder,
                                              accumulate_into,
                                              accumulate_segments,
+                                             derive_segment_table,
+                                             derive_tile_order,
                                              pack_gather, segment_table,
                                              unpack_dest, unpack_dest_spmv,
                                              unpack_scatter_set)
@@ -31,8 +33,9 @@ __all__ = [
     "plan_spmv_windows", "ellpack_spmv", "make_spmv_on_copy_sharded",
     "make_spmv_overlap_sharded", "pack_gather", "unpack_dest",
     "unpack_dest_spmv", "DestOrder", "unpack_scatter_set", "ScatterTiles",
-    "ellpack_spmv_windowed", "accumulate_segments",
-    "accumulate_into", "SegmentTable", "segment_table", "stencil2d",
+    "TileOrder", "derive_tile_order", "ellpack_spmv_windowed",
+    "accumulate_segments", "accumulate_into", "SegmentTable",
+    "segment_table", "derive_segment_table", "stencil2d",
     "decode_attention", "selective_scan", "launch_counts", "entry_counts",
     "reset_launch_counts",
 ]

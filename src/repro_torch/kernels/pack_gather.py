@@ -23,6 +23,11 @@ Wrappers of the CUDA kernels in ``csrc/pack_gather.cu`` and
   combine, landed-foreign fold) under ``add`` or ``max``, in ascending lane
   order through a ``SegmentTable`` built once per static index array.
 
+A per-batch pattern (``comm.dynamic``) changes its index arrays every
+batch, so their tables are derived on the device with no host sync
+(``derive_tile_order``, ``derive_segment_table``): the fold kernels then
+read how many runs and long rows are live from device memory.
+
 Every tensor carries the leading rank axis ``(P, ...)`` and one launch
 serves all ranks.  A CUDA tensor always goes through the kernel (or the call
 raises); a CPU tensor takes the plain version in ``kernels/ref.py``.  Each
@@ -41,8 +46,10 @@ from repro_torch.kernels import ref as kref
 
 __all__ = ["pack_gather", "unpack_scatter_set", "unpack_dest",
            "unpack_dest_spmv", "TileTable", "tile_table", "ScatterTiles",
-           "DestTable", "dest_table", "DestOrder", "SegmentTable",
-           "segment_table", "accumulate_segments", "accumulate_into"]
+           "TileOrder", "derive_tile_order", "DestTable", "dest_table",
+           "DestOrder", "SegmentTable", "segment_table",
+           "derive_segment_table", "run_capacity", "long_capacity",
+           "accumulate_segments", "accumulate_into"]
 
 
 def require(cond: bool, what=None) -> None:
@@ -188,6 +195,63 @@ class ScatterTiles:
                                    row_bytes=row_bytes))
             self._by_key[key] = hit
         return hit[1]
+
+
+# the target of the rows a derived tile order drops: above any out_len, so
+# they sort after every tile whatever output the order serves
+_DROPPED = (1 << 31) - 1
+
+
+@dataclasses.dataclass(frozen=True)
+class TileOrder:
+    """A per-batch landed index array ``idx (P, R)``, sorted for the
+    one-pass unpack on its device with no host sync
+    (``derive_tile_order``): ``perm`` and ``tgt`` as ``TileTable`` has
+    them, except that the rows it drops (all but the last of each target's)
+    have the target ``2^31 - 1`` in place of ``out_len``, so that one order
+    serves every output length.  ``table`` adds the tile bounds of one
+    output."""
+
+    idx: torch.Tensor          # (P, R) int32
+    tgt: torch.Tensor          # (P, R) int32, ascending in each rank
+    perm: torch.Tensor         # (P, R) int32
+
+    def table(self, *, out_len: int, row_bytes: int) -> TileTable:
+        """The ``TileTable`` for an output of ``out_len`` rows of
+        ``row_bytes``: a ``searchsorted`` of the tile bounds, no sync.
+        Equal to ``tile_table(idx, ...)`` on every entry a tile holds."""
+        require(out_len > 0 and row_bytes > 0, (out_len, row_bytes))
+        if self.idx.numel():
+            torch._assert_async(self.idx.amax() < out_len,
+                                "idx outside [0, out_len)")
+        tile_rows = max(1, TILE_BYTES // row_bytes)
+        tiles = -(-out_len // tile_rows)
+        bounds = (torch.arange(tiles + 1, device=self.tgt.device) * tile_rows
+                  ).clamp_(max=out_len).to(torch.int32).expand(
+            self.tgt.shape[0], -1).contiguous()
+        tile_ptr = torch.searchsorted(self.tgt, bounds)
+        return TileTable(idx=self.idx, tgt=self.tgt, perm=self.perm,
+                         tile_ptr=tile_ptr.to(torch.int32), out_len=out_len,
+                         row_bytes=row_bytes, tile_rows=tile_rows)
+
+
+def derive_tile_order(idx: torch.Tensor) -> TileOrder:
+    """The ``TileOrder`` of ``idx (P, R)``, whose values are targets in
+    ``[0, out_len)`` by construction (the landed index arrays that
+    ``comm.dynamic`` derives): ``tile_table``'s two stable sorts, with no
+    host range check (``torch._assert_async`` checks the sign; ``table``
+    the upper end)."""
+    require(idx.dim() == 2, idx.shape)
+    _int32(idx)
+    if idx.numel():
+        torch._assert_async(idx.amin() >= 0, "idx outside [0, out_len)")
+    tgt, perm = torch.sort(idx, dim=1, stable=True)
+    last = torch.ones_like(tgt, dtype=torch.bool)
+    last[:, :-1] = tgt[:, :-1] != tgt[:, 1:]
+    tgt, kept = torch.sort(torch.where(last, tgt, _DROPPED), dim=1,
+                           stable=True)
+    return TileOrder(idx=idx, tgt=tgt.contiguous(),
+                     perm=perm.gather(1, kept).to(torch.int32).contiguous())
 
 
 def unpack_scatter_set(recv: torch.Tensor, idx: torch.Tensor,
@@ -506,7 +570,13 @@ class SegmentTable:
     ``runs[b, 0] <= g < runs[b, 1]`` (``g = q * live_len + t``, at most
     ``RUN_ROWS`` rows of one rank) folds lanes ``perm[q, runs[b, 2] :
     runs[b, 3]]`` (fewer than ``RUN_LANES``).  ``idx`` is the array the
-    table was built from: the kernels fold only that array."""
+    table was built from: the kernels fold only that array.
+
+    A table derived on the device (``derive_segment_table``) sizes
+    ``runs`` and ``long_rows`` by their capacities, and ``live_counts``
+    holds how many of each are live: ``(n_runs, n_long)``, int32, on the
+    device; the entries past the counts are all zero (an empty run).  The
+    kernels read the counts there.  A host-built table has none."""
 
     idx: torch.Tensor                  # (P, K) int32
     perm: torch.Tensor                 # (P, K) int32
@@ -516,6 +586,7 @@ class SegmentTable:
     runs: torch.Tensor                 # (n_runs, 4) int32
     out_len: int
     live_len: int
+    live_counts: torch.Tensor | None = None   # (2,) int32
 
     def longest(self) -> int:
         """The most lanes any live row folds: its chain of dependent
@@ -602,6 +673,135 @@ def segment_table(idx: torch.Tensor, *, out_len: int,
                         runs=_runs(seg_ptr), out_len=out_len, live_len=live)
 
 
+def long_capacity(p: int, k: int, live: int) -> int:
+    """The most long rows a table of ``p`` ranks of ``k`` lanes and ``live``
+    live rows can have: a long row holds more than ``LONG_LANES`` of its
+    rank's lanes, and each lane targets one row, so a rank has at most
+    ``k // (LONG_LANES + 1)`` of them, and at most ``live``."""
+    return p * min(live, k // (LONG_LANES + 1))
+
+
+def run_capacity(p: int, k: int, live: int) -> int:
+    """The most runs such a table can have.  A run starts at a cut that is
+    not a long row (``_runs``), and a rank's cuts are: the multiples of
+    ``RUN_ROWS`` (``ceil(live / RUN_ROWS)``), the row after each long row
+    (at most ``k // (LONG_LANES + 1)``, as above) and the rows where
+    ``seg_ptr // (RUN_LANES - LONG_LANES)`` steps (seg_ptr never falls and
+    ends at most at ``k``, so at most ``k // (RUN_LANES - LONG_LANES)``
+    steps); a run holds at least one row, so at most ``live``."""
+    cuts = (-(-live // RUN_ROWS) + k // (LONG_LANES + 1)
+            + k // (RUN_LANES - LONG_LANES))
+    return p * min(live, cuts)
+
+
+def _compact(flags: torch.Tensor, n_cap: int, values: torch.Tensor):
+    """``values`` at the set ``flags`` (1-D), in order, scattered into a
+    buffer of ``n_cap`` entries and, for each unset flag, a dump slot of its
+    own (cut off; one shared slot would serialize the writes): the
+    sync-free form of ``values[flags]``, padded with zeros.  Also the
+    count."""
+    total = flags.numel()
+    slot = torch.where(flags, flags.cumsum(0) - 1,
+                       n_cap + torch.arange(total, device=flags.device))
+    shape = (n_cap + total,) + tuple(values.shape[1:])
+    buf = torch.zeros(shape, dtype=values.dtype, device=values.device)
+    index = slot.reshape((-1,) + (1,) * (values.dim() - 1)).expand_as(values)
+    return buf.scatter_(0, index, values)[:n_cap], flags.sum()
+
+
+def _derived_runs(seg_ptr: torch.Tensor, r_cap: int, l_cap: int):
+    """``_runs`` and the long rows of ``seg_ptr (P, live + 1)`` with no
+    host sync: ``(runs (r_cap, 4), long_rows (l_cap,), counts (2,))``, the
+    same cuts and runs.  Every cut starts a run or is a long row, so the
+    cuts, compacted in order into ``r_cap + l_cap`` entries, give each
+    run's end as the next cut in place of ``nonzero``."""
+    sp = seg_ptr.to(torch.int64)
+    long = (sp[:, 1:] - sp[:, :-1]) > LONG_LANES
+    p, live = long.shape
+    dev = sp.device
+    total = p * live
+    if total == 0:
+        return (torch.zeros((r_cap, 4), dtype=torch.int32, device=dev),
+                torch.zeros(l_cap, dtype=torch.int32, device=dev),
+                torch.zeros(2, dtype=torch.int32, device=dev))
+    step = sp[:, :-1] // (RUN_LANES - LONG_LANES)
+    cut = long.clone()
+    cut[:, ::RUN_ROWS] = True
+    cut[:, 1:] |= long[:, :-1] | (step[:, 1:] != step[:, :-1])
+    cut, long = cut.reshape(-1), long.reshape(-1)
+    row = torch.arange(total, device=dev, dtype=torch.int32)
+    c_cap = r_cap + l_cap
+    first, n_cuts = _compact(cut, c_cap, row)
+    at = torch.arange(c_cap, device=dev)
+    # the run starting at a cut ends at the next cut (the last at total)
+    end = torch.where(at + 1 < n_cuts, torch.cat(
+        [first[1:], first.new_zeros(1)]), total)
+    rank = first // live
+    flat = sp.reshape(-1)
+    runs, n_runs = _compact(
+        (at < n_cuts) & ~long[first.long()], r_cap,
+        torch.stack([first, end, flat[(first + rank).long()].int(),
+                     flat[(end + rank).long()].int()], dim=1))
+    long_rows, n_long = _compact(long, l_cap, row)
+    counts = torch.stack([n_runs, n_long]).to(torch.int32)
+    return runs, long_rows, counts
+
+
+def derive_segment_table(idx: torch.Tensor, *, out_len: int,
+                         live_len: int | None = None,
+                         pad: torch.Tensor | None = None) -> SegmentTable:
+    """The ``SegmentTable`` of a per-batch ``idx (P, K)`` on its device
+    with no host sync, for index arrays whose values lie in ``[0,
+    out_len)`` by construction (those that ``comm.dynamic`` derives):
+    ``segment_table``'s stable sort, ``seg_ptr`` by a ``searchsorted`` of
+    the sorted keys, ``pad_rows`` by a scatter of the padding lanes'
+    distinct rows (a sort) into a buffer with dump slots, the runs and long
+    rows scattered into buffers of their capacities (``run_capacity``, ``long_capacity``) with their counts in
+    ``live_counts``.  Equal to ``segment_table`` of the same arguments on
+    every entry the counts cover; a range check, where wanted, runs on the
+    device (``torch._assert_async``)."""
+    require(idx.dim() == 2, idx.shape)
+    _int32(idx)
+    p, k = idx.shape
+    live = out_len if live_len is None else int(live_len)
+    require(0 <= live <= out_len and k < 2 ** 31, (live, out_len, k))
+    dev = idx.device
+    rows = idx.to(torch.int64)
+    if rows.numel():
+        torch._assert_async((rows.amin() >= 0) & (rows.amax() < out_len),
+                            "idx outside [0, out_len)")
+    drop = rows >= live
+    if pad is not None:
+        require(pad.shape == idx.shape, (pad.shape, idx.shape))
+        pad = pad.to(device=dev, dtype=torch.bool) & ~drop
+        drop = drop | pad
+    key = torch.where(drop, live, rows)
+    skey, perm = torch.sort(key, dim=1, stable=True)
+    bounds = torch.arange(live + 1, device=dev).expand(p, -1).contiguous()
+    seg_ptr = torch.searchsorted(skey, bounds).to(torch.int32)
+    pad_rows = None
+    if pad is not None:
+        # each (rank, row) a padding lane targets written once: the first
+        # of its stretch in the padding lanes' sorted rows; the rest land
+        # in dump slots of their own (every message pads onto one row)
+        prow = torch.sort(torch.where(pad, rows, live), dim=1).values
+        first = torch.ones_like(prow, dtype=torch.bool)
+        first[:, 1:] = prow[:, 1:] != prow[:, :-1]
+        base = torch.arange(p, device=dev)[:, None]
+        lane = torch.arange(p * k, device=dev).reshape(p, k)
+        hit = torch.where(first & (prow < live), prow + base * live,
+                          p * live + lane).reshape(-1)
+        pad_rows = torch.zeros(p * live + p * k, dtype=torch.int8,
+                               device=dev).scatter_(0, hit, 1)[:p * live]
+        pad_rows = pad_rows.reshape(p, live)
+    runs, long_rows, counts = _derived_runs(
+        seg_ptr, run_capacity(p, k, live), long_capacity(p, k, live))
+    return SegmentTable(idx=idx, perm=perm.to(torch.int32).contiguous(),
+                        seg_ptr=seg_ptr, pad_rows=pad_rows,
+                        long_rows=long_rows, runs=runs, out_len=out_len,
+                        live_len=live, live_counts=counts)
+
+
 _FOLD_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 # "set" is add after the caller's winner mask
 _FOLD_REDUCES = {"add": 0, "set": 0, "max": 1}
@@ -613,6 +813,17 @@ def _fold_checks(vals: torch.Tensor, idx: torch.Tensor, reduce: str) -> None:
             (vals.shape, idx.shape))
     require(reduce in _FOLD_REDUCES, reduce)
     _int32(idx)
+
+
+# blocks a derived table's fold launches an SM: the run kernel's blocks
+# stride over the live runs (six fit an SM at once, csrc/accumulate.cu), the
+# long-row blocks over the live long rows (one fills an SM)
+RUN_BLOCKS_PER_SM = 8
+LONG_BLOCKS_PER_SM = 1
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _fold(kernel: str, entry: str, init, vals, idx, reduce: str, table,
@@ -630,8 +841,7 @@ def _fold(kernel: str, entry: str, init, vals, idx, reduce: str, table,
             and table.idx.shape == idx.shape and table.out_len == out_len,
             "the table was built for another index array or out_len")
     parts = [table.perm, table.seg_ptr, table.long_rows, table.runs]
-    if table.pad_rows is not None:
-        parts.append(table.pad_rows)
+    parts += [t for t in (table.pad_rows, table.live_counts) if t is not None]
     on_card(vals, *parts)
     dev = vals.device
     feat = math.prod(vals.shape[2:])
@@ -643,21 +853,31 @@ def _fold(kernel: str, entry: str, init, vals, idx, reduce: str, table,
               pad_ptr)
     dtype, red = _FOLD_DTYPES[vals.dtype], _FOLD_REDUCES[reduce]
     head = () if init is None else (init_ptr,)
+    # a host-built table launches a block for each run and long row; a
+    # derived one a grid the host knows, whose blocks stride over the live
+    # entries that its live_counts hold on the device
+    n_runs, n_long = table.runs.shape[0], table.long_rows.numel()
+    counts_ptr = None
+    if table.live_counts is not None:
+        counts_ptr = table.live_counts.data_ptr()
+        sms = _sm_count(dev)
+        n_runs = min(n_runs, RUN_BLOCKS_PER_SM * sms)
+        n_long = min(n_long, LONG_BLOCKS_PER_SM * sms)
     short = (kernel, entry, dev, *head, *common, table.runs.data_ptr(),
-             out.data_ptr(), p, idx.shape[1], table.live_len, out_len, feat,
-             table.runs.shape[0], dtype, red)
+             counts_ptr, out.data_ptr(), p, idx.shape[1], table.live_len,
+             out_len, feat, n_runs, dtype, red)
     # scalar rows past LONG_LANES fold in blocks of their own, each on an
     # SM of its own: launched first, on a stream of higher priority, with
     # the short rows beside them on the caller's stream behind a gate that
     # opens once every long-row block has started (so they find empty SMs);
     # wider rows fold every row one thread per feature element.  The gate's
-    # target is a host-side running total, which a CUDA graph would freeze
+    # target is a host-side running total of the blocks launched (every
+    # block counts itself, live or not), which a CUDA graph would freeze
     # at capture: under capture the long rows count nothing and no gate is
     # launched: a captured fold gives the same bits, but its short rows may
     # take the SMs before its long rows start (the serialized step of
     # PERF.md §6 that the gate removes)
-    n_long = table.long_rows.numel() if feat == 1 else 0
-    if not n_long:
+    if feat != 1 or not n_long:
         _build.launch(*short)
         return out
     main = torch.cuda.current_stream(dev)
@@ -666,8 +886,8 @@ def _fold(kernel: str, entry: str, init, vals, idx, reduce: str, table,
     chains.stream.wait_stream(main)
     with torch.cuda.stream(chains.stream):
         _build.launch(None, "rt_fold_long_rows", dev, init_ptr, *common,
-                      table.long_rows.data_ptr(), out.data_ptr(), p,
-                      idx.shape[1], table.live_len, out_len, n_long, dtype,
+                      table.long_rows.data_ptr(), counts_ptr, out.data_ptr(),
+                      p, idx.shape[1], table.live_len, out_len, n_long, dtype,
                       red, chains.started.data_ptr() if gated else None)
     if gated:
         chains.launched += n_long

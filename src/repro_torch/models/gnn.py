@@ -29,7 +29,7 @@ __all__ = ["GNNNeighborAggregate", "gnn_ref_np", "random_neighbors"]
 
 
 def random_neighbors(n: int, r: int, *, alpha: float = 0.0,
-                     seed: int = 0) -> np.ndarray:
+                     seed: int = 0, device=None):
     """An ELL neighbor list, optionally with Zipf(``alpha``) hub nodes.
 
     ``alpha=0`` draws neighbors uniformly; larger ``alpha`` concentrates
@@ -37,17 +37,26 @@ def random_neighbors(n: int, r: int, *, alpha: float = 0.0,
     regime where the scatter direction's per-shard accumulate loads become
     badly imbalanced.  Self-edges are kept: they are owned accesses and
     their messages vanish in the combine.  The reference's arrays for the
-    same arguments.
+    same arguments.  ``device``: the same array as an int32 tensor there,
+    the Zipf draws' ``searchsorted`` run on that device (a graph resampled
+    every batch is made on the card in milliseconds, not seconds).
     """
     rng = np.random.default_rng(seed)
     if alpha > 0.0:
         from repro_torch.data.skewed import zipf_column_weights
         cdf = np.cumsum(zipf_column_weights(n, alpha, seed=seed + 1))
         cdf[-1] = 1.0
-        nbrs = np.searchsorted(cdf, rng.random((n, r)), side="right")
+        draws = rng.random((n, r))
+        if device is not None:
+            return torch.searchsorted(
+                torch.as_tensor(cdf, device=device),
+                torch.as_tensor(draws, device=device), right=True,
+                out_int32=True)
+        nbrs = np.searchsorted(cdf, draws, side="right")
     else:
         nbrs = rng.integers(0, n, size=(n, r))
-    return np.ascontiguousarray(nbrs, dtype=np.int32)
+    nbrs = np.ascontiguousarray(nbrs, dtype=np.int32)
+    return nbrs if device is None else torch.as_tensor(nbrs, device=device)
 
 
 def gnn_ref_np(h: np.ndarray, nbrs: np.ndarray,

@@ -1557,6 +1557,217 @@ def test_dynamic_moe_layer_on_card(dev, dtype):
             torch.testing.assert_close(y.cpu(), want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("feat", [(), (3,), (1024,), (8192,)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32])
+def test_unpack_scatter_set_derived_tiles_bit_exact(dev, feat, dtype):
+    """B2 through a per-batch tile order (``derive_tile_order``, derived
+    and launched with no host sync) against the plain version, as the
+    host-built table is held: outside the dump row and the twice-landed
+    row, bit for bit."""
+    rng = np.random.default_rng(5)
+    n, idx, recv, x_own, offsets = _tile_case(dev, rng, feat, dtype)
+    out_len = n + 1
+    row_bytes = int(np.prod(feat, dtype=np.int64)) * recv.element_size()
+    kw = dict(out_len=out_len)
+    kops.unpack_scatter_set(recv, idx, x_own, offsets, **kw)   # the build
+    torch.cuda.synchronize()
+    kops.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        table = kops.derive_tile_order(idx).table(out_len=out_len,
+                                                  row_bytes=row_bytes)
+        got = kops.unpack_scatter_set(recv, idx, x_own, offsets,
+                                      table=table, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert kops.entry_counts() == {"rt_unpack_scatter_tiles": 1}
+    want = kref.unpack_scatter_set_ref(recv, idx, x_own, offsets, **kw)
+    host = kops.ScatterTiles()(idx, out_len=out_len, row_bytes=row_bytes)
+    assert torch.equal(table.tile_ptr, host.tile_ptr)
+    assert torch.equal(table.perm, host.perm)
+    keep = torch.ones((idx.shape[0], out_len), dtype=torch.bool, device=dev)
+    keep[:, n] = False
+    keep[torch.arange(idx.shape[0], device=dev), idx[:, 0].long()] = False
+    assert torch.equal(got[keep], want[keep])
+
+
+def _derived_fold(dev, vals, idx, init, reduce, **table_kw):
+    """B5 and B6 through a table derived on the card, made and launched
+    under ``set_sync_debug_mode("error")``; and the host-built table's."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        table = kops.derive_segment_table(idx, **table_kw)
+        out_len = table_kw["out_len"]
+        seg = kops.accumulate_segments(vals, idx, out_len=out_len,
+                                       reduce=reduce, table=table)
+        into = kops.accumulate_into(init, vals, idx, reduce=reduce,
+                                    table=table)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    host = kops.segment_table(idx, **table_kw)
+    return table, host, seg, into
+
+
+@pytest.mark.parametrize("layout", ["padded", "random", "full_runs",
+                                    "empty_stretch"])
+@pytest.mark.parametrize("reduce", ["add", "set", "max"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32])
+def test_accumulate_kernels_on_derived_tables_bit_exact(dev, layout, reduce,
+                                                        dtype):
+    """B5 and B6 on a per-batch table (``derive_segment_table``): the
+    counts read on the device, no host sync, bit for bit with the plain
+    versions on the CPU on every live row — padding lanes and 3-wide rows
+    (``padded``), and the long rows and runs of the staged layouts."""
+    p = 3
+    rng = np.random.default_rng(8)
+    pad = None
+    if layout == "padded":
+        idx, pad, vals, init = _fold_inputs(dtype, (3,), reduce, k=3000)
+        live = init.shape[1] - 1
+        pad = pad.to(dev)
+    else:
+        idx, live = _stage_idx(layout, rng, p)
+        idx = torch.as_tensor(idx)
+        if dtype == torch.int32:
+            vals = torch.as_tensor(rng.integers(-99, 99, tuple(idx.shape)),
+                                   dtype=torch.int32)
+            init = torch.as_tensor(rng.integers(-99, 99, (p, live + 1)),
+                                   dtype=torch.int32)
+        else:
+            vals = torch.as_tensor(rng.standard_normal(tuple(idx.shape))
+                                   .astype(np.float32)).to(dtype)
+            init = torch.as_tensor(rng.standard_normal((p, live + 1))
+                                   .astype(np.float32)).to(dtype)
+        if reduce == "set":
+            vals = vals * torch.as_tensor(rng.random(tuple(idx.shape))
+                                          < 0.5).to(vals.dtype)
+    table, host, seg, into = _derived_fold(
+        dev, vals.to(dev), idx.to(dev), init.to(dev), reduce,
+        out_len=live + 1, live_len=live, pad=pad)
+    n_runs, n_long = table.live_counts.tolist()
+    assert (n_runs, n_long) == (host.runs.shape[0], host.long_rows.numel())
+    assert torch.equal(table.runs[:n_runs], host.runs)
+    want_seg = kref.accumulate_segments_ref(vals, idx, out_len=live + 1,
+                                            reduce=reduce)
+    want_into = kref.accumulate_into_ref(init, vals, idx, reduce=reduce)
+    assert _same_bits(seg[:, :live], want_seg[:, :live])
+    assert _same_bits(into[:, :live], want_into[:, :live])
+
+
+def test_derived_fold_strides_past_its_grid(dev):
+    """More live runs and long rows than the grid a derived table's fold
+    launches (``RUN_BLOCKS_PER_SM`` and ``LONG_BLOCKS_PER_SM`` blocks an
+    SM): its blocks stride over them, bit for bit; the gate's target grows
+    by the long-row grid launched, where a host-built table launches a
+    block a long row."""
+    from repro_torch.kernels import pack_gather as kpg
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    p, rows = 2, 3 * sms
+    lanes = [kpg.LONG_LANES + 1, 1] * rows      # a run after every long row
+    rng = np.random.default_rng(9)
+    targets = np.repeat(np.arange(len(lanes)), lanes)
+    idx = torch.as_tensor(np.stack([rng.permutation(targets)
+                                    for _ in range(p)]).astype(np.int32))
+    live = len(lanes)
+    vals = torch.as_tensor(rng.standard_normal(tuple(idx.shape)).astype(
+        np.float32))
+    init = torch.zeros((p, live), dtype=torch.float32)
+    vd, idd = vals.to(dev), idx.to(dev)
+    chains = kpg._Chains.on(vd.device)
+    before = chains.launched
+    table, host, seg, into = _derived_fold(dev, vd, idd, init.to(dev), "add",
+                                           out_len=live)
+    grid = min(table.long_rows.numel(), kpg.LONG_BLOCKS_PER_SM * sms)
+    assert chains.launched - before == 2 * grid
+    assert table.live_counts.tolist() == [p * rows, p * rows]
+    assert p * rows > kpg.LONG_BLOCKS_PER_SM * sms
+    want = kref.accumulate_segments_ref(vals, idx, out_len=live)
+    assert _same_bits(seg, want) and _same_bits(into, want)
+    before = chains.launched
+    kops.reset_launch_counts()
+    static = kops.accumulate_segments(vd, idd, out_len=live, table=host)
+    torch.cuda.synchronize()
+    assert chains.launched - before == host.long_rows.numel() == p * rows
+    assert kops.entry_counts() == {"rt_fold_long_rows": 1,
+                                   "rt_fold_gate": 1,
+                                   "rt_accumulate_segments": 1}
+    assert _same_bits(static, want)
+
+
+def test_random_neighbors_on_card(dev):
+    """A graph drawn on the card equals the host's draw."""
+    from repro_torch.models.gnn import random_neighbors
+
+    got = random_neighbors(1 << 16, 16, alpha=1.1, seed=5, device=dev)
+    assert got.device.type == "cuda" and got.dtype == torch.int32
+    assert np.array_equal(got.cpu().numpy(),
+                          random_neighbors(1 << 16, 16, alpha=1.1, seed=5))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32])
+@pytest.mark.parametrize("strategy", ["condensed", "overlap"])
+def test_dynamic_exchange_with_kernels_on_card(dev, strategy, dtype):
+    """A step of a per-batch exchange on the card's kernels: each batch's
+    derivation, gather (B1, B2 through its tile order) and scatter-add (B5
+    twice, B6) with no host sync, one sort serving both directions; the
+    gather's n rows and the scatter's result bit for bit with the plain
+    arm of the same batch (a float32 scatter's on the CPU: the card's plain
+    add sums in an order of its own)."""
+    from repro_torch.comm import dynamic as dyn
+    from repro_torch.comm.gather import IrregularGather
+
+    p, n_tok, d = 8, 64, 16
+    comm = LoopbackComm(p, device=dev)
+    te0, _, cols0 = _routing_cols(0, p)
+    dp = dyn.DynamicPattern.from_template(
+        AccessPattern.from_indices(cols0.numpy(), n=n_tok), p)
+    arms = {k: (IrregularGather(dp, comm, strategy=strategy, use_kernel=k),
+                IrregularScatter(dp, comm, strategy=strategy, reduce="add",
+                                 use_kernel=k)) for k in (True, False)}
+    s_cpu = IrregularScatter(dp, LoopbackComm(p, device="cpu"),
+                             strategy=strategy, reduce="add")
+    rng = np.random.default_rng(2)
+    for seed in (1, 2, 3):
+        _, _, cols = _routing_cols(seed, p)
+        cols = cols.to(dev)
+        x = _rand(rng, (p, n_tok // p, d), dtype, dev)
+        vals = _rand(rng, (p, cols.shape[0] // p, 1, d), dtype, dev)
+        outs = {}
+        for kernel, (g, s) in arms.items():
+            if kernel:
+                torch.cuda.synchronize()
+                kops.reset_launch_counts()
+                torch.cuda.set_sync_debug_mode("error" if seed > 1 else 0)
+            try:
+                tables = dyn.derive_gather_tables(cols, n_tok, p, dp.s_max)
+                gargs = g.derive_plan_args(cols, gather_tables=tables)
+                sargs = s.derive_plan_args(cols, gather_tables=tables)
+                if strategy == "overlap":
+                    x_copy = g.start_local(x, *gargs).finish()
+                    y = s.start_local(vals, *sargs).finish()
+                else:
+                    x_copy, y = g.local(x, *gargs), s.local(vals, *sargs)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            if not kernel and dtype == torch.float32:
+                y = s_cpu.local(vals.cpu(), *(a.cpu() for a in sargs))
+            outs[kernel] = (x_copy[:, :n_tok], y)
+            if kernel:
+                torch.cuda.synchronize()
+                assert kops.launch_counts() == {
+                    **{k_: 0 for k_ in kops.launch_counts()},
+                    "pack_gather": 1, "unpack_scatter_set": 1,
+                    "accumulate_segments": 2, "accumulate_into": 1}
+                assert kops.entry_counts()["rt_unpack_scatter_tiles"] == 1
+        for got, want in zip(outs[True], outs[False]):
+            assert _same_bits(got, want)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("s", [77, 2080])
 def test_decode_attention_group_6(dev, s, dtype):

@@ -402,25 +402,64 @@ def test_dynamic_pattern_refusals_match_the_reference():
     assert g.strategy == "overlap" and set(g.predicted_times) == {"overlap"}
 
 
-def test_dynamic_pattern_refuses_the_kernels():
-    """The kernels' tables are built on the host from the index tensor they
-    run on, which a per-batch pattern cannot have without a sync: a
-    DynamicPattern with use_kernel=True, and ``derive_plan_args`` of a
-    scatter built with use_kernel=True, raise naming the ROADMAP item."""
+def test_dynamic_pattern_with_kernels_keeps_the_reference_refusals():
+    """With ``use_kernel=True`` both packages' front doors take a
+    DynamicPattern on the dynamic rungs and refuse what the reference
+    refuses (the JAX ones on a one-device mesh, the same exception type): a
+    rung outside DYNAMIC_STRATEGIES (blockwise, replicate) and a
+    Destination.  The port's kernel exchanges derive the kernels' tables
+    beside the executor tables (``tests/test_torch_dynamic_kernels.py``)."""
+    import jax
+
+    from repro.comm import dynamic as jd
+    from repro.comm.gather import IrregularGather as JGather
+    from repro.comm.pattern import AccessPattern as JPattern
+    from repro.comm.pattern import Destination as JDestination
+    from repro.comm.scatter import IrregularScatter as JScatter
     from repro_torch.comm.gather import IrregularGather
     from repro_torch.comm.scatter import IrregularScatter
 
-    p = 4
+    p = 1
+    mesh = jax.make_mesh((p,), ("data",))
     comm = LoopbackComm(p, device="cpu")
     template, dp, n = _dyn_case(p)
-    with pytest.raises(NotImplementedError, match="A17"):
-        IrregularGather(dp, comm, strategy="condensed", use_kernel=True)
-    with pytest.raises(NotImplementedError, match="A17"):
-        IrregularScatter(dp, comm, strategy="condensed", use_kernel=True)
-    s = IrregularScatter(template, comm, strategy="condensed",
-                         use_kernel=True)
-    with pytest.raises(NotImplementedError, match="A17"):
-        s.derive_plan_args(template.indices)
+    jdp = jd.DynamicPattern.from_template(
+        JPattern.from_indices(template.indices, n=n), p)
+    slots = np.zeros((p, 4), np.int64)
+    kw = dict(use_kernel=True)
+    cases = [
+        (lambda: IrregularGather(dp, comm, strategy="blockwise", **kw),
+         lambda: JGather(jdp, mesh, strategy="blockwise", **kw),
+         "DynamicPattern"),
+        (lambda: IrregularScatter(dp, comm, strategy="replicate",
+                                  reduce="add", **kw),
+         lambda: JScatter(jdp, mesh, strategy="replicate", reduce="add",
+                          **kw),
+         "DynamicPattern"),
+        (lambda: IrregularScatter(dp, comm, strategy="blockwise",
+                                  reduce="max", **kw),
+         lambda: JScatter(jdp, mesh, strategy="blockwise", reduce="max",
+                          **kw),
+         "DynamicPattern"),
+        (lambda: IrregularGather(dp, comm, strategy="condensed",
+                                 destination=Destination.from_slots(s=slots),
+                                 **kw),
+         lambda: JGather(jdp, mesh, strategy="condensed",
+                         destination=JDestination.from_slots(s=slots), **kw),
+         "Destination"),
+    ]
+    for port, ref, match in cases:
+        with pytest.raises(ValueError, match=match):
+            ref()
+        with pytest.raises(ValueError, match=match):
+            port()
+    for strategy in tdyn.DYNAMIC_STRATEGIES:
+        JGather(jdp, mesh, strategy=strategy, **kw)
+        JScatter(jdp, mesh, strategy=strategy, **kw)
+        g = IrregularGather(dp, comm, strategy=strategy, **kw)
+        s = IrregularScatter(dp, comm, strategy=strategy, **kw)
+        assert len(g.derive_plan_args(template.indices)) == 3
+        assert len(s.derive_plan_args(template.indices)) == 6
 
 
 def test_dynamic_front_doors_price_decode_and_plan_cost():

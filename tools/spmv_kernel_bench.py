@@ -248,6 +248,9 @@ def main() -> None:
     sites, own_cpu = cs.push_sites(torch, matrix, x_host, t_engines)
     dtypes = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
     gated = "rt_fold_gate" in _build._SIGNATURES     # a start counter
+    # a tree whose fold reads live counts from the device takes a null for
+    # a host-built table
+    counts = (None,) * (len(_build._SIGNATURES["rt_fold_long_rows"]) == 17)
     for site, (name, init, vals_s, idx, table, out_len) in sites.items():
         live = table.live_len
 
@@ -276,7 +279,7 @@ def main() -> None:
                 None if init is None else init.data_ptr(), vals_s.data_ptr(),
                 table.perm.data_ptr(), table.seg_ptr.data_ptr(),
                 None if table.pad_rows is None else table.pad_rows.data_ptr(),
-                table.long_rows.data_ptr(), out.data_ptr(), cs.P,
+                table.long_rows.data_ptr(), *counts, out.data_ptr(), cs.P,
                 idx.shape[1], live, out_len, n_long, dtypes[vals_s.dtype], 0,
                 *((None,) if gated else ()))
         line = {"bench": "b5", "site": site, "kernel": name, "ok": ok,
