@@ -258,6 +258,9 @@ SSM_CHECK_L = 1024     # the plain recurrence loops in Python: a shorter L
 # layers (of 64) whose selective_scan call in the 32k prefill is held
 # against the plain recurrence on the very inputs the prefill gave it
 SSM_HELD_LAYERS = (0, 63)
+# the bf16 payload's kernel line holds B9b against the plain version on
+# the first steps only (the plain tree runs ~60 eager calls a chunk)
+SSM_BF16_CHECK_L = 4096
 # The hybrid, encoder-decoder and vision families through launch.serve's
 # batched demo at their published widths: hymba-1.5b with a prompt of 1040
 # on a ring cut to its window of 1024 (the ring wraps and decode runs past
@@ -342,6 +345,7 @@ TRAIN_SSM_ARGV = ["--arch", "falcon-mamba-7b", "--seq", "4096", "--batch",
                   "8", "--accum", "4", "--seed", str(SEED)]
 TRAIN_SSM_LAYERS = 16
 TRAIN_SSM_TIMED = 3
+TRAIN_SSM_BF16_TIMED = 1       # the bf16 payload's step: one timed
 TRAIN_HYBRID_ARGV = ["--arch", "hymba-1.5b", "--seq", "4096", "--batch",
                      "8", "--accum", "4", "--seed", str(SEED)]
 TRAIN_HYBRID_TIMED = 2
@@ -400,6 +404,14 @@ SOURCE = {
     # jax.grad: no Pallas kernel, the backward of the scan at ssm.py:67
     "selective_scan_bwd": (
         "src/repro_torch/kernels/csrc/selective_scan_bwd.cu",
+        "src/repro/models/ssm.py:67"),
+    # the bf16 payload's chunk tree (jnp, no Pallas kernel) and its
+    # jax.grad
+    "selective_scan_bf16": (
+        "src/repro_torch/kernels/csrc/selective_scan_bf16.cu",
+        "src/repro/models/ssm.py:50"),
+    "selective_scan_bf16_bwd": (
+        "src/repro_torch/kernels/csrc/selective_scan_bf16.cu",
         "src/repro/models/ssm.py:67"),
 }
 FORWARD_KERNELS = ("pack_gather", "unpack_scatter_set", "unpack_dest",
@@ -1789,6 +1801,137 @@ def phase_selective_scan_kernel(torch, dev):
     return {"selective_scan": res}
 
 
+def tree_combines(c: int):
+    """(up-sweep, down-sweep) combines of jax's associative scan over a
+    chunk of ``c`` steps: one merge for each trailing zero of t + 1, one
+    final combine where t + 1 is not a power of two."""
+    return c - bin(c).count("1"), c - c.bit_length()
+
+
+def scan_bf16_bound(b: int, l: int, di: int, st: int, c: int):
+    """(bound_ms, bound_by) and the tree's combines of B9b: x, dt read and
+    y written (float32), B, C and a read once; per (step, channel, state)
+    dt·a, the exponential, the product with B and y's multiply-add (5
+    float32 operations), a chunk's up-sweep combines 4 (three products
+    and an add), its down-sweep ones 2, its fold 2."""
+    up, down = tree_combines(c)
+    lanes, nch = b * di * st, l // c
+    flops = lanes * (5.0 * l + nch * (4 * up + 2 * down + 2))
+    return bound(3 * b * l * di * 4 + 2 * b * l * st * 4 + di * st * 4,
+                 flops=flops), lanes * nch * (up + down)
+
+
+def scan_bf16_line(torch, name, args, check_l=None, chunk=256,
+                   held_out=None):
+    """B9b on one call's own inputs (``args`` = x, dt, B, C, a): the
+    checkpointing entry against the plain bf16 scan on the first
+    ``check_l`` steps (all by default; a whole number of chunks): the
+    states entering the chunks bit for bit, y within 2e-4 of max |y|; the
+    serving entry's y the checkpointing entry's bit for bit (whether y
+    is the plain version's bit for bit is reported); ms of the
+    serving entry at the call's L, the plain version's ms (once, at the
+    checked length), the bound and the tree's combines; ``held_out`` (y,
+    checkpoints) from a train step must equal the new launch's bits.  No
+    single PyTorch call computes the scan."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels import selective_scan as b9
+    args = tuple(t.detach() for t in args)
+    b, l, di = args[0].shape
+    st = args[2].shape[2]
+    c = kref.scan_chunk_len(l, chunk)
+    lc = min(l, check_l or l)
+    y, hck = b9.selective_scan_bf16_ckpt(*args, chunk=chunk)
+    served = kops.selective_scan(*args, payload=torch.bfloat16, chunk=chunk)
+    same = torch.equal(served, y) and (held_out is None or (
+        torch.equal(held_out[0], y) and torch.equal(held_out[1], hck)))
+    check(same, f"{name}: the serving entry's y, the checkpointing entry's "
+          "and the train step's are not the same bits")
+    short = tuple(t[:, :lc] if t.dim() == 3 else t for t in args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want_y, want_h = kref.selective_scan_bf16_states_ref(*short, chunk=chunk)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    states = torch.equal(hck[:, :lc // c], want_h)
+    y_bits = torch.equal(y[:, :lc], want_y)
+    err = float((y[:, :lc] - want_y).abs().max()) / max(
+        float(want_y.abs().max()), 1e-30)
+    check(states, f"{name}: the chunks' entering states differ from the "
+          "plain version's")
+    check(err <= 2e-4, f"{name}: y is {err} of max |y| from the plain "
+          "version's")
+    del y, hck, served, want_y, want_h
+    bnd, combines = scan_bf16_bound(b, l, di, st, c)
+    res = dict(max_abs_err=err, plain_ms=plain_ms, library_ms=None,
+               ms=cuda_ms(torch, lambda: b9.selective_scan_bf16(
+                   *args, chunk=chunk), warmup=1, iters=5),
+               bound=bnd)
+    emit({"phase": "kernel", "name": name, **{
+        k_: v_ for k_, v_ in res.items() if k_ != "bound"},
+        "bound_ms": bnd[0], "bound_by": bnd[1], "combines": combines,
+        "states_bit_identical": states, "y_bit_identical": y_bits,
+        "serving_bit_identical": same,
+        "checked_steps": lc, "max_abs_err_is": "of max |y|",
+        "plain_ms_is": f"the plain version at {lc} steps",
+        "shape": f"x/dt ({b}, {l}, {di}) f32, B/C ({b}, {l}, {st}), "
+                 f"chunk {c}"})
+    check_bound(name, res)
+    return res
+
+
+def scan_bf16_bwd_line(torch, name, args, dy, held=None, chunk=256):
+    """B9b′ on one call's inputs (``args`` = x, dt, B, C, a; ``dy`` the
+    cotangent; ``held`` = (checkpoints, gradients) where the call came from
+    a train step, else B9b's checkpointing entry writes them): two more
+    launches bit for bit (with the step's), every gradient within
+    SCAN_BWD_TOL of its largest element against the plain backward (timed
+    once), ms, and the bound of B9′'s kind (``scan_bwd_bound``, the
+    chunks' entering states for its checkpoints)."""
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels import selective_scan as b9
+    args = tuple(t.detach() for t in args)
+    dy = dy.detach()
+    b, l, di = args[0].shape
+    st = args[2].shape[2]
+    c = kref.scan_chunk_len(l, chunk)
+    hck = held[0] if held else b9.selective_scan_bf16_ckpt(
+        *args, chunk=chunk)[1]
+    runs = [b9.selective_scan_bf16_bwd(*args, hck, dy, chunk=chunk)
+            for _ in range(2)]
+    ref_run = held[1] if held else runs[0]
+    same = all(torch.equal(g, h) for run in runs
+               for g, h in zip(run, ref_run))
+    check(same, f"{name}: two launches on the same inputs differ in bits")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = kref.selective_scan_bf16_bwd_ref(*args, dy, chunk=chunk)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    rel = [float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+           for g, w in zip(runs[0], want)]
+    check(max(rel) <= SCAN_BWD_TOL,
+          f"{name} differs from the plain backward: {rel} of each "
+          "gradient's largest element")
+    del runs, want
+    res = dict(max_abs_err=max(rel), plain_ms=plain_ms, library_ms=None,
+               ms=cuda_ms(torch, lambda: b9.selective_scan_bf16_bwd(
+                   *args, hck, dy, chunk=chunk), warmup=1, iters=3),
+               bound=scan_bwd_bound(b, l, di, st, nseg=l // c))
+    emit({"phase": "kernel", "name": name, **{
+        k_: v_ for k_, v_ in res.items() if k_ != "bound"},
+        "bound_ms": res["bound"][0], "bound_by": res["bound"][1],
+        "rel_err_by_grad": dict(zip(("dx", "ddt", "dB", "dC", "dA"), rel)),
+        "bit_identical_repeat": same,
+        "layout": {"threads": 256, "partials_bytes": 4 * 2 * b * l * st
+                   * b9.bf16_bwd_partials(di, st)},
+        "shape": f"x/dt/dy ({b}, {l}, {di}) f32, B/C ({b}, {l}, {st}), "
+                 f"chunk {c}",
+        "max_abs_err_is": "relative to each gradient's largest element"})
+    check_bound(name, res)
+    return res
+
+
 @contextlib.contextmanager
 def plain_kernel(kops, name, plain):
     """Swap ``kops.<name>`` for its plain version until the block ends: the
@@ -2076,8 +2219,9 @@ def phase_hybrid_serve(torch, card):
     build_prefill (the forward, last position only) at B = 1, L = 4096,
     where the banded attention schedule applies: 32 selective_scan
     launches, layer 0's call against the plain recurrence on its own
-    inputs at 2e-4 (a kernel line of its own, at d_inner 3200), the
-    prefill timed."""
+    inputs at 2e-4 (a kernel line of its own, at d_inner 3200; and B9b on
+    the same inputs, ``selective_scan_bf16_di3200``), the prefill
+    timed."""
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref as kref
     from repro_torch.runtime.steps import build_prefill
@@ -2124,6 +2268,7 @@ def phase_hybrid_serve(torch, card):
           "bound_by": res["bound"][1],
           "shape": f"x/dt ({b}, {l}, {di}) f32, B/C ({b}, {l}, {st})"})
     check_bound("selective_scan at d_inner 3200", res)
+    scan_bf16_line(torch, "selective_scan_bf16_di3200", args)
     del args, got, want
     timing = time_steps(torch, lambda: prefill(params, tokens), warmup=1,
                         iters=2)
@@ -2922,7 +3067,9 @@ def phase_ssm_prefill(torch, card):
     zeroed before the first call and read after.  The selective_scan calls
     of the first and last layer of that prefill against the plain
     recurrence on their own inputs at 2e-4, and the last-position logits
-    with B9 against the plain recurrence's at L = 1024."""
+    with B9 against the plain recurrence's at L = 1024 (and a float32
+    twin's with the bf16 payload, B9b against the plain bf16 scan); then
+    ssm_prefill_bf16.  Returns the launch counts and B9b's kernel line."""
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref as kref
@@ -2970,19 +3117,32 @@ def phase_ssm_prefill(torch, card):
 
     short = tokens[:, :SSM_CHECK_L]
     m32, p32 = float32_twin(torch, model, params)
+    m32b = Model(cfg, RunCtx(act_dtype=torch.float32,
+                             ssm_scan_dtype=torch.bfloat16), device=dev)
+
+    def plain32(*args, **kw):
+        return kref.selective_scan_ref(*args)
+
+    def plain_bf16(*args, chunk=256, **kw):
+        return kref.selective_scan_bf16_ref(*args, chunk=chunk)
     errs = {}
-    for name, fn in (("bf16", lambda: prefill(params, short)),
-                     ("f32", lambda: build_prefill(m32)(p32, short))):
+    for name, fn, plain in (
+            ("bf16", lambda: prefill(params, short), plain32),
+            ("f32", lambda: build_prefill(m32)(p32, short), plain32),
+            ("f32_bf16_payload", lambda: build_prefill(m32b)(p32, short),
+             plain_bf16)):
         got = fn()
-        with plain_kernel(kops, "selective_scan", kref.selective_scan_ref):
+        with plain_kernel(kops, "selective_scan", plain):
             want = fn()
         errs[name] = rel_l2(torch, got, want)
-    del m32, p32
+    del m32, m32b, p32
     # in bf16 the 64 random layers turn the kernel's other summation order
-    # into another answer (reported, not held); float32 is held
-    check(errs["f32"] < LOGITS_REL_F32,
-          f"prefill logits with B9 are {errs} (relative) from the plain "
-          "recurrence's")
+    # into another answer (reported, not held); float32 is held, with
+    # either scan payload (B9, B9b)
+    check(errs["f32"] < LOGITS_REL_F32
+          and errs["f32_bf16_payload"] < LOGITS_REL_F32,
+          f"prefill logits with B9 / B9b are {errs} (relative) from the "
+          "plain recurrence's")
     torch.cuda.reset_peak_memory_stats()
     timing = time_steps(torch, lambda: prefill(params, tokens), warmup=1,
                         iters=2)
@@ -3000,7 +3160,64 @@ def phase_ssm_prefill(torch, card):
           "scan_vs_plain_by_layer": scan_errs,
           "check_seq": SSM_CHECK_L, "logits_rel_l2_vs_plain": errs, **prof,
           "card": card})
-    return counts
+    counts_b, res_b = ssm_prefill_bf16(torch, card, cfg, params, tokens,
+                                       timing["ms_per_iter"])
+    counts.update(counts_b)
+    return counts, res_b
+
+
+def ssm_prefill_bf16(torch, card, cfg, params, tokens, f32_ms):
+    """The same model and weights with the reference's bf16 scan payload
+    (``RunCtx(ssm_scan_dtype=bfloat16)``): build_prefill at the same L,
+    counters zeroed before the first call and read after — B9b launched
+    once a layer, B9 and every plain scan never; its ms beside the
+    float32 payload's (``f32_ms``); layer 0's call as the kernel line
+    ``selective_scan_bf16`` (scan_bf16_line, held against the plain
+    version on the first SSM_BF16_CHECK_L steps)."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.models.transformer import Model, RunCtx
+    from repro_torch.runtime.steps import build_prefill
+
+    model = Model(cfg, RunCtx(act_dtype=torch.bfloat16,
+                              ssm_scan_dtype=torch.bfloat16))
+    prefill = build_prefill(model)
+    kops.reset_launch_counts()
+    with held_calls(kops, "selective_scan", (0,)) as held, \
+            held_calls(kref, "selective_scan_ref") as plain32, \
+            held_calls(kref, "selective_scan_bf16_states_ref") as plain16:
+        logits = prefill(params, tokens)
+        torch.cuda.synchronize()
+    counts = kops.launch_counts()
+    launched = {k: counts[k] for k in ("selective_scan_bf16",
+                                       "selective_scan")}
+    plain_calls = {"selective_scan_ref": plain32.calls,
+                   "selective_scan_bf16_states_ref": plain16.calls}
+    check(launched == {"selective_scan_bf16": cfg.num_layers,
+                       "selective_scan": 0}
+          and not any(plain_calls.values()),
+          f"ssm_prefill_bf16: launches {launched}, plain calls "
+          f"{plain_calls} in one prefill of {cfg.num_layers} layers")
+    check(tuple(logits.shape) == (1, 1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          "ssm_prefill_bf16: logits not finite or misshapen")
+    timing = time_steps(torch, lambda: prefill(params, tokens), warmup=0,
+                        iters=2)
+    args = held.pop(0)[0]
+    del logits, held
+    res = scan_bf16_line(torch, "selective_scan_bf16", args,
+                         check_l=SSM_BF16_CHECK_L)
+    del args
+    emit({"phase": "ssm_prefill_bf16", "arch": cfg.name,
+          "layers": cfg.num_layers, "dtype": "bfloat16, bf16 scan payload",
+          "batch": 1, "seq": tokens.shape[1],
+          "ms_per_prefill": timing["ms_per_iter"],
+          "f32_payload_ms_per_prefill": f32_ms,
+          "tokens_per_s": tokens.shape[1] / (timing["ms_per_iter"] / 1e3),
+          "host_enqueue_ms": timing["host_enqueue_ms_per_iter"],
+          "launches": launched, "plain_scan_calls": plain_calls,
+          "card": card})
+    return {"selective_scan_bf16": launched["selective_scan_bf16"]}, res
 
 
 # --------------------------------------------------------------------------
@@ -3282,7 +3499,8 @@ def train_steps(torch, tr, timed: int):
 
 
 def train_phase(torch, phase, argv, layers, timed, watch=None,
-                with_trainer=None):
+                with_trainer=None, profiled=True,
+                ssm_scan_dtype=None):
     """A model trained through launch.train (``setup`` and the Trainer's
     step, the pieces ``main`` runs) at ``layers`` of its layers (all of
     them for None): 1 warm-up step and ``timed`` timed ones (CUDA events)
@@ -3294,7 +3512,8 @@ def train_phase(torch, phase, argv, layers, timed, watch=None,
     config, the steps' launch counts, what ``watch`` yielded and the
     line's fields: ms a step, tokens/s, MFU against the bf16 spec, peak
     memory, every loss and gradient norm, the profiled step's regions and
-    the wall seconds of each part."""
+    the wall seconds of each part.  ``profiled`` False skips the profiled
+    step; ``ssm_scan_dtype`` is launch.train.setup's."""
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import ops as kops
     from repro_torch.launch import train as ltrain
@@ -3306,7 +3525,8 @@ def train_phase(torch, phase, argv, layers, timed, watch=None,
     cfg = dataclasses.replace(full, num_layers=layers or full.num_layers)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    tr = ltrain.setup(cfg, args, retries=0)     # no failure retried away
+    tr = ltrain.setup(cfg, args, retries=0,     # no failure retried away
+                      ssm_scan_dtype=ssm_scan_dtype or torch.float32)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     n_params = sum(t.numel() for t in tree_leaves(tr.params))
@@ -3315,10 +3535,13 @@ def train_phase(torch, phase, argv, layers, timed, watch=None,
         losses, gnorms, step_ms = train_steps(torch, tr, timed)
     counts = kops.launch_counts()
     t2 = time.perf_counter()
-    metrics, prof = profile_train_step(torch, tr.step)
+    prof = None
+    if profiled:
+        metrics, prof = profile_train_step(torch, tr.step)
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+        del metrics
     t3 = time.perf_counter()
-    losses.append(float(metrics["loss"]))
-    gnorms.append(float(metrics["grad_norm"]))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
           f"{phase}: losses {losses}, grad norms {gnorms}")
@@ -3327,7 +3550,7 @@ def train_phase(torch, phase, argv, layers, timed, watch=None,
           f"{phase}: step-0 loss {losses[0]} is not within 2 of ln(V) = "
           f"{ln_v}")
     extra = with_trainer(tr, args) if with_trainer else {}
-    del tr, metrics
+    del tr
     gc.collect()
     torch.cuda.empty_cache()
     ms = float(np.mean(step_ms))
@@ -3367,16 +3590,18 @@ def phase_train(torch, card):
           "mfu_vs_bf16_matmul": achieved / rate, "card": card})
 
 
-def scan_bwd_bound(b: int, l: int, di: int, st: int):
+def scan_bwd_bound(b: int, l: int, di: int, st: int, nseg=None):
     """(bound_ms, bound_by) of the scan's backward, counting the
     function's own traffic and work only: x, dt, dy, B, C, a and the
-    forward's checkpoints read once and dx, ddt, dB, dC and dA written
-    once, float32; one exponential, exp(dt·a), a (step, channel, state)
-    over the SMs' special-function lanes.  The kernel's dB/dC/dA partials
-    and its second rebuild of the decays are its design's cost, not the
+    forward's ``nseg`` checkpoints (B9's every CKPT_STEPS steps by
+    default) read once and dx, ddt, dB, dC and dA written once, float32;
+    one exponential, exp(dt·a), a (step, channel, state) over the SMs'
+    special-function lanes.  The kernel's dB/dC/dA partials and its
+    second rebuild of the decays are its design's cost, not the
     function's."""
     from repro_torch.kernels.selective_scan import CKPT_STEPS
-    nseg = -(-l // CKPT_STEPS)
+    if nseg is None:
+        nseg = -(-l // CKPT_STEPS)
     nbytes = 4 * (5 * b * l * di + 4 * b * l * st + 2 * di * st
                   + b * nseg * di * st)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -3484,14 +3709,16 @@ def scan_bwd_line(torch, name, args, held_out, fwd_args, fwd_out):
     return res
 
 
-def phase_train_scan(torch, card, phase, argv, layers, timed, kernel_name):
+def phase_train_scan(torch, card, phase, argv, layers, timed, kernel_name,
+                     bf16_line=None):
     """A model with mamba layers through train_phase: B9's forward
     launched layers x microbatches x 2 a step (remat full runs each
     layer's forward again in the backward), its backward layers x
     microbatches, the plain scan and the plain backward never called.  The
     warm-up's first checkpointing forward (the first layer's, first
     microbatch) and first backward (the last layer's) are held, and the
-    kernel line ``kernel_name`` runs on their inputs."""
+    kernel line ``kernel_name`` runs on their inputs; ``bf16_line`` names
+    a line of B9b′ on the same backward's inputs (scan_bf16_bwd_line)."""
     from repro_torch.kernels import ref as kref
     from repro_torch.kernels import selective_scan as b9
 
@@ -3519,8 +3746,12 @@ def phase_train_scan(torch, card, phase, argv, layers, timed, kernel_name):
           f"{phase}: the plain scan ran on the card path: {plain_calls}")
     check(0 in fwd and 0 in bwd, f"{phase}: no held B9 call")
     t0 = time.perf_counter()
-    res = scan_bwd_line(torch, kernel_name, *bwd.pop(0), *fwd.pop(0))
-    del seen, fwd, bwd
+    bwd_args, bwd_out = bwd.pop(0)
+    res = scan_bwd_line(torch, kernel_name, bwd_args, bwd_out, *fwd.pop(0))
+    if bf16_line:
+        x, dt, bm, cm, a, _, dy = bwd_args
+        scan_bf16_bwd_line(torch, bf16_line, (x, dt, bm, cm, a), dy)
+    del seen, fwd, bwd, bwd_args, bwd_out
     gc.collect()
     torch.cuda.empty_cache()
     fields["wall_s"]["kernel_line"] = round(time.perf_counter() - t0, 1)
@@ -3545,7 +3776,71 @@ def phase_train_hybrid(torch, card):
     selective_scan_bwd_di3200."""
     return phase_train_scan(torch, card, "train_hybrid", TRAIN_HYBRID_ARGV,
                             None, TRAIN_HYBRID_TIMED,
-                            "selective_scan_bwd_di3200")
+                            "selective_scan_bwd_di3200",
+                            bf16_line="selective_scan_bf16_bwd_di3200")
+
+
+def phase_train_ssm_bf16(torch, card):
+    """falcon-mamba-7b as train_ssm (TRAIN_SSM_LAYERS of its 64 layers, its
+    settings) with the reference's bf16 scan payload
+    (``launch.train.setup(ssm_scan_dtype=bfloat16)``): one warm-up and
+    TRAIN_SSM_BF16_TIMED timed steps, no profiled one; B9b launched layers
+    x microbatches x 2 a step and B9b′ layers x microbatches, B9, B9′ and
+    every plain scan never.  The warm-up's first checkpointing forward is
+    checked on its inputs (scan_bf16_line, its outputs held against a new
+    launch), and its first backward gives the kernel line
+    ``selective_scan_bf16_bwd``."""
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels import selective_scan as b9
+    plain_names = ("selective_scan_ref", "selective_scan_bwd_ref",
+                   "selective_scan_bf16_states_ref",
+                   "selective_scan_bf16_bwd_ref")
+
+    @contextlib.contextmanager
+    def watch():
+        with contextlib.ExitStack() as stack:
+            plains = [stack.enter_context(held_calls(kref, n))
+                      for n in plain_names]
+            fwd = stack.enter_context(held_calls(
+                b9, "selective_scan_bf16_ckpt", (0,)))
+            bwd = stack.enter_context(held_calls(
+                b9, "selective_scan_bf16_bwd", (0,)))
+            yield plains, fwd, bwd
+
+    timed = TRAIN_SSM_BF16_TIMED
+    cfg, counts, seen, fields = train_phase(
+        torch, "train_ssm_bf16", TRAIN_SSM_ARGV, TRAIN_SSM_LAYERS, timed,
+        watch, profiled=False, ssm_scan_dtype=torch.bfloat16)
+    plains, fwd, bwd = seen
+    per_step = cfg.num_layers * fields["accum"]
+    want = {"selective_scan_bf16": 2 * per_step * (1 + timed),
+            "selective_scan_bf16_bwd": per_step * (1 + timed),
+            "selective_scan": 0, "selective_scan_bwd": 0}
+    got = {k: counts[k] for k in want}
+    check(got == want, f"train_ssm_bf16: launched {got} in {1 + timed} "
+          f"steps of {cfg.num_layers} layers x {fields['accum']} "
+          f"microbatches, not {want}")
+    plain_calls = {n: h.calls for n, h in zip(plain_names, plains)}
+    check(not any(plain_calls.values()),
+          f"train_ssm_bf16: a plain scan ran on the card path: {plain_calls}")
+    check(0 in fwd and 0 in bwd, "train_ssm_bf16: no held B9b/B9b′ call")
+    t0 = time.perf_counter()
+    fargs, fout = fwd.pop(0)
+    ckpt = scan_bf16_line(torch, "selective_scan_bf16_train_fwd", fargs,
+                          held_out=fout)
+    (x, dt, bm, cm, a, hck, dy), grads = bwd.pop(0)
+    res = scan_bf16_bwd_line(torch, "selective_scan_bf16_bwd",
+                             (x, dt, bm, cm, a), dy, held=(hck, grads))
+    res["ckpt_forward"] = {k: ckpt[k] for k in ("max_abs_err", "ms",
+                                                 "plain_ms")}
+    del seen, fwd, bwd, fargs, fout, x, dt, bm, cm, a, hck, dy, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    fields["wall_s"]["kernel_lines"] = round(time.perf_counter() - t0, 1)
+    emit({**fields, "d_inner": cfg.d_inner, "state": cfg.ssm_state,
+          "scan_payload": "bfloat16",
+          "launches": got, "plain_scan_calls": plain_calls, "card": card})
+    return got, res
 
 
 def phase_train_twins(torch, card):
@@ -3790,8 +4085,10 @@ def main() -> None:
             "selective_scan", 0)
         gc.collect()
         torch.cuda.empty_cache()
-    counts["selective_scan"] += phase_ssm_prefill(torch, card)[
-        "selective_scan"]
+    ssm_counts, results["selective_scan_bf16"] = phase_ssm_prefill(
+        torch, card)
+    counts["selective_scan"] += ssm_counts["selective_scan"]
+    counts["selective_scan_bf16"] = ssm_counts["selective_scan_bf16"]
     gc.collect()
     torch.cuda.empty_cache()
     counts["decode_attention"] += phase_moe_serve(torch, card, hw)[
@@ -3810,6 +4107,12 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     ssm_counts, results["selective_scan_bwd"] = phase_train_ssm(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    bf16_counts, results["selective_scan_bf16_bwd"] = phase_train_ssm_bf16(
+        torch, card)
+    counts["selective_scan_bf16"] += bf16_counts["selective_scan_bf16"]
+    counts["selective_scan_bf16_bwd"] = bf16_counts["selective_scan_bf16_bwd"]
     gc.collect()
     torch.cuda.empty_cache()
     hybrid_counts, _ = phase_train_hybrid(torch, card)

@@ -66,6 +66,9 @@ _SIGNATURES = {
                                    _I, _P),
     "rt_selective_scan_bwd_f32": (_P,) * 15 + (_I,) * 4 + (_P,),
     "rt_selective_scan_bwd_occupancy": (_I,) * 3 + (_P,),
+    "rt_selective_scan_bf16": (_P,) * 6 + (_I,) * 5 + (_P,),
+    "rt_selective_scan_bf16_ckpt": (_P,) * 7 + (_I,) * 5 + (_P,),
+    "rt_selective_scan_bf16_bwd": (_P,) * 15 + (_I,) * 5 + (_P,),
 }
 
 _lib = None
@@ -75,7 +78,8 @@ _info: dict = {}
 LAUNCHES = {"pack_gather": 0, "unpack_scatter_set": 0, "unpack_dest": 0,
             "ellpack_spmv_windowed": 0, "accumulate_segments": 0,
             "accumulate_into": 0, "stencil2d": 0, "decode_attention": 0,
-            "selective_scan": 0, "selective_scan_bwd": 0}
+            "selective_scan": 0, "selective_scan_bwd": 0,
+            "selective_scan_bf16": 0, "selective_scan_bf16_bwd": 0}
 # C entry point -> launches so far: which variant of a kernel ran
 ENTRIES: dict[str, int] = {}
 

@@ -64,13 +64,28 @@ def reset_launch_counts() -> None:
 # the model's kernels
 # --------------------------------------------------------------------------
 
-def selective_scan(x, dt, bmat, cmat, a):
-    """B9: in grad mode with an input that requires grad, the scan with
-    its backward (``kernels.selective_scan.selective_scan_train``: the
-    checkpointing forward and the backward kernel on the card);
-    otherwise the serving kernel ``kernels.selective_scan.selective_scan``."""
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, dt, bmat, cmat, a)):
+def selective_scan(x, dt, bmat, cmat, a, *, payload=torch.float32,
+                   chunk=256):
+    """The mamba-1 recurrence with its scan payload in ``payload``.
+    float32 is B9: in grad mode with an input that requires grad, the scan
+    with its backward (``kernels.selective_scan.selective_scan_train``:
+    the checkpointing forward and the backward kernel on the card);
+    otherwise the serving kernel ``selective_scan`` (``chunk`` is a
+    blocking knob of the reference's scan there and changes nothing).
+    bfloat16 is the reference's other function, its payload rounded inside
+    chunks of ``min(chunk, L)`` steps: B9b, with B9b′ in grad mode
+    (``selective_scan_bf16_train``), else ``selective_scan_bf16``."""
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, dt, bmat, cmat, a))
+    if payload == torch.bfloat16:
+        if grad:
+            return _b9.selective_scan_bf16_train(x, dt, bmat, cmat, a,
+                                                 chunk=chunk)
+        return _b9.selective_scan_bf16(x, dt, bmat, cmat, a, chunk=chunk)
+    if payload != torch.float32:
+        raise NotImplementedError(
+            f"a {payload} scan payload: the port runs float32 and bfloat16")
+    if grad:
         return _b9.selective_scan_train(x, dt, bmat, cmat, a)
     return _b9.selective_scan(x, dt, bmat, cmat, a)
 

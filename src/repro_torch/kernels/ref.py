@@ -19,7 +19,9 @@ __all__ = ["pack_gather_ref", "unpack_scatter_set_ref", "unpack_dest_ref",
            "accumulate_segments_ref", "accumulate_into_ref", "ordered_add",
            "fma_f32",
            "stencil2d_ref", "decode_attention_ref", "selective_scan_ref",
-           "selective_scan_bwd_ref"]
+           "selective_scan_bwd_ref", "scan_chunk_bf16", "scan_chunk_len",
+           "state_sum", "selective_scan_bf16_states_ref",
+           "selective_scan_bf16_ref", "selective_scan_bf16_bwd_ref"]
 
 
 def _ranks(t: torch.Tensor) -> torch.Tensor:
@@ -352,3 +354,151 @@ def selective_scan_bwd_ref(x, dt, bmat, cmat, a, dy):
         q = da * g
     return (dx.to(x.dtype), ddt.to(dt.dtype), db.to(bmat.dtype),
             dc.to(cmat.dtype), da_sum.to(a.dtype))
+
+
+# --------------------------------------------------------------------------
+# the selective scan with a bfloat16 payload (ssm_fwd(scan_dtype=bfloat16))
+# --------------------------------------------------------------------------
+
+def _tree_scan_bf16(a, b):
+    """The states of ``jax.lax.associative_scan`` of the combine ``(a1, b1)
+    ∘ (a2, b2) = (a1·a2, b1·a2 + b2)`` along axis 1, run as jax's odd/even
+    recursion: combine the pairs (0, 1), (2, 3), …; scan those
+    recursively; form each even position from its odd neighbour's prefix
+    and its own element (an odd length leaves its last element to this
+    pass); interleave.  Each ``*`` and ``+`` is one bf16 operation on bf16
+    tensors, rounded once.  Only the b half is returned: the a halves of
+    the prefixes never reach a state."""
+    n = b.shape[1]
+    if n < 2:
+        return b
+    a1 = a[:, 1::2]
+    ob = _tree_scan_bf16(a[:, 0:-1:2] * a1, b[:, 0:-1:2] * a1 + b[:, 1::2])
+    ae, be = a[:, 2::2], b[:, 2::2]
+    even = torch.cat([b[:, :1], ob[:, :be.shape[1]] * ae + be], dim=1)
+    if n % 2:
+        pairs = torch.stack([even[:, :-1], ob], dim=2).flatten(1, 2)
+        return torch.cat([pairs, even[:, -1:]], dim=1)
+    return torch.stack([even, ob], dim=2).flatten(1, 2)
+
+
+def scan_chunk_bf16(h0, da, dbx):
+    """One chunk of the reference's bf16 scan (``repro.models.ssm.
+    _selective_scan_chunk`` at ``scan_dtype=bfloat16``): da, dbx ``(B, c,
+    di, st)`` and h0 ``(B, di, st)``, all bfloat16.  Step 0 takes ``da'_0
+    = 1`` and ``dbx'_0 = dbx_0 + da_0·h0`` (both bf16 operations); then
+    the tree of ``_tree_scan_bf16``.  Returns ``(hs, h_last)`` in bf16."""
+    dbx = torch.cat([dbx[:, :1] + da[:, :1] * h0[:, None], dbx[:, 1:]],
+                    dim=1)
+    da = torch.cat([torch.ones_like(da[:, :1]), da[:, 1:]], dim=1)
+    hs = _tree_scan_bf16(da, dbx)
+    return hs, hs[:, -1]
+
+
+def scan_chunk_len(l: int, chunk: int) -> int:
+    """The chunk the reference's ``ssm_fwd`` takes at length ``l``:
+    ``min(chunk, l)``, which must divide ``l``."""
+    c = min(chunk, l)
+    if c < 1 or l % c:
+        raise ValueError(f"the bf16 scan's chunk {c} does not divide the "
+                         f"length {l}")
+    return c
+
+
+def _payload_bf16(x, dt, bmat, a):
+    """The chunk's scan payload as the reference forms it: ``da =
+    bf16(exp(dt·a))`` and ``dbx = bf16((dt·x)·B)``, the products and the
+    exponential in float32."""
+    da = torch.exp(dt[..., None] * a).to(torch.bfloat16)
+    dbx = ((dt * x)[..., None] * bmat[:, :, None, :]).to(torch.bfloat16)
+    return da, dbx
+
+
+def state_sum(p):
+    """``p (..., st)`` summed over its last axis in float32 in the card
+    kernels' order: padded with zeros to a power of two, then halves
+    added, the highest bit of the state index first (state s with s + w/2,
+    then those sums with s + w/4, …), which is the order of B9b's
+    transposed butterfly."""
+    st = p.shape[-1]
+    w = 1 << max(0, (st - 1).bit_length())
+    if w > st:
+        p = torch.nn.functional.pad(p, (0, w - st))
+    while p.shape[-1] > 1:
+        h = p.shape[-1] // 2
+        p = p[..., :h] + p[..., h:]
+    return p[..., 0]
+
+
+def selective_scan_bf16_states_ref(x, dt, bmat, cmat, a, *, chunk=256):
+    """The reference's ``ssm_fwd`` recurrence at ``scan_dtype=bfloat16``
+    (``repro/models/ssm.py:97-105``): per chunk of ``c = min(chunk, L)``
+    steps the payload of ``_payload_bf16``, the chunk's entering state
+    rounded to bf16, ``scan_chunk_bf16``, ``y_t = Σ_s float(h_t[s])·C_t[s]``
+    in float32 (summed in ``state_sum``'s order, so that the card's kernel
+    gives the same bits), and the next chunk entering at
+    ``float(h_last)``.  Inputs
+    as ``selective_scan_ref``'s, float32.  Returns ``(y (B, L, di),
+    hck (B, L / c, di, st))``: the float32 state entering each chunk."""
+    bsz, l, di = x.shape
+    st = bmat.shape[-1]
+    c = scan_chunk_len(l, chunk)
+    xf, dtf, bf, cf, af = (t.float() for t in (x, dt, bmat, cmat, a))
+    y = torch.empty((bsz, l, di), dtype=torch.float32, device=x.device)
+    hck = torch.empty((bsz, l // c, di, st), dtype=torch.float32,
+                      device=x.device)
+    h = torch.zeros((bsz, di, st), dtype=torch.float32, device=x.device)
+    for k in range(l // c):
+        sl = slice(k * c, (k + 1) * c)
+        hck[:, k] = h
+        da, dbx = _payload_bf16(xf[:, sl], dtf[:, sl], bf[:, sl], af)
+        hs, h_last = scan_chunk_bf16(h.to(torch.bfloat16), da, dbx)
+        y[:, sl] = state_sum(hs.float() * cf[:, sl, None, :])
+        h = h_last.float()
+    return y, hck
+
+
+def selective_scan_bf16_ref(x, dt, bmat, cmat, a, *, chunk=256):
+    """``y (B, L, di)`` of ``selective_scan_bf16_states_ref``, float32."""
+    return selective_scan_bf16_states_ref(x, dt, bmat, cmat, a,
+                                          chunk=chunk)[0]
+
+
+def selective_scan_bf16_bwd_ref(x, dt, bmat, cmat, a, dy, *, chunk=256):
+    """The gradients ``(dx, ddt, dB, dC, dA)`` (float32) of
+    ``selective_scan_bf16_ref`` for the cotangent ``dy``: ``torch.autograd``
+    through the plain forward, a chunk at a time, last first, from the
+    states entering the chunks.  That is the reference's VJP: the
+    cotangent entering the states is ``bf16(dy_t ⊗ C_t)``, the chunk's last
+    state also takes the carried cotangent (a bf16 add), the tree's
+    transpose runs in bf16 operations, and the da and dbx cotangents go
+    back to float32 through ``exp``, the products and ``a``."""
+    bsz, l, di = x.shape
+    c = scan_chunk_len(l, chunk)
+    xf, dtf, bf, cf, af, dyf = (t.float().detach() for t in (x, dt, bmat,
+                                                            cmat, a, dy))
+    with torch.no_grad():
+        _, hck = selective_scan_bf16_states_ref(xf, dtf, bf, cf, af,
+                                                chunk=c)
+    dx, ddt = torch.empty_like(xf), torch.empty_like(xf)
+    db, dc = torch.empty_like(bf), torch.empty_like(cf)
+    da_sum = torch.zeros_like(af)
+    g_carry = torch.zeros_like(hck[:, 0])
+    for k in range(l // c - 1, -1, -1):
+        sl = slice(k * c, (k + 1) * c)
+        with torch.enable_grad():
+            leaves = [t[:, sl].clone().requires_grad_()
+                      for t in (xf, dtf, bf, cf)]
+            al = af.clone().requires_grad_()
+            h_in = hck[:, k].clone().requires_grad_()
+            xs, dts, bs, cs = leaves
+            da, dbx = _payload_bf16(xs, dts, bs, al)
+            hs, h_last = scan_chunk_bf16(h_in.to(torch.bfloat16), da, dbx)
+            yk = state_sum(hs.float() * cs[:, :, None, :])
+            gx, gdt, gb, gc, ga, gh = torch.autograd.grad(
+                [yk, h_last.float()], [*leaves, al, h_in],
+                [dyf[:, sl], g_carry])
+        dx[:, sl], ddt[:, sl], db[:, sl], dc[:, sl] = gx, gdt, gb, gc
+        da_sum += ga
+        g_carry = gh
+    return dx, ddt, db, dc, da_sum

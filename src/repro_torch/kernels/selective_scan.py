@@ -16,6 +16,14 @@ raises); a CPU tensor takes the plain versions in ``kernels/ref.py``.
 same function as a ``torch.autograd.Function``: its forward also writes
 ``h`` as it enters every ``CKPT_STEPS``-th step (``selective_scan_ckpt``),
 and its backward (``selective_scan_bwd``) restarts from those checkpoints.
+
+``selective_scan_bf16`` (B9b) and ``selective_scan_bf16_bwd`` (B9b′), in
+``csrc/selective_scan_bf16.cu``, are the reference's other function: its
+``ssm_fwd(..., scan_dtype=bfloat16)``, whose chunked associative scan
+rounds its payload to bfloat16 (``repro/models/ssm.py:97-105``; no Pallas
+kernel).  ``selective_scan_bf16_ckpt`` also writes the float32 state
+entering every chunk, which the backward restarts from;
+``selective_scan_bf16_train`` is the pair as a ``torch.autograd.Function``.
 """
 from __future__ import annotations
 
@@ -29,13 +37,18 @@ from repro_torch.kernels.pack_gather import on_card, require
 
 __all__ = ["selective_scan", "selective_scan_ckpt", "selective_scan_bwd",
            "selective_scan_train", "CKPT_STEPS", "lanes_per_channel",
-           "bwd_partials"]
+           "bwd_partials", "selective_scan_bf16", "selective_scan_bf16_ckpt",
+           "selective_scan_bf16_bwd", "selective_scan_bf16_train",
+           "BF16_MAX_CHUNK", "bf16_bwd_partials"]
 
 # csrc/selective_scan_common.cuh's kCkptSteps and kSpt, and the backward's
 # block (csrc/selective_scan_bwd.cu's kThreads)
 CKPT_STEPS = 128
 _SPT = 4
 _BWD_THREADS = 256
+# csrc/selective_scan_bf16.cu's kMaxChunk and kBwdThreads
+BF16_MAX_CHUNK = 256
+_BF16_BWD_THREADS = 256
 
 
 def lanes_per_channel(st: int) -> int:
@@ -168,3 +181,126 @@ def selective_scan_train(x, dt, bmat, cmat, a):
     """``selective_scan`` with a gradient for all five inputs (``a``'s
     reaches ``a_log`` through the caller's ``-exp``)."""
     return _SelectiveScan.apply(x, dt, bmat, cmat, a)
+
+
+# --------------------------------------------------------------------------
+# the bfloat16 payload (B9b, B9b′)
+# --------------------------------------------------------------------------
+
+def bf16_bwd_partials(di: int, st: int) -> int:
+    """dB/dC partials a lane of B9b′ leaves: one a block of ``256 / tpc``
+    channels, ``tpc`` the power of two >= st (a thread a state)."""
+    tpc = 1 << max(0, math.ceil(math.log2(st)))
+    return -(-di // (_BF16_BWD_THREADS // tpc))
+
+
+def _card_chunk(l: int, chunk: int) -> int:
+    c = kref.scan_chunk_len(l, chunk)
+    if c > BF16_MAX_CHUNK:
+        raise ValueError(f"the card's bf16 scan takes chunks of at most "
+                         f"{BF16_MAX_CHUNK} steps, got {c}")
+    return c
+
+
+def selective_scan_bf16(x, dt, bmat, cmat, a, *, chunk: int = 256):
+    """``y (B, L, di)`` float32 of the reference's scan with a bfloat16
+    payload (``kref.selective_scan_bf16_ref``: chunks of ``min(chunk,
+    L)`` steps, which must divide L).  On the card every input is float32
+    and contiguous, st <= 32 and the chunk <= 256; the states and ``y``
+    are the plain version's bit for bit (``y`` sums the states in
+    ``kref.state_sum``'s order)."""
+    bsz, l, di, st = _shapes(x, dt, bmat, cmat, a)
+    if not on_card(x, dt, bmat, cmat, a):
+        return kref.selective_scan_bf16_ref(x, dt, bmat, cmat, a,
+                                            chunk=chunk)
+    c = _card_chunk(l, chunk)
+    _card_inputs(st, x, dt, bmat, cmat, a)
+    y = torch.empty_like(x)
+    _build.launch("selective_scan_bf16", "rt_selective_scan_bf16", x.device,
+                  x.data_ptr(), dt.data_ptr(), bmat.data_ptr(),
+                  cmat.data_ptr(), a.data_ptr(), y.data_ptr(), bsz, l, di,
+                  st, c)
+    return y
+
+
+def selective_scan_bf16_ckpt(x, dt, bmat, cmat, a, *, chunk: int = 256):
+    """``(y, hck)``: ``selective_scan_bf16``'s ``y`` and the float32 state
+    entering every chunk, ``hck (B, L / c, di, st)`` — the reference's
+    boundary states, what ``selective_scan_bf16_bwd`` restarts from (one
+    launch of B9b, counted as ``selective_scan_bf16``; on the CPU the
+    plain version's)."""
+    bsz, l, di, st = _shapes(x, dt, bmat, cmat, a)
+    if not on_card(x, dt, bmat, cmat, a):
+        return kref.selective_scan_bf16_states_ref(x, dt, bmat, cmat, a,
+                                                   chunk=chunk)
+    c = _card_chunk(l, chunk)
+    _card_inputs(st, x, dt, bmat, cmat, a)
+    y = torch.empty_like(x)
+    hck = torch.empty((bsz, l // c, di, st), dtype=torch.float32,
+                      device=x.device)
+    _build.launch("selective_scan_bf16", "rt_selective_scan_bf16_ckpt",
+                  x.device, x.data_ptr(), dt.data_ptr(), bmat.data_ptr(),
+                  cmat.data_ptr(), a.data_ptr(), y.data_ptr(),
+                  hck.data_ptr(), bsz, l, di, st, c)
+    return y, hck
+
+
+def selective_scan_bf16_bwd(x, dt, bmat, cmat, a, hck, dy, *,
+                            chunk: int = 256):
+    """``(dx, ddt, dB, dC, dA)``: the gradients of ``selective_scan_bf16``
+    for the cotangent ``dy``, ``hck`` as ``selective_scan_bf16_ckpt`` gave
+    it.  On the card one launch of B9b′ and its fixed-order reduction of
+    the partials (no atomics: two calls give the same bits); the bf16
+    cotangents are the plain backward's, the float32 sums run in other
+    orders (2e-4 of each gradient's largest element).  On the CPU
+    ``kref.selective_scan_bf16_bwd_ref``."""
+    bsz, l, di, st = _shapes(x, dt, bmat, cmat, a)
+    require(dy.shape == x.shape, (dy.shape, x.shape))
+    if not on_card(x, dt, bmat, cmat, a, dy):
+        return kref.selective_scan_bf16_bwd_ref(x, dt, bmat, cmat, a, dy,
+                                                chunk=chunk)
+    c = _card_chunk(l, chunk)
+    _card_inputs(st, x, dt, bmat, cmat, a, dy)
+    require(hck is not None and hck.dtype == torch.float32
+            and tuple(hck.shape) == (bsz, l // c, di, st)
+            and hck.device == x.device and hck.is_contiguous(),
+            None if hck is None else hck.shape)
+    nblk = bf16_bwd_partials(di, st)
+    dx, ddt = torch.empty_like(x), torch.empty_like(x)
+    db, dc = torch.empty_like(bmat), torch.empty_like(cmat)
+    da = torch.empty_like(a)
+    pb = torch.empty((2, bsz, nblk, l, st), dtype=torch.float32,
+                     device=x.device)
+    pa = torch.empty((bsz, di, st), dtype=torch.float32, device=x.device)
+    _build.launch("selective_scan_bf16_bwd", "rt_selective_scan_bf16_bwd",
+                  x.device, x.data_ptr(), dt.data_ptr(), bmat.data_ptr(),
+                  cmat.data_ptr(), a.data_ptr(), hck.data_ptr(),
+                  dy.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
+                  db.data_ptr(), dc.data_ptr(), da.data_ptr(),
+                  pb[0].data_ptr(), pb[1].data_ptr(), pa.data_ptr(), bsz, l,
+                  di, st, c)
+    return dx, ddt, db, dc, da
+
+
+class _SelectiveScanBf16(torch.autograd.Function):
+    """The bf16-payload scan with its backward: B9b's checkpointing entry
+    and B9b′ on the card, the plain versions on the CPU."""
+
+    @staticmethod
+    def forward(ctx, x, dt, bmat, cmat, a, chunk):
+        y, hck = selective_scan_bf16_ckpt(x, dt, bmat, cmat, a, chunk=chunk)
+        ctx.save_for_backward(x, dt, bmat, cmat, a, hck)
+        ctx.chunk = chunk
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, dt, bmat, cmat, a, hck = ctx.saved_tensors
+        return (*selective_scan_bf16_bwd(x, dt, bmat, cmat, a, hck,
+                                         dy.contiguous(), chunk=ctx.chunk),
+                None)
+
+
+def selective_scan_bf16_train(x, dt, bmat, cmat, a, *, chunk: int = 256):
+    """``selective_scan_bf16`` with a gradient for all five inputs."""
+    return _SelectiveScanBf16.apply(x, dt, bmat, cmat, a, chunk)

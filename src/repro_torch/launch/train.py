@@ -114,11 +114,14 @@ class Trainer:
                 extra={"data": self.dstate.to_json()}, force=force)
 
 
-def setup(cfg, args, *, retries: int = 1) -> Trainer:
+def setup(cfg, args, *, retries: int = 1,
+          ssm_scan_dtype: torch.dtype = torch.float32) -> Trainer:
     """The model, optimizer and state of ``args`` for ``cfg``, resumed from
     ``--ckpt-dir``'s latest checkpoint when there is one.  A step's failed
     gradient half is retried up to ``retries`` times (the reference
-    retries a failed step once; ``build_train_step``)."""
+    retries a failed step once; ``build_train_step``).
+    ``ssm_scan_dtype`` is ``RunCtx``'s: the mamba layers' scan payload (as
+    the reference, no flag sets it)."""
     if args.mesh != "local":
         raise NotImplementedError(
             f"--mesh {args.mesh}: the port trains on one device; sharded "
@@ -129,6 +132,7 @@ def setup(cfg, args, *, retries: int = 1) -> Trainer:
         moe_groups=1,          # the reference's min(data-parallel size, B)
         remat="full",
         act_dtype=torch.float32 if device.type == "cpu" else torch.bfloat16,
+        ssm_scan_dtype=ssm_scan_dtype,
     )
     model = Model(cfg, ctx, device=device)
     opt = AdamW(lr=cosine_schedule(args.lr, args.warmup, args.steps),

@@ -4,13 +4,15 @@ The forward runs the input projection, the depthwise causal convolution,
 the x/dt projections and the gate as plain PyTorch, as the reference does in
 jnp, and the recurrence through ``kernels.ops.selective_scan`` (the card's
 selective-scan kernel; its plain version on the CPU).  The reference
-computes the recurrence as a chunked associative scan whose ``chunk`` is a
-blocking knob of that scan; the port has no such knob.  Training runs
-``ssm_fwd`` as it stands: in grad mode ``ops.selective_scan`` gives the
-recurrence its backward (the card's backward kernel, which the reference
-gets from ``jax.grad`` of its scan), and autograd carries the gradients
-through the rest.  The decode path is the exact single-step recurrence
-with a rolling conv window.
+computes the recurrence as a chunked associative scan.  With a float32
+payload its ``chunk`` is a blocking knob of that scan and changes nothing
+here; with ``scan_dtype=bfloat16`` the payload is rounded inside each chunk
+and the chunk is part of the function (B9b and its backward B9b′).
+Training runs ``ssm_fwd`` as it stands: in grad mode ``ops.selective_scan``
+gives the recurrence its backward (the card's backward kernel, which the
+reference gets from ``jax.grad`` of its scan), and autograd carries the
+gradients through the rest.  The decode path is the exact single-step
+recurrence with a rolling conv window.
 """
 from __future__ import annotations
 
@@ -51,16 +53,15 @@ def _causal_conv(x, w, b):
     return out + b[None, None, :]
 
 
-def ssm_fwd(p, u, cfg, *, d_inner=None, scan_dtype=torch.float32):
+def ssm_fwd(p, u, cfg, *, d_inner=None, chunk=256,
+            scan_dtype=torch.float32):
     """u: (B, L, d). Returns (B, L, d).
 
-    The recurrence runs in float32.  ``scan_dtype=torch.bfloat16`` is the
-    reference's other function, which rounds the scan payload to bfloat16
-    inside each chunk; it is not ported (ROADMAP A16)."""
-    if scan_dtype != torch.float32:
-        raise NotImplementedError(
-            "ssm_fwd with a bfloat16 scan payload is not ported: ROADMAP "
-            "A16")
+    ``scan_dtype=torch.bfloat16`` rounds the scan payload (exp(dt·a) and
+    dt·x·B) and each chunk's entering state to bfloat16 and scans each
+    chunk of ``min(chunk, L)`` steps (which must divide L) as the
+    reference's bf16 associative scan; the decay exponent, the boundary
+    states and ``y`` stay float32."""
     di = d_inner or cfg.d_inner
     st, dr = cfg.ssm_state, cfg.ssm_dt_rank
     xz = linear(p["in_proj"], u)
@@ -73,7 +74,8 @@ def ssm_fwd(p, u, cfg, *, d_inner=None, scan_dtype=torch.float32):
     a = -torch.exp(p["a_log"].float())                    # (di, st)
     xs = x.float().contiguous()
     y = ops.selective_scan(xs, dt.contiguous(), bmat.float().contiguous(),
-                           cmat.float().contiguous(), a)
+                           cmat.float().contiguous(), a, payload=scan_dtype,
+                           chunk=chunk)
     y = y + xs * p["d_skip"].float()
     y = y * F.silu(z.float())
     return linear(p["out_proj"], y.to(u.dtype))

@@ -1401,6 +1401,110 @@ def test_selective_scan_refusals(dev):
         kops.selective_scan(x, dt, bm, cm, a)
 
 
+# -- B9b / B9b′: the scan with a bfloat16 payload --
+
+BF16_SHAPES = [(1, 1, 1, 1, 256), (2, 100, 37, 16, 256), (1, 42, 20, 5, 7),
+               (2, 512, 40, 16, 256), (1, 96, 9, 4, 1), (3, 64, 33, 32, 32),
+               (1, 771, 24, 8, 3), (2, 1024, 3200, 16, 256),
+               (1, 4096, 8192, 16, 256)]
+BF16_IDS = ["one", "short_chunk", "odd_chunk_st5", "two_chunks",
+            "chunk1_st4", "st32", "chunk3", "hymba", "falcon"]
+
+
+def _bf16_rel(got, want):
+    """The largest error over the largest element of ``want``."""
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                 1e-30)
+
+
+@pytest.mark.parametrize("b,l,di,st,chunk", BF16_SHAPES, ids=BF16_IDS)
+def test_selective_scan_bf16_matches_plain(dev, b, l, di, st, chunk):
+    """B9b against the plain bf16 scan on the card, bit for bit: the
+    states entering the chunks (the payload's exp is torch's) and y (the
+    plain version sums the states in the kernel's butterfly order); the
+    serving entry's y is the checkpointing entry's.  Chunks of 1, 3,
+    7, 32 and the whole L under 256, di ragged against the block's
+    channels, st 1 to 32, the widths of hymba-1.5b and falcon-mamba-7b."""
+    from repro_torch.kernels import selective_scan as b9
+
+    rng = np.random.default_rng(l + di + st)
+    args = _scan_inputs(rng, b, l, di, st, dev)
+    before = kops.launch_counts()["selective_scan_bf16"]
+    y, hck = b9.selective_scan_bf16_ckpt(*args, chunk=chunk)
+    served = kops.selective_scan(*args, payload=torch.bfloat16, chunk=chunk)
+    torch.cuda.synchronize()
+    assert kops.launch_counts()["selective_scan_bf16"] == before + 2
+    want_y, want_h = kref.selective_scan_bf16_states_ref(*args, chunk=chunk)
+    assert torch.equal(hck, want_h)
+    assert torch.equal(served, y)
+    assert torch.equal(y, want_y), _bf16_rel(y, want_y)
+
+
+@pytest.mark.parametrize("b,l,di,st,chunk", BF16_SHAPES[:-2] + [
+    (2, 4096, 3200, 16, 256), (2, 4096, 8192, 16, 256)], ids=BF16_IDS)
+def test_selective_scan_bf16_bwd_matches_plain(dev, b, l, di, st, chunk):
+    """B9b′ against the plain backward on the card, each gradient within
+    2e-4 of its largest element, and a second launch bit for bit; the
+    train microbatches of hymba-1.5b and falcon-mamba-7b (B 2, L 4096)."""
+    from repro_torch.kernels import selective_scan as b9
+
+    rng = np.random.default_rng(l * st + di)
+    x, dt, bm, cm, a = _scan_inputs(rng, b, l, di, st, dev)
+    dy = _rand(rng, (b, l, di), torch.float32, dev)
+    _, hck = b9.selective_scan_bf16_ckpt(x, dt, bm, cm, a, chunk=chunk)
+    before = kops.launch_counts()["selective_scan_bf16_bwd"]
+    got = b9.selective_scan_bf16_bwd(x, dt, bm, cm, a, hck, dy, chunk=chunk)
+    again = b9.selective_scan_bf16_bwd(x, dt, bm, cm, a, hck, dy,
+                                       chunk=chunk)
+    torch.cuda.synchronize()
+    assert kops.launch_counts()["selective_scan_bf16_bwd"] == before + 2
+    assert all(torch.equal(g, h) for g, h in zip(got, again))
+    want = kref.selective_scan_bf16_bwd_ref(x, dt, bm, cm, a, dy,
+                                            chunk=chunk)
+    errs = [_bf16_rel(g, w) for g, w in zip(got, want)]
+    assert max(errs) <= 2e-4, errs
+
+
+def test_selective_scan_bf16_grad_through_ops_on_card(dev):
+    """``ops.selective_scan(payload=bfloat16)`` in grad mode on the card:
+    one B9b and one B9b′ launch, every gradient within 2e-4 of the CPU's
+    plain backward; a non-contiguous cotangent is taken."""
+    rng = np.random.default_rng(6)
+    args = _scan_inputs(rng, 2, 160, 70, 16, dev)
+    ct = _rand(rng, (2, 70, 160), torch.float32, dev).transpose(1, 2)
+    ins = [t.clone().requires_grad_(True) for t in args]
+    before = kops.launch_counts()
+    y = kops.selective_scan(*ins, payload=torch.bfloat16, chunk=32)
+    got = torch.autograd.grad(y, ins, ct)
+    torch.cuda.synchronize()
+    after = kops.launch_counts()
+    for name in ("selective_scan_bf16", "selective_scan_bf16_bwd"):
+        assert after[name] == before[name] + 1, name
+    assert after["selective_scan"] == before["selective_scan"]
+    want = kref.selective_scan_bf16_bwd_ref(*(t.cpu() for t in args),
+                                            ct.cpu(), chunk=32)
+    errs = [_bf16_rel(g.cpu(), w) for g, w in zip(got, want)]
+    assert max(errs) <= 2e-4, errs
+
+
+def test_selective_scan_bf16_refusals(dev):
+    """A chunk over 256 steps, one that does not divide L, float64 inputs
+    and st past 32 are refused on the card."""
+    from repro_torch.kernels import selective_scan as b9
+
+    rng = np.random.default_rng(1)
+    args = _scan_inputs(rng, 1, 512, 16, 4, dev)
+    with pytest.raises(ValueError, match="at most 256"):
+        b9.selective_scan_bf16(*args, chunk=512)
+    with pytest.raises(ValueError, match="divide"):
+        b9.selective_scan_bf16(*args, chunk=300)
+    with pytest.raises(TypeError, match="float32"):
+        b9.selective_scan_bf16(*(t.double() for t in args))
+    args = _scan_inputs(rng, 1, 8, 16, 33, dev)
+    with pytest.raises(ValueError):
+        b9.selective_scan_bf16(*args)
+
+
 # -- the serving paths on the card against the same model on the CPU --
 
 def _model_pair(dev, cfg):

@@ -170,14 +170,6 @@ def test_ssm_decode_step_matches_jax():
                                **TOL)
 
 
-def test_ssm_bf16_scan_is_refused():
-    cfg = mamba_cfg()
-    tp = _t(_np(JS.init_ssm(KEY, cfg)))
-    with pytest.raises(NotImplementedError, match="A16"):
-        TS.ssm_fwd(tp, torch.zeros((1, 4, cfg.d_model)), cfg,
-                   scan_dtype=torch.bfloat16)
-
-
 # -- the model --
 
 @pytest.mark.parametrize("per_slot", [False, True])
