@@ -225,6 +225,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import pathlib
 import subprocess
@@ -1808,31 +1809,37 @@ def tree_combines(c: int):
     return c - bin(c).count("1"), c - c.bit_length()
 
 
-def scan_bf16_bound(b: int, l: int, di: int, st: int, c: int):
+def scan_bf16_bound(b: int, l: int, di: int, st: int, c: int,
+                    ckpt: bool = False):
     """(bound_ms, bound_by) and the tree's combines of B9b: x, dt read and
-    y written (float32), B, C and a read once; per (step, channel, state)
+    y written (float32), B, C and a read once, and where ``ckpt`` the
+    chunks' entering states written (float32); per (step, channel, state)
     dt·a, the exponential, the product with B and y's multiply-add (5
     float32 operations), a chunk's up-sweep combines 4 (three products
     and an add), its down-sweep ones 2, its fold 2."""
     up, down = tree_combines(c)
     lanes, nch = b * di * st, l // c
     flops = lanes * (5.0 * l + nch * (4 * up + 2 * down + 2))
-    return bound(3 * b * l * di * 4 + 2 * b * l * st * 4 + di * st * 4,
-                 flops=flops), lanes * nch * (up + down)
+    nbytes = 3 * b * l * di * 4 + 2 * b * l * st * 4 + di * st * 4
+    if ckpt:
+        nbytes += b * nch * di * st * 4
+    return bound(nbytes, flops=flops), lanes * nch * (up + down)
 
 
 def scan_bf16_line(torch, name, args, check_l=None, chunk=256,
-                   held_out=None):
+                   held_out=None, ckpt=False):
     """B9b on one call's own inputs (``args`` = x, dt, B, C, a): the
     checkpointing entry against the plain bf16 scan on the first
     ``check_l`` steps (all by default; a whole number of chunks): the
     states entering the chunks bit for bit, y within 2e-4 of max |y|; the
     serving entry's y the checkpointing entry's bit for bit (whether y
     is the plain version's bit for bit is reported); ms of the
-    serving entry at the call's L, the plain version's ms (once, at the
-    checked length), the bound and the tree's combines; ``held_out`` (y,
-    checkpoints) from a train step must equal the new launch's bits.  No
-    single PyTorch call computes the scan."""
+    serving entry at the call's L (of the checkpointing entry where
+    ``ckpt``, with its bound: the entering states written too), the plain
+    version's ms (once, at the checked length), the bound and the tree's
+    combines;
+    ``held_out`` (y, checkpoints) from a train step must equal the new
+    launch's bits.  No single PyTorch call computes the scan."""
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref as kref
     from repro_torch.kernels import selective_scan as b9
@@ -1862,14 +1869,16 @@ def scan_bf16_line(torch, name, args, check_l=None, chunk=256,
     check(err <= 2e-4, f"{name}: y is {err} of max |y| from the plain "
           "version's")
     del y, hck, served, want_y, want_h
-    bnd, combines = scan_bf16_bound(b, l, di, st, c)
+    bnd, combines = scan_bf16_bound(b, l, di, st, c, ckpt=ckpt)
+    entry = b9.selective_scan_bf16_ckpt if ckpt else b9.selective_scan_bf16
     res = dict(max_abs_err=err, plain_ms=plain_ms, library_ms=None,
-               ms=cuda_ms(torch, lambda: b9.selective_scan_bf16(
-                   *args, chunk=chunk), warmup=1, iters=5),
+               ms=cuda_ms(torch, lambda: entry(*args, chunk=chunk),
+                          warmup=1, iters=5),
                bound=bnd)
     emit({"phase": "kernel", "name": name, **{
         k_: v_ for k_, v_ in res.items() if k_ != "bound"},
         "bound_ms": bnd[0], "bound_by": bnd[1], "combines": combines,
+        "entry": "checkpointing" if ckpt else "serving",
         "states_bit_identical": states, "y_bit_identical": y_bits,
         "serving_bit_identical": same,
         "checked_steps": lc, "max_abs_err_is": "of max |y|",
@@ -1923,8 +1932,10 @@ def scan_bf16_bwd_line(torch, name, args, dy, held=None, chunk=256):
         "bound_ms": res["bound"][0], "bound_by": res["bound"][1],
         "rel_err_by_grad": dict(zip(("dx", "ddt", "dB", "dC", "dA"), rel)),
         "bit_identical_repeat": same,
-        "layout": {"threads": 256, "partials_bytes": 4 * 2 * b * l * st
-                   * b9.bf16_bwd_partials(di, st)},
+        "layout": {"threads": 128, "partials_bytes": 4 * 2 * b * l * st
+                   * b9.bf16_bwd_partials(di, st),
+                   "ends_bytes": 4 * math.prod(
+                       b9.bf16_ends_shape(b, l, di, st, c))},
         "shape": f"x/dt/dy ({b}, {l}, {di}) f32, B/C ({b}, {l}, {st}), "
                  f"chunk {c}",
         "max_abs_err_is": "relative to each gradient's largest element"})
@@ -3759,6 +3770,7 @@ def phase_train_scan(torch, card, phase, argv, layers, timed, kernel_name,
           "mfu_counts": "6 N tokens (runtime/steps.model_flops): the "
                         "selective scan's own work is outside it",
           "launches": got, "plain_scan_calls": plain_calls, "card": card})
+    res["step_ms"] = fields["ms_per_step"]
     return got, res
 
 
@@ -3780,16 +3792,18 @@ def phase_train_hybrid(torch, card):
                             bf16_line="selective_scan_bf16_bwd_di3200")
 
 
-def phase_train_ssm_bf16(torch, card):
+def phase_train_ssm_bf16(torch, card, f32_ms):
     """falcon-mamba-7b as train_ssm (TRAIN_SSM_LAYERS of its 64 layers, its
     settings) with the reference's bf16 scan payload
     (``launch.train.setup(ssm_scan_dtype=bfloat16)``): one warm-up and
     TRAIN_SSM_BF16_TIMED timed steps, no profiled one; B9b launched layers
     x microbatches x 2 a step and B9b′ layers x microbatches, B9, B9′ and
     every plain scan never.  The warm-up's first checkpointing forward is
-    checked on its inputs (scan_bf16_line, its outputs held against a new
-    launch), and its first backward gives the kernel line
-    ``selective_scan_bf16_bwd``."""
+    checked on its inputs (scan_bf16_line with the checkpointing entry's
+    time and bound, its outputs held against a new launch), and its first
+    backward gives the kernel line ``selective_scan_bf16_bwd``; its ms a
+    step beside train_ssm's (``f32_ms``, the float32 payload in the same
+    call)."""
     from repro_torch.kernels import ref as kref
     from repro_torch.kernels import selective_scan as b9
     plain_names = ("selective_scan_ref", "selective_scan_bwd_ref",
@@ -3827,18 +3841,20 @@ def phase_train_ssm_bf16(torch, card):
     t0 = time.perf_counter()
     fargs, fout = fwd.pop(0)
     ckpt = scan_bf16_line(torch, "selective_scan_bf16_train_fwd", fargs,
-                          held_out=fout)
+                          held_out=fout, ckpt=True)
     (x, dt, bm, cm, a, hck, dy), grads = bwd.pop(0)
     res = scan_bf16_bwd_line(torch, "selective_scan_bf16_bwd",
                              (x, dt, bm, cm, a), dy, held=(hck, grads))
     res["ckpt_forward"] = {k: ckpt[k] for k in ("max_abs_err", "ms",
                                                  "plain_ms")}
+    res["ckpt_forward"].update(bound_ms=ckpt["bound"][0],
+                               bound_by=ckpt["bound"][1])
     del seen, fwd, bwd, fargs, fout, x, dt, bm, cm, a, hck, dy, grads
     gc.collect()
     torch.cuda.empty_cache()
     fields["wall_s"]["kernel_lines"] = round(time.perf_counter() - t0, 1)
     emit({**fields, "d_inner": cfg.d_inner, "state": cfg.ssm_state,
-          "scan_payload": "bfloat16",
+          "scan_payload": "bfloat16", "f32_payload_ms_per_step": f32_ms,
           "launches": got, "plain_scan_calls": plain_calls, "card": card})
     return got, res
 
@@ -4110,7 +4126,7 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     bf16_counts, results["selective_scan_bf16_bwd"] = phase_train_ssm_bf16(
-        torch, card)
+        torch, card, results["selective_scan_bwd"]["step_ms"])
     counts["selective_scan_bf16"] += bf16_counts["selective_scan_bf16"]
     counts["selective_scan_bf16_bwd"] = bf16_counts["selective_scan_bf16_bwd"]
     gc.collect()

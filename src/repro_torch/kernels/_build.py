@@ -66,9 +66,8 @@ _SIGNATURES = {
                                    _I, _P),
     "rt_selective_scan_bwd_f32": (_P,) * 15 + (_I,) * 4 + (_P,),
     "rt_selective_scan_bwd_occupancy": (_I,) * 3 + (_P,),
-    "rt_selective_scan_bf16": (_P,) * 6 + (_I,) * 5 + (_P,),
-    "rt_selective_scan_bf16_ckpt": (_P,) * 7 + (_I,) * 5 + (_P,),
-    "rt_selective_scan_bf16_bwd": (_P,) * 15 + (_I,) * 5 + (_P,),
+    "rt_selective_scan_bf16": (_P,) * 7 + (_I,) * 6 + (_P,),
+    "rt_selective_scan_bf16_bwd": (_P,) * 16 + (_I,) * 5 + (_P,),
 }
 
 _lib = None

@@ -39,16 +39,19 @@ __all__ = ["selective_scan", "selective_scan_ckpt", "selective_scan_bwd",
            "selective_scan_train", "CKPT_STEPS", "lanes_per_channel",
            "bwd_partials", "selective_scan_bf16", "selective_scan_bf16_ckpt",
            "selective_scan_bf16_bwd", "selective_scan_bf16_train",
-           "BF16_MAX_CHUNK", "bf16_bwd_partials"]
+           "BF16_MAX_CHUNK", "bf16_bwd_partials", "bf16_ends_shape"]
 
 # csrc/selective_scan_common.cuh's kCkptSteps and kSpt, and the backward's
 # block (csrc/selective_scan_bwd.cu's kThreads)
 CKPT_STEPS = 128
 _SPT = 4
 _BWD_THREADS = 256
-# csrc/selective_scan_bf16.cu's kMaxChunk and kBwdThreads
+# csrc/selective_scan_bf16.cu's kMaxChunk and kThreads
 BF16_MAX_CHUNK = 256
-_BF16_BWD_THREADS = 256
+_BF16_THREADS = 128
+# csrc/selective_scan_bf16.cu's kBwdLow: B9b′ keeps the ends of every
+# block of 2^3 steps
+_BF16_BWD_BLOCK = 8
 
 
 def lanes_per_channel(st: int) -> int:
@@ -187,11 +190,24 @@ def selective_scan_train(x, dt, bmat, cmat, a):
 # the bfloat16 payload (B9b, B9b′)
 # --------------------------------------------------------------------------
 
+def _bf16_tpc(st: int) -> int:
+    """Threads a channel in B9b and B9b′ (their kTpc): each thread holds
+    two states, so half the power of two >= st, at least 1."""
+    return max(1, (1 << max(0, math.ceil(math.log2(st)))) // 2)
+
+
 def bf16_bwd_partials(di: int, st: int) -> int:
-    """dB/dC partials a lane of B9b′ leaves: one a block of ``256 / tpc``
-    channels, ``tpc`` the power of two >= st (a thread a state)."""
-    tpc = 1 << max(0, math.ceil(math.log2(st)))
-    return -(-di // (_BF16_BWD_THREADS // tpc))
+    """dB/dC partials a lane of B9b′ leaves: one a block of ``128 / tpc``
+    channels (``_bf16_tpc``)."""
+    return -(-di // (_BF16_THREADS // _bf16_tpc(st)))
+
+
+def bf16_ends_shape(bsz: int, l: int, di: int, st: int,
+                    c: int) -> tuple:
+    """B9b′'s workspace of block ends, 32-bit words: for every block of 8
+    steps of every (chunk, lane pair), its last up-value (a, b) and its
+    state, a packed bf16 pair each."""
+    return (bsz, l // c, -(-c // _BF16_BWD_BLOCK), 3, di * _bf16_tpc(st))
 
 
 def _card_chunk(l: int, chunk: int) -> int:
@@ -202,25 +218,37 @@ def _card_chunk(l: int, chunk: int) -> int:
     return c
 
 
+def _bf16_forward(x, dt, bmat, cmat, a, chunk, ckpt):
+    """One launch of B9b: ``(y, hck)`` (hck None without ``ckpt``)."""
+    bsz, l, di, st = _shapes(x, dt, bmat, cmat, a)
+    c = _card_chunk(l, chunk)
+    _card_inputs(st, x, dt, bmat, cmat, a)
+    y = torch.empty_like(x)
+    hck = None
+    if ckpt:
+        hck = torch.empty((bsz, l // c, di, st), dtype=torch.float32,
+                          device=x.device)
+    _build.launch("selective_scan_bf16", "rt_selective_scan_bf16", x.device,
+                  x.data_ptr(), dt.data_ptr(), bmat.data_ptr(),
+                  cmat.data_ptr(), a.data_ptr(), y.data_ptr(),
+                  0 if hck is None else hck.data_ptr(), bsz, l, di, st, c,
+                  int(ckpt))
+    return y, hck
+
+
 def selective_scan_bf16(x, dt, bmat, cmat, a, *, chunk: int = 256):
     """``y (B, L, di)`` float32 of the reference's scan with a bfloat16
     payload (``kref.selective_scan_bf16_ref``: chunks of ``min(chunk,
     L)`` steps, which must divide L).  On the card every input is float32
     and contiguous, st <= 32 and the chunk <= 256; the states and ``y``
     are the plain version's bit for bit (``y`` sums the states in
-    ``kref.state_sum``'s order)."""
-    bsz, l, di, st = _shapes(x, dt, bmat, cmat, a)
+    ``kref.state_sum``'s order).  A call is one launch of the walk
+    kernel, counted as ``selective_scan_bf16``."""
     if not on_card(x, dt, bmat, cmat, a):
+        _shapes(x, dt, bmat, cmat, a)
         return kref.selective_scan_bf16_ref(x, dt, bmat, cmat, a,
                                             chunk=chunk)
-    c = _card_chunk(l, chunk)
-    _card_inputs(st, x, dt, bmat, cmat, a)
-    y = torch.empty_like(x)
-    _build.launch("selective_scan_bf16", "rt_selective_scan_bf16", x.device,
-                  x.data_ptr(), dt.data_ptr(), bmat.data_ptr(),
-                  cmat.data_ptr(), a.data_ptr(), y.data_ptr(), bsz, l, di,
-                  st, c)
-    return y
+    return _bf16_forward(x, dt, bmat, cmat, a, chunk, False)[0]
 
 
 def selective_scan_bf16_ckpt(x, dt, bmat, cmat, a, *, chunk: int = 256):
@@ -229,30 +257,22 @@ def selective_scan_bf16_ckpt(x, dt, bmat, cmat, a, *, chunk: int = 256):
     boundary states, what ``selective_scan_bf16_bwd`` restarts from (one
     launch of B9b, counted as ``selective_scan_bf16``; on the CPU the
     plain version's)."""
-    bsz, l, di, st = _shapes(x, dt, bmat, cmat, a)
     if not on_card(x, dt, bmat, cmat, a):
+        _shapes(x, dt, bmat, cmat, a)
         return kref.selective_scan_bf16_states_ref(x, dt, bmat, cmat, a,
                                                    chunk=chunk)
-    c = _card_chunk(l, chunk)
-    _card_inputs(st, x, dt, bmat, cmat, a)
-    y = torch.empty_like(x)
-    hck = torch.empty((bsz, l // c, di, st), dtype=torch.float32,
-                      device=x.device)
-    _build.launch("selective_scan_bf16", "rt_selective_scan_bf16_ckpt",
-                  x.device, x.data_ptr(), dt.data_ptr(), bmat.data_ptr(),
-                  cmat.data_ptr(), a.data_ptr(), y.data_ptr(),
-                  hck.data_ptr(), bsz, l, di, st, c)
-    return y, hck
+    return _bf16_forward(x, dt, bmat, cmat, a, chunk, True)
 
 
 def selective_scan_bf16_bwd(x, dt, bmat, cmat, a, hck, dy, *,
                             chunk: int = 256):
     """``(dx, ddt, dB, dC, dA)``: the gradients of ``selective_scan_bf16``
     for the cotangent ``dy``, ``hck`` as ``selective_scan_bf16_ckpt`` gave
-    it.  On the card one launch of B9b′ and its fixed-order reduction of
-    the partials (no atomics: two calls give the same bits); the bf16
-    cotangents are the plain backward's, the float32 sums run in other
-    orders (2e-4 of each gradient's largest element).  On the CPU
+    it.  On the card one launch of B9b′ (counted once: its ends kernel,
+    its reverse walk and the fixed-order reduction of the partials; no
+    atomics, so two calls give the same bits); the bf16 cotangents are the
+    plain backward's, the float32 sums run in other orders (2e-4 of each
+    gradient's largest element).  On the CPU
     ``kref.selective_scan_bf16_bwd_ref``."""
     bsz, l, di, st = _shapes(x, dt, bmat, cmat, a)
     require(dy.shape == x.shape, (dy.shape, x.shape))
@@ -272,13 +292,15 @@ def selective_scan_bf16_bwd(x, dt, bmat, cmat, a, hck, dy, *,
     pb = torch.empty((2, bsz, nblk, l, st), dtype=torch.float32,
                      device=x.device)
     pa = torch.empty((bsz, di, st), dtype=torch.float32, device=x.device)
+    ends = torch.empty(bf16_ends_shape(bsz, l, di, st, c),
+                       dtype=torch.int32, device=x.device)
     _build.launch("selective_scan_bf16_bwd", "rt_selective_scan_bf16_bwd",
                   x.device, x.data_ptr(), dt.data_ptr(), bmat.data_ptr(),
                   cmat.data_ptr(), a.data_ptr(), hck.data_ptr(),
                   dy.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
                   db.data_ptr(), dc.data_ptr(), da.data_ptr(),
-                  pb[0].data_ptr(), pb[1].data_ptr(), pa.data_ptr(), bsz, l,
-                  di, st, c)
+                  pb[0].data_ptr(), pb[1].data_ptr(), pa.data_ptr(),
+                  ends.data_ptr(), bsz, l, di, st, c)
     return dx, ddt, db, dc, da
 
 

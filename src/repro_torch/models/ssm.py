@@ -2,12 +2,14 @@
 
 The forward runs the input projection, the depthwise causal convolution,
 the x/dt projections and the gate as plain PyTorch, as the reference does in
-jnp, and the recurrence through ``kernels.ops.selective_scan`` (the card's
-selective-scan kernel; its plain version on the CPU).  The reference
-computes the recurrence as a chunked associative scan.  With a float32
-payload its ``chunk`` is a blocking knob of that scan and changes nothing
-here; with ``scan_dtype=bfloat16`` the payload is rounded inside each chunk
-and the chunk is part of the function (B9b and its backward B9b′).
+jnp and in the activations' dtype (the conv's weights cast to it, as
+``linear`` casts its own), and the recurrence through
+``kernels.ops.selective_scan`` (the card's selective-scan kernel; its plain
+version on the CPU).  The reference computes the recurrence as a chunked
+associative scan.  With a float32 payload its ``chunk`` is a blocking knob
+of that scan and changes nothing here; with ``scan_dtype=bfloat16`` the
+payload is rounded inside each chunk and the chunk is part of the function
+(B9b and its backward B9b′).
 Training runs ``ssm_fwd`` as it stands: in grad mode ``ops.selective_scan``
 gives the recurrence its backward (the card's backward kernel, which the
 reference gets from ``jax.grad`` of its scan), and autograd carries the
@@ -66,7 +68,8 @@ def ssm_fwd(p, u, cfg, *, d_inner=None, chunk=256,
     st, dr = cfg.ssm_state, cfg.ssm_dt_rank
     xz = linear(p["in_proj"], u)
     x, z = xz.split(di, dim=-1)                           # (B, L, di)
-    x = F.silu(_causal_conv(x, p["conv_w"], p["conv_b"]))
+    x = F.silu(_causal_conv(x, p["conv_w"].to(x.dtype),
+                            p["conv_b"].to(x.dtype)))
 
     dbc = linear(p["x_proj"], x)
     dt, bmat, cmat = dbc.split([dr, st, st], dim=-1)
@@ -98,8 +101,9 @@ def ssm_decode_step(p, u, cache, cfg, *, d_inner=None):
     xz = linear(p["in_proj"], u)                          # (B, 1, 2di)
     x, z = xz.split(di, dim=-1)
     conv_in = torch.cat([cache["conv"], x], dim=1)        # (B, K, di)
-    xc = (conv_in * p["conv_w"][None]).sum(dim=1, keepdim=True) \
-        + p["conv_b"][None, None]
+    w = p["conv_w"].to(x.dtype)
+    xc = (conv_in * w[None]).sum(dim=1, keepdim=True) \
+        + p["conv_b"].to(x.dtype)[None, None]
     xc = F.silu(xc)
 
     dbc = linear(p["x_proj"], xc)

@@ -1409,6 +1409,17 @@ BF16_SHAPES = [(1, 1, 1, 1, 256), (2, 100, 37, 16, 256), (1, 42, 20, 5, 7),
                (1, 4096, 8192, 16, 256)]
 BF16_IDS = ["one", "short_chunk", "odd_chunk_st5", "two_chunks",
             "chunk1_st4", "st32", "chunk3", "hymba", "falcon"]
+# chunk lengths that are powers of two and others, one chunk and three, st
+# under 16, and di 165 and 37, which no block width (8 to 128 channels)
+# divides
+BF16_EDGE_SHAPES = [(1, 16, 165, 3, 16), (2, 48, 37, 5, 16),
+                    (1, 96, 70, 9, 96), (2, 288, 21, 12, 96),
+                    (1, 129, 165, 6, 129), (2, 387, 40, 16, 129),
+                    (1, 255, 33, 7, 255), (1, 765, 19, 2, 255),
+                    (2, 256, 165, 16, 256), (1, 768, 50, 11, 256),
+                    (1, 512, 165, 1, 256)]
+BF16_EDGE_IDS = [f"c{c}_x{l // c}_di{di}_st{st}"
+                 for _, l, di, st, c in BF16_EDGE_SHAPES]
 
 
 def _bf16_rel(got, want):
@@ -1417,7 +1428,8 @@ def _bf16_rel(got, want):
                                                  1e-30)
 
 
-@pytest.mark.parametrize("b,l,di,st,chunk", BF16_SHAPES, ids=BF16_IDS)
+@pytest.mark.parametrize("b,l,di,st,chunk", BF16_SHAPES + BF16_EDGE_SHAPES,
+                         ids=BF16_IDS + BF16_EDGE_IDS)
 def test_selective_scan_bf16_matches_plain(dev, b, l, di, st, chunk):
     """B9b against the plain bf16 scan on the card, bit for bit: the
     states entering the chunks (the payload's exp is torch's) and y (the
@@ -1441,11 +1453,13 @@ def test_selective_scan_bf16_matches_plain(dev, b, l, di, st, chunk):
 
 
 @pytest.mark.parametrize("b,l,di,st,chunk", BF16_SHAPES[:-2] + [
-    (2, 4096, 3200, 16, 256), (2, 4096, 8192, 16, 256)], ids=BF16_IDS)
+    (2, 4096, 3200, 16, 256), (2, 4096, 8192, 16, 256)] + BF16_EDGE_SHAPES,
+    ids=BF16_IDS + BF16_EDGE_IDS)
 def test_selective_scan_bf16_bwd_matches_plain(dev, b, l, di, st, chunk):
     """B9b′ against the plain backward on the card, each gradient within
     2e-4 of its largest element, and a second launch bit for bit; the
-    train microbatches of hymba-1.5b and falcon-mamba-7b (B 2, L 4096)."""
+    train microbatches of hymba-1.5b and falcon-mamba-7b (B 2, L 4096)
+    and the edge shapes."""
     from repro_torch.kernels import selective_scan as b9
 
     rng = np.random.default_rng(l * st + di)
@@ -1463,6 +1477,64 @@ def test_selective_scan_bf16_bwd_matches_plain(dev, b, l, di, st, chunk):
                                             chunk=chunk)
     errs = [_bf16_rel(g, w) for g, w in zip(got, want)]
     assert max(errs) <= 2e-4, errs
+
+
+def _bf16_edge_inputs(dev, b=2, l=512, di=40, st=16, seed=11):
+    """Inputs at the packed bf16 operations' edges: per channel dt from
+    1e-4 (da rounds to 1 or just under) to 40 (exp(dt a) far below
+    float32's normal range, to zero), x and B scaled by 10^-U(0, 22), so
+    dbx and the states' products fall to subnormals and below."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, l, di)) * 10.0 ** -rng.uniform(0, 22,
+                                                               (b, l, di))
+    dt = np.broadcast_to(np.geomspace(1e-4, 40.0, di), (b, l, di)).copy()
+    dt *= rng.uniform(0.5, 1.5, (b, l, di))
+    bm = rng.standard_normal((b, l, st)) * 10.0 ** -rng.uniform(0, 22,
+                                                                (b, l, st))
+    cm = rng.standard_normal((b, l, st))
+    a = -np.exp(rng.standard_normal((di, st)) * 0.3)
+    return [torch.as_tensor(t.astype(np.float32), device=dev)
+            for t in (x, dt, bm, cm, a)]
+
+
+def _same_or_both_nan(got, want):
+    nan = torch.isnan(want)
+    return bool(torch.equal(torch.isnan(got), nan)
+                and torch.equal(got[~nan], want[~nan]))
+
+
+def test_selective_scan_bf16_packed_edges_match_plain(dev):
+    """The packed bf16 operations against the plain version's float32
+    operations each rounded to bf16, at da near 1 and near 0, products
+    below float32's normal range (subnormal and zero states and payload),
+    and with an inf and a NaN in x: the entering states and y bit for bit,
+    NaN by position; B9b′ within 2e-4 on the finite inputs."""
+    from repro_torch.kernels import selective_scan as b9
+
+    args = _bf16_edge_inputs(dev)
+    tiny = torch.finfo(torch.float32).tiny
+    y, hck = b9.selective_scan_bf16_ckpt(*args, chunk=128)
+    want_y, want_h = kref.selective_scan_bf16_states_ref(*args, chunk=128)
+    assert bool(((hck != 0) & (hck.abs() < tiny)).any())   # subnormals seen
+    assert torch.equal(hck, want_h)
+    assert torch.equal(y, want_y), _bf16_rel(y, want_y)
+    dy = torch.as_tensor(np.random.default_rng(12).standard_normal(
+        args[0].shape).astype(np.float32), device=dev)
+    got = b9.selective_scan_bf16_bwd(*args, hck, dy, chunk=128)
+    again = b9.selective_scan_bf16_bwd(*args, hck, dy, chunk=128)
+    assert all(torch.equal(g, h) for g, h in zip(got, again))
+    want = kref.selective_scan_bf16_bwd_ref(*args, dy, chunk=128)
+    errs = [_bf16_rel(g, w) for g, w in zip(got, want)]
+    assert max(errs) <= 2e-4, errs
+    x = args[0].clone()
+    x[0, 5, 3], x[1, 300, 7], x[0, 200, 11] = float("inf"), float("-inf"), \
+        float("nan")
+    bad = (x, *args[1:])
+    y, hck = b9.selective_scan_bf16_ckpt(*bad, chunk=128)
+    want_y, want_h = kref.selective_scan_bf16_states_ref(*bad, chunk=128)
+    assert bool(torch.isnan(want_y).any())
+    assert _same_or_both_nan(hck, want_h)
+    assert _same_or_both_nan(y, want_y)
 
 
 def test_selective_scan_bf16_grad_through_ops_on_card(dev):

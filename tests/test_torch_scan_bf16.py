@@ -189,23 +189,31 @@ def _fwd_model(da, dbx, h0, low=4):
     return hs[:n]
 
 
-def _bwd_model(da, dbx, h0, g, low=3):
-    """The backward kernel on one chunk: pass 1 keeps every block's last
-    up-value and state, pass 2 takes the blocks last first, rebuilds each
-    one's upper entries and pin from those, walks it forward again and
-    transposes it in reverse with one pending cotangent a level (sw: for
-    a state a final combine read; su: for an up-value a merge read).
-    Returns the cotangents of (da, dbx) (step 0's are dbx'_0's for dbx and
-    da_0's through the fold) and of h0."""
+def _ends_model(da, dbx, h0, low=3):
+    """The backward's first pass over one chunk (B9b′'s ends kernel, which
+    runs every chunk at once): the forward walk from the chunk's entering
+    state, keeping every block's last up-value and state."""
+    n, kb = len(da), 1 << low
+    da, dbx = _pad(da, dbx, n, kb)
+    ct, ends = _counter(low), []
+    for m in range(len(da) // kb):
+        _, top = _block_fwd(ct, m, da[m * kb:], dbx[m * kb:], h0, low)
+        ends.append((top, ct["pin"]))
+    return ends
+
+
+def _rev_model(da, dbx, h0, g, ends, low=3):
+    """The backward's reverse walk over one chunk from its ends: the blocks
+    last first, each one's upper entries and pin rebuilt from the ends,
+    walked forward again and transposed in reverse with one pending
+    cotangent a level (sw: for a state a final combine read; su: for an
+    up-value a merge read).  Returns the cotangents of (da, dbx) (step 0's
+    are dbx'_0's for dbx and da_0's through the fold) and of h0."""
     n, kb = len(da), 1 << low
     da0 = da[0]
     da, dbx = _pad(da, dbx, n, kb)
     g = list(g) + [torch.zeros_like(h0)] * (len(da) - n)
     nblk = len(da) // kb
-    ct, ends = _counter(low), []
-    for m in range(nblk):
-        _, top = _block_fwd(ct, m, da[m * kb:], dbx[m * kb:], h0, low)
-        ends.append((top, ct["pin"]))
     zero = torch.zeros_like(h0)
     sw, su = [zero] * 9, [(zero, zero)] * 9
     ga, gb = [None] * len(da), [None] * len(da)
@@ -238,6 +246,12 @@ def _bwd_model(da, dbx, h0, g, low=3):
     return ga[:n], gb[:n], _rnd(gb[0] * da0)
 
 
+def _bwd_model(da, dbx, h0, g, low=3):
+    """The backward kernel on one chunk: its ends, then its reverse
+    walk."""
+    return _rev_model(da, dbx, h0, g, _ends_model(da, dbx, h0, low), low)
+
+
 @pytest.mark.parametrize("c", CHUNKS + [16, 17, 32, 48, 129, 255])
 def test_kernel_walk_model_is_the_tree_bit_for_bit(c):
     """The forward walk (blocks of 16 and of 8 steps) gives the tree's
@@ -260,6 +274,185 @@ def test_kernel_walk_model_is_the_tree_bit_for_bit(c):
     for i in range(c):
         assert torch.equal(ga[i], gda[:, i].float()), i
         assert torch.equal(gb[i], gdbx[:, i].float()), i
+
+
+# -- a forward split at the chunks, and B9b′'s two kernels --
+#
+# The split is a model of a scheme the card does not run: its bits are the
+# sequential walk's, but on the card it was slower wherever the lanes fill
+# the SMs, as every configuration's do (PERF.md §6).  The model keeps the
+# proof that it is exact for the day a configuration leaves SMs idle.
+
+def _link_index(n, c):
+    """Where a link ends at step n - 1 of a chunk of c steps, or None: the
+    spine's links end where n is a power of two (link log2 n: the fold at n
+    = 1, then the right sibling of each spine merge), the digits' links
+    where n is a prefix of c's binary digits (c with its low bits cleared)
+    of two or more bits, after the spine's log2 of c's top bit."""
+    if n > c:
+        return None
+    top = c.bit_length() - 1
+    if n & (n - 1) == 0:
+        return n.bit_length() - 1
+    if (c >> _tz(n)) << _tz(n) == n:
+        return top + bin(n).count("1") - 1
+    return None
+
+
+def _links_model(da, dbx, low=4):
+    """B9b's first kernel on one chunk: the walk's up-sweep over the raw
+    payload in blocks of 2^low steps (no fold, no states), keeping the
+    chain's links, each a tree product over a range that does not hold step
+    0: the raw step 0, each spine merge's right operand (the carry before
+    its last merge) and the up-value ending each further binary digit of
+    c.  These do not depend on the chunk's entering state."""
+    n, kb = len(da), 1 << low
+    da, dbx = _pad(da, dbx, n, kb)
+    nl = (n.bit_length() - 1) + bin(n).count("1")
+    links = [None] * nl
+    lo, up = [None] * low, [None] * (8 - low)
+    for m in range(len(da) // kb):
+        for r in range(kb):
+            t = m * kb + r
+            car = (da[t], dbx[t])
+            idx = _link_index(t + 1, n)
+            spine = idx is not None and (t + 1) & t == 0
+            merges = [lo[d] for d in range(min(_tz(t + 1), low))]
+            if r == kb - 1:
+                merges += up[:min(_tz(~m), 8 - low)]
+            if spine and not merges:
+                links[idx] = car
+            for i, x in enumerate(merges):
+                if spine and i == len(merges) - 1:
+                    links[idx] = car
+                car = _comb(x, car)
+            if idx is not None and not spine:
+                links[idx] = car
+            if r < kb - 1:
+                lo[_tz(t + 1)] = car
+            elif len(merges) - low < 8 - low:
+                up[len(merges) - low] = car
+    assert all(lk is not None for lk in links) and nl <= 2 * 8 + 1
+    return links
+
+
+def _chain(h, links):
+    """B9b's second kernel on one chunk: its entering state (a bf16 value)
+    through the links, ``h = bf16(bf16(h·A) + B)`` each — the fold first,
+    then the spine, then the digits — which is the chunk's last state."""
+    for a, b in links:
+        h = _comb_b(h, (a, b))
+    return h
+
+
+def _chunked(c, nch, lanes=(3, 5), seed=0):
+    """A payload of nch chunks of c steps, cotangents on every state."""
+    rng = np.random.default_rng(seed + 7 * c + nch)
+    da = np.exp(-np.abs(rng.standard_normal((2, nch * c) + lanes)) * 0.5)
+    dbx = rng.standard_normal((2, nch * c) + lanes) * 0.3
+    g = rng.standard_normal((2, nch * c) + lanes)
+    return [torch.from_numpy(v.astype(np.float32)).bfloat16()
+            for v in (da, dbx, g)]
+
+
+def _jax_chunks(da, dbx, c):
+    """The reference's chunk loop on a bf16 payload (ssm_fwd's body
+    without the y sum): each chunk through ``_selective_scan_chunk`` from
+    the last state, which crosses the boundary as float32.  Returns the
+    states (bf16) and the chunks' entering states (float32)."""
+    nch = da.shape[1] // c
+    chunk = jax.jit(JS._selective_scan_chunk)
+    h = jnp.zeros((da.shape[0],) + da.shape[2:], jnp.float32)
+    hs, hck = [], []
+    for k in range(nch):
+        hck.append(h)
+        hk, hl = chunk(h.astype(jnp.bfloat16), da[:, k * c:(k + 1) * c],
+                       dbx[:, k * c:(k + 1) * c], None)
+        hs.append(hk)
+        h = hl.astype(jnp.float32)
+    return jnp.concatenate(hs, axis=1), jnp.stack(hck, axis=1)
+
+
+CHUNKED = [(c, nch) for c in (16, 96, 129, 255, 256) for nch in (1, 3)] + [
+    (1, 5), (7, 4), (100, 2)]
+
+
+@pytest.mark.parametrize("c,nch", CHUNKED)
+def test_split_forward_model_is_the_reference_bit_for_bit(c, nch):
+    """The split forward on nch chunks of c steps, 5 states: the links of
+    every chunk at once, their chains carrying the state over the chunks in
+    order, then every chunk's walk from its own entering state.  The
+    entering states and every state are the reference's chunk loop's bit
+    for bit (jax's ``_selective_scan_chunk`` and ``kref.scan_chunk_bf16``),
+    and each chain ends at its walk's last state."""
+    da, dbx, _ = _chunked(c, nch)
+    jh, jck = _jax_chunks(*(jnp.asarray(t.float().numpy(), jnp.bfloat16)
+                            for t in (da, dbx)), c)
+    steps = [[t[:, i].float() for i in range(nch * c)] for t in (da, dbx)]
+    links = [_links_model(steps[0][k * c:(k + 1) * c],
+                          steps[1][k * c:(k + 1) * c]) for k in range(nch)]
+    h, hck = torch.zeros_like(steps[0][0]), []
+    for k in range(nch):
+        hck.append(h)
+        h = _chain(h, links[k])
+    np.testing.assert_array_equal(torch.stack(hck, 1).numpy(), _f(jck))
+    for k in range(nch):
+        sl = slice(k * c, (k + 1) * c)
+        got = _fwd_model(steps[0][sl], steps[1][sl], hck[k])
+        want, last = kref.scan_chunk_bf16(hck[k].bfloat16(), da[:, sl],
+                                          dbx[:, sl])
+        assert torch.equal(got[-1], _chain(hck[k], links[k]))
+        assert torch.equal(got[-1], last.float())
+        for i in range(c):
+            assert torch.equal(got[i], want[:, i].float()), (k, i)
+        np.testing.assert_array_equal(torch.stack(got, 1).numpy(),
+                                      _f(jh[:, sl]))
+
+
+@pytest.mark.parametrize("c,nch", CHUNKED)
+def test_two_kernel_backward_model_is_the_vjp_bit_for_bit(c, nch):
+    """The backward as two kernels on nch chunks of c steps, from the
+    entering states the forward walk hands on: every chunk's block ends
+    from its entering state at once (in blocks of 8 steps),
+    then the reverse walk, chunks last first, rebuilding each block from
+    those ends, the cotangent of a chunk's entering state added (a bf16
+    add) to the previous chunk's last state's.  The payload's cotangents
+    are ``jax.vjp``'s of the reference's chunk loop and ``kref``'s
+    autograd through ``scan_chunk_bf16``, bit for bit."""
+    da, dbx, g = _chunked(c, nch, seed=1)
+    jin = [jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in (da, dbx)]
+    _, vjp = jax.vjp(lambda a, b: _jax_chunks(a, b, c)[0], *jin)
+    jga, jgb = vjp(jnp.asarray(g.float().numpy(), jnp.bfloat16))
+    leaves = [t.clone().requires_grad_() for t in (da, dbx)]
+    h, outs = torch.zeros_like(da[:, 0]), []
+    for k in range(nch):
+        hk, hl = kref.scan_chunk_bf16(h, leaves[0][:, k * c:(k + 1) * c],
+                                      leaves[1][:, k * c:(k + 1) * c])
+        outs.append(hk)
+        h = hl.float().bfloat16()
+    tga, tgb = torch.autograd.grad([torch.cat(outs, 1)], leaves, [g])
+    steps = [[t[:, i].float() for i in range(nch * c)] for t in (da, dbx, g)]
+    hck, h = [], torch.zeros_like(steps[0][0])
+    for k in range(nch):
+        hck.append(h)
+        h = _fwd_model(steps[0][k * c:(k + 1) * c],
+                       steps[1][k * c:(k + 1) * c], h)[-1]
+    ends = [_ends_model(steps[0][k * c:(k + 1) * c],
+                        steps[1][k * c:(k + 1) * c], hck[k])
+            for k in range(nch)]
+    ga, gb, carry = [None] * (nch * c), [None] * (nch * c), None
+    for k in range(nch - 1, -1, -1):
+        sl = slice(k * c, (k + 1) * c)
+        gk = list(steps[2][sl])
+        if carry is not None:
+            gk[-1] = _rnd(gk[-1] + carry)
+        ga[sl], gb[sl], carry = _rev_model(steps[0][sl], steps[1][sl],
+                                           hck[k], gk, ends[k])
+    for i in range(nch * c):
+        assert torch.equal(ga[i], tga[:, i].float()), i
+        assert torch.equal(gb[i], tgb[:, i].float()), i
+    np.testing.assert_array_equal(torch.stack(ga, 1).numpy(), _f(jga))
+    np.testing.assert_array_equal(torch.stack(gb, 1).numpy(), _f(jgb))
 
 
 # -- the plain versions and the wrappers --
