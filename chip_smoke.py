@@ -43,7 +43,15 @@ each:
    as the site's longest row, a probe) and floor_ms = max(bound_ms,
    chain_ms); stencil2d runs on Heat2D's whole padded tile, bit for bit;
 5. main path: every rung x {full, dest} forward with use_kernel=True, y
-   checked against the numpy reference (rtol/atol 2e-4) and timed;
+   checked against the numpy reference (rtol/atol 2e-4) and timed; then
+   dist_main_path: the same eight engines over a DistComm holding the
+   eight ranks in one process of a one-process NCCL group (file:// init
+   under build/, world 1, destroyed at the end of the phase), sharing the
+   setup's base plan, y bit for bit the LoopbackComm(8) engine's on the
+   same x, pack_gather, unpack_scatter_set, unpack_dest and
+   ellpack_spmv_windowed launched as on the loopback path, ms a step
+   beside the loopback engine's timed again in the phase (the difference:
+   the NCCL call and the payload permutes);
 6. transposed: every rung of DistributedSpMV(transpose=True,
    use_kernel=True), y checked against spmv_t_ref_np (rtol/atol 2e-4) and
    timed;
@@ -180,8 +188,15 @@ each:
    its ms beside the serving entry's); then train_hybrid: hymba-1.5b at
    its published widths and depth the same way with 2 timed steps (B9's
    backward at d_inner 3200 beside the banded attention; kernel line
-   selective_scan_bwd_di3200).  The train_twin phase holds reduced
-   falcon-mamba-7b and hymba-1.5b too.  MFU counts 6 N tokens
+   selective_scan_bwd_di3200).  Then dist_train: launch.train --mesh 1
+   (data parallelism over a one-process NCCL group, as dist_main_path's)
+   on falcon-mamba-7b at its published widths, DIST_TRAIN_LAYERS of its
+   64 layers, train_ssm's settings, beside a --mesh local trainer from
+   the same seed: the first step on the same batch gives the local
+   step's parameters, AdamW state, loss and gradient norm bit for bit,
+   with B9 launched layers x microbatches x 2 and B9's backward layers x
+   microbatches (every layer); then one timed step of each.  The
+   train_twin phase holds reduced falcon-mamba-7b and hymba-1.5b too.  MFU counts 6 N tokens
    (runtime/steps.model_flops): the scan's own work is outside it.
 The model lines (phase "model"; the §5 models of core/perfmodel.py on
 this card): right after setup, calibration (core/tune.py's four
@@ -202,7 +217,8 @@ outside CALIBRATION_RANGE, an auto pick is not the argmin of its own
 ranking, or an auto engine's output differs from the fixed-rung engine it
 resolved to (bit for bit; the forward dest rungs may hold to
 unpack_dest_spmv's 3e-5 instead). A model miss, even past its budget, is printed, never a failure.
-In phases 5 to 15 and 18 the kernel launch counters are zeroed just
+In phases 5 to 15 and 18 (dist_main_path and dist_train included) the
+kernel launch counters are zeroed just
 before the path runs and read just after, and every kernel of the path
 must have launched; in phases 5, 7 and 8 every launch of unpack_dest and
 unpack_scatter_set must have gone through its plan table (the counts by C
@@ -350,6 +366,10 @@ TRAIN_SSM_BF16_TIMED = 1       # the bf16 payload's step: one timed
 TRAIN_HYBRID_ARGV = ["--arch", "hymba-1.5b", "--seq", "4096", "--batch",
                      "8", "--accum", "4", "--seed", str(SEED)]
 TRAIN_HYBRID_TIMED = 2
+# data parallelism through DistComm (a one-process NCCL group): the
+# fewest layers that still run the scan kernels in more than one layer
+DIST_TRAIN_LAYERS = 2
+NCCL_INIT = pathlib.Path(__file__).resolve().parent / "build" / "nccl_init"
 # the backward kernel against the plain backward: each gradient within
 # this share of its largest element
 SCAN_BWD_TOL = 2e-4
@@ -1023,6 +1043,10 @@ def busy_us(spans) -> float:
     return total
 
 
+# traces profile_steps takes while the profiler drops its marker kernel
+PROFILE_TRIES = 4
+
+
 def profile_steps(torch, step, steps: int = 3, lead: int = 2,
                   top: int = 6, per_call: int = 1) -> dict:
     """torch.profiler's device activities (kernels, memsets, copies) over
@@ -1032,12 +1056,18 @@ def profile_steps(torch, step, steps: int = 3, lead: int = 2,
     ``lead`` steps, so the queue holds what the host keeps ahead) to the
     end of the last activity.  Kernels side by side count once, so the
     share is at most 1; its complement is the time the device waited.
-    ``per_call`` is the number of steps one call of ``step`` runs."""
+    ``per_call`` is the number of steps one call of ``step`` runs.
+
+    The profiler now and then drops events, the marker among them: a trace
+    without it is taken again, up to PROFILE_TRIES traces
+    (``marker_dropped`` counts those that lacked it).  If none kept it,
+    the last trace's activities over all its ``lead + steps`` steps give
+    the time per step and by kernel, and the busy share and the span,
+    which need the marker, are not measured (None)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    # a trace now and then comes back without the marker (the profiler
-    # dropped events): one more trace before failing
-    for attempt in range(2):
+    dropped = 0
+    for _ in range(PROFILE_TRIES):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(lead):
@@ -1051,22 +1081,29 @@ def profile_steps(torch, step, steps: int = 3, lead: int = 2,
         marks = [end for _, end, name in acts if "spin_kernel" in name]
         if len(marks) == 1:
             break
-    check(len(marks) == 1, "the profiler did not see the marker kernel")
-    opened = marks[0]
+        dropped += 1
+    if len(marks) == 1:
+        opened, counted = marks[0], steps
+    else:
+        opened, counted = float("-inf"), lead + steps
     acts = [(max(start, opened), end, name) for start, end, name in acts
             if end > opened and "spin_kernel" not in name]
     check(acts, "the profiler saw no device time")
-    span = max(end for _, end, _ in acts) - opened
     by_name = {}
     for start, end, name in acts:
         by_name[name] = by_name.get(name, 0.0) + (end - start)
     rows = sorted(by_name.items(), key=lambda r: -r[1])
-    per = steps * per_call * 1e3
-    return {"kernel_ms_per_step": sum(by_name.values()) / per,
-            "busy_share": busy_us((a, b) for a, b, _ in acts) / span,
-            "profiled_span_ms_per_step": span / per,
-            "top_kernels_ms_per_step": [[k[:60], t / per]
-                                        for k, t in rows[:top]]}
+    per = counted * per_call * 1e3
+    out = {"kernel_ms_per_step": sum(by_name.values()) / per,
+           "busy_share": None, "profiled_span_ms_per_step": None,
+           "top_kernels_ms_per_step": [[k[:60], t / per]
+                                       for k, t in rows[:top]],
+           "marker_dropped": dropped}
+    if len(marks) == 1:
+        span = max(end for _, end, _ in acts) - opened
+        out.update(busy_share=busy_us((a, b) for a, b, _ in acts) / span,
+                   profiled_span_ms_per_step=span / per)
+    return out
 
 
 def phase_main_path(torch, engines, x_host, y_ref, card):
@@ -1105,6 +1142,85 @@ def phase_main_path(torch, engines, x_host, y_ref, card):
     for k in FORWARD_KERNELS:
         check(counts[k] > 0, f"the main path never launched {k}")
     return counts, measured
+
+
+@contextlib.contextmanager
+def nccl_group(torch):
+    """A one-process NCCL group (world 1, file:// init under build/) on
+    card 0 for the duration of the block."""
+    import torch.distributed as dist
+    NCCL_INIT.parent.mkdir(parents=True, exist_ok=True)
+    NCCL_INIT.unlink(missing_ok=True)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{NCCL_INIT}",
+                            rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+        NCCL_INIT.unlink(missing_ok=True)
+
+
+def phase_dist_main_path(torch, matrix, base, engines, x_host, card):
+    """The main path's eight engines over a DistComm holding all P ranks
+    in the one process of an NCCL group: y bit for bit the loopback
+    engine's on the same x, the forward kernels launched as there; ms a
+    step beside the loopback engine's, timed after.  Counters zeroed
+    before the dist engines run and read after; returns the counts."""
+    from repro_torch.comm.communicator import DistComm
+    from repro_torch.core.spmv import DistributedSpMV
+    from repro_torch.kernels import ops as kops
+
+    want = {}
+    for key, eng in engines.items():
+        want[key] = eng(eng.shard_vector(x_host))
+    torch.cuda.synchronize()
+    lines = {}
+    with nccl_group(torch):
+        comm = DistComm(P)
+        check((comm.p, comm.p_local, comm.world, comm.device.type)
+              == (P, P, 1, "cuda"), f"DistComm {vars(comm)}")
+        kops.reset_launch_counts()
+        for (strategy, mat), loop in engines.items():
+            t0 = time.perf_counter()
+            eng = DistributedSpMV(matrix, comm, strategy=strategy,
+                                  materialize=mat, use_kernel=True,
+                                  shards_per_node=SHARDS_PER_NODE,
+                                  base_plan=base)
+            build_s = time.perf_counter() - t0
+            before = kops.launch_counts()
+            x = eng.shard_vector(x_host)
+            y = eng(x)
+            torch.cuda.synchronize()
+            after = kops.launch_counts()
+            step = {k: after[k] - before[k] for k in after}
+            check(torch.equal(y, want[(strategy, mat)]),
+                  f"dist {strategy}/{mat}: y is not the LoopbackComm "
+                  "engine's bit for bit")
+            for k in EXPECTED[(strategy, mat)]:
+                check(step[k] > 0, f"dist {strategy}/{mat} never launched "
+                      f"{k}")
+            lines[(strategy, mat)] = {
+                "engine_s": round(build_s, 3), "launches_per_step": step,
+                **time_steps(torch, lambda: eng(x))}
+            del eng, x, y
+        counts = kops.launch_counts()
+    for k in FORWARD_KERNELS:
+        check(counts[k] > 0, f"dist_main_path never launched {k}")
+    for (strategy, mat), line in lines.items():
+        loop = engines[(strategy, mat)]
+        x = loop.shard_vector(x_host)
+        twin = time_steps(torch, lambda: loop(x))
+        emit({"phase": "dist_main_path", "strategy": strategy,
+              "materialize": mat, "use_kernel": True,
+              "comm": "DistComm, one process of an NCCL group (world 1), "
+                      f"p_local {P}",
+              "y_bit_for_bit_loopback": True, **line,
+              "loopback_ms_per_iter": twin["ms_per_iter"],
+              "loopback_wall_ms_per_iter": twin["wall_ms_per_iter"],
+              "dist_minus_loopback_ms": line["ms_per_iter"]
+              - twin["ms_per_iter"], "card": card})
+    return counts
 
 
 T_EXPECTED = {  # kernels each transposed rung launches with use_kernel
@@ -3792,6 +3908,92 @@ def phase_train_hybrid(torch, card):
                             bf16_line="selective_scan_bf16_bwd_di3200")
 
 
+def phase_dist_train(torch, card):
+    """launch.train --mesh 1 (data parallelism over a one-process NCCL
+    group) on falcon-mamba-7b at its published widths, DIST_TRAIN_LAYERS
+    layers, train_ssm's settings, beside a --mesh local trainer from the
+    same seed (built before the group exists, so it trains alone): the
+    first step on the same batch bit for bit (parameters,
+    AdamW state, loss, gradient norm), B9 and its backward launched in
+    every layer of the data-parallel step; then one timed step of each
+    (CUDA events).  Returns the data-parallel step's launch counts."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import train as ltrain
+    from repro_torch.models.transformer import tree_leaves
+
+    args = ltrain.parse_args(TRAIN_SSM_ARGV)
+    full = get_config(args.arch)
+    cfg = dataclasses.replace(full, num_layers=DIST_TRAIN_LAYERS)
+    t0 = time.perf_counter()
+
+    def state(tr):
+        return tree_leaves({"params": tr.params, "opt": tr.opt_state})
+
+    def timed_step(tr):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics = tr.step()
+        end.record()
+        torch.cuda.synchronize()
+        return metrics, start.elapsed_time(end)
+
+    # --mesh local with no process group: this process alone
+    local = ltrain.setup(cfg, ltrain.parse_args(
+        TRAIN_SSM_ARGV + ["--mesh", "local"]), retries=0)
+    with nccl_group(torch):
+        dp = ltrain.setup(cfg, ltrain.parse_args(
+            TRAIN_SSM_ARGV + ["--mesh", "1"]), retries=0)
+        check(local.comm is None and dp.comm.world == 1,
+              "dist_train: the trainers' communicators")
+        check(all(torch.equal(a, b) for a, b in zip(state(local),
+                                                    state(dp))),
+              "dist_train: the two trainers start from different weights")
+        t1 = time.perf_counter()
+        want, _ = timed_step(local)
+        kops.reset_launch_counts()
+        got, first_ms = timed_step(dp)
+        counts = kops.launch_counts()
+        same = all(torch.equal(a, b) for a, b in zip(state(local),
+                                                     state(dp)))
+        for k in ("loss", "grad_norm"):
+            same = same and torch.equal(got[k], want[k])
+        check(same, "dist_train: the --mesh 1 step is not the --mesh local "
+              "step bit for bit")
+        accum = args.accum
+        per_step = cfg.num_layers * accum
+        expect = {"selective_scan": 2 * per_step,
+                  "selective_scan_bwd": per_step}
+        launched = {k: counts[k] for k in expect}
+        check(launched == expect, f"dist_train: B9 launched {launched} in "
+              f"one step of {cfg.num_layers} layers x {accum} "
+              f"microbatches, not {expect}")
+        t2 = time.perf_counter()
+        local_metrics, local_ms = timed_step(local)
+        dp_metrics, dp_ms = timed_step(dp)
+        losses = [float(m["loss"]) for m in (want, local_metrics,
+                                             dp_metrics)]
+        check(np.isfinite(losses).all(), f"dist_train: losses {losses}")
+        del local, dp, want, got, local_metrics, dp_metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "dist_train", "arch": cfg.name, "layers": cfg.num_layers,
+          "of_layers": full.num_layers, "d_model": cfg.d_model,
+          "d_inner": cfg.d_inner, "seq": args.seq, "batch": args.batch,
+          "accum": args.accum, "mesh": "1",
+          "comm": "DistComm, one process of an NCCL group (world 1)",
+          "bit_for_bit_mesh_local": True, "launches": launched,
+          "losses": losses, "first_step_ms": first_ms,
+          "dp_step_ms": dp_ms, "local_step_ms": local_ms,
+          "dp_minus_local_ms": dp_ms - local_ms,
+          "wall_s": {"setup": round(t1 - t0, 1),
+                     "checked_step": round(t2 - t1, 1),
+                     "timed_steps": round(time.perf_counter() - t2, 1)},
+          "card": card})
+    return launched
+
+
 def phase_train_ssm_bf16(torch, card, f32_ms):
     """falcon-mamba-7b as train_ssm (TRAIN_SSM_LAYERS of its 64 layers, its
     settings) with the reference's bf16 scan payload
@@ -4074,6 +4276,10 @@ def main() -> None:
     phase_auto_forward(torch, matrix, comm, engines, x_host, hw, measured,
                        card)
     rows = path_rows("forward", engines, measured, hw)
+    dist_counts = phase_dist_main_path(torch, matrix, base, engines, x_host,
+                                       card)
+    for k in FORWARD_KERNELS:
+        counts[k] += dist_counts[k]
     t_counts, measured = phase_transposed(torch, t_engines, x_host, y_t_ref,
                                           card)
     counts.update({k: v for k, v in t_counts.items() if k in PUSH_KERNELS})
@@ -4137,6 +4343,8 @@ def main() -> None:
             + hybrid_counts[name]
     gc.collect()
     torch.cuda.empty_cache()
+    for name, n in phase_dist_train(torch, card).items():
+        counts[name] += n
     phase_train_twins(torch, card)
     phase_train_lm100m(torch, src.parent / "build" / "train_ckpt", card)
 

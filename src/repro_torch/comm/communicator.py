@@ -17,14 +17,28 @@ All three take ``async_op=True``: the copy is then enqueued on a side CUDA strea
 and the returned ``Work`` makes the caller's stream wait for it in
 ``wait()`` — the ``start`` / ``finish`` window of the overlap rung.  On the
 CPU every collective completes before it returns.
+
+``DistComm`` runs the same three collectives between the processes of a
+``torch.distributed`` group (gloo on the CPU, NCCL on the card).  Each
+process holds ``p_local`` consecutive ranks ``[rank_offset, rank_offset +
+p_local)`` of ``p = world * p_local``, so its tensors keep the leading
+rank axis, of length ``p_local``.  A ``LoopbackComm`` is the one-process
+case: ``p_local = p``, ``rank_offset = 0``.  A consumer builds the same
+host plan in every process and takes its own rows of every per-rank table
+(``local_rows``).
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.kernels.ref import maximum
 
-__all__ = ["LoopbackComm", "Work", "resolve_device"]
+__all__ = ["LoopbackComm", "DistComm", "Work", "resolve_device",
+           "require_all_ranks"]
+
+# the ROADMAP item that carries the consumers a DistComm does not serve yet
+PARTIAL_ITEM = "ROADMAP A23"
 
 
 def resolve_device(device=None) -> torch.device:
@@ -63,6 +77,36 @@ class Work:
         return self._out
 
 
+def require_all_ranks(comm, what: str) -> None:
+    """Refuse ``comm`` for ``what`` when this process holds only some of
+    its ranks (a ``DistComm`` over more than one process): ``what`` reads
+    or writes rows of other ranks that it cannot reach there yet."""
+    if comm.p_local < comm.p:
+        raise NotImplementedError(
+            f"{what} does not run over a DistComm whose process holds "
+            f"{comm.p_local} of its {comm.p} ranks yet ({PARTIAL_ITEM}); "
+            "it runs over a LoopbackComm or a one-process group")
+
+
+def _fold(t: torch.Tensor, op: str) -> torch.Tensor:
+    """``t``'s rows reduced in ascending order: ``"sum"`` or ``"max"``
+    (XLA's: a NaN propagates, +0.0 beats -0.0)."""
+    acc = t[0]
+    for q in range(1, t.shape[0]):
+        acc = acc + t[q] if op == "sum" else maximum(acc, t[q])
+    if op == "sum" and t.dtype == torch.bfloat16 and t.device.type == "cpu":
+        # the CPU's vector bf16 add writes a NaN as 0xFFFF, its scalar tail
+        # as 0x7FC0: one NaN whatever the element's place in the row, so
+        # that a DistComm's slices fold to LoopbackComm's bits
+        acc = torch.where(acc.isnan(), acc.new_full((), float("nan")), acc)
+    return acc
+
+
+def _check_op(op: str) -> None:
+    if op not in ("sum", "max"):
+        raise ValueError(f"op must be 'sum' or 'max', not {op!r}")
+
+
 class LoopbackComm:
     """``p`` virtual ranks in one process on one device.
 
@@ -76,11 +120,21 @@ class LoopbackComm:
     tensor([2., 5.])
     """
 
+    kind = "loopback"
+    world = 1
+    rank_offset = 0
+
     def __init__(self, p: int, device=None):
         assert p >= 1, p
         self.p = int(p)
+        self.p_local = self.p
         self.device = resolve_device(device)
         self._side = None
+
+    @property
+    def local_rows(self) -> slice:
+        """The rows of a ``(P, ...)`` table that this process holds."""
+        return slice(0, self.p)
 
     def _side_stream(self):
         if self._side is None:
@@ -127,13 +181,182 @@ class LoopbackComm:
         """``(P, ...)`` -> ``(P, ...)``: every rank gets the reduction over
         ranks, ``op`` ``"sum"`` (ranks added in ascending order) or ``"max"``
         (XLA's semantics: a NaN propagates, +0.0 beats -0.0)."""
-        if op not in ("sum", "max"):
-            raise ValueError(f"op must be 'sum' or 'max', not {op!r}")
+        _check_op(op)
 
         def reduce(t):
-            acc = t[0]
-            for q in range(1, t.shape[0]):
-                acc = acc + t[q] if op == "sum" else maximum(acc, t[q])
-            return acc.expand(t.shape).contiguous()
+            return _fold(t, op).expand(t.shape).contiguous()
 
         return self._run(reduce, x, async_op)
+
+
+class _DistWork(Work):
+    """A ``torch.distributed`` collective in flight: ``wait()`` waits on
+    the backend's work (on the card: makes the current stream wait for
+    the NCCL stream) and then runs ``then`` on the received buffer."""
+
+    def __init__(self, work, buf: torch.Tensor, then):
+        super().__init__(buf)
+        self._work, self._then = work, then
+
+    def wait(self) -> torch.Tensor:
+        if self._then is not None:
+            if self._work is not None:
+                self._work.wait()
+            self._out, self._then = self._then(self._out), None
+        return self._out
+
+
+_BACKEND = {"cpu": "gloo", "cuda": "nccl"}
+
+
+class DistComm:
+    """``p_local`` ranks in each process of an initialised
+    ``torch.distributed`` group: ``p = world * p_local`` ranks in all,
+    this process holding ``[rank_offset, rank_offset + p_local)``.
+
+    The collectives are ``LoopbackComm``'s, on this process's rows:
+
+    * ``all_to_all`` ``(p_local, P_dst, s, ...)`` -> ``(p_local, P_src, s,
+      ...)`` through one ``all_to_all_single`` over the world, the payload
+      permuted to ``(world_dst, p_local_src, p_local_dst, s, ...)`` before
+      and back after (every message padded to the plan's ``s_max`` /
+      ``b_max``, as on one process);
+    * ``all_gather`` ``(p_local, shard, ...)`` -> ``(p_local, P * shard,
+      ...)``;
+    * ``all_reduce`` bit for bit ``LoopbackComm``'s: neither gloo nor NCCL
+      promises the ascending rank order of a float sum or XLA's ``max``,
+      so the fold is done here.  Each process takes a ``1/world`` slice of
+      the payload from every rank (one ``all_to_all_single``: a
+      reduce-scatter), folds it in rank order and gathers the folded
+      slices back, so no process holds more than ``p_local`` payloads.
+      An integer sum, exact in any order, goes through the backend's
+      ``SUM``.
+
+    The group's backend must serve the device: gloo for ``"cpu"``, NCCL
+    for ``"cuda"`` (the default, as everywhere in the port).  Nothing
+    falls back: without a group, or with another backend, it raises.
+    """
+
+    kind = "dist"
+
+    def __init__(self, p_local: int = 1, device=None, *, group=None):
+        if not dist.is_available() or not dist.is_initialized():
+            raise RuntimeError(
+                "DistComm needs an initialised torch.distributed process "
+                "group (torch.distributed.init_process_group)")
+        want = _BACKEND.get(torch.device(
+            "cuda" if device is None else device).type)
+        backend = str(dist.get_backend(group)).lower()
+        if backend != want:
+            raise ValueError(
+                f"a DistComm on {device or 'cuda'} needs a {want} group; "
+                f"this group's backend is {backend}")
+        assert p_local >= 1, p_local
+        self.device = resolve_device(device)
+        self.group = group
+        self.world = dist.get_world_size(group)
+        self.rank = dist.get_rank(group)
+        self.p_local = int(p_local)
+        self.p = self.world * self.p_local
+        self.rank_offset = self.rank * self.p_local
+
+    @property
+    def local_rows(self) -> slice:
+        """The rows of a ``(P, ...)`` table that this process holds."""
+        return slice(self.rank_offset, self.rank_offset + self.p_local)
+
+    def _check(self, t: torch.Tensor) -> None:
+        assert t.device == self.device, (t.device, self.device)
+        assert t.shape[0] == self.p_local, (t.shape, self.p_local)
+
+    def _gather(self, x: torch.Tensor, async_op: bool):
+        """``(p_local, ...)`` -> backend work and the ``(P, ...)`` buffer
+        it fills, rank-major."""
+        x = x.contiguous()
+        out = x.new_empty((self.p,) + tuple(x.shape[1:]))
+        if hasattr(dist, "all_gather_single"):
+            work = dist.all_gather_single(out, x, group=self.group,
+                                          async_op=async_op)
+        else:       # torch before all_gather_single
+            work = dist.all_gather_into_tensor(out, x, group=self.group,
+                                               async_op=async_op)
+        return work, out
+
+    @staticmethod
+    def _done(work, buf, then, async_op: bool) -> Work:
+        w = _DistWork(work if async_op else None, buf, then)
+        return w if async_op else Work(w.wait())
+
+    def all_to_all(self, buf: torch.Tensor, *, async_op: bool = False) -> Work:
+        """``(p_local, P_dst, s, ...)`` -> ``(p_local, P_src, s, ...)``."""
+        self._check(buf)
+        assert buf.dim() >= 2 and buf.shape[1] == self.p, buf.shape
+        w, pl = self.world, self.p_local
+        tail = tuple(buf.shape[2:])
+        send = buf.reshape((pl, w, pl) + tail).transpose(0, 1).contiguous()
+        recv = torch.empty_like(send)
+        work = dist.all_to_all_single(recv, send, group=self.group,
+                                      async_op=async_op)
+
+        def unpermute(r):
+            # (world_src, p_local_src, p_local_dst, ...) -> (p_local_dst,
+            # P_src, ...)
+            return r.permute((2, 0, 1) + tuple(range(3, r.dim()))).reshape(
+                (pl, self.p) + tail).contiguous()
+
+        return self._done(work, recv, unpermute, async_op)
+
+    def all_gather(self, x: torch.Tensor, *, async_op: bool = False) -> Work:
+        """``(p_local, shard, ...)`` -> ``(p_local, P * shard, ...)``."""
+        self._check(x)
+        work, out = self._gather(x, async_op)
+
+        def spread(t):
+            flat = t.reshape((1, -1) + tuple(t.shape[2:]))
+            return flat.expand((self.p_local,)
+                               + tuple(flat.shape[1:])).contiguous()
+
+        return self._done(work, out, spread, async_op)
+
+    def all_reduce(self, x: torch.Tensor, op: str = "sum", *,
+                   async_op: bool = False) -> Work:
+        """``(p_local, ...)`` -> ``(p_local, ...)``: every local rank gets
+        the reduction over all ``p`` ranks, ``LoopbackComm``'s bit for
+        bit."""
+        _check_op(op)
+        self._check(x)
+        shape = tuple(x.shape)
+        if op == "sum" and not (x.dtype.is_floating_point
+                                or x.dtype.is_complex):
+            # a copy: the backend sums in place
+            part = _fold(x, "sum").clone()
+            work = dist.all_reduce(part, dist.ReduceOp.SUM, group=self.group,
+                                   async_op=async_op)
+            return self._done(work, part,
+                              lambda t: t.expand(shape).contiguous(),
+                              async_op)
+        # (p_local, n) padded to (p_local, world, c) -> (world_dst,
+        # p_local_src, c): process d receives slice d of every rank's row
+        w, pl = self.world, self.p_local
+        flat = x.reshape(pl, -1)
+        n = flat.shape[1]
+        c = max(1, -(-n // w))
+        if w * c != n:
+            flat = torch.nn.functional.pad(flat, (0, w * c - n))
+        send = flat.reshape(pl, w, c).transpose(0, 1).contiguous()
+        recv = torch.empty_like(send)
+        work = dist.all_to_all_single(recv, send, group=self.group,
+                                      async_op=async_op)
+
+        def fold_and_gather(r):
+            # (world_src, p_local_src, c): the P ranks in ascending order
+            part = _fold(r.reshape(self.p, c), op)
+            out = part.new_empty((w * c,))
+            if hasattr(dist, "all_gather_single"):
+                dist.all_gather_single(out, part, group=self.group)
+            else:       # torch before all_gather_single
+                dist.all_gather_into_tensor(out, part, group=self.group)
+            return out[:n].reshape(shape[1:]).expand(
+                shape).contiguous()
+
+        return self._done(work, recv, fold_and_gather, async_op)

@@ -52,6 +52,7 @@ import torch
 from repro_torch.comm import dynamic as dyn
 from repro_torch.comm import plan_cache
 from repro_torch.comm import strategies as strat
+from repro_torch.comm.communicator import require_all_ranks
 from repro_torch.comm.exchange import IrregularExchange, OverlapHandle
 from repro_torch.comm.pattern import AccessPattern, Destination
 from repro_torch.comm.plan import CommPlan
@@ -136,10 +137,10 @@ class IrregularGather(IrregularExchange):
             self.plan_args = self._derived_args(torch.as_tensor(
                 self.pattern.indices, device=self.device))
         else:
-            self.plan_args = strat.to_device(
+            self.plan_args = strat.local_args(
                 strat.plan_device_args(self.plan, strategy,
                                        with_dest=destination is not None),
-                self.device)
+                self.comm)
         self._start, self._finish = strat.make_start_local(
             self.plan, strategy, self.comm, use_kernel=self.use_kernel,
             per_batch=self.dynamic_pattern is not None)
@@ -216,6 +217,7 @@ class IrregularGather(IrregularExchange):
         records ``telemetry.record("device-derive")`` once per executed
         step.
         """
+        require_all_ranks(self.comm, "derive_plan_args")
         if self.strategy not in dyn.DYNAMIC_STRATEGIES:
             raise ValueError(
                 f"derive_plan_args serves {dyn.DYNAMIC_STRATEGIES} "

@@ -74,6 +74,7 @@ import torch
 from repro_torch.comm import plan_cache
 from repro_torch.comm import select
 from repro_torch.comm import strategies as strat
+from repro_torch.comm.communicator import require_all_ranks
 from repro_torch.comm.dynamic import DynamicPattern
 from repro_torch.comm.exchange import measure_hw
 from repro_torch.comm.gather import IrregularGather
@@ -357,6 +358,7 @@ class Schedule:
         exchanges = self._exchange_stages()
         if not exchanges:
             raise ValueError("a schedule needs at least one exchange stage")
+        require_all_ranks(comm, "Schedule / ScanSchedule")
         p = comm.p
         if topology is None:
             topology = Topology(p, shards_per_node or p)

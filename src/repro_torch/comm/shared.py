@@ -6,7 +6,8 @@ element (at a cost the §5 models price).  ``SharedVector`` is that object
 over a communicator's ``p`` ranks: it fixes the partitioning (contiguous
 slices + a node ``Topology``) that ``AccessPattern`` indices refer to and
 that ``IrregularGather`` plans against.  Its placed form is one tensor with a
-leading rank axis, ``(P, shard_size, ...)``: row q is rank q's slice.
+leading rank axis, ``(P, shard_size, ...)``: row q is rank q's slice (under
+a ``DistComm``, this process's ``p_local`` rows of it).
 """
 from __future__ import annotations
 
@@ -70,9 +71,9 @@ class SharedVector:
 
     def put(self, values) -> torch.Tensor:
         """Place host values (length n, plus feature dims) on the device as
-        ``(P, shard_size, ...)``."""
+        ``(P, shard_size, ...)``: this process's rows of it."""
         values = torch.as_tensor(np.asarray(values))
         assert values.shape[0] == self.n, (tuple(values.shape), self.n)
         return values.reshape((self.p, self.shard_size)
-                              + tuple(values.shape[1:])).to(
-            self.device).contiguous()
+                              + tuple(values.shape[1:]))[
+            self.comm.local_rows].to(self.device).contiguous()

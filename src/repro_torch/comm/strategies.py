@@ -10,7 +10,10 @@ strategy moves whole feature rows.
 The ``*_local`` functions are the reference's ``shard_map``-local functions
 written once over the leading rank axis: where the reference reads
 ``axis_index``, the port reads the row number, and the collectives go
-through a communicator (``comm.communicator``).
+through a communicator (``comm.communicator``).  The leading axis holds the
+ranks of this process: all ``P`` under a ``LoopbackComm``, ``p_local`` of
+them under a ``DistComm``, whose plan tables are this process's rows
+(``local_args``), ``(p_local, P, s_max)`` for a message table.
 
 Strategies (paper §4):
   * ``replicate`` — naive: all-gather the whole vector (volume n per rank).
@@ -59,6 +62,7 @@ __all__ = [
     "Landed",
     "dest_gather_local",
     "plan_device_args",
+    "local_args",
     "make_start_local",
     "SCATTER_REDUCES",
     "replicate_scatter_start_local",
@@ -106,9 +110,11 @@ def _batch_order(extra) -> "kops.TileOrder":
     return extra[0]
 
 
-def own_offsets(p: int, rows: int, device) -> torch.Tensor:
-    """``(P,)`` int32: rank q's own rows start at ``q * rows``."""
-    return torch.arange(0, p * rows, rows, dtype=torch.int32, device=device)
+def own_offsets(p: int, rows: int, device, start: int = 0) -> torch.Tensor:
+    """``(p,)`` int32 for ranks ``start .. start + p - 1``: rank q's own
+    rows start at ``q * rows``."""
+    return torch.arange(start * rows, (start + p) * rows, rows,
+                        dtype=torch.int32, device=device)
 
 
 def replicate_gather_local(x: torch.Tensor, *, comm,
@@ -120,13 +126,13 @@ def replicate_gather_local(x: torch.Tensor, *, comm,
 def condensed_start_local(x, send_local_idx, *, comm, async_op=False,
                           pack=kref.pack_gather_ref) -> Work:
     """UPCv3 pack + consolidated exchange (paper Listing 5 pack loop +
-    ``upc_memput``/``upc_barrier``).  ``send_local_idx`` is ``(P, P,
-    s_max)``; the landed ``(P, P, s_max, ...)`` recv buffer is not yet
-    unpacked."""
-    p, _, s_max = send_local_idx.shape
+    ``upc_memput``/``upc_barrier``).  ``send_local_idx`` is ``(p_local,
+    P, s_max)``; the landed ``(p_local, P, s_max, ...)`` recv buffer is not
+    yet unpacked."""
+    pl, p, s_max = send_local_idx.shape
     feat = tuple(x.shape[2:])
-    buf = pack(x, send_local_idx.reshape(p, p * s_max))
-    return comm.all_to_all(buf.reshape((p, p, s_max) + feat),
+    buf = pack(x, send_local_idx.reshape(pl, p * s_max))
+    return comm.all_to_all(buf.reshape((pl, p, s_max) + feat),
                            async_op=async_op)
 
 
@@ -146,13 +152,13 @@ def condensed_finish_local(recv, x, recv_global_idx, offsets, *, n: int,
 
 def blockwise_start_local(x, send_local_blk, *, comm, blocksize: int,
                           async_op=False, pack=kref.pack_gather_ref) -> Work:
-    """UPCv2 block exchange.  Returns the landed (P, P, b_max, BS, ...)
-    blocks."""
-    p, _, b_max = send_local_blk.shape
+    """UPCv2 block exchange.  Returns the landed (p_local, P, b_max, BS,
+    ...) blocks."""
+    pl, p, b_max = send_local_blk.shape
     feat = tuple(x.shape[2:])
-    xb = x.reshape((p, -1, blocksize) + feat)
-    buf = pack(xb, send_local_blk.reshape(p, p * b_max))
-    return comm.all_to_all(buf.reshape((p, p, b_max, blocksize) + feat),
+    xb = x.reshape((pl, -1, blocksize) + feat)
+    buf = pack(xb, send_local_blk.reshape(pl, p * b_max))
+    return comm.all_to_all(buf.reshape((pl, p, b_max, blocksize) + feat),
                            async_op=async_op)
 
 
@@ -174,7 +180,7 @@ def blockwise_finish_local(recv, x, recv_global_blk, offsets_blk, *, n: int,
     ``extra_slots < blocksize``); ``moved_blk`` may hand in that remapped
     copy of ``recv_global_blk`` (``move_dump_block``), kept from an earlier
     call.  ``offsets_blk`` counts blocks: rank q's own shard starts at block
-    row ``q * blocks_per_shard``."""
+    row ``q * blocks_per_shard`` (q the global rank)."""
     p = x.shape[0]
     feat = tuple(x.shape[2:])
     nblks = n // blocksize
@@ -256,7 +262,8 @@ def make_start_local(plan: CommPlan, strategy: str, comm, *,
     x, *plan_args, extra_slots=..., copy_own=..., materialize=...)``.
     Between the two calls the consumer runs compute that depends only on
     ``x`` — the generalized own/foreign window of the ``overlap`` rung.
-    ``plan_args`` are ``plan_device_args`` as tensors on ``comm.device``.
+    ``plan_args`` are this process's rows of ``plan_device_args`` as
+    tensors on ``comm.device`` (``local_args``).
 
     When the plan args carry the four targeted-unpack arrays, ``finish``
     honors ``materialize``: ``"full"`` assembles the classic x_copy
@@ -275,8 +282,8 @@ def make_start_local(plan: CommPlan, strategy: str, comm, *,
         pack, unpack_set = kops.pack_gather, _tiled_unpack()
     else:
         pack, unpack_set = kref.pack_gather_ref, kref.unpack_scatter_set_ref
-    p, n = plan.p, plan.n
-    dev = comm.device
+    n = plan.n
+    dev, pl, off = comm.device, comm.p_local, comm.rank_offset
 
     def deliver(recv_flat, x, dest):
         return Landed(recv_flat, x, *dest)
@@ -291,14 +298,14 @@ def make_start_local(plan: CommPlan, strategy: str, comm, *,
             if materialize == "dest":
                 return deliver(recv, x, args)
             if extra_slots:
-                pad = recv.new_zeros((p, 1 + extra_slots)
+                pad = recv.new_zeros((pl, 1 + extra_slots)
                                      + tuple(x.shape[2:]))
                 return torch.cat([recv, pad], dim=1)
             return recv
 
         return start, finish
     if strategy in ("condensed", "overlap"):
-        offsets = own_offsets(p, plan.shard_size, dev)
+        offsets = own_offsets(pl, plan.shard_size, dev, off)
 
         def start(x, send_idx, recv_idx, *dest, async_op=False):
             return condensed_start_local(x, send_idx, comm=comm,
@@ -308,7 +315,7 @@ def make_start_local(plan: CommPlan, strategy: str, comm, *,
                    copy_own=True, materialize="full"):
             recv = work.wait()
             if materialize == "dest":
-                return deliver(recv.reshape((p, -1) + tuple(x.shape[2:])),
+                return deliver(recv.reshape((pl, -1) + tuple(x.shape[2:])),
                                x, dest)
             unpack = unpack_set
             if per_batch and use_kernel:
@@ -321,7 +328,7 @@ def make_start_local(plan: CommPlan, strategy: str, comm, *,
         return start, finish
     if strategy == "blockwise":
         blocksize = plan.blocksize
-        offsets_blk = own_offsets(p, plan.blocks_per_shard, dev)
+        offsets_blk = own_offsets(pl, plan.blocks_per_shard, dev, off)
         # the plan's recv_blk with its dump block moved (extra_slots), made
         # once, so that the tile table built from it serves every call
         moved = []
@@ -340,7 +347,7 @@ def make_start_local(plan: CommPlan, strategy: str, comm, *,
                    copy_own=True, materialize="full"):
             recv = work.wait()
             if materialize == "dest":
-                return deliver(recv.reshape((p, -1) + tuple(x.shape[2:])),
+                return deliver(recv.reshape((pl, -1) + tuple(x.shape[2:])),
                                x, dest)
             return blockwise_finish_local(
                 recv, x, recv_blk, offsets_blk, n=n, blocksize=blocksize,
@@ -356,6 +363,12 @@ def to_device(arrays, device) -> tuple[torch.Tensor, ...]:
     """Host plan arrays as tensors on ``device`` (dtypes kept)."""
     return tuple(torch.as_tensor(np.ascontiguousarray(a)).to(device)
                  for a in arrays)
+
+
+def local_args(arrays, comm) -> tuple[torch.Tensor, ...]:
+    """This process's rows (``comm.local_rows``) of per-rank host tables
+    ``(P, ...)``, as tensors on ``comm.device``."""
+    return to_device((a[comm.local_rows] for a in arrays), comm.device)
 
 
 # --------------------------------------------------------------------------
@@ -414,13 +427,17 @@ def _lanes(vals: torch.Tensor) -> torch.Tensor:
     return vals.reshape((vals.shape[0], -1) + tuple(vals.shape[3:]))
 
 
-def own_rows(x_full: torch.Tensor, shard: int) -> torch.Tensor:
-    """Rank q's own rows ``x_full[q, q*shard : (q+1)*shard, ...]``."""
-    p = x_full.shape[0]
+def own_rows(x_full: torch.Tensor, shard: int, p: int | None = None,
+             start: int = 0) -> torch.Tensor:
+    """Rank q's own rows ``x_full[i, q*shard : (q+1)*shard, ...]`` for the
+    ``p_local`` rows i of ranks ``q = start + i`` out of ``p`` (default:
+    every rank, ``p = p_local``)."""
+    pl = x_full.shape[0]
+    p = pl if p is None else p
     feat = tuple(x_full.shape[2:])
-    blocks = x_full[:, :p * shard].reshape((p, p, shard) + feat)
-    ranks = torch.arange(p, device=x_full.device)
-    return blocks[ranks, ranks]
+    blocks = x_full[:, :p * shard].reshape((pl, p, shard) + feat)
+    rows = torch.arange(pl, device=x_full.device)
+    return blocks[rows, rows + start]
 
 
 def replicate_scatter_start_local(vals, tgt, win_mask, *, comm, n: int,

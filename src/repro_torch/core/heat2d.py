@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch.comm import plan_cache, select
+from repro_torch.comm.communicator import require_all_ranks
 from repro_torch.comm.exchange import measure_hw
 from repro_torch.comm.pattern import AccessPattern, Destination
 from repro_torch.comm.plan import CommPlan, Topology
@@ -182,6 +183,7 @@ class Heat2D:
             strategy = "overlap" if overlap else "condensed"
         if materialize not in ("dest", "full"):
             raise ValueError(f"unknown materialize mode {materialize!r}")
+        require_all_ranks(comm, "Heat2D")
         p = mprocs * nprocs
         if comm.p != p:
             raise ValueError(f"a {mprocs} x {nprocs} grid needs {p} ranks, "

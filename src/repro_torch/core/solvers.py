@@ -23,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.comm.communicator import require_all_ranks
 from repro_torch.comm.plan import Topology
 from repro_torch.comm.schedule import Schedule
 from repro_torch.core.matrix import EllpackMatrix
@@ -63,6 +64,7 @@ class ConjugateGradient:
                  use_kernel: bool = False, plans: dict | None = None,
                  hw=None, use_plan_cache: bool = True,
                  n_steps_hint: int | None = None):
+        require_all_ranks(comm, "ConjugateGradient")
         p = comm.p
         self.matrix = matrix
         self.comm = comm

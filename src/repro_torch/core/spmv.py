@@ -43,6 +43,12 @@ foreign partial on the unpacked remote values.
 ``normal_equations_step`` chains both directions, ``z = MᵀM x``, as one
 ``Schedule`` whose gather and scatter stages share one base plan.
 
+Over a ``DistComm`` each process builds the same host plan and runs the
+forward product of its own ``p_local`` ranks: ``shard_vector`` places its
+rows of x, and ``y`` holds its rows.  The transposed product and the
+normal equations refuse a process that holds only some of the ranks
+(``communicator.require_all_ranks``).
+
 Usage:
     comm = LoopbackComm(8)                 # 8 ranks on the default card
     m = make_mesh_like_matrix(1 << 16, 16)
@@ -56,6 +62,7 @@ import numpy as np
 import torch
 
 from repro_torch.comm import strategies as strat
+from repro_torch.comm.communicator import require_all_ranks
 from repro_torch.comm.gather import IrregularGather
 from repro_torch.comm.pattern import AccessPattern, Destination
 from repro_torch.comm.plan import CommPlan, ScatterPlan, Topology
@@ -91,7 +98,8 @@ def _dest_product(landed: strat.Landed, vals, diag, table, *,
 
 class DistributedSpMV:
     """y = (D + A) x (or ``(D + A)ᵀ x`` with ``transpose=True``) with x, y,
-    D, A, J sharded over the ranks of ``comm`` (a ``LoopbackComm``).
+    D, A, J sharded over the ranks of ``comm`` (a ``LoopbackComm``, or a
+    ``DistComm`` for the forward product).
     ``base_plan`` shares one already-built destination-independent
     ``CommPlan`` between engines over the same matrix, and ``scatter_plan``
     one ``ScatterPlan`` between transposed engines."""
@@ -116,12 +124,12 @@ class DistributedSpMV:
         self.comm = comm
         p = comm.p
         self.p = p
-        dev = comm.device
         n = matrix.n
         assert n % p == 0, "pad the matrix so n divides the rank count"
         topology = Topology(p, shards_per_node or p)
         self.transpose = transpose
         if transpose:
+            require_all_ranks(comm, "DistributedSpMV(transpose=True)")
             assert materialize is None, (
                 "materialize= is a gather-unpack knob; the transposed "
                 "product always accumulates straight into the owned slice")
@@ -174,9 +182,12 @@ class DistributedSpMV:
         shard = plan.shard_size
         gargs = gather.plan_args
 
+        pl, off = comm.p_local, comm.rank_offset
+
         def put(a):
-            return torch.as_tensor(np.ascontiguousarray(a)).reshape(
-                (p, rows) + a.shape[1:]).to(dev)
+            """This process's rows of a per-row host table."""
+            return strat.local_args(
+                [a.reshape((p, rows) + a.shape[1:])], comm)[0]
 
         diag = put(matrix.diag)
 
@@ -188,13 +199,13 @@ class DistributedSpMV:
         if strategy == "overlap" and use_kernel and materialize == "full":
             own_fn, rem_fn, kargs = kops.make_spmv_overlap_sharded(
                 plan, matrix.vals)
-            kargs = strat.to_device(kargs, dev)
+            kargs = strat.local_args(kargs, comm)
 
             def step(x):
                 handle = gather.start_local(x, *gargs)
                 # own-shard partial on x (+ its one zero pad slot) while the
                 # exchange is in flight on the side stream
-                x_ext = torch.cat([x, x.new_zeros((p, 1))], dim=1)
+                x_ext = torch.cat([x, x.new_zeros((pl, 1))], dim=1)
                 y_own = own_fn(diag, x_ext, *kargs[:3])
                 x_copy = handle.finish(extra_slots=1, copy_own=False)
                 return y_own + rem_fn(x_copy, *kargs[3:])
@@ -212,7 +223,7 @@ class DistributedSpMV:
                 # 1. issue the condensed exchange (paper Listing 5 pack)
                 handle = gather.start_local(x, *gargs)
                 # 2. own-shard partial: no dependency on the landed messages
-                x_ext = torch.cat([x, x.new_zeros((p, 1))], dim=1)
+                x_ext = torch.cat([x, x.new_zeros((pl, 1))], dim=1)
                 y_own = diag * x + (loc_vals * _take(x_ext, loc_cols)).sum(-1)
                 # 3. foreign partial on the landed remote values: the
                 # targeted delivery inside the product, or off x_copy, where
@@ -237,7 +248,7 @@ class DistributedSpMV:
         elif use_kernel:
             kernel_local, kplan = kops.make_spmv_on_copy_sharded(
                 matrix.cols, p)
-            kplan = strat.to_device(kplan, dev)
+            kplan = strat.local_args(kplan, comm)
             vals = put(matrix.vals)
 
             def step(x):
@@ -248,7 +259,7 @@ class DistributedSpMV:
 
             def step(x):
                 x_copy = gather.local(x, *gargs)
-                own = strat.own_rows(x_copy, shard)
+                own = strat.own_rows(x_copy, shard, p, off)
                 return diag * own + (vals * _take(x_copy, cols)).sum(-1)
 
         self._step = step

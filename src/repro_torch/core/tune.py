@@ -1,8 +1,9 @@
 """Hardware calibration for the model-driven autotuner (§5.4 / §6.2).
 
 ``measure_hardware(comm)`` micro-benchmarks the paper's four hardware
-characteristic parameters for ONE RANK of a ``LoopbackComm``, once per
-(device, rank count, element size) for the life of the process:
+characteristic parameters for ONE RANK of a communicator, once per
+(communicator kind, world size, device, rank count, element size) for the
+life of the process:
 
 * ``w_private`` — a STREAM-like copy of 2^22 float32 elements a rank;
 * ``cacheline`` — a random gather of 2^20 indices a rank: the model charges
@@ -30,8 +31,15 @@ synchronization, not a wire.  On the CPU (``LoopbackComm(p,
 device="cpu")``) every probe uses the host clock.
 
 On one card the "remote" link is an on-device copy (the loopback
-``all_to_all`` is a transpose); calibrating NVLink / NCCL between cards
-waits for a communicator that spans them (ROADMAP A2).
+``all_to_all`` is a transpose).  Under a ``DistComm`` each process probes
+its own ``p_local`` ranks and ``w_remote`` / ``tau`` come from its
+``all_to_all`` over the group (gloo between CPU processes, NCCL on the
+card); every probe time is then replaced by its maximum over the ranks
+(``all_reduce("max")``: the slowest rank paces every collective), so all
+ranks derive the same parameters, and ``strategy="auto"`` the same rung.
+Different rungs on different ranks would leave their next collectives
+unmatched.  A ``DistComm`` and a ``LoopbackComm`` with the same ``p`` keep
+separate calibrations.
 
 The first calibration synchronizes the device, as does a plan's first call
 on the card: neither may run inside a CUDA-graph capture.  Calibrate (and
@@ -65,7 +73,7 @@ def clear_hardware_cache() -> None:
 
 def _key(comm, elem_bytes: int) -> tuple:
     dev = comm.device
-    return (dev.type, dev.index, comm.p, elem_bytes)
+    return (comm.kind, comm.world, dev.type, dev.index, comm.p, elem_bytes)
 
 
 def _wall(fn, *, iters: int, warmup: int = 3) -> float:
@@ -110,8 +118,17 @@ def _device(fn, device, *, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / 1e3 / iters
 
 
+def _slowest(comm, times: dict) -> dict:
+    """Every probe time replaced by its maximum over ``comm``'s ranks."""
+    row = torch.tensor(list(times.values()), dtype=torch.float64,
+                       device=comm.device)
+    top = comm.all_reduce(row.expand(comm.p_local, -1).contiguous(),
+                          "max").wait()[0].tolist()
+    return dict(zip(times, top))
+
+
 def _calibrate(comm, elem_bytes: int) -> tuple[HardwareParams, dict]:
-    p, dev = comm.p, comm.device
+    p, pl, dev = comm.p, comm.p_local, comm.device
     on_card = dev.type == "cuda"
 
     def timed(fn, iters):
@@ -120,43 +137,46 @@ def _calibrate(comm, elem_bytes: int) -> tuple[HardwareParams, dict]:
 
     # -- w_private: STREAM-like copy (read + write), every rank at once --
     n = COPY_ELEMS
-    x = torch.arange(p * n, dtype=torch.float32, device=dev).reshape(p, n)
-    t_copy = timed(lambda: x * 1.0000001, 10)
-    w_private = 2.0 * n * 4 / t_copy
+    x = torch.arange(pl * n, dtype=torch.float32, device=dev).reshape(pl, n)
+    t = {"copy_s": timed(lambda: x * 1.0000001, 10)}
 
     # -- cacheline: each rank gathers g random elements of its own row --
     g = GATHER_ELEMS
     idx = torch.as_tensor(np.random.default_rng(0).integers(
-        0, n, size=(p, g)), device=dev)
-    t_gather = timed(lambda: torch.gather(x, 1, idx), 10)
-    cacheline = int(np.clip(t_gather * w_private / g, 16, 4096))
-
-    raw = {"p": p, "device": str(dev),
-           "timing": "cuda events" if on_card else "host clock",
-           "copy_s": t_copy, "gather_s": t_gather,
-           "card_copy_bytes_per_s": p * 2.0 * n * 4 / t_copy,
-           "card_gather_per_s": p * g / t_gather}
+        0, n, size=(pl, g)), device=dev)
+    t["gather_s"] = timed(lambda: torch.gather(x, 1, idx), 10)
 
     # -- w_remote and tau: the stacked all_to_all, big minus tiny --
     tiny_per = max(1, TINY_ELEMS // p)
     if p > 1:
-        big = torch.zeros((p, p, REMOTE_ELEMS // p), dtype=torch.float32,
+        big = torch.zeros((pl, p, REMOTE_ELEMS // p), dtype=torch.float32,
                           device=dev)
-        tiny = torch.zeros((p, p, tiny_per), dtype=torch.float32,
+        tiny = torch.zeros((pl, p, tiny_per), dtype=torch.float32,
                            device=dev)
-        t_big = timed(lambda: comm.all_to_all(big).wait(), 5)
-        tau = _wall(lambda: comm.all_to_all(tiny).wait(), iters=20)
-        t_tiny = timed(lambda: comm.all_to_all(tiny).wait(), 20) \
-            if on_card else tau
-        w_remote = REMOTE_ELEMS * 4 / max(t_big - t_tiny, 1e-9)
-        raw.update(all_to_all_big_s=t_big, all_to_all_tiny_s=t_tiny)
+        t["all_to_all_big_s"] = timed(lambda: comm.all_to_all(big).wait(), 5)
+        t["tau_wall_s"] = _wall(lambda: comm.all_to_all(tiny).wait(),
+                                iters=20)
+        t["all_to_all_tiny_s"] = timed(
+            lambda: comm.all_to_all(tiny).wait(), 20) if on_card \
+            else t["tau_wall_s"]
     else:
         tiny = torch.zeros((1, TINY_ELEMS), dtype=torch.float32, device=dev)
-        w_remote = w_private
-        tau = _wall(lambda: tiny * 1.0000001, iters=30)
-        raw.update(tiny_copy_s=timed(lambda: tiny * 1.0000001, 30)
-                   if on_card else tau)
-    raw["tau_wall_s"] = tau
+        t["tau_wall_s"] = _wall(lambda: tiny * 1.0000001, iters=30)
+        t["tiny_copy_s"] = timed(lambda: tiny * 1.0000001, 30) \
+            if on_card else t["tau_wall_s"]
+    t = _slowest(comm, t)
+
+    w_private = 2.0 * n * 4 / t["copy_s"]
+    cacheline = int(np.clip(t["gather_s"] * w_private / g, 16, 4096))
+    w_remote = (REMOTE_ELEMS * 4 / max(t["all_to_all_big_s"]
+                                       - t["all_to_all_tiny_s"], 1e-9)
+                if p > 1 else w_private)
+    tau = t["tau_wall_s"]
+    raw = {"p": p, "p_local": pl, "comm": comm.kind, "world": comm.world,
+           "device": str(dev),
+           "timing": "cuda events" if on_card else "host clock", **t,
+           "card_copy_bytes_per_s": pl * 2.0 * n * 4 / t["copy_s"],
+           "card_gather_per_s": pl * g / t["gather_s"]}
 
     hw = HardwareParams(w_private=w_private, w_remote=w_remote, tau=tau,
                         cacheline=cacheline, elem=elem_bytes, idx=4)
@@ -166,8 +186,11 @@ def _calibrate(comm, elem_bytes: int) -> tuple[HardwareParams, dict]:
 def measure_hardware(comm, *, elem_bytes: int = 4,
                      force: bool = False) -> HardwareParams:
     """The four §5.4 parameters for one rank of ``comm`` (a
-    ``LoopbackComm``), measured on its device.  Memoized per (device,
-    ``comm.p``, ``elem_bytes``) — pass ``force=True`` to re-measure."""
+    ``LoopbackComm`` or a ``DistComm``), measured on its device, the same
+    on every rank.  Memoized per (``comm.kind``, ``comm.world``, device,
+    ``comm.p``, ``elem_bytes``) — pass ``force=True`` to re-measure (on
+    every rank of a ``DistComm`` at once: the calibration runs
+    collectives)."""
     key = _key(comm, elem_bytes)
     if force or key not in _hw_cache:
         _hw_cache[key] = _calibrate(comm, elem_bytes)

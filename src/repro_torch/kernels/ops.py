@@ -287,17 +287,18 @@ def make_spmv_overlap_sharded(plan, vals: np.ndarray, *,
     rem_own_rel = (lo_rows - base).astype(np.int32)          # diag=0: any
     assert rem_cols_rel.min() >= 0 and rem_cols_rel.max() < 2 * window_rem
     need_rem = int(hi.max()) + 1
-    own_rel_cache: dict = {}
+    own_rel_cache: dict = {}    # (device, rows) -> own_rel
     own_order = PlanOrder(window=window_own, rows_per_block=rows_per_block)
     rem_order = PlanOrder(window=window_rem, rows_per_block=rows_per_block)
 
     def own_fn(diag, x_ext, loc_vals_t, loc_cols_t, own_win_t):
         _x_long_enough(x_ext, shard + 1, "x_ext")
-        own_rel = own_rel_cache.get(x_ext.device)
+        key = (x_ext.device, x_ext.shape[0])
+        own_rel = own_rel_cache.get(key)
         if own_rel is None:
             own_rel = torch.arange(shard, dtype=torch.int32,
-                                   device=x_ext.device).repeat(p, 1)
-            own_rel_cache[x_ext.device] = own_rel
+                                   device=x_ext.device).repeat(key[1], 1)
+            own_rel_cache[key] = own_rel
         return ellpack_spmv_windowed(
             diag, loc_vals_t, loc_cols_t, own_rel, own_win_t, x_ext,
             window=window_own, rows_per_block=rows_per_block,

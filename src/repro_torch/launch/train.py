@@ -10,9 +10,27 @@ activations on the card, in float32 on the CPU (the reference picks by its
 backend the same way), from float32 master weights drawn from ``--seed``,
 on ``SyntheticLM`` batches, with AdamW (weight decay 0.01) on a cosine
 schedule.  ``--ckpt-dir`` saves every ``--save-every`` steps and resumes
-from the latest checkpoint there.  The port runs on one device: a
-``--mesh`` other than ``local`` (the reference's data and model axes,
-FSDP and expert sharding) is refused.
+from the latest checkpoint there.
+
+``--mesh`` takes the reference's grammar (``launch.mesh.make_mesh``).
+``local`` without a process group trains in this process alone.  ``D`` or
+``Dx1`` trains data-parallel over the ``D`` processes of a
+``torch.distributed`` group (gloo on the CPU, NCCL on the card; ``main``
+initialises it from a launcher's environment, one process a rank):
+
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+        --arch llama3-8b --reduced --mesh 2 --device cpu
+
+Every rank draws the same global batch from ``--seed`` and takes its
+consecutive rows, as the reference's batch sharding over the data axis
+does; the gradients are averaged over the
+ranks in rank order (``runtime.steps.mean_over_ranks``), and the
+parameters and AdamW state stay replicated where the reference's ``--mesh
+D`` shards them over the data axis (FSDP, ROADMAP A21).  So ``--mesh W``
+(accumulation 1 a rank) gives ``--mesh local --accum W``'s step bit for
+bit.  Rank 0 saves the checkpoints, every rank restores them.  Still
+refused: a model axis > 1 (``DxM``, ``pod``, ``multipod``: tensor and
+expert parallelism, ROADMAP A22).
 """
 from __future__ import annotations
 
@@ -22,19 +40,24 @@ import json
 import logging
 import time
 
+import os
+
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.manager import CheckpointManager
-from repro_torch.comm.communicator import resolve_device
+from repro_torch.comm.communicator import DistComm, resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.registry import get_config
 from repro_torch.data.pipeline import DataState, SyntheticLM
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models.transformer import Model, RunCtx
 from repro_torch.optim.adamw import AdamW, cosine_schedule
 from repro_torch.runtime.fault import StepTimer, StragglerWatch
 from repro_torch.runtime.steps import build_train_step
 
-__all__ = ["preset_lm100m", "parse_args", "Trainer", "setup", "main"]
+__all__ = ["preset_lm100m", "parse_args", "ported_mesh", "data_parallel",
+           "Trainer", "setup", "main"]
 
 log = logging.getLogger("repro_torch.train")
 
@@ -76,7 +99,9 @@ class Trainer:
     (params, opt_state, data state, resumed step), the step, the data, the
     checkpoint manager, and the cross-attention inputs of every step
     (``extra``: the reference's zero frames or image embeddings for an
-    encdec or vlm stack, else None)."""
+    encdec or vlm stack, else None).  Under data parallelism ``comm`` is
+    the ``DistComm`` of the ranks and ``rows`` this rank's rows of each
+    global batch; else ``comm`` is None and ``rows`` takes them all."""
 
     model: Model
     opt: AdamW
@@ -88,16 +113,20 @@ class Trainer:
     start_step: int
     mgr: CheckpointManager | None
     extra: dict | None = None
+    comm: object = None
+    rows: slice = slice(None)
 
     @property
     def device(self) -> torch.device:
         return self.model.device
 
     def batch(self):
-        """The next batch on the device, as (tokens, labels) int64."""
+        """This rank's rows of the next batch on the device, as (tokens,
+        labels) int64."""
         tokens, labels = self.data.batch_at(self.dstate.step)
-        return (torch.from_numpy(tokens).to(self.device, torch.int64),
-                torch.from_numpy(labels).to(self.device, torch.int64))
+        return tuple(torch.from_numpy(a[self.rows]).to(self.device,
+                                                       torch.int64)
+                     for a in (tokens, labels))
 
     def step(self):
         """One train step on the next batch; returns its metrics (0-d
@@ -108,10 +137,45 @@ class Trainer:
         return metrics
 
     def save(self, step: int, *, force=False):
-        if self.mgr is not None:
+        """Save at ``step`` when due (rank 0 only: the state is
+        replicated)."""
+        if self.mgr is not None and (self.comm is None
+                                     or self.comm.rank == 0):
             self.mgr.maybe_save(
                 step, {"params": self.params, "opt": self.opt_state},
                 extra={"data": self.dstate.to_json()}, force=force)
+
+
+def ported_mesh(spec: str) -> mesh_mod.Mesh:
+    """``--mesh spec``'s mesh, refusing what is not ported: a model axis >
+    1."""
+    mesh = mesh_mod.make_mesh(spec)
+    if mesh.shape.get("model", 1) > 1:
+        raise NotImplementedError(
+            f"--mesh {spec}: a model axis of {mesh.shape['model']} (tensor "
+            "and expert parallelism) is not ported yet (ROADMAP A22); the "
+            "port trains data-parallel, --mesh D")
+    return mesh
+
+
+def data_parallel(spec: str, batch: int, device):
+    """``--mesh spec``'s data parallelism: ``(comm, rows)``, this rank's
+    ``DistComm`` (one rank a process) and its rows of a global batch of
+    ``batch``, or ``(None, all rows)`` for ``local`` without a process
+    group (``ported_mesh``'s refusals first)."""
+    mesh = ported_mesh(spec)
+    if spec == "local" and not dist.is_initialized():
+        return None, slice(None)
+    dp = mesh.size              # the model axis is 1
+    comm = DistComm(1, device)
+    if comm.world != dp:
+        raise ValueError(f"--mesh {spec} has {dp} data-parallel ranks; the "
+                         f"process group has {comm.world}")
+    if batch % dp:
+        raise ValueError(f"--batch {batch} does not split over {dp} "
+                         "data-parallel ranks")
+    per = batch // dp
+    return comm, slice(comm.rank * per, (comm.rank + 1) * per)
 
 
 def setup(cfg, args, *, retries: int = 1,
@@ -121,13 +185,10 @@ def setup(cfg, args, *, retries: int = 1,
     gradient half is retried up to ``retries`` times (the reference
     retries a failed step once; ``build_train_step``).
     ``ssm_scan_dtype`` is ``RunCtx``'s: the mamba layers' scan payload (as
-    the reference, no flag sets it)."""
-    if args.mesh != "local":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the port trains on one device; sharded "
-            "training needs the torch.distributed communicator (ROADMAP "
-            "A2) and runtime/sharding.py, launch/mesh.py (A13)")
+    the reference, no flag sets it).  A ``--mesh`` other than ``local``
+    needs an initialised process group (``data_parallel``)."""
     device = resolve_device(args.device)
+    comm, rows = data_parallel(args.mesh, args.batch, device)
     ctx = RunCtx(
         moe_groups=1,          # the reference's min(data-parallel size, B)
         remat="full",
@@ -138,7 +199,7 @@ def setup(cfg, args, *, retries: int = 1,
     opt = AdamW(lr=cosine_schedule(args.lr, args.warmup, args.steps),
                 weight_decay=0.01)
     step_fn = build_train_step(model, opt, accum_steps=args.accum,
-                               retries=retries)
+                               retries=retries, comm=comm)
 
     params = model.init_params(
         torch.Generator(device=device).manual_seed(args.seed), master=True)
@@ -157,16 +218,17 @@ def setup(cfg, args, *, retries: int = 1,
             dstate = DataState.from_json(extra_state.get("data", {"step": 0}))
             log.info("resumed from step %d", start_step)
     extra = None
+    local_batch = len(range(args.batch)[rows])
     if cfg.is_encdec:
         extra = {"frames": torch.zeros(
-            (args.batch, cfg.encoder_seq, cfg.d_model), dtype=ctx.act_dtype,
+            (local_batch, cfg.encoder_seq, cfg.d_model), dtype=ctx.act_dtype,
             device=device)}
     if cfg.is_vlm:
         extra = {"image_embeds": torch.zeros(
-            (args.batch, cfg.num_image_tokens, cfg.d_model),
+            (local_batch, cfg.num_image_tokens, cfg.d_model),
             dtype=ctx.act_dtype, device=device)}
     return Trainer(model, opt, params, opt_state, step_fn, data, dstate,
-                   start_step, mgr, extra)
+                   start_step, mgr, extra, comm, rows)
 
 
 def main(argv=None, *, retries: int = 1):
@@ -181,6 +243,22 @@ def main(argv=None, *, retries: int = 1):
         cfg = get_config(args.arch, reduced=args.reduced)
     else:
         raise SystemExit("pass --arch or --preset")
+    if args.mesh != "local" and not dist.is_initialized():
+        ported_mesh(args.mesh)                  # refused before a group
+        if "WORLD_SIZE" not in os.environ:
+            raise SystemExit(
+                f"--mesh {args.mesh} trains over a torch.distributed group: "
+                "start one process a rank under a launcher (torchrun) or "
+                "initialise the group before calling setup")
+        mesh_mod.init_group(args.device or "cuda")
+        try:
+            return _train(cfg, args, retries)
+        finally:
+            dist.destroy_process_group()
+    return _train(cfg, args, retries)
+
+
+def _train(cfg, args, retries: int):
     tr = setup(cfg, args, retries=retries)
 
     watch = StragglerWatch()

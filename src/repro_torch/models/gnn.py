@@ -22,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.comm.communicator import require_all_ranks
 from repro_torch.comm.pattern import AccessPattern
 from repro_torch.comm.schedule import Schedule
 
@@ -100,6 +101,7 @@ class GNNNeighborAggregate:
         self.nbrs = nbrs
         self.n = n
         self.weight = float(weight)
+        require_all_ranks(comm, "GNN layers")
         pattern = AccessPattern.from_indices(nbrs, n=n)
         p = comm.p
 

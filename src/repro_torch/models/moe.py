@@ -35,6 +35,7 @@ import torch.nn.functional as F
 
 from repro_torch.comm import dynamic as dyn
 from repro_torch.comm import telemetry
+from repro_torch.comm.communicator import require_all_ranks
 from repro_torch.comm.exchange import measure_hw
 from repro_torch.comm.gather import IrregularGather
 from repro_torch.comm.pattern import AccessPattern, Destination
@@ -292,6 +293,7 @@ class MoEDispatchGather:
                  blocksize=None, shards_per_node=None,
                  materialize: str = "dest", hw=None,
                  use_plan_cache: bool = True):
+        require_all_ranks(comm, "MoEDispatchGather")
         p = comm.p
         self.p = p
         self.num_tokens = num_tokens
@@ -385,6 +387,7 @@ class MoECombineScatter:
                  capacity: int, comm, *, strategy: str = "auto",
                  blocksize=None, shards_per_node=None, hw=None,
                  use_plan_cache: bool = True):
+        require_all_ranks(comm, "MoECombineScatter")
         p = comm.p
         self.p = p
         self.num_tokens = num_tokens
@@ -449,6 +452,7 @@ class MoELayer:
                  num_experts: int, capacity: int, comm, *, act: str = "gelu",
                  strategy: str = "auto", blocksize=None,
                  shards_per_node=None, hw=None, use_plan_cache: bool = True):
+        require_all_ranks(comm, "MoELayer")
         p = comm.p
         assert num_experts % p == 0 and num_tokens % p == 0
         self.p = p
@@ -554,6 +558,7 @@ class DynamicMoELayer:
                  strategy: str = "auto", blocksize=None, shards_per_node=None,
                  hw=None, use_plan_cache: bool = True,
                  s_max: int | None = None, decode: bool = False):
+        require_all_ranks(comm, "DynamicMoELayer")
         p = comm.p
         assert num_experts % p == 0 and num_tokens % p == 0
         self.p = p

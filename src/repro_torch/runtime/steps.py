@@ -11,8 +11,8 @@ from repro_torch.models.transformer import Model, tree_leaves, tree_map
 from repro_torch.optim.adamw import AdamW
 from repro_torch.runtime.fault import retrying
 
-__all__ = ["build_grad_fn", "build_train_step", "build_decode_step",
-           "build_prefill", "model_flops"]
+__all__ = ["build_grad_fn", "mean_over_ranks", "build_train_step",
+           "build_decode_step", "build_prefill", "model_flops"]
 
 
 def build_grad_fn(model: Model, *, accum_steps: int = 1):
@@ -67,8 +67,25 @@ def build_grad_fn(model: Model, *, accum_steps: int = 1):
     return grads_of
 
 
+def mean_over_ranks(grads, loss, comm):
+    """``(grads, loss)`` summed over the ranks of ``comm`` (one a process,
+    a ``DistComm``) in rank order and divided by their count: the
+    data-parallel mean, as ``build_grad_fn``'s accumulation sums its
+    microbatches in order and divides.  Every leaf of one dtype travels in
+    one flat buffer (one ``all_reduce``)."""
+    leaves = tree_leaves(grads) + [loss]
+    done = {}
+    for dtype in dict.fromkeys(t.dtype for t in leaves):
+        group = [t for t in leaves if t.dtype == dtype]
+        flat = torch.cat([t.reshape(-1) for t in group])[None]
+        total = comm.all_reduce(flat).wait()[0].div_(comm.p)
+        for t, part in zip(group, total.split([t.numel() for t in group])):
+            done[id(t)] = part.view_as(t)
+    return tree_map(lambda t: done[id(t)], grads), done[id(loss)]
+
+
 def build_train_step(model: Model, opt: AdamW, *, accum_steps: int = 1,
-                     retries: int = 0):
+                     retries: int = 0, comm=None):
     """``step(params, opt_state, batch, extra=None) -> (params, opt_state,
     metrics)``.
 
@@ -78,12 +95,20 @@ def build_train_step(model: Model, opt: AdamW, *, accum_steps: int = 1,
     device (reading them syncs).  A failure of the gradient half, which
     writes nothing of the state, is retried up to ``retries`` times
     (``retrying``); the update runs once, outside the retry, since a
-    failure inside it may have written some leaves already."""
+    failure inside it may have written some leaves already.
+
+    ``comm`` (a ``DistComm``, one rank a process): data parallelism.
+    ``batch`` is this rank's rows; the gradients and the loss are
+    averaged over the ranks (``mean_over_ranks``, outside the retry: a
+    collective must run once on every rank) before the replicated update,
+    so every rank holds the same parameters after the step."""
     grads_of = retrying(build_grad_fn(model, accum_steps=accum_steps),
                         retries=retries)
 
     def step(params, opt_state, batch, extra=None):
         grads, loss = grads_of(params, batch, extra)
+        if comm is not None:
+            grads, loss = mean_over_ranks(grads, loss, comm)
         params, opt_state, gnorm = opt.apply(params, grads, opt_state)
         return params, opt_state, {"loss": loss,
                                    "grad_norm": gnorm.float()}

@@ -2151,3 +2151,92 @@ def test_card_kernels_refuse_grad_on_card(dev):
     want, = torch.autograd.grad(kref.selective_scan_ref(
         xc, xc.detach(), bm.cpu(), bm.cpu(), a.cpu()).sum(), xc)
     torch.testing.assert_close(got.cpu(), want, **MODEL_TOL)
+
+
+# -- DistComm over a one-process NCCL group (the card's only group here) --
+
+@pytest.fixture
+def nccl_group(dev, tmp_path):
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/init",
+                            rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _dist_inputs(dtype, shape, dev):
+    rng = np.random.default_rng(11)
+    if dtype.is_floating_point:
+        a = rng.standard_normal(shape).astype(np.float32) * 4
+        flat = a.reshape(-1)
+        flat[::7], flat[3::7], flat[::29] = 0.0, -0.0, np.nan
+        return torch.from_numpy(a).to(dev, dtype)
+    hi = 100 if dtype == torch.int8 else 10 ** 6
+    return torch.from_numpy(rng.integers(-hi, hi, shape)).to(dev, dtype)
+
+
+def _bits(t):
+    view = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    return t.view(view[t.dtype]) if t.dtype in view else t
+
+
+@pytest.mark.parametrize("async_op", [False, True])
+@pytest.mark.parametrize("p_local", [1, 8])
+def test_dist_comm_world1_nccl_is_loopback(nccl_group, dev, p_local,
+                                           async_op):
+    from repro_torch.comm.communicator import DistComm
+    comm = DistComm(p_local)
+    loop = LoopbackComm(p_local)
+    assert comm.device.type == "cuda" and (comm.p, comm.world) == (
+        p_local, 1)
+    for dtype in (torch.float32, torch.bfloat16, torch.int32, torch.int8):
+        buf = _dist_inputs(dtype, (p_local, p_local, 3, 2), dev)
+        vec = _dist_inputs(dtype, (p_local, 5, 2), dev)
+        pairs = [(comm.all_to_all(buf, async_op=async_op),
+                  loop.all_to_all(buf)),
+                 (comm.all_gather(vec, async_op=async_op),
+                  loop.all_gather(vec))]
+        pairs += [(comm.all_reduce(buf, op, async_op=async_op),
+                   loop.all_reduce(buf, op)) for op in ("sum", "max")]
+        for got, want in pairs:
+            assert torch.equal(_bits(got.wait()), _bits(want.wait())), dtype
+
+
+def test_dist_comm_on_nccl_refuses_the_cpu(nccl_group):
+    from repro_torch.comm.communicator import DistComm
+    with pytest.raises(ValueError, match="needs a gloo group"):
+        DistComm(1, device="cpu")
+
+
+@pytest.mark.parametrize("materialize", ["full", "dest"])
+def test_dist_condensed_spmv_step_with_kernels(nccl_group, dev,
+                                               materialize):
+    """One condensed step through a world-1 NCCL DistComm holding the 8
+    ranks, with the card's kernels: y bit for bit the LoopbackComm(8)
+    engine's, B1 and B2 (full) or B3 (dest) launched."""
+    from repro_torch.comm import plan_cache
+    from repro_torch.comm.communicator import DistComm
+    from repro_torch.comm.plan import Topology
+    n = 1 << 14
+    m = make_mesh_like_matrix(n, 16, locality_window=256,
+                              long_range_frac=0.02, seed=4)
+    x = np.random.default_rng(4).standard_normal(n).astype(np.float32)
+    base = plan_cache.get_comm_plan(m.cols, n, 8, blocksize=256,
+                                    topology=Topology(8, 4), cache=False)
+    kw = dict(strategy="condensed", shards_per_node=4, use_kernel=True,
+              materialize=materialize, base_plan=base, use_plan_cache=False)
+    loop = DistributedSpMV(m, LoopbackComm(8), **kw)
+    want = loop(loop.shard_vector(x))
+    eng = DistributedSpMV(m, DistComm(8), **kw)
+    kops.reset_launch_counts()
+    got = eng(eng.shard_vector(x))
+    torch.cuda.synchronize()
+    counts = kops.launch_counts()
+    assert torch.equal(got, want)
+    launched = ("pack_gather", "unpack_scatter_set",
+                "ellpack_spmv_windowed") if materialize == "full" else (
+                    "pack_gather", "unpack_dest")
+    assert all(counts[k] > 0 for k in launched), counts
