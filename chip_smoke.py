@@ -63,7 +63,29 @@ each:
    rung, z checked against spmv_t_ref_np(m, spmv_ref_np(m, x)) (rtol 2e-4,
    atol 2e-4 max|z|) and timed; ConjugateGradient on the condensed rung
    for ten iterations against the same ten with use_kernel=False (rel
-   1e-4), its residual norm below the start's;
+   1e-4), its residual norm below the start's; then dist_consumers, in
+   two arms.  Arm nccl: the transposed product and normal_equations_step
+   on every rung, 5 CG iterations (condensed) and Heat2D on every rung x
+   {dest, full} (10 steps), all with use_kernel=True, over DistComm(8) in
+   one process of a one-process NCCL group (as dist_main_path), on the
+   phases' own plans: every output bit for bit the LoopbackComm(8)
+   engine's of phases 6 to 8 (Heat2D's field the plain steps'), each
+   case's kernels launched (accumulate_segments and accumulate_into in the
+   push direction; pack_gather, unpack_dest and both folds in the normal
+   equations and CG; pack_gather, unpack_scatter_set, unpack_dest and
+   stencil2d in Heat2D), the condensed and overlap cases' ms a step
+   beside their loopback engines', those timed once the arm's counts are
+   read.  Arm threads:
+   the same cases over two processes of four ranks played by two threads
+   on the card (ThreadWorld: DistComm's surface, a CUDA stream a thread, a
+   barrier with a timeout, all_reduce through the communicator's ordered
+   fold), the second process at rank_offset 4, at n = 2^18 and a 1024^2
+   field: the threads' rows, stacked, bit for bit a LoopbackComm(8) run's
+   on the same inputs, each thread's gathered Heat2D field the loopback
+   one, every kernel above launched in the threads.  ``python3
+   chip_smoke.py --only dist_consumers`` runs the card, build, setup and
+   calibration lines, phases 6 to 8 and this one, and an ok line that
+   carries "only": "dist_consumers";
 9. serve: llama3-8b at its published widths and depth (32 layers, d 4096,
    32/8 heads of 128, d_ff 14336, vocab 128256), bf16, random weights from
    the seed, through launch.serve's engine: 16 requests of uniform length
@@ -217,8 +239,8 @@ outside CALIBRATION_RANGE, an auto pick is not the argmin of its own
 ranking, or an auto engine's output differs from the fixed-rung engine it
 resolved to (bit for bit; the forward dest rungs may hold to
 unpack_dest_spmv's 3e-5 instead). A model miss, even past its budget, is printed, never a failure.
-In phases 5 to 15 and 18 (dist_main_path and dist_train included) the
-kernel launch counters are zeroed just
+In phases 5 to 15 and 18 (dist_main_path, dist_consumers' two arms and
+dist_train included) the kernel launch counters are zeroed just
 before the path runs and read just after, and every kernel of the path
 must have launched; in phases 5, 7 and 8 every launch of unpack_dest and
 unpack_scatter_set must have gone through its plan table (the counts by C
@@ -1231,10 +1253,11 @@ T_EXPECTED = {  # kernels each transposed rung launches with use_kernel
 }
 
 
-def phase_transposed(torch, t_engines, x_host, y_t_ref, card):
+def phase_transposed(torch, t_engines, x_host, y_t_ref, card, twins):
     """Every rung of the transposed product, counters zeroed before and
     read after; returns the launch counts and each engine's (timing,
-    profile)."""
+    profile).  Each rung's y (and the DIST_TIMED rungs' steps) go into
+    ``twins`` for ``dist_consumers``."""
     from repro_torch.kernels import ops as kops
 
     measured = {}
@@ -1255,6 +1278,9 @@ def phase_transposed(torch, t_engines, x_host, y_t_ref, card):
         step = {k: after[k] - before[k] for k in after}
         for k in T_EXPECTED[strategy]:
             check(step[k] > 0, f"{strategy}/transposed never launched {k}")
+        twins[("transposed", strategy)] = {
+            "out": y, "step": (lambda e=eng, x=x: e(x))
+            if strategy in DIST_TIMED else None}
         timing = time_steps(torch, lambda: eng(x))
         prof = profile_steps(torch, lambda: eng(x))
         measured[strategy] = (timing, prof)
@@ -1341,11 +1367,12 @@ for _s in ("blockwise", "condensed", "overlap"):
                                 "unpack_scatter_set")
 
 
-def phase_heat2d(torch, comm, hw, card):
+def phase_heat2d(torch, comm, hw, card, twins):
     """Every rung x {dest, full} of Heat2D on one shared stencil pattern
     and base plan (the plan cache's), counters zeroed before and read
-    after; then the auto engine (dest).  Returns the launch counts and the
-    model rows."""
+    after; then the auto engine (dest).  Returns the launch counts, the
+    model rows and ``dist_consumers``' Heat2D inputs; each rung's field
+    (and the DIST_TIMED rungs' runs) go into ``twins``."""
     from repro_torch.comm import plan_cache
     from repro_torch.comm.pattern import AccessPattern
     from repro_torch.comm.plan import Topology
@@ -1403,6 +1430,9 @@ def phase_heat2d(torch, comm, hw, card):
         for k in H_EXPECTED[(strategy, mat)]:
             check(step[k] > 0, f"heat2d {strategy}/{mat} never launched {k}")
         check_table_variants(f"heat2d {strategy}/{mat}", step, entries)
+        twins[("heat2d", strategy, mat)] = {
+            "out": want, "step": (lambda h=h, phi=phi: h.run(
+                phi, HEAT_CHECK_STEPS)) if strategy in DIST_TIMED else None}
         timing = time_steps(torch, lambda: h.run(phi, HEAT_TIMED_STEPS),
                             warmup=1, iters=1)
         timing = {k: v / HEAT_TIMED_STEPS for k, v in timing.items()}
@@ -1442,7 +1472,8 @@ def phase_heat2d(torch, comm, hw, card):
                {r["strategy"]: r["ms"] for r in rows
                 if r["materialize"] == "dest"},
                torch.equal(got, want_t), True, build_s, card)
-    return counts, rows
+    return counts, rows, {"n": HEAT_N, "pattern": pattern, "base": base,
+                          "field": field}
 
 
 NE_EXPECTED = {  # kernels each normal-equations rung launches
@@ -1453,12 +1484,14 @@ NE_EXPECTED = {  # kernels each normal-equations rung launches
 }
 
 
-def phase_normal_equations(torch, comm, matrix, base, splan, x_host, hw,
-                           card):
+def phase_normal_equations(torch, comm, matrix, base, splan, x_host, b,
+                           hw, card, twins):
     """normal_equations_step on every rung and CG on the condensed rung,
     on the SpMV phases' plans, counters zeroed before and read after.
     Returns the model rows (the steps' predicted_window, CG's
-    predicted_loop)."""
+    predicted_loop) and the plans, keyed as ``plans=``.  Each rung's z and
+    CG's carries after CG_DIST_ITERS iterations (and the DIST_TIMED steps)
+    go into ``twins``."""
     from repro_torch.comm.pattern import AccessPattern
     from repro_torch.comm.plan import Topology
     from repro_torch.comm.schedule import plan_key
@@ -1508,6 +1541,9 @@ def phase_normal_equations(torch, comm, matrix, base, splan, x_host, hw,
         for k in NE_EXPECTED[strategy]:
             check(launched[k] > 0, f"{strategy}/normal never launched {k}")
         check_table_variants(f"{strategy}/normal", launched, entries)
+        twins[("normal_equations", strategy)] = {
+            "out": z, "step": (lambda s=step, x=x: s(x))
+            if strategy in DIST_TIMED else None}
         timing = time_steps(torch, lambda: step(x))
         prof = profile_steps(torch, lambda: step(x))
         rows.append(dict(path="normal_equations", strategy=strategy,
@@ -1527,8 +1563,6 @@ def phase_normal_equations(torch, comm, matrix, base, splan, x_host, hw,
                                  use_kernel=uk, **kw)
            for uk in (True, False)}
     setup_s = time.perf_counter() - t0
-    b = np.random.default_rng(SEED + 1).standard_normal(N).astype(
-        np.float32)
     finals = {}
     for uk, cg in cgs.items():
         carries = cg.carries(b)
@@ -1549,6 +1583,9 @@ def phase_normal_equations(torch, comm, matrix, base, splan, x_host, hw,
     r_end = float(torch.linalg.vector_norm(rk.double()))
     check(r_end < r0, f"CG residual grew: {r_end} >= {r0}")
     carries = cgs[True].carries(b)
+    dist_step = (lambda cg=cgs[True], c=carries: torch.stack(
+        cg.schedule(*c, n_steps=CG_DIST_ITERS), dim=1))
+    twins[("cg", "condensed")] = {"out": dist_step(), "step": dist_step}
     timing = time_steps(torch, lambda: cgs[True].schedule(
         *carries, n_steps=CG_ITERS), warmup=1, iters=3)
     prof = profile_steps(torch, lambda: cgs[True].schedule(
@@ -1569,7 +1606,412 @@ def phase_normal_equations(torch, comm, matrix, base, splan, x_host, hw,
     counts = kops.launch_counts()
     for k in ("pack_gather", "unpack_dest") + PUSH_KERNELS:
         check(counts[k] > 0, f"the normal-equations path never launched {k}")
-    return rows
+    return rows, plans
+
+
+# --------------------------------------------------------------------------
+# dist_consumers: the push direction, the normal equations, CG and Heat2D
+# over a DistComm, and over two processes played by threads
+# --------------------------------------------------------------------------
+
+CG_DIST_ITERS = 5
+# the cases timed beside their loopback twins
+DIST_TIMED = ("condensed", "overlap")
+# the two-thread arm: two processes of four ranks on the one card, its
+# SpMV matrix and Heat2D field cut so that both threads' engines and the
+# loopback reference build in seconds (the generator's other settings the
+# main path's: B5's hot edge columns still fold as long rows)
+THREAD_WORLD, THREAD_P_LOCAL = 2, 4
+THREAD_N = 1 << 18
+THREAD_HEAT_N = 1024
+THREAD_TIMEOUT_S = 300.0
+DIST_KERNELS = ("pack_gather", "unpack_scatter_set", "unpack_dest",
+                "accumulate_segments", "accumulate_into", "stencil2d")
+
+
+class ThreadWork:
+    """A ``ThreadComm`` collective issued with ``async_op=True``: the
+    threads meet at ``wait()``, not at the issue, so what the caller runs
+    between the two runs while the exchange is in flight, and a send
+    buffer written in that span is what the other thread reads."""
+
+    def __init__(self, meet):
+        self._meet, self._out = meet, None
+
+    def wait(self):
+        if self._meet is not None:
+            self._out, self._meet = self._meet(), None
+        return self._out
+
+
+class ThreadComm:
+    """One process of a ``ThreadWorld``, with ``DistComm``'s surface:
+    ``kind``, ``world``, ``rank``, ``p``, ``p_local``, ``rank_offset``,
+    ``local_rows``, ``device`` and the three collectives, each split into
+    its issue and its ``wait()`` under ``async_op`` (``ThreadWork``).  The
+    payloads meet through the world's shared list; ``all_reduce`` folds the
+    ``p`` ranks in ascending order (``communicator._fold``), as
+    ``DistComm`` and ``LoopbackComm`` do."""
+
+    kind = "dist"
+
+    def __init__(self, tw, rank: int):
+        self._tw = tw
+        self.world, self.rank = tw.world, rank
+        self.p_local = tw.p_local
+        self.p = tw.world * tw.p_local
+        self.rank_offset = rank * tw.p_local
+        self.device = tw.device
+
+    @property
+    def local_rows(self) -> slice:
+        return slice(self.rank_offset, self.rank_offset + self.p_local)
+
+    def _meet(self, t, read):
+        """Publish ``t`` once this thread's stream has finished it, meet
+        the other threads, run ``read`` on every thread's tensor in rank
+        order on this thread's stream, and meet again once that stream has
+        finished reading: no thread frees a tensor another still reads."""
+        tw = self._tw
+        assert t.shape[0] == self.p_local and t.device == self.device
+        tw.sync()
+        tw.posted[self.rank] = t
+        tw.barrier.wait()
+        out = read(list(tw.posted))
+        tw.sync()
+        tw.barrier.wait()
+        return out
+
+    def _collective(self, t, read, async_op: bool):
+        from repro_torch.comm.communicator import Work
+        t = t.contiguous()
+        if async_op:
+            return ThreadWork(lambda: self._meet(t, read))
+        return Work(self._meet(t, read))
+
+    def all_to_all(self, buf, *, async_op: bool = False):
+        """``(p_local, P_dst, s, ...)`` -> ``(p_local, P_src, s, ...)``."""
+        torch, rows = self._tw.torch, self.local_rows
+        return self._collective(buf, lambda ts: torch.cat(
+            [t[:, rows] for t in ts]).transpose(0, 1).contiguous(), async_op)
+
+    def all_gather(self, x, *, async_op: bool = False):
+        """``(p_local, shard, ...)`` -> ``(p_local, P * shard, ...)``."""
+        torch, pl = self._tw.torch, self.p_local
+
+        def spread(ts):
+            flat = torch.cat(ts).reshape((1, -1) + tuple(x.shape[2:]))
+            return flat.expand((pl,) + tuple(flat.shape[1:])).contiguous()
+
+        return self._collective(x, spread, async_op)
+
+    def all_reduce(self, x, op: str = "sum", *, async_op: bool = False):
+        """``(p_local, ...)`` -> ``(p_local, ...)``: the ranks folded in
+        ascending order."""
+        from repro_torch.comm.communicator import _fold
+        torch = self._tw.torch
+        assert op in ("sum", "max"), op
+        return self._collective(x, lambda ts: _fold(
+            torch.cat(ts), op).expand(x.shape).contiguous(), async_op)
+
+
+class ThreadWorld:
+    """``world`` processes of ``p_local`` ranks each, played by threads on
+    one device: what the smoke's one card can show of a ``DistComm`` whose
+    processes hold only some of the ranks (a nonzero ``rank_offset``).
+    Each thread runs on a CUDA stream of its own, as a process runs on its
+    own default stream.  The threads meet at a ``threading.Barrier`` with
+    a timeout; a thread that raises breaks the barrier, so the other
+    stops too and the phase fails rather than hangs."""
+
+    def __init__(self, torch, world: int, p_local: int, device,
+                 timeout: float = THREAD_TIMEOUT_S):
+        self.torch, self.device = torch, device
+        self.world, self.p_local, self.timeout = world, p_local, timeout
+        self.barrier, self.posted = None, None
+
+    def sync(self) -> None:
+        if self.device.type == "cuda":
+            self.torch.cuda.current_stream(self.device).synchronize()
+
+    def run(self, fn) -> list:
+        """``fn(comm)`` in every thread, each with its ``ThreadComm``;
+        returns the results in rank order."""
+        import threading
+        import traceback
+        torch = self.torch
+        self.barrier = threading.Barrier(self.world, timeout=self.timeout)
+        self.posted = [None] * self.world
+        results, errors = [None] * self.world, {}
+
+        def body(rank):
+            try:
+                stream = (torch.cuda.Stream(device=self.device)
+                          if self.device.type == "cuda" else None)
+                with (torch.cuda.stream(stream) if stream is not None
+                      else contextlib.nullcontext()):
+                    results[rank] = fn(ThreadComm(self, rank))
+                    self.sync()
+            except BaseException as e:
+                errors[rank] = (isinstance(e, threading.BrokenBarrierError),
+                                traceback.format_exc())
+                self.barrier.abort()
+                raise
+
+        threads = [threading.Thread(target=body, args=(r,), daemon=True)
+                   for r in range(self.world)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(self.timeout)
+        check(not any(t.is_alive() for t in threads),
+              f"a ThreadWorld thread is still running after {self.timeout} s")
+        if errors:
+            # the thread that failed first, not one the broken barrier stopped
+            rank = min(errors, key=lambda r: errors[r][0])
+            fail(f"ThreadWorld rank {rank} failed:\n{errors[rank][1][-3000:]}")
+        return results
+
+
+DIST_EXPECTED = {("transposed", s): T_EXPECTED[s] for s in STRATEGIES}
+DIST_EXPECTED.update({("normal_equations", s): NE_EXPECTED[s]
+                      for s in STRATEGIES})
+DIST_EXPECTED[("cg", "condensed")] = NE_EXPECTED["condensed"]
+DIST_EXPECTED.update({("heat2d", s, m): H_EXPECTED[(s, m)]
+                      for s in STRATEGIES for m in ("dest", "full")})
+
+
+def drive_consumers(torch, comm, spmv, heat, per_case=None) -> dict:
+    """Every case of ``dist_consumers`` on ``comm``, with ``use_kernel=True``
+    and in one fixed order (every process calls the collectives alike):
+    the transposed product and ``normal_equations_step`` on every rung,
+    ``CG_DIST_ITERS`` CG iterations on the condensed rung, Heat2D on every
+    rung x {dest, full} for ``HEAT_CHECK_STEPS`` steps.  ``spmv`` holds
+    the matrix, x, b, the plans (the base plan and its ScatterPlan, also
+    keyed as ``Schedule.resolve``'s ``plans=``) and whether the plan cache
+    serves the Destination deltas; ``heat`` the field, its side, its
+    stencil pattern and base plan.  Returns each case's output on
+    ``comm``'s rows by key (CG's x, r and p stacked on dim 1; Heat2D's
+    tiles, and under ``("field", rung, mat)`` its gathered global field).
+    After each case's first run ``per_case(key, got, step, per, build_s,
+    launched)`` gets its output (Heat2D's: the field), its step (``per``
+    steps a call) and the kernel launches of that run."""
+    from repro_torch.core.heat2d import Heat2D
+    from repro_torch.core.solvers import ConjugateGradient
+    from repro_torch.core.spmv import DistributedSpMV, normal_equations_step
+    from repro_torch.kernels import ops as kops
+
+    m, x_host = spmv["matrix"], spmv["x"]
+    kw = dict(shards_per_node=SHARDS_PER_NODE, use_kernel=True)
+    sched_kw = dict(kw, blocksize=BLOCKSIZE, use_plan_cache=spmv["cache"])
+    out = {}
+
+    def case(key, build, per=1):
+        t0 = time.perf_counter()
+        step, field = build()
+        build_s = time.perf_counter() - t0
+        before = kops.launch_counts()
+        got = out[key] = step()
+        if comm.device.type == "cuda":
+            torch.cuda.current_stream(comm.device).synchronize()
+        after = kops.launch_counts()
+        if field is not None:
+            got = out[("field",) + key[1:]] = field(out[key])
+        if per_case is not None:
+            per_case(key, got, step, per, build_s,
+                     {k: after[k] - before[k] for k in after})
+
+    def transposed(s):
+        eng = DistributedSpMV(m, comm, strategy=s, transpose=True,
+                              base_plan=spmv["base"],
+                              scatter_plan=spmv["splan"], **kw)
+        x = eng.shard_vector(x_host)
+        return (lambda: eng(x)), None
+
+    def normal(s):
+        step = normal_equations_step(m, comm, strategy=s,
+                                     plans=dict(spmv["plans"]), **sched_kw)
+        x = step.shard_vector(x_host)
+        return (lambda: step(x)), None
+
+    def cg():
+        solver = ConjugateGradient(m, comm, strategy="condensed",
+                                   plans=dict(spmv["plans"]), **sched_kw)
+        carries = solver.carries(spmv["b"])
+        return (lambda: torch.stack(solver.schedule(
+            *carries, n_steps=CG_DIST_ITERS), dim=1)), None
+
+    def heat2d(s, mat):
+        h = Heat2D(comm, heat["n"], heat["n"], mprocs=MPROCS, nprocs=NPROCS,
+                   coef=HEAT_COEF, strategy=s, materialize=mat,
+                   pattern=heat["pattern"], base_plan=heat["base"],
+                   use_plan_cache=False, **kw)
+        phi = h.shard_field(heat["field"])
+        return (lambda: h.run(phi, HEAT_CHECK_STEPS)), h.gather_field
+
+    for s in STRATEGIES:
+        case(("transposed", s), lambda: transposed(s))
+    for s in STRATEGIES:
+        case(("normal_equations", s), lambda: normal(s))
+    case(("cg", "condensed"), cg, per=CG_DIST_ITERS)
+    for s in STRATEGIES:
+        for mat in ("dest", "full"):
+            case(("heat2d", s, mat), lambda: heat2d(s, mat),
+                 per=HEAT_CHECK_STEPS)
+    return out
+
+
+def thread_inputs():
+    """The two-thread arm's SpMV and Heat2D inputs (``drive_consumers``'s
+    ``spmv`` and ``heat``): the main path's generators at THREAD_N and
+    THREAD_HEAT_N², their plans built here once and each Destination
+    delta by its engine (no plan cache between threads)."""
+    from repro_torch.comm.pattern import AccessPattern
+    from repro_torch.comm.plan import Topology, build_comm_plan
+    from repro_torch.comm.schedule import plan_key
+    from repro_torch.core.matrix import make_mesh_like_matrix
+
+    topo = Topology(P, SHARDS_PER_NODE)
+    m = make_mesh_like_matrix(THREAD_N, R_NZ, locality_window=THREAD_N // 64,
+                              long_range_frac=0.02, seed=SEED)
+    rng = np.random.default_rng(SEED)
+    base = build_comm_plan(m.cols, THREAD_N, P, blocksize=BLOCKSIZE,
+                           topology=topo)
+    splan = base.transpose()
+    key = plan_key(AccessPattern.from_ellpack(m), P, BLOCKSIZE, topo)
+    spmv = {"matrix": m,
+            "x": rng.standard_normal(THREAD_N).astype(np.float32),
+            "b": rng.standard_normal(THREAD_N).astype(np.float32),
+            "base": base, "splan": splan,
+            "plans": {key: base, ("put", key): splan}, "cache": False}
+    pattern = AccessPattern.from_stencil5(THREAD_HEAT_N, THREAD_HEAT_N,
+                                          MPROCS, NPROCS)
+    heat = {"n": THREAD_HEAT_N, "pattern": pattern,
+            "base": build_comm_plan(pattern.indices, pattern.n, P,
+                                    topology=topo),
+            "field": rng.standard_normal(
+                (THREAD_HEAT_N, THREAD_HEAT_N)).astype(np.float32)}
+    return spmv, heat
+
+
+def same_output(torch, got, want) -> bool:
+    """Bit for bit: tensors as ``same_bits`` compares them, host arrays
+    (the Heat2D fields) through their int32 views."""
+    if isinstance(want, np.ndarray):
+        return np.array_equal(np.asarray(got).view(np.int32),
+                              want.view(np.int32))
+    return same_bits(torch, got, want)
+
+
+def phase_dist_consumers(torch, spmv, heat, twins, card):
+    """Arm ``nccl``: every case of ``drive_consumers`` over a ``DistComm(P)``
+    holding the P ranks in the one process of an NCCL group (world 1), at
+    the main path's sizes on the earlier phases' plans: each output bit
+    for bit its loopback twin's (``twins``, by key: the transposed,
+    normal_equations and heat2d phases' outputs, Heat2D's field, and the
+    DIST_TIMED rungs' steps), each case's kernels launched, the DIST_TIMED
+    rungs' ms a step beside their twins' (the twins timed once the arm's
+    counts are read: their launches are not the arm's).  Arm ``threads``:
+    the same cases over a ``ThreadWorld`` of THREAD_WORLD processes of
+    THREAD_P_LOCAL ranks at ``thread_inputs``' sizes, every output on the threads' rows, stacked, bit for bit the
+    ``LoopbackComm(P)`` run's on the same inputs (each thread's Heat2D
+    field the loopback field), and every kernel of the cases launched in
+    the threads.  Counters zeroed before each arm's dist run and read
+    after; returns both arms' counts summed."""
+    from repro_torch.comm.communicator import DistComm, LoopbackComm
+    from repro_torch.kernels import ops as kops
+
+    t_start = time.perf_counter()
+    lines = []
+
+    def reps(per):
+        return dict(warmup=1 if per > 1 else 5, iters=3 if per > 1 else 20)
+
+    def per_case(key, got, step, per, build_s, launched):
+        check(same_output(torch, got, twins[key]["out"]),
+              f"dist_consumers nccl {key}: not the LoopbackComm engine's "
+              "output bit for bit")
+        for k in DIST_EXPECTED[key]:
+            check(launched[k] > 0,
+                  f"dist_consumers nccl {key} never launched {k}")
+        line = {"consumer": key[0], "strategy": key[1],
+                **({"materialize": key[2]} if len(key) == 3 else {}),
+                "engine_s": round(build_s, 3),
+                "launches_per_run": {k: v for k, v in launched.items() if v}}
+        if key[1] in DIST_TIMED:
+            # the dist step here; its loopback twin once the counts are read
+            line.update({k.replace("_per_iter", "_per_step"): v / per
+                         for k, v in time_steps(torch, step, **reps(per))
+                         .items()})
+        lines.append((key, per, line))
+
+    with nccl_group(torch):
+        comm = DistComm(P)
+        check((comm.p, comm.p_local, comm.world, comm.device.type)
+              == (P, P, 1, "cuda"), f"DistComm {vars(comm)}")
+        kops.reset_launch_counts()
+        drive_consumers(torch, comm, spmv, heat, per_case=per_case)
+        counts = kops.launch_counts()
+    nccl_s = time.perf_counter() - t_start
+    for k in DIST_KERNELS:
+        check(counts[k] > 0, f"dist_consumers nccl never launched {k}")
+    for key, per, line in lines:
+        if key[1] in DIST_TIMED:
+            twin = time_steps(torch, twins[key]["step"], **reps(per))
+            line["loopback_ms_per_step"] = twin["ms_per_iter"] / per
+            line["loopback_host_enqueue_ms_per_step"] = twin[
+                "host_enqueue_ms_per_iter"] / per
+            line["dist_minus_loopback_ms"] = (line["ms_per_step"]
+                                              - line["loopback_ms_per_step"])
+        emit({"phase": "dist_consumers", "arm": "nccl",
+              "comm": f"DistComm, one process of an NCCL group (world 1), "
+                      f"p_local {P}", "bit_for_bit_loopback": True, **line,
+              "card": card})
+    twins.clear()
+
+    # the two-thread arm: a process at rank_offset 4 on the card
+    t0 = time.perf_counter()
+    t_spmv, t_heat = thread_inputs()
+    dev = comm.device
+    want = drive_consumers(torch, LoopbackComm(P, device=dev), t_spmv,
+                           t_heat)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    tw = ThreadWorld(torch, THREAD_WORLD, THREAD_P_LOCAL, dev)
+    kops.reset_launch_counts()
+    t1 = time.perf_counter()
+    got = tw.run(lambda c: drive_consumers(torch, c, t_spmv, t_heat))
+    threads_s = time.perf_counter() - t1
+    t_counts = kops.launch_counts()
+    for key, w in want.items():
+        if key[0] == "field":
+            for rank, res in enumerate(got):
+                check(same_output(torch, res[key], w),
+                      f"dist_consumers threads rank {rank} {key}: not the "
+                      "loopback field bit for bit")
+        else:
+            stacked = torch.cat([res[key] for res in got])
+            check(same_output(torch, stacked, w),
+                  f"dist_consumers threads {key}: the ranks' rows are not "
+                  "the LoopbackComm run's bit for bit")
+    for k in DIST_KERNELS:
+        check(t_counts[k] > 0, f"dist_consumers threads never launched {k}")
+    emit({"phase": "dist_consumers", "arm": "threads",
+          "world": THREAD_WORLD, "p_local": THREAD_P_LOCAL,
+          "rank_offsets": [c * THREAD_P_LOCAL for c in range(THREAD_WORLD)],
+          "n": THREAD_N, "heat_n": THREAD_HEAT_N,
+          "cases": sorted("/".join(k) for k in want if k[0] != "field"),
+          "bit_for_bit_loopback": True,
+          "launches": {k: v for k, v in t_counts.items() if v},
+          "loopback_s": round(ref_s, 3), "threads_s": round(threads_s, 3),
+          "card": card})
+    emit({"phase": "dist_consumers_summary",
+          "nccl_s": round(nccl_s, 3),
+          "threads_s": round(time.perf_counter() - t0, 3),
+          "wall_s": round(time.perf_counter() - t_start, 3),
+          "nccl_launches": {k: counts[k] for k in DIST_KERNELS},
+          "threads_launches": {k: t_counts[k] for k in DIST_KERNELS}})
+    return {k: counts[k] + t_counts[k] for k in DIST_KERNELS}
 
 
 # sane ranges of the calibration of ONE rank of LoopbackComm(P) on one
@@ -4183,6 +4625,11 @@ def phase_train_lm100m(torch, ckpt_dir, card):
 
 def main() -> None:
     import torch
+    # --only dist_consumers: the phase and the phases whose loopback
+    # engines it holds its outputs against, no kernels line
+    alone = sys.argv[1:] == ["--only", "dist_consumers"]
+    if sys.argv[1:] and not alone:
+        fail("usage: python3 chip_smoke.py [--only dist_consumers]")
     if not torch.cuda.is_available():
         fail("no CUDA device is available")
     src = pathlib.Path(__file__).resolve().parent / "src"
@@ -4241,7 +4688,7 @@ def main() -> None:
     fixed_kw = dict(shards_per_node=SHARDS_PER_NODE, use_kernel=True,
                     base_plan=base)
     engines = {}
-    for strategy in STRATEGIES:
+    for strategy in STRATEGIES if not alone else ():
         for mat in ("full", "dest"):
             engines[(strategy, mat)] = DistributedSpMV(
                 matrix, comm, strategy=strategy, materialize=mat,
@@ -4266,32 +4713,55 @@ def main() -> None:
           "device_mem_gb": round(torch.cuda.memory_allocated() / 1e9, 3)})
 
     hw = phase_calibration(torch, comm, card)
-    results = phase_kernels(torch, matrix, x_host, engines, y_ref)
-    results.update(phase_push_kernels(torch, matrix, x_host, t_engines,
-                                      probes))
-    results.update(phase_stencil_kernel(torch, comm.device))
-    results.update(phase_decode_attention_kernel(torch, comm.device))
-    results.update(phase_selective_scan_kernel(torch, comm.device))
-    counts, measured = phase_main_path(torch, engines, x_host, y_ref, card)
-    phase_auto_forward(torch, matrix, comm, engines, x_host, hw, measured,
-                       card)
-    rows = path_rows("forward", engines, measured, hw)
-    dist_counts = phase_dist_main_path(torch, matrix, base, engines, x_host,
-                                       card)
-    for k in FORWARD_KERNELS:
-        counts[k] += dist_counts[k]
+    counts, rows, results = {}, [], {}
+    if not alone:
+        results = phase_kernels(torch, matrix, x_host, engines, y_ref)
+        results.update(phase_push_kernels(torch, matrix, x_host, t_engines,
+                                          probes))
+        results.update(phase_stencil_kernel(torch, comm.device))
+        results.update(phase_decode_attention_kernel(torch, comm.device))
+        results.update(phase_selective_scan_kernel(torch, comm.device))
+        counts, measured = phase_main_path(torch, engines, x_host, y_ref,
+                                           card)
+        phase_auto_forward(torch, matrix, comm, engines, x_host, hw,
+                           measured, card)
+        rows = path_rows("forward", engines, measured, hw)
+        dist_counts = phase_dist_main_path(torch, matrix, base, engines,
+                                           x_host, card)
+        for k in FORWARD_KERNELS:
+            counts[k] += dist_counts[k]
+    # the loopback twins of dist_consumers' cases, from the three phases
+    # that run them
+    twins = {}
     t_counts, measured = phase_transposed(torch, t_engines, x_host, y_t_ref,
-                                          card)
+                                          card, twins)
     counts.update({k: v for k, v in t_counts.items() if k in PUSH_KERNELS})
     rows += path_rows("transposed", t_engines, measured, hw)
     del engines, t_engines
     torch.cuda.empty_cache()
-    h_counts, h_rows = phase_heat2d(torch, comm, hw, card)
+    h_counts, h_rows, heat = phase_heat2d(torch, comm, hw, card, twins)
     counts["stencil2d"] = h_counts["stencil2d"]
     rows += h_rows
     torch.cuda.empty_cache()
-    rows += phase_normal_equations(torch, comm, matrix, base, splan, x_host,
-                                   hw, card)
+    b = np.random.default_rng(SEED + 1).standard_normal(N).astype(
+        np.float32)
+    ne_rows, plans = phase_normal_equations(
+        torch, comm, matrix, base, splan, x_host, b, hw, card, twins)
+    rows += ne_rows
+    torch.cuda.empty_cache()
+    spmv = {"matrix": matrix, "x": x_host, "b": b, "base": base,
+            "splan": splan, "plans": plans, "cache": True}
+    for k, n in phase_dist_consumers(torch, spmv, heat, twins,
+                                     card).items():
+        counts[k] = counts.get(k, 0) + n
+    del spmv, heat, plans, twins
+    if alone:
+        # a partial run says so in its last line
+        emit({"ok": True, "only": "dist_consumers",
+              "device": {"platform": "gpu",
+                         "kind": torch.cuda.get_device_name(0),
+                         "count": torch.cuda.device_count()}})
+        return
     phase_model(rows, plan_seconds, card)
     del base, splan
     plan_cache.clear_memory_cache()

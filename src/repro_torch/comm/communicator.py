@@ -38,7 +38,7 @@ __all__ = ["LoopbackComm", "DistComm", "Work", "resolve_device",
            "require_all_ranks"]
 
 # the ROADMAP item that carries the consumers a DistComm does not serve yet
-PARTIAL_ITEM = "ROADMAP A23"
+PARTIAL_ITEM = "ROADMAP A23b"
 
 
 def resolve_device(device=None) -> torch.device:

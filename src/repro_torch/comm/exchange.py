@@ -135,8 +135,6 @@ class IrregularExchange:
             topology = topology or where.topology
         else:
             comm = where
-        if self.direction == "put":
-            require_all_ranks(comm, "IrregularScatter (the push direction)")
         if isinstance(pattern, DynamicPattern):
             require_all_ranks(comm, "a DynamicPattern exchange "
                               "(comm/dynamic.py)")

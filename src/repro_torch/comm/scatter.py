@@ -43,6 +43,12 @@ device derivation of ``comm.dynamic`` instead (the template's at
 construction, any batch's through ``derive_plan_args``); with
 ``use_kernel=True`` the fold kernels' segment tables are derived beside
 them on the device (``strategies.derive_scatter_segment_tables``).
+
+Over a ``DistComm`` each process builds the same host ``ScatterPlan`` and
+runs its ``p_local`` ranks on its rows of every table: ``shard_values``
+places its rows of the contributions, and ``y`` holds its owned slices.
+A ``DynamicPattern`` and ``derive_plan_args`` still need every rank in
+the process (``communicator.require_all_ranks``).
 """
 from __future__ import annotations
 
@@ -55,6 +61,7 @@ import torch
 from repro_torch.comm import dynamic as dyn
 from repro_torch.comm import plan_cache
 from repro_torch.comm import strategies as strat
+from repro_torch.comm.communicator import require_all_ranks
 from repro_torch.comm.exchange import IrregularExchange
 from repro_torch.comm.plan import CommPlan, ScatterPlan, transpose_counts
 
@@ -154,9 +161,10 @@ class IrregularScatter(IrregularExchange):
 
     def _bind(self, base_plan: CommPlan, strategy: str) -> None:
         self.plan = base_plan  # the shared (direction-agnostic) base plan
-        self.plan_args = strat.to_device(
-            strat.scatter_plan_device_args(self.splan, strategy),
-            self.device)
+        # this process's rows of every per-rank table (all P on a
+        # LoopbackComm), as the gather takes them
+        self.plan_args = strat.local_args(
+            strat.scatter_plan_device_args(self.splan, strategy), self.comm)
         if self.dynamic_pattern is not None:
             # same substitution as the gather: the envelope plan's
             # accumulate-unpack table may belong to another founding
@@ -175,7 +183,8 @@ class IrregularScatter(IrregularExchange):
             self.plan_args += (self.tables,)
         elif self.use_kernel:
             self.tables = strat.scatter_segment_tables(
-                self.splan, strategy, self.plan_args)
+                self.splan, strategy, self.plan_args,
+                rows=self.comm.local_rows)
         self._start, self._finish = strat.make_scatter_start_local(
             self.splan, strategy, self.comm, self.reduce,
             use_kernel=self.use_kernel,
@@ -222,6 +231,7 @@ class IrregularScatter(IrregularExchange):
         ``DynamicPattern``'s exchange runs them.  The caller records
         ``telemetry.record("device-derive")`` once per executed step.
         """
+        require_all_ranks(self.comm, "derive_plan_args")
         if self.strategy not in dyn.DYNAMIC_STRATEGIES:
             raise ValueError(
                 f"derive_plan_args serves {dyn.DYNAMIC_STRATEGIES} "
@@ -245,14 +255,16 @@ class IrregularScatter(IrregularExchange):
     # ---- standalone surface ----
     def shard_values(self, vals) -> torch.Tensor:
         """Place a host ``(m, r, ...)`` contribution table on the device as
-        ``(P, m / P, r, ...)``, sharded over accessor rows like the plan."""
+        ``(P, m / P, r, ...)``, sharded over accessor rows like the plan:
+        this process's rows of it (``comm.local_rows``)."""
         vals = torch.as_tensor(np.asarray(vals))
         assert vals.shape[0] == self.pattern.m, (tuple(vals.shape),
                                                  self.pattern.m)
-        return vals.reshape((self.p, -1) + tuple(vals.shape[1:])).to(
-            self.device).contiguous()
+        return vals.reshape((self.p, -1) + tuple(vals.shape[1:]))[
+            self.comm.local_rows].to(self.device).contiguous()
 
     def __call__(self, vals: torch.Tensor) -> torch.Tensor:
         """Combined vector ``(P, shard, ...)``, row q owned by rank q:
-        y[t] = reduce of all contributions targeting t."""
+        y[t] = reduce of all contributions targeting t.  Over a
+        ``DistComm`` both are the process's ``p_local`` rows."""
         return self.local(vals, *self.plan_args)

@@ -21,7 +21,9 @@ that ``compile`` resolves every stage against one shared context:
 
 The reference compiles the chain into one ``shard_map``; the port runs the
 stages eagerly, in declaration order, on rank-stacked ``(P, ...)`` tensors
-(``comm.communicator.LoopbackComm``).  The handle protocol is the same: an
+(``comm.communicator.LoopbackComm``; over a ``DistComm``, this process's
+``p_local`` rows of every constant, input and stage value, the host plans
+built alike in every process).  The handle protocol is the same: an
 exchange stage *issues* its collective (``start_local``) when reached, and
 its landed messages are delivered (``finish``) only when a later stage
 first consumes them — every stage in between is enqueued while the
@@ -74,7 +76,6 @@ import torch
 from repro_torch.comm import plan_cache
 from repro_torch.comm import select
 from repro_torch.comm import strategies as strat
-from repro_torch.comm.communicator import require_all_ranks
 from repro_torch.comm.dynamic import DynamicPattern
 from repro_torch.comm.exchange import measure_hw
 from repro_torch.comm.gather import IrregularGather
@@ -105,10 +106,12 @@ def _unwrap_dynamic(pattern) -> AccessPattern:
     return pattern
 
 
-def _place(value, spec, p: int, device) -> torch.Tensor:
-    """A host value as a rank-stacked tensor: ``spec`` None splits dim 0
-    over the ``p`` ranks, a callable maps the host array to its ``(P,
-    ...)`` layout."""
+def _place(value, spec, comm) -> torch.Tensor:
+    """A host value as a rank-stacked tensor on ``comm``'s device: ``spec``
+    None splits dim 0 over the ``comm.p`` ranks, a callable maps the host
+    array to its ``(P, ...)`` layout; then this process's rows of it
+    (``comm.local_rows``: all P on a ``LoopbackComm``)."""
+    p = comm.p
     arr = np.asarray(value)
     if spec is None:
         if arr.shape[0] % p:
@@ -119,7 +122,8 @@ def _place(value, spec, p: int, device) -> torch.Tensor:
         arr = np.asarray(spec(arr))
         if arr.shape[0] != p:
             raise ValueError(f"spec placed {arr.shape[0]} rows, not {p}")
-    return torch.as_tensor(np.ascontiguousarray(arr)).to(device)
+    return torch.as_tensor(np.ascontiguousarray(
+        arr[comm.local_rows])).to(comm.device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -358,7 +362,6 @@ class Schedule:
         exchanges = self._exchange_stages()
         if not exchanges:
             raise ValueError("a schedule needs at least one exchange stage")
-        require_all_ranks(comm, "Schedule / ScanSchedule")
         p = comm.p
         if topology is None:
             topology = Topology(p, shards_per_node or p)
@@ -526,16 +529,17 @@ class Schedule:
 
 def _bind_operands(stages, exchanges, comm) -> dict[int, tuple]:
     """Each stage's bound operands, by stage id: a constant's placed tensor
-    or an exchange's device plan arrays."""
+    (this process's rows; a replicated one expanded to them) or an
+    exchange's device plan arrays."""
     bound: dict[int, tuple] = {}
     for st in stages:
         if st.kind == "constant":
             if st.replicated:
                 t = torch.as_tensor(np.ascontiguousarray(
                     np.asarray(st.value))).to(comm.device)
-                t = t.expand((comm.p,) + tuple(t.shape))
+                t = t.expand((comm.p_local,) + tuple(t.shape))
             else:
-                t = _place(st.value, st.spec, comm.p, comm.device)
+                t = _place(st.value, st.spec, comm)
             bound[st.sid] = (t,)
             st.value = None   # free the host copy
         elif st.kind in ("gather", "scatter"):
@@ -636,7 +640,7 @@ class _Compiled:
     def shard_input(self, value, which: int = 0) -> torch.Tensor:
         """Place a host value on the device with input ``which``'s spec."""
         st = self._stages[self._input_sids[which]]
-        return _place(value, st.spec, self.comm.p, self.comm.device)
+        return _place(value, st.spec, self.comm)
 
     # the SpMV-flavored alias every front door exposes
     def shard_vector(self, value) -> torch.Tensor:

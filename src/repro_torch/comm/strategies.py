@@ -377,8 +377,11 @@ def local_args(arrays, comm) -> tuple[torch.Tensor, ...]:
 # Each scatter strategy turns a table of *contributions* ``vals`` — one
 # tensor ``(P, rows, r, ...)`` whose slot (q, i, j) contributes to global
 # element ``tgt_global[q*rows + i, j]`` — into every rank's combined owned
-# slice ``y`` ``(P, shard, ...)``.  Duplicate targets combine under
-# ``reduce``:
+# slice ``y`` ``(P, shard, ...)``.  As in the pull direction the leading
+# axis holds this process's ranks (``p_local`` of them under a
+# ``DistComm``, with its rows of every plan table, ``local_args``); a
+# message keeps one lane block for each of the ``P`` receivers.  Duplicate
+# targets combine under ``reduce``:
 #
 #   * "add" — y[t] = sum of contributions (0 where none);
 #   * "max" — y[t] = max of contributions (0 where none; the -inf identity
@@ -456,8 +459,11 @@ def replicate_scatter_start_local(vals, tgt, win_mask, *, comm, n: int,
 
 
 def replicate_scatter_finish_local(work, touched, *, shard_size: int,
-                                   reduce: str):
-    y = own_rows(work.wait(), shard_size)
+                                   reduce: str, p: int | None = None,
+                                   start: int = 0):
+    """Each local rank's own slice of the all-reduced vector: ranks
+    ``start .. start + p_local - 1`` of ``p`` (default: every rank)."""
+    y = own_rows(work.wait(), shard_size, p, start)
     return _mask_untouched(y, touched, reduce)
 
 
@@ -468,14 +474,18 @@ def condensed_scatter_start_local(vals, cond_msg_idx, win_mask, *, comm,
                                   ) -> Work:
     """UPCv3 put: sender-side segment-combine into one padded message per
     (sender, receiver) pair, then the consolidated exchange (the transpose
-    of the gather's pack + ``upc_memput``).  The landed ``(P, P, s_max,
-    ...)`` contribution buffer is not yet accumulated."""
+    of the gather's pack + ``upc_memput``).  ``vals`` holds the process's
+    ``p_local`` sender rows, ``p`` is the receivers' count (``comm.p``).
+    The landed ``(p_local, P, s_max, ...)`` contribution buffer is not yet
+    accumulated."""
+    rows = vals.shape[0]
     feat = tuple(vals.shape[3:])
     v = _apply_set_mask(vals, win_mask, reduce)
-    buf = accumulate(_lanes(v), cond_msg_idx.reshape(p, -1),
+    buf = accumulate(_lanes(v), cond_msg_idx.reshape(rows, -1),
                      out_len=p * s_max + 1, reduce=reduce)
-    return comm.all_to_all(buf[:, :p * s_max].reshape((p, p, s_max) + feat),
-                           async_op=async_op)
+    return comm.all_to_all(
+        buf[:, :p * s_max].reshape((rows, p, s_max) + feat),
+        async_op=async_op)
 
 
 def condensed_scatter_finish_local(work, vals, unpack_idx, own_idx,
@@ -506,14 +516,17 @@ def blockwise_scatter_start_local(vals, blk_msg_idx, win_mask, *, comm,
                                   ) -> Work:
     """UPCv2 put: contributions combine into whole virtual blocks (only
     blocks containing >= 1 target travel); one padded block all_to_all.
-    The landed ``(P, P, b_max * BS, ...)`` blocks are not yet combined."""
+    Rows and ``p`` as for ``condensed_scatter_start_local``.  The landed
+    ``(p_local, P, b_max * BS, ...)`` blocks are not yet combined."""
+    rows = vals.shape[0]
     feat = tuple(vals.shape[3:])
     v = _apply_set_mask(vals, win_mask, reduce)
     width = b_max * blocksize
-    buf = accumulate(_lanes(v), blk_msg_idx.reshape(p, -1),
+    buf = accumulate(_lanes(v), blk_msg_idx.reshape(rows, -1),
                      out_len=p * width + 1, reduce=reduce)
-    return comm.all_to_all(buf[:, :p * width].reshape((p, p, width) + feat),
-                           async_op=async_op)
+    return comm.all_to_all(
+        buf[:, :p * width].reshape((rows, p, width) + feat),
+        async_op=async_op)
 
 
 def blockwise_scatter_finish_local(work, vals, unpack_blk, own_idx, win_mask,
@@ -578,10 +591,12 @@ def _padding_lanes(counts, width: int, device) -> torch.Tensor:
 
 
 def scatter_segment_tables(splan: ScatterPlan, strategy: str,
-                           plan_args) -> dict:
+                           plan_args, rows: slice = slice(None)) -> dict:
     """The kernel arm's ``SegmentTable`` for every combine of one rung,
     built once from the rung's plan arrays on their device
-    (``plan_args``, as ``scatter_plan_device_args`` orders them):
+    (``plan_args``, as ``scatter_plan_device_args`` orders them, cut to
+    the ``rows`` of the plan's ranks that this process holds:
+    ``comm.local_rows``, every rank by default):
 
     * replicate: ``"all"`` (every contribution into the n-long vector);
     * condensed/overlap: ``"pack"`` (dump slot ``P·s_max`` left out),
@@ -590,32 +605,35 @@ def scatter_segment_tables(splan: ScatterPlan, strategy: str,
     * blockwise: ``"pack"``, ``"own"`` and ``"blocks"`` (padded blocks left
       out, recorded as padding).
     """
+    # message tables span the P receivers whatever rows this process holds
     p, shard = splan.p, splan.shard_size
+    pl = plan_args[0].shape[0]
     table = kops.segment_table
     if strategy == "replicate":
         tgt = plan_args[0]
-        return {"all": table(tgt.reshape(p, -1), out_len=splan.n)}
+        return {"all": table(tgt.reshape(pl, -1), out_len=splan.n)}
     msg, unpack, own = plan_args[:3]
     dev = msg.device
-    tables = {"own": table(own.reshape(p, -1), out_len=shard + 1,
+    tables = {"own": table(own.reshape(pl, -1), out_len=shard + 1,
                            live_len=shard)}
     if strategy in ("condensed", "overlap"):
         live = p * splan.s_max
-        tables["pack"] = table(msg.reshape(p, -1), out_len=live + 1,
+        tables["pack"] = table(msg.reshape(pl, -1), out_len=live + 1,
                                live_len=live)
         tables["into"] = table(
-            unpack.reshape(p, -1), out_len=shard + 1, live_len=shard,
-            pad=_padding_lanes(splan.base.send_counts, splan.s_max, dev))
+            unpack.reshape(pl, -1), out_len=shard + 1, live_len=shard,
+            pad=_padding_lanes(splan.base.send_counts[rows], splan.s_max,
+                               dev))
         return tables
     if strategy == "blockwise":
         live = p * splan.b_max * splan.blocksize
         nblk = splan.blocks_per_shard
-        tables["pack"] = table(msg.reshape(p, -1), out_len=live + 1,
+        tables["pack"] = table(msg.reshape(pl, -1), out_len=live + 1,
                                live_len=live)
         tables["blocks"] = table(
-            unpack.reshape(p, -1), out_len=nblk + 1, live_len=nblk,
-            pad=_padding_lanes(splan.base.send_block_counts, splan.b_max,
-                               dev))
+            unpack.reshape(pl, -1), out_len=nblk + 1, live_len=nblk,
+            pad=_padding_lanes(splan.base.send_block_counts[rows],
+                               splan.b_max, dev))
         return tables
     raise ValueError(f"unknown strategy {strategy!r}")
 
@@ -650,7 +668,9 @@ def make_scatter_start_local(splan: ScatterPlan, strategy: str, comm,
 
     ``start_fn(vals, *plan_args, async_op=False) -> Work`` packs
     (sender-side combine) and issues the exchange; ``finish_fn(work, vals,
-    *plan_args) -> y`` ``(P, shard, ...)`` runs the own-accumulate — which
+    *plan_args) -> y`` ``(P, shard, ...)`` (the process's rows: ``plan_args``
+    are its rows of ``scatter_plan_device_args``, ``local_args``, and
+    ``tables`` were built from them) runs the own-accumulate — which
     depends only on local contributions, so it runs while the exchange is in
     flight (on the card the loopback copy runs on a side stream) — and then
     combines the landed foreign contributions.  The ``overlap`` rung is the
@@ -692,7 +712,8 @@ def make_scatter_start_local(splan: ScatterPlan, strategy: str, comm,
 
         def finish(work, vals, tgt, win, touched):
             return replicate_scatter_finish_local(
-                work, touched, shard_size=shard, reduce=reduce)
+                work, touched, shard_size=shard, reduce=reduce, p=p,
+                start=comm.rank_offset)
 
         return start, finish
     if strategy in ("condensed", "overlap"):

@@ -46,7 +46,6 @@ import numpy as np
 import torch
 
 from repro_torch.comm import plan_cache, select
-from repro_torch.comm.communicator import require_all_ranks
 from repro_torch.comm.exchange import measure_hw
 from repro_torch.comm.pattern import AccessPattern, Destination
 from repro_torch.comm.plan import CommPlan, Topology
@@ -151,7 +150,9 @@ def _set_ring(dst: torch.Tensor, top, bottom, left, right) -> torch.Tensor:
 
 class Heat2D:
     """Distributed 2D heat solver on an (mprocs × nprocs) grid of the ranks
-    of ``comm`` (a ``LoopbackComm`` with ``mprocs * nprocs`` ranks).
+    of ``comm`` (a ``LoopbackComm`` with ``mprocs * nprocs`` ranks, or a
+    ``DistComm`` whose process holds ``p_local`` consecutive ranks of them
+    and steps only their tiles; a process's ranks may cut a grid row).
 
     ``strategy`` picks the gather rung for the halo exchange (default
     ``condensed``; ``"auto"`` lets the §5 window models choose, from
@@ -183,7 +184,6 @@ class Heat2D:
             strategy = "overlap" if overlap else "condensed"
         if materialize not in ("dest", "full"):
             raise ValueError(f"unknown materialize mode {materialize!r}")
-        require_all_ranks(comm, "Heat2D")
         p = mprocs * nprocs
         if comm.p != p:
             raise ValueError(f"a {mprocs} x {nprocs} grid needs {p} ranks, "
@@ -256,8 +256,11 @@ class Heat2D:
         self.overlap = split = overlap or strategy == "overlap"
 
         # global boundary cells keep their value (the paper copies the
-        # boundary): the rank's grid coordinates place its tile
-        ranks = torch.arange(p, device=self.device)
+        # boundary): the rank's grid coordinates place its tile; the rows
+        # are this process's ranks (every rank on a LoopbackComm)
+        pl = comm.p_local
+        ranks = torch.arange(comm.rank_offset, comm.rank_offset + pl,
+                             device=self.device)
         grow = ((ranks // nprocs) * m_loc)[:, None] + torch.arange(
             m_loc, device=self.device)
         gcol = ((ranks % nprocs) * n_loc)[:, None] + torch.arange(
@@ -272,7 +275,7 @@ class Heat2D:
 
         def add_common_stages(sched, *, double_buffer):
             phi_ref = sched.input("phi", spec=self._tiles)
-            flat = sched.compute(lambda phi: phi.reshape(p, -1), phi_ref,
+            flat = sched.compute(lambda phi: phi.reshape(pl, -1), phi_ref,
                                  name="flatten")
             halo_refs = ()
             if materialize != "dest":
@@ -301,7 +304,7 @@ class Heat2D:
 
         def pad_with_halos(phi, halos):
             up_v, dn_v, lf_v, rt_v = halos
-            padded = phi.new_zeros((p, m_loc + 2, n_loc + 2))
+            padded = phi.new_zeros((pl, m_loc + 2, n_loc + 2))
             padded[:, 1:-1, 1:-1] = phi
             padded[:, 0, 1:-1] = up_v
             padded[:, -1, 1:-1] = dn_v
@@ -367,7 +370,7 @@ class Heat2D:
 
             half = sched.compute(ring_half, phi_ref, g, *halo_refs,
                                  name="ring_half")
-            flat_half = sched.compute(lambda h: h.reshape(p, -1), half,
+            flat_half = sched.compute(lambda h: h.reshape(pl, -1), half,
                                       name="flatten_half")
             sched.feed(g, flat_half)
             inner = sched.compute(stencil, phi_ref, name="interior")
@@ -411,11 +414,18 @@ class Heat2D:
         return self.gather.counts
 
     def shard_field(self, field) -> torch.Tensor:
-        """Host ``(M, N)`` field -> ``(P, m_loc, n_loc)`` on the device."""
+        """Host ``(M, N)`` field -> ``(P, m_loc, n_loc)`` on the device:
+        this process's tiles of it."""
         return self.schedule.shard_input(field)
 
     def gather_field(self, phi: torch.Tensor) -> np.ndarray:
-        """``(P, m_loc, n_loc)`` tiles -> the global ``(M, N)`` host array."""
+        """``(P, m_loc, n_loc)`` tiles -> the global ``(M, N)`` host array.
+        A process that holds only some of the tiles gathers the others
+        with one ``comm.all_gather``."""
+        comm = self.comm
+        if comm.p_local < comm.p:
+            phi = comm.all_gather(
+                phi.reshape(comm.p_local, -1).contiguous()).wait()[0]
         a = phi.detach().cpu().numpy().reshape(
             self.mprocs, self.nprocs, self.m_loc, self.n_loc)
         return a.transpose(0, 2, 1, 3).reshape(self.big_m, self.big_n)

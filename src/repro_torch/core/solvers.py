@@ -11,7 +11,9 @@ communicator's ``all_reduce`` — a collective, as the reference's ``psum``
 is — and the vector updates are local AXPYs.  Since MᵀM is symmetric
 positive definite whenever M is nonsingular, CGNR converges for any of the
 paper's mesh-like test matrices, solving ``M x = b`` in the least-squares
-sense via ``(MᵀM) x = Mᵀ b``.
+sense via ``(MᵀM) x = Mᵀ b``.  Over a ``DistComm`` each process runs its
+``p_local`` ranks' rows; the dots' all-reduce folds the ranks in
+ascending order there too, so every iterate is ``LoopbackComm``'s.
 
 Usage (solve (MᵀM) x = b):
 
@@ -23,13 +25,28 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.comm.communicator import require_all_ranks
 from repro_torch.comm.plan import Topology
 from repro_torch.comm.schedule import Schedule
 from repro_torch.core.matrix import EllpackMatrix
 from repro_torch.core.spmv import normal_equations_stages
 
 __all__ = ["ConjugateGradient", "cg_solve"]
+
+
+def _rank_sums(t: torch.Tensor, comm) -> torch.Tensor:
+    """Each local rank's sum of its row of ``t`` ``(p_local, n)``,
+    reduced as a row of a ``(P, n)`` tensor whatever ``p_local`` is:
+    the card's row reduction splits a row by how many rows it reduces, so
+    a process holding some of the ranks sums its rows among zero rows to
+    give ``LoopbackComm``'s bits.  That costs such a process P / p_local
+    times a dot's memory and work; a pairwise tree of elementwise adds has
+    the same bits everywhere but costs log2(n) launches a dot, 0.2-0.7 ms
+    of host time a CG iteration on an H100's host (PERF.md)."""
+    if comm.p_local == comm.p:
+        return t.sum(-1)
+    full = t.new_zeros((comm.p,) + tuple(t.shape[1:]))
+    full[comm.local_rows] = t
+    return full.sum(-1)[comm.local_rows]
 
 
 def _safe_div(a, b):
@@ -64,7 +81,6 @@ class ConjugateGradient:
                  use_kernel: bool = False, plans: dict | None = None,
                  hw=None, use_plan_cache: bool = True,
                  n_steps_hint: int | None = None):
-        require_all_ranks(comm, "ConjugateGradient")
         p = comm.p
         self.matrix = matrix
         self.comm = comm
@@ -77,7 +93,8 @@ class ConjugateGradient:
 
         def gdots(*pairs):
             """Every rank's global dot of each pair: ``(P, len(pairs))``."""
-            part = torch.stack([(a * b).sum(-1) for a, b in pairs], dim=-1)
+            part = torch.stack([_rank_sums(a * b, comm) for a, b in pairs],
+                               dim=-1)
             return comm.all_reduce(part, "sum").wait()
 
         # both dots in one stage: the (r·r, p·z) pair rides a single tiny

@@ -44,10 +44,9 @@ foreign partial on the unpacked remote values.
 ``Schedule`` whose gather and scatter stages share one base plan.
 
 Over a ``DistComm`` each process builds the same host plan and runs the
-forward product of its own ``p_local`` ranks: ``shard_vector`` places its
-rows of x, and ``y`` holds its rows.  The transposed product and the
-normal equations refuse a process that holds only some of the ranks
-(``communicator.require_all_ranks``).
+product of its own ``p_local`` ranks, in either direction and in the
+normal equations: ``shard_vector`` places its rows of x, and ``y`` (or
+``z``) holds its rows.
 
 Usage:
     comm = LoopbackComm(8)                 # 8 ranks on the default card
@@ -62,7 +61,6 @@ import numpy as np
 import torch
 
 from repro_torch.comm import strategies as strat
-from repro_torch.comm.communicator import require_all_ranks
 from repro_torch.comm.gather import IrregularGather
 from repro_torch.comm.pattern import AccessPattern, Destination
 from repro_torch.comm.plan import CommPlan, ScatterPlan, Topology
@@ -99,7 +97,7 @@ def _dest_product(landed: strat.Landed, vals, diag, table, *,
 class DistributedSpMV:
     """y = (D + A) x (or ``(D + A)ᵀ x`` with ``transpose=True``) with x, y,
     D, A, J sharded over the ranks of ``comm`` (a ``LoopbackComm``, or a
-    ``DistComm`` for the forward product).
+    ``DistComm``: this process's rows of each).
     ``base_plan`` shares one already-built destination-independent
     ``CommPlan`` between engines over the same matrix, and ``scatter_plan``
     one ``ScatterPlan`` between transposed engines."""
@@ -129,7 +127,6 @@ class DistributedSpMV:
         topology = Topology(p, shards_per_node or p)
         self.transpose = transpose
         if transpose:
-            require_all_ranks(comm, "DistributedSpMV(transpose=True)")
             assert materialize is None, (
                 "materialize= is a gather-unpack knob; the transposed "
                 "product always accumulates straight into the owned slice")
@@ -292,9 +289,10 @@ class DistributedSpMV:
         self.blocksize = self.plan.blocksize
         self.materialize = None
         rows = matrix.cols.shape[0] // p
-        diag = torch.as_tensor(matrix.diag).reshape(p, rows).to(comm.device)
-        vals = torch.as_tensor(np.ascontiguousarray(matrix.vals)).reshape(
-            p, rows, -1).to(comm.device)
+        # this process's rows (every rank's on a LoopbackComm)
+        diag, vals = strat.local_args(
+            [matrix.diag.reshape(p, rows), matrix.vals.reshape(p, rows, -1)],
+            comm)
         sargs = scatter.plan_args
 
         def step(x):

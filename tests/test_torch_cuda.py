@@ -2240,3 +2240,50 @@ def test_dist_condensed_spmv_step_with_kernels(nccl_group, dev,
                 "ellpack_spmv_windowed") if materialize == "full" else (
                     "pack_gather", "unpack_dest")
     assert all(counts[k] > 0 for k in launched), counts
+
+
+def test_dist_transposed_condensed_spmv_with_kernels(nccl_group, dev):
+    """One condensed transposed step through a world-1 NCCL DistComm
+    holding the 8 ranks, with the card's fold kernels: y bit for bit the
+    LoopbackComm(8) engine's, B5 and B6 launched."""
+    from repro_torch.comm import plan_cache
+    from repro_torch.comm.communicator import DistComm
+    from repro_torch.comm.plan import Topology
+    n = 1 << 14
+    m = make_mesh_like_matrix(n, 16, locality_window=256,
+                              long_range_frac=0.02, seed=4)
+    x = np.random.default_rng(4).standard_normal(n).astype(np.float32)
+    base = plan_cache.get_comm_plan(m.cols, n, 8, blocksize=256,
+                                    topology=Topology(8, 4), cache=False)
+    kw = dict(strategy="condensed", shards_per_node=4, use_kernel=True,
+              transpose=True, base_plan=base, scatter_plan=base.transpose(),
+              use_plan_cache=False)
+    loop = DistributedSpMV(m, LoopbackComm(8), **kw)
+    want = loop(loop.shard_vector(x))
+    eng = DistributedSpMV(m, DistComm(8), **kw)
+    kops.reset_launch_counts()
+    got = eng(eng.shard_vector(x))
+    torch.cuda.synchronize()
+    counts = kops.launch_counts()
+    assert torch.equal(got, want)
+    assert all(counts[k] > 0 for k in ("accumulate_segments",
+                                       "accumulate_into")), counts
+
+
+@pytest.mark.parametrize("p_local", [1, 2, 4])
+def test_rank_sums_are_the_loopback_row_sums(dev, p_local):
+    """CG's partial dots on the card: a process holding some of the 8
+    ranks sums its rows to the bits of the 8-row reduction, at every
+    offset (the card's row reduction splits a row by how many rows it
+    reduces)."""
+    import types
+
+    from repro_torch.core.solvers import _rank_sums
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    t = torch.randn((8, 1 << 19), generator=gen).to(dev)
+    want = t.sum(-1)
+    for off in range(0, 8, p_local):
+        rows = slice(off, off + p_local)
+        comm = types.SimpleNamespace(p=8, p_local=p_local, local_rows=rows)
+        got = _rank_sums(t[rows].contiguous(), comm)
+        assert torch.equal(got.view(torch.int32), want[rows].view(torch.int32))

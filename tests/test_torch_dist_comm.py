@@ -15,7 +15,8 @@ In process: the refusals (no group; a group whose backend does not serve
 the device) and ``require_all_ranks``.
 
 ``run_ranks`` is the launcher the other multi-process tests of the port
-use: one subprocess a rank, each with its own timeout.
+use: one subprocess a rank, each with its own timeout; ``run_worlds``
+runs it for several world sizes beside a JAX reference subprocess.
 """
 import os
 import pathlib
@@ -55,6 +56,41 @@ def run_ranks(script, world: int, tmp_path, *args, timeout: float = 240):
                 proc.kill()
                 proc.wait()
     return outs
+
+
+def run_worlds(script, worlds, tmp_path, jax_args, here, *,
+               timeout: float = 400):
+    """Run ``script``'s ranks for each world size in ``worlds`` (through
+    ``run_ranks``, each rank writing ``OUT-RANK.npz`` for its ``OUT``
+    argument) and, at the same time, ``python script jax *jax_args`` on
+    eight forced host devices, while ``here()`` runs in this process.
+    Returns ``here()``'s result and, by world size, each rank's npz as a
+    dict, in rank order."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT / "src"),
+               XLA_FLAGS="--xla_force_host_platform_device_count=8")
+
+    def spawn(world):
+        tmp = tmp_path / f"world-{world}"
+        tmp.mkdir()
+        run_ranks(script, world, tmp, tmp / "r", timeout=timeout)
+        return [dict(np.load(tmp / f"r-{r}.npz")) for r in range(world)]
+
+    with ThreadPoolExecutor(len(worlds)) as pool:
+        ranks = {w: pool.submit(spawn, w) for w in worlds}
+        jax = subprocess.Popen(
+            [sys.executable, str(script), "jax", *map(str, jax_args)],
+            env=env, stderr=subprocess.PIPE, text=True)
+        try:
+            mine = here()
+            _, err = jax.communicate(timeout=900)
+        finally:
+            if jax.poll() is None:
+                jax.kill()
+                jax.wait()
+        assert jax.returncode == 0, err[-4000:]
+        return mine, {w: f.result() for w, f in ranks.items()}
 
 
 def init_gloo(rank: int, world: int, init: str) -> None:

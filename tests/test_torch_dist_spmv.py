@@ -16,8 +16,11 @@ its rows of ``y`` and ``x_copy``:
 * ``strategy="auto"``: the same rung and the same predicted times on both
   processes (the calibration's maximum over ranks, ``core.tune``), and
   that rung's ``y`` bit for bit with the loopback engine's;
-* every consumer this slice does not carry refuses the partial
-  communicator by name (ROADMAP A23) rather than compute on it.
+* every consumer that does not run over a process holding some of the
+  ranks yet refuses the partial communicator by name (ROADMAP A23b: the
+  per-batch exchanges and their consumers) rather than compute on it; the
+  push direction, the normal equations, CG and Heat2D run over it
+  (``tests/test_torch_dist_push.py``, ``tests/test_torch_dist_heat2d.py``).
 """
 import json
 import os
@@ -60,16 +63,13 @@ def _engines(comm, m):
 
 
 def _refusals(comm, m, x):
-    """Every consumer outside this slice refuses ``comm`` by name."""
+    """Every consumer that does not serve a process holding some of the
+    ranks yet refuses ``comm`` by name."""
     import torch
 
     from repro_torch.comm.dynamic import DynamicPattern
     from repro_torch.comm.gather import IrregularGather
     from repro_torch.comm.pattern import AccessPattern
-    from repro_torch.comm.scatter import IrregularScatter
-    from repro_torch.core.heat2d import Heat2D
-    from repro_torch.core.solvers import ConjugateGradient
-    from repro_torch.core.spmv import DistributedSpMV, normal_equations_step
     from repro_torch.models.gnn import GNNNeighborAggregate
     from repro_torch.models import moe
 
@@ -77,16 +77,9 @@ def _refusals(comm, m, x):
     top_e = np.zeros((16, 2), np.int32)
     top_w = np.ones((16, 2), np.float32)
     cases = {
-        "transpose": lambda: DistributedSpMV(m, comm, transpose=True),
-        "normal_equations": lambda: normal_equations_step(
-            m, comm, strategy="condensed"),
-        "cg": lambda: ConjugateGradient(m, comm, strategy="condensed"),
-        "scatter": lambda: IrregularScatter(pattern, comm,
-                                            strategy="condensed"),
         "dynamic": lambda: IrregularGather(
             DynamicPattern.from_template(pattern, P), comm,
             strategy="condensed"),
-        "heat2d": lambda: Heat2D(comm, 64, 64, mprocs=2, nprocs=4),
         "derive_plan_args": lambda: IrregularGather(
             pattern, comm, strategy="condensed").derive_plan_args(
                 torch.as_tensor(pattern.indices)),
@@ -106,7 +99,7 @@ def _refusals(comm, m, x):
         try:
             build()
         except NotImplementedError as e:
-            assert "ROADMAP A23" in str(e), (name, e)
+            assert "ROADMAP A23b" in str(e), (name, e)
             refused.append(name)
     return refused
 
@@ -230,9 +223,8 @@ def test_dist_auto_picks_one_rung_on_every_rank(ranks, loopback):
 def test_dist_refuses_the_consumers_of_later_slices(ranks):
     for _, meta in ranks:
         assert meta["refused"] == [
-            "transpose", "normal_equations", "cg", "scatter", "dynamic",
-            "heat2d", "derive_plan_args", "gnn", "moe_dispatch", "moe_combine", "moe_layer",
-            "dynamic_moe"]
+            "dynamic", "derive_plan_args", "gnn", "moe_dispatch",
+            "moe_combine", "moe_layer", "dynamic_moe"]
 
 
 if __name__ == "__main__":
