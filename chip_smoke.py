@@ -160,7 +160,26 @@ each:
    scatter against the plain arm on the CPU); ms a step of both arms, its
    derivation, gather and scatter, the busy share, and the four kernels on
    one batch's derived tables against their plain versions with ms,
-   library ms and bound (kernel lines <kernel>_dyn_moe, _dyn_gnn);
+   library ms and bound (kernel lines <kernel>_dyn_moe, _dyn_gnn); then
+   dist_per_batch, in two arms.  Arm nccl: the same workloads, envelope
+   plans and batches over DistComm(8) in the one process of an NCCL group
+   (world 1), every process deriving each batch's whole tables and keeping
+   its rows: both rungs with use_kernel=True, the batches after the first
+   under the sync debug mode (a collective that syncs by itself is named
+   on a line of its own and run outside it), every output the loopback
+   kernel arm's bit for bit, B1, B2, B5 (twice) and B6 launched every step,
+   no plain version run, ms a step beside the loopback arm's; and, inside
+   phase 14, the same warm-up and requests served with the MoE hook's
+   DynamicMoELayer rebuilt over DistComm(8): the loopback engine's tokens.
+   Arm threads: the exchanges at 1024 tokens and 2^16 nodes, a
+   DynamicMoELayer (its __call__ and apply) and GNNNeighborAggregate at
+   small widths, over two processes of four ranks played by threads
+   (ThreadWorld, the second at rank_offset 4): the rows stacked, and each
+   thread's apply output, bit for bit a LoopbackComm(8) run's, the
+   exchange kernels launched in the threads.  ``python3 chip_smoke.py
+   --only dist_per_batch`` runs the card, build and calibration lines,
+   phases 14 and 15 and this one, and an ok line that carries "only":
+   "dist_per_batch";
 16. gnn: GNNNeighborAggregate over LoopbackComm(8) on a Zipf(1.1) graph of
    2^19 nodes, 16 neighbors, 64 float32 features, on the condensed rung
    and under auto, each against gnn_ref_np (rtol/atol 2e-4), timed, with
@@ -239,8 +258,8 @@ outside CALIBRATION_RANGE, an auto pick is not the argmin of its own
 ranking, or an auto engine's output differs from the fixed-rung engine it
 resolved to (bit for bit; the forward dest rungs may hold to
 unpack_dest_spmv's 3e-5 instead). A model miss, even past its budget, is printed, never a failure.
-In phases 5 to 15 and 18 (dist_main_path, dist_consumers' two arms and
-dist_train included) the kernel launch counters are zeroed just
+In phases 5 to 15 and 18 (dist_main_path, dist_consumers' and
+dist_per_batch's arms and dist_train included) the kernel launch counters are zeroed just
 before the path runs and read just after, and every kernel of the path
 must have launched; in phases 5, 7 and 8 every launch of unpack_dest and
 unpack_scatter_set must have gone through its plan table (the counts by C
@@ -356,6 +375,18 @@ DYN_KERNELS = ("pack_gather", "unpack_scatter_set", "accumulate_segments",
 # the landed-foreign fold
 DYN_STEP_LAUNCHES = {"pack_gather": 1, "unpack_scatter_set": 1,
                      "accumulate_segments": 2, "accumulate_into": 1}
+# the plain versions of DYN_KERNELS, which no kernel-arm step may call
+DYN_PLAIN = ("pack_gather_ref", "unpack_scatter_set_ref",
+             "accumulate_segments_ref", "accumulate_into_ref")
+# phase dist_per_batch's arm threads (two processes of four ranks played
+# by threads, THREAD_WORLD x THREAD_P_LOCAL): the exchanges at these sizes,
+# and a DynamicMoELayer and a GNN at small widths beside them
+DPB_THREAD_TOKENS = 1024
+DPB_THREAD_GNN_N = 1 << 16
+# (capacity 80: moe_capacity's at capacity factor 1.25)
+DPB_LAYER = dict(tokens=256, experts=8, top=2, capacity=80, d=64, f=128,
+                 routings=2)
+DPB_GNN = dict(n=1 << 12, r=8, d=16)
 MODEL_TOL = dict(rtol=2e-4, atol=2e-4)   # tests/test_kernels.py's, B8/B9
 # Training: llama3-8b at its published widths through launch.train, 8 of
 # its 32 layers (float32 master weights, gradients and two moments take 16
@@ -2903,7 +2934,7 @@ def phase_moe_serve(torch, card, hw):
     from repro_torch.kernels import ref as kref
     from repro_torch.launch import serve as lserve
     from repro_torch.models.transformer import Model, RunCtx, tree_map
-    from repro_torch.serve import Request
+    from repro_torch.serve import Request, ServeEngine
     from repro_torch.serve.engine import _with_moe_hook
 
     args = lserve.parse_args(MOE_ARGV)
@@ -2919,14 +2950,17 @@ def phase_moe_serve(torch, card, hw):
     check(set(layer.strategies.values()) <= {"condensed", "overlap"},
           f"the MoE layer resolved {layer.strategies}")
 
-    rng = np.random.default_rng(SEED + 1)
-    for i in range(MOE_WARMUP["requests"]):
-        engine.submit(Request(
-            id=f"warm{i}", prompt=rng.integers(
-                0, cfg.vocab_size, (MOE_WARMUP["prompt_len"],)).tolist(),
-            max_new_tokens=MOE_WARMUP["gen"], arrival_time=0.0))
+    def warm_up(eng):
+        rng = np.random.default_rng(SEED + 1)
+        for i in range(MOE_WARMUP["requests"]):
+            eng.submit(Request(
+                id=f"warm{i}", prompt=rng.integers(
+                    0, cfg.vocab_size, (MOE_WARMUP["prompt_len"],)).tolist(),
+                max_new_tokens=MOE_WARMUP["gen"], arrival_time=0.0))
+        eng.run()
+
     t0 = time.perf_counter()
-    engine.run()
+    warm_up(engine)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     n_ticks, n_tokens = len(engine._tick_seconds), len(engine._token_seconds)
@@ -2959,6 +2993,40 @@ def phase_moe_serve(torch, card, hw):
     check(counts["decode_attention"] == cfg.num_layers * decode_ticks,
           f"decode_attention launched {counts['decode_attention']} times "
           f"in {decode_ticks} decode ticks of {cfg.num_layers} layers")
+
+    # phase dist_per_batch's served tokens: the same warm-up and requests
+    # on the same model and weights, the hook's DynamicMoELayer rebuilt
+    # over DistComm(P) in a world-1 NCCL group
+    t0 = time.perf_counter()
+    with nccl_group(torch):
+        from repro_torch.comm.communicator import DistComm
+        dlayer = lserve.build_moe_layer(model, params, args.slots,
+                                        DistComm(P))
+        twin = ServeEngine(model, params, num_slots=args.slots,
+                           cache_len=args.prompt_len + args.gen,
+                           prefill_chunk=args.prefill_chunk,
+                           moe_layer=dlayer, cache_dtype=engine.cache_dtype)
+        warm_up(twin)
+        d_ticks, d_tokens = len(twin._tick_seconds), len(twin._token_seconds)
+        lserve.submit_trace(twin, cfg, args)
+        drep = twin.run()
+        torch.cuda.synchronize()
+        dist_strategies = dlayer.strategies
+        del dlayer, twin
+    check(all(drep.outputs.get(i) == report.outputs[i] for i in ids),
+          "dist_per_batch: the engine with its MoE hook over DistComm(8) "
+          "did not emit the loopback engine's tokens")
+    emit({"phase": "dist_per_batch", "arm": "nccl_serve", "arch": cfg.name,
+          "layers": cfg.num_layers, "requests": args.requests,
+          "comm": f"DistComm, one process of an NCCL group (world 1), "
+                  f"p_local {P}", "strategies": dist_strategies,
+          "tokens_equal_loopback": True,
+          "decode_tokens_per_s": {
+              "dist": len(drep.token_seconds[d_tokens:])
+              / sum(drep.tick_seconds[d_ticks:]),
+              "loopback": len(token_s) / sum(tick_s)},
+          "wall_s": round(time.perf_counter() - t0, 3), "card": card})
+    del drep
 
     # one tick's hook inputs, held from a decode step on the final cache
     held = []
@@ -3212,9 +3280,10 @@ def plain_time(torch, fn):
     return out, (ms if ms >= 20.0 else cuda_ms(torch, fn))
 
 
-def dyn_workloads(torch, dev):
+def dyn_workloads(torch, dev, tokens=DYN_MOE_TOKENS, gnn_n=DYN_GNN_N):
     """The two per-batch workloads, DYN_BATCHES batches each made from the
-    seed on the card (the first batch's pattern is the template):
+    seed on the card (the first batch's pattern is the template), MoE at
+    ``tokens`` tokens and the graph at ``gnn_n`` nodes:
     ``{name: dict(n, template (m, r) int32, cols [(m, r) int32 on dev], x
     [(P, n / P, ...)], vals [(P, m / P, r, ...)], shape)}``."""
     from repro_torch.configs.registry import get_config
@@ -3224,7 +3293,7 @@ def dyn_workloads(torch, dev):
 
     cfg = get_config("mixtral-8x22b")
     e, k, d = cfg.num_experts, cfg.experts_per_token, cfg.d_model
-    t = DYN_MOE_TOKENS
+    t = tokens
     cap = moe_capacity(t, cfg)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -3233,7 +3302,7 @@ def dyn_workloads(torch, dev):
         top_e, _ = random_router(SEED + 10 + b, t, e, k)
         idx, _ = moe_dispatch_pattern(top_e, t, e, cap, P)
         moe.append(torch.as_tensor(idx.reshape(-1, 1), device=dev))
-        gnn.append(random_neighbors(DYN_GNN_N, DYN_GNN_R, alpha=GNN_ALPHA,
+        gnn.append(random_neighbors(gnn_n, DYN_GNN_R, alpha=GNN_ALPHA,
                                     seed=SEED + 20 + b, device=dev))
     out = {
         "moe": dict(n=t, cols=moe, x=[torch.randn(
@@ -3245,11 +3314,11 @@ def dyn_workloads(torch, dev):
                   f"{cap} ({e * cap} slots), d {d} bf16"),
         # a node's score term gathered to its edges; exp of the edge
         # scores added into the target nodes (the softmax denominators)
-        "gnn": dict(n=DYN_GNN_N, cols=gnn, x=[torch.randn(
-            (P, DYN_GNN_N // P), generator=gen, device=dev) for _ in gnn],
-            vals=[torch.randn((P, DYN_GNN_N // P, DYN_GNN_R), generator=gen,
+        "gnn": dict(n=gnn_n, cols=gnn, x=[torch.randn(
+            (P, gnn_n // P), generator=gen, device=dev) for _ in gnn],
+            vals=[torch.randn((P, gnn_n // P, DYN_GNN_R), generator=gen,
                               device=dev).exp_() for _ in gnn],
-            shape=f"{DYN_GNN_N} nodes, {DYN_GNN_R} Zipf({GNN_ALPHA}) "
+            shape=f"{gnn_n} nodes, {DYN_GNN_R} Zipf({GNN_ALPHA}) "
                   f"neighbors, scalar float32"),
     }
     for w in out.values():
@@ -3411,7 +3480,10 @@ def phase_dynamic_exchange(torch, card):
     Then ms a step of both arms (the plain arm's from its checked steps,
     one call each), its pieces, the busy share and the kernel lines on one
     batch's derived tables.  Returns (kernel results, launches) keyed
-    ``<kernel>_dyn_<workload>``."""
+    ``<kernel>_dyn_<workload>``, and the twins phase dist_per_batch holds
+    its DistComm runs against: by workload its data, DynamicPattern,
+    envelope plan, kernel-arm exchanges by rung and their outputs by
+    (rung, batch)."""
     import itertools
 
     from repro_torch.comm import dynamic as dyn
@@ -3431,7 +3503,7 @@ def phase_dynamic_exchange(torch, card):
     workloads = dyn_workloads(torch, dev)
     torch.cuda.synchronize()
     data_s = time.perf_counter() - t0
-    results, counts = {}, {}
+    results, counts, twins = {}, {}, {}
     for name, w in workloads.items():
         wall = {"start": time.perf_counter()}
         n = w["n"]
@@ -3481,11 +3553,9 @@ def phase_dynamic_exchange(torch, card):
         # the path: the kernel arm, every batch, counters zeroed before
         kops.reset_launch_counts()
         outs = {}
-        plain_names = ("pack_gather_ref", "unpack_scatter_set_ref",
-                       "accumulate_segments_ref", "accumulate_into_ref")
         with contextlib.ExitStack() as stack:
             plain_calls = [stack.enter_context(held_calls(kref, f))
-                           for f in plain_names]
+                           for f in DYN_PLAIN]
             for rung in DYN_RUNGS:
                 for b in range(DYN_BATCHES):
                     torch.cuda.synchronize()
@@ -3539,7 +3609,9 @@ def phase_dynamic_exchange(torch, card):
                       "scatter differs from the plain arm")
                 check(bool(torch.isfinite(ky).all()),
                       f"dynamic_exchange {name}: a scatter not finite")
-        del outs, on_cpu, x_copy, y, kx, ky
+        twins[name] = dict(w=w, dp=dp, base=base, outs=outs, arms={
+            rung: arms[(rung, True)] for rung in DYN_RUNGS})
+        del on_cpu, x_copy, y, kx, ky
         wall["plain"] = time.perf_counter()
         # ms a step: the kernel arm cycling over the batches after the
         # first (CUDA events), the plain arm's checked steps
@@ -3594,7 +3666,334 @@ def phase_dynamic_exchange(torch, card):
         del arms, cpu_fold, g, s
         gc.collect()
         torch.cuda.empty_cache()
-    return results, counts
+    return results, counts, twins
+
+
+def dyn_step(g, s, w, b):
+    """One per-batch step of a gather ``g`` and a scatter-add ``s`` of one
+    workload of dyn_workloads on its batch ``b``: the batch's whole tables
+    derived once for both directions, each exchange run on its process's
+    rows of them (the overlap rung through its handles).  Returns (the
+    gather's n rows, the scatter's y), the process's rows."""
+    from repro_torch.comm import dynamic as dyn
+
+    cols, n, rows = w["cols"][b], w["n"], g.comm.local_rows
+    tables = dyn.derive_gather_tables(cols, n, g.p, g.plan.s_max)
+    gargs = g.derive_plan_args(cols, gather_tables=tables)
+    sargs = s.derive_plan_args(cols, gather_tables=tables)
+    x, vals = w["x"][b][rows], w["vals"][b][rows]
+    if g.strategy == "overlap":
+        hg, hs = g.start_local(x, *gargs), s.start_local(vals, *sargs)
+        return hg.finish()[:, :n], hs.finish()
+    return g.local(x, *gargs)[:, :n], s.local(vals, *sargs)
+
+
+def quiet(torch, fn):
+    """``fn()`` with torch.cuda's sync debug mode off, restored after."""
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(0)
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+
+
+class QuietWork:
+    """A collective's ``Work`` whose ``wait()`` runs outside the sync
+    debug mode."""
+
+    def __init__(self, torch, work):
+        self._torch, self._work = torch, work
+
+    def wait(self):
+        return quiet(self._torch, self._work.wait)
+
+
+class SyncExempt:
+    """``comm`` with the collectives named in ``names`` issued and waited
+    on outside the sync debug mode; every other attribute is ``comm``'s,
+    so the derivation and the kernels stay under the mode."""
+
+    def __init__(self, torch, comm, names):
+        self._torch, self._comm, self._names = torch, comm, set(names)
+
+    def __getattr__(self, attr):
+        fn = getattr(self._comm, attr)
+        if attr not in self._names:
+            return fn
+
+        def call(*args, **kwargs):
+            return QuietWork(self._torch, quiet(
+                self._torch, lambda: fn(*args, **kwargs)))
+        return call
+
+
+def collective_syncs(torch, comm) -> dict:
+    """The collective a per-batch step calls (``all_to_all``, sync and
+    ``async_op``) where it synchronises with the host under
+    ``torch.cuda.set_sync_debug_mode("error")``, each after a warm call:
+    ``{"all_to_all" or "all_to_all async_op": the error's first line}``."""
+    buf = torch.zeros((comm.p_local, comm.p, 4), device=comm.device)
+    syncs = {}
+    for name, async_op in (("all_to_all", False),
+                           ("all_to_all async_op", True)):
+        comm.all_to_all(buf, async_op=async_op).wait()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            comm.all_to_all(buf, async_op=async_op).wait()
+        except RuntimeError as exc:
+            syncs[name] = str(exc).splitlines()[0][:300]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    return syncs
+
+
+def dpb_layer_inputs():
+    """Arm threads' DynamicMoELayer and GNN inputs on the host, from the
+    seed: swiglu expert weights, tokens, the template and DPB_LAYER's
+    routings, a Zipf(GNN_ALPHA) graph and its features."""
+    from repro_torch.models.gnn import random_neighbors
+    from repro_torch.models.moe import random_router
+
+    c = DPB_LAYER
+    rng = np.random.default_rng(SEED + 30)
+    shapes = {"w1": (c["experts"], c["d"], c["f"]),
+              "w2": (c["experts"], c["f"], c["d"]),
+              "w3": (c["experts"], c["d"], c["f"])}
+    params = {k: (rng.standard_normal(v) * 0.3).astype(np.float32)
+              for k, v in shapes.items()}
+    x = rng.standard_normal((c["tokens"], c["d"])).astype(np.float32)
+    routings = [random_router(SEED + 40 + i, c["tokens"], c["experts"],
+                              c["top"]) for i in range(c["routings"] + 1)]
+    g = DPB_GNN
+    nbrs = random_neighbors(g["n"], g["r"], alpha=GNN_ALPHA, seed=SEED + 50)
+    h = rng.standard_normal((g["n"], g["d"])).astype(np.float32)
+    return dict(params=params, x=x, template=routings[0][0],
+                routings=routings[1:], nbrs=nbrs, h=h)
+
+
+def phase_dist_per_batch(torch, twins, hw, card):
+    """The per-batch consumers over a DistComm, in two arms.  Arm nccl:
+    each workload of phase dynamic_exchange (``twins``: its data, pattern,
+    envelope plan, kernel-arm exchanges and outputs) over ``DistComm(P)``
+    in the one process of an NCCL group (world 1), condensed and overlap
+    with use_kernel=True over DYN_BATCHES batches, each batch after the
+    first derived, gathered and scattered under
+    torch.cuda.set_sync_debug_mode("error") (a collective that syncs by
+    itself is named on a line of its own and run outside the mode, the
+    derivation and the kernels staying under it): every output the
+    loopback kernel arm's bit for bit, B1, B2, B5 and B6 launched every
+    step as there, no plain version run; then ms a step of each rung
+    beside the loopback arm's (the two in turns, once the counts are
+    read).  Arm
+    threads: the same exchanges at DPB_THREAD_TOKENS tokens and
+    DPB_THREAD_GNN_N nodes, a DynamicMoELayer (``__call__`` and ``apply``)
+    and GNNNeighborAggregate at DPB_LAYER's and DPB_GNN's widths, over a
+    ThreadWorld of THREAD_WORLD processes of THREAD_P_LOCAL ranks (the
+    second at rank_offset 4): the threads' rows stacked, and each thread's
+    ``apply`` output, bit for bit a LoopbackComm(P) run's, the exchange
+    kernels launched in the threads.  Returns both arms' launches of
+    DYN_KERNELS, summed."""
+    import itertools
+
+    from repro_torch.comm import dynamic as dyn
+    from repro_torch.comm import plan_cache
+    from repro_torch.comm.communicator import DistComm, LoopbackComm
+    from repro_torch.comm.gather import IrregularGather
+    from repro_torch.comm.pattern import AccessPattern
+    from repro_torch.comm.plan import Topology
+    from repro_torch.comm.scatter import IrregularScatter
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.models.gnn import GNNNeighborAggregate
+    from repro_torch.models.moe import DynamicMoELayer
+
+    def exchanges(comm, dp, base, rung):
+        return (IrregularGather(dp, comm, strategy=rung, use_kernel=True,
+                                base_plan=base),
+                IrregularScatter(dp, comm, strategy=rung, reduce="add",
+                                 use_kernel=True, base_plan=base))
+
+    def cycling(arms, w):
+        it = itertools.count()
+        return lambda: dyn_step(*arms, w, 1 + next(it) % (DYN_BATCHES - 1))
+
+    t_start = time.perf_counter()
+    steps = len(DYN_RUNGS) * DYN_BATCHES
+    counts = dict.fromkeys(DYN_KERNELS, 0)
+    lines = []
+    with nccl_group(torch):
+        comm = DistComm(P)
+        check((comm.p, comm.p_local, comm.world, comm.device.type)
+              == (P, P, 1, "cuda"), f"DistComm {vars(comm)}")
+        syncs = collective_syncs(torch, comm)
+        if syncs:
+            emit({"phase": "dist_per_batch", "arm": "nccl",
+                  "collective_syncs_with_the_host": syncs,
+                  "run_outside_the_sync_debug_mode": ["all_to_all"]})
+            comm = SyncExempt(torch, comm, ("all_to_all",))
+        for name, tw in twins.items():
+            w = tw["w"]
+            arms = {rung: exchanges(comm, tw["dp"], tw["base"], rung)
+                    for rung in DYN_RUNGS}
+            torch.cuda.synchronize()
+            kops.reset_launch_counts()
+            with contextlib.ExitStack() as stack:
+                plain_calls = [stack.enter_context(held_calls(kref, f))
+                               for f in DYN_PLAIN]
+                for rung in DYN_RUNGS:
+                    for b in range(DYN_BATCHES):
+                        torch.cuda.synchronize()
+                        if b:
+                            torch.cuda.set_sync_debug_mode("error")
+                        try:
+                            got = dyn_step(*arms[rung], w, b)
+                        except RuntimeError as exc:
+                            fail(f"dist_per_batch {name} {rung} batch {b}: "
+                                 f"{exc}")
+                        finally:
+                            torch.cuda.set_sync_debug_mode(0)
+                        check(all(same_bits(torch, a, e) for a, e in zip(
+                            got, tw["outs"][(rung, b)])),
+                            f"dist_per_batch {name} {rung} batch {b}: not "
+                            "the loopback kernel arm's bits")
+            torch.cuda.synchronize()
+            launched, entries = kops.launch_counts(), kops.entry_counts()
+            want_counts = {k: DYN_STEP_LAUNCHES.get(k, 0) * steps
+                           for k in launched}
+            check(launched == want_counts,
+                  f"dist_per_batch {name}: launches {launched}, expected "
+                  f"{want_counts}")
+            check(entries.get("rt_unpack_scatter_tiles") == steps
+                  and "rt_unpack_scatter_set" not in entries,
+                  f"dist_per_batch {name}: B2 ran {entries}")
+            check(all(h.calls == 0 for h in plain_calls),
+                  f"dist_per_batch {name}: a plain version ran: "
+                  f"{[h.calls for h in plain_calls]}")
+            for k in DYN_KERNELS:
+                counts[k] += launched[k]
+            # ms a step once the counts are read: dist, loopback,
+            # loopback, dist, each cycling over the batches after the first
+            step_ms = {}
+            for rung in DYN_RUNGS:
+                pair = (arms[rung], tw["arms"][rung])
+                reads = [time_steps(torch, cycling(pair[i], w), warmup=2,
+                                    iters=2 * DYN_BATCHES)
+                         for i in (0, 1, 1, 0)]
+                mean = {arm: {k: float(np.mean([r[k] for r in rs]))
+                              for k in ("ms_per_iter",
+                                        "host_enqueue_ms_per_iter")}
+                        for arm, rs in (("dist", reads[::3]),
+                                        ("loopback", reads[1:3]))}
+                step_ms[rung] = {
+                    "dist": mean["dist"]["ms_per_iter"],
+                    "loopback": mean["loopback"]["ms_per_iter"],
+                    "dist_minus_loopback": mean["dist"]["ms_per_iter"]
+                    - mean["loopback"]["ms_per_iter"],
+                    "dist_host_enqueue": mean["dist"][
+                        "host_enqueue_ms_per_iter"],
+                    "loopback_host_enqueue": mean["loopback"][
+                        "host_enqueue_ms_per_iter"],
+                    "readings_dist_loop_loop_dist": [
+                        r["ms_per_iter"] for r in reads]}
+            lines.append((name, launched, step_ms))
+            del arms, got
+    nccl_s = time.perf_counter() - t_start
+    for name, launched, step_ms in lines:
+        tw = twins[name]
+        emit({"phase": "dist_per_batch", "arm": "nccl", "workload": name,
+              "shape": tw["w"]["shape"],
+              "comm": f"DistComm, one process of an NCCL group (world 1), "
+                      f"p_local {P}", "rungs": list(DYN_RUNGS),
+              "batches": DYN_BATCHES,
+              "sync_free_batches": steps - len(DYN_RUNGS),
+              "collective_syncs": sorted(syncs),
+              "bit_for_bit_loopback": True,
+              "launches": {k: launched[k] for k in DYN_STEP_LAUNCHES},
+              "step_ms": step_ms, "card": card})
+
+    # arm threads: a process at rank_offset 4 on the card
+    t0 = time.perf_counter()
+    dev = next(iter(twins.values()))["w"]["x"][0].device
+    small = dyn_workloads(torch, dev, tokens=DPB_THREAD_TOKENS,
+                          gnn_n=DPB_THREAD_GNN_N)
+    envelopes = {}
+    for name, w in small.items():
+        dp = dyn.DynamicPattern.from_template(
+            AccessPattern.from_indices(w["template"], n=w["n"]), P)
+        envelopes[name] = (dp, plan_cache.get_envelope_plan(
+            w["template"], w["n"], P, topology=Topology(P, P),
+            s_max=dp.s_max, cache=False))
+    inp = dpb_layer_inputs()
+    lc = DPB_LAYER
+    weights = [torch.as_tensor(inp["params"][k], device=dev)
+               for k in ("w1", "w2", "w3")]
+    x_dev = torch.as_tensor(inp["x"], device=dev)
+
+    def drive(comm):
+        out = {}
+        for name, w in small.items():
+            for rung in DYN_RUNGS:
+                arms = exchanges(comm, *envelopes[name], rung)
+                for b in range(DYN_BATCHES):
+                    out[(name, rung, b)] = dyn_step(*arms, w, b)
+        layer = DynamicMoELayer(
+            inp["params"], inp["template"], lc["tokens"], lc["experts"],
+            lc["capacity"], comm, act="swiglu", strategy="condensed", hw=hw,
+            use_plan_cache=False)
+        for i, (te, tw_) in enumerate(inp["routings"]):
+            out[("moe_layer", i)] = (layer(layer.shard_tokens(inp["x"]), te,
+                                           tw_),)
+            out[("moe_apply", i)] = (layer.apply(
+                x_dev, torch.as_tensor(te, device=dev),
+                torch.as_tensor(tw_, device=dev), *weights),)
+        for rung in DYN_RUNGS:
+            gnn = GNNNeighborAggregate(inp["nbrs"], DPB_GNN["n"], comm,
+                                       strategy=rung, hw=hw,
+                                       use_plan_cache=False)
+            out[("gnn", rung)] = (gnn(gnn.shard_features(inp["h"])),)
+        return out
+
+    want = drive(LoopbackComm(P, device=dev))
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    kops.reset_launch_counts()
+    t1 = time.perf_counter()
+    got = ThreadWorld(torch, THREAD_WORLD, THREAD_P_LOCAL, dev).run(drive)
+    threads_s = time.perf_counter() - t1
+    t_counts = kops.launch_counts()
+    for key, w_out in want.items():
+        if key[0] == "moe_apply":
+            for rank, res in enumerate(got):
+                check(same_bits(torch, res[key][0], w_out[0]),
+                      f"dist_per_batch threads rank {rank} {key}: not the "
+                      "loopback layer's output bit for bit")
+            continue
+        for i, part in enumerate(w_out):
+            stacked = torch.cat([res[key][i] for res in got])
+            check(same_bits(torch, stacked, part),
+                  f"dist_per_batch threads {key}: the ranks' rows are not "
+                  "the LoopbackComm run's bit for bit")
+    for k in DYN_KERNELS:
+        check(t_counts[k] > 0, f"dist_per_batch threads never launched {k}")
+        counts[k] += t_counts[k]
+    emit({"phase": "dist_per_batch", "arm": "threads",
+          "world": THREAD_WORLD, "p_local": THREAD_P_LOCAL,
+          "rank_offsets": [c * THREAD_P_LOCAL for c in range(THREAD_WORLD)],
+          "shapes": {name: w["shape"] for name, w in small.items()},
+          "moe_layer": lc,
+          "gnn": DPB_GNN, "cases": len(want),
+          "bit_for_bit_loopback": True,
+          "launches": {k: t_counts[k] for k in DYN_KERNELS},
+          "loopback_s": round(ref_s, 3), "threads_s": round(threads_s, 3),
+          "card": card})
+    emit({"phase": "dist_per_batch_summary", "nccl_s": round(nccl_s, 3),
+          "threads_s": round(time.perf_counter() - t0, 3),
+          "wall_s": round(time.perf_counter() - t_start, 3),
+          "launches": counts})
+    return counts
 
 
 def _leaves(tree):
@@ -4623,13 +5022,31 @@ def phase_train_lm100m(torch, ckpt_dir, card):
           f"{[h['loss'] for h in hist[LM100M_RESUME:]]}")
 
 
+def only_dist_per_batch(torch, card) -> None:
+    """``--only dist_per_batch``: the phase and the two phases whose
+    loopback runs it holds its outputs against (moe_serve, which serves
+    its requests over the DistComm too, and dynamic_exchange), after the
+    calibration line; no kernels line."""
+    from repro_torch.comm.communicator import LoopbackComm
+
+    hw = phase_calibration(torch, LoopbackComm(P), card)
+    phase_moe_serve(torch, card, hw)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, _, twins = phase_dynamic_exchange(torch, card)
+    phase_dist_per_batch(torch, twins, hw, card)
+
+
 def main() -> None:
     import torch
-    # --only dist_consumers: the phase and the phases whose loopback
-    # engines it holds its outputs against, no kernels line
-    alone = sys.argv[1:] == ["--only", "dist_consumers"]
-    if sys.argv[1:] and not alone:
-        fail("usage: python3 chip_smoke.py [--only dist_consumers]")
+    # --only dist_consumers / dist_per_batch: the phase and the phases
+    # whose loopback runs it holds its outputs against, no kernels line
+    only = sys.argv[2] if len(sys.argv) == 3 and sys.argv[1] == "--only" \
+        else None
+    if sys.argv[1:] and only not in ("dist_consumers", "dist_per_batch"):
+        fail("usage: python3 chip_smoke.py "
+             "[--only dist_consumers|dist_per_batch]")
+    alone = only == "dist_consumers"
     if not torch.cuda.is_available():
         fail("no CUDA device is available")
     src = pathlib.Path(__file__).resolve().parent / "src"
@@ -4649,6 +5066,13 @@ def main() -> None:
 
     card = phase_card(torch)
     probes = phase_build()
+    if only == "dist_per_batch":
+        only_dist_per_batch(torch, card)
+        emit({"ok": True, "only": only,
+              "device": {"platform": "gpu",
+                         "kind": torch.cuda.get_device_name(0),
+                         "count": torch.cuda.device_count()}})
+        return
 
     t0 = time.perf_counter()
     matrix = make_mesh_like_matrix(N, R_NZ, locality_window=N // 64,
@@ -4787,9 +5211,12 @@ def main() -> None:
         "decode_attention"]
     gc.collect()
     torch.cuda.empty_cache()
-    dyn_results, dyn_counts = phase_dynamic_exchange(torch, card)
+    dyn_results, dyn_counts, dyn_twins = phase_dynamic_exchange(torch, card)
     results.update(dyn_results)
     counts.update(dyn_counts)
+    for k, n in phase_dist_per_batch(torch, dyn_twins, hw, card).items():
+        counts[k] += n
+    del dyn_twins
     gc.collect()
     torch.cuda.empty_cache()
     phase_gnn(torch, comm, hw, card)

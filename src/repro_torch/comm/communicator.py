@@ -34,11 +34,7 @@ import torch.distributed as dist
 
 from repro_torch.kernels.ref import maximum
 
-__all__ = ["LoopbackComm", "DistComm", "Work", "resolve_device",
-           "require_all_ranks"]
-
-# the ROADMAP item that carries the consumers a DistComm does not serve yet
-PARTIAL_ITEM = "ROADMAP A23b"
+__all__ = ["LoopbackComm", "DistComm", "Work", "resolve_device"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -75,17 +71,6 @@ class Work:
                 self._event)
             self._event = None
         return self._out
-
-
-def require_all_ranks(comm, what: str) -> None:
-    """Refuse ``comm`` for ``what`` when this process holds only some of
-    its ranks (a ``DistComm`` over more than one process): ``what`` reads
-    or writes rows of other ranks that it cannot reach there yet."""
-    if comm.p_local < comm.p:
-        raise NotImplementedError(
-            f"{what} does not run over a DistComm whose process holds "
-            f"{comm.p_local} of its {comm.p} ranks yet ({PARTIAL_ITEM}); "
-            "it runs over a LoopbackComm or a one-process group")
 
 
 def _fold(t: torch.Tensor, op: str) -> torch.Tensor:

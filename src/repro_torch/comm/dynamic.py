@@ -35,6 +35,14 @@ plan the front doors resolve (``plan_cache.get_envelope_plan``, the
 bucketed-reuse tier) provides the static sizes and the §5 pricing; the
 per-batch tables come from the front doors' ``derive_plan_args(cols)``.
 ``models.moe.DynamicMoELayer`` is the consumer.
+
+Over a ``DistComm`` whose process holds ``p_local`` of the ``P`` ranks,
+every process derives the same global tables from the batch's whole
+``(m, r)`` table, as the reference derives them outside its ``shard_map``,
+and then keeps its own rows (``local_gather_tables``): a sender's tables
+are the transposes of every reader's sorted lists, and the ``"set"``
+winners come from one sort of all accessor rows, so no process could
+derive its rows from its own readers alone.
 """
 from __future__ import annotations
 
@@ -48,7 +56,7 @@ from repro_torch.comm.pattern import AccessPattern
 
 __all__ = ["DYNAMIC_STRATEGIES", "DynamicPattern", "DynamicGatherTables",
            "DynamicScatterTables", "envelope_s_max", "derive_gather_tables",
-           "derive_scatter_tables"]
+           "derive_scatter_tables", "local_gather_tables"]
 
 # Rungs whose executor tables the device derivation covers: condensed and
 # its own/foreign-split consumption (overlap) share the same two tables.
@@ -139,6 +147,23 @@ class DynamicScatterTables(NamedTuple):
     own_tgt_idx: torch.Tensor      # (m, r) int32 into own shard; foreign -> dump
     win_mask: torch.Tensor         # (m, r) int8, reduce="set" winner slots
     touched: torch.Tensor          # (P, shard_size) int8
+
+
+def local_gather_tables(g: DynamicGatherTables,
+                        comm) -> DynamicGatherTables:
+    """``g``'s rows for the ranks this process holds (``comm.local_rows``):
+    ``send_local_idx`` and ``send_counts`` by sender row,
+    ``recv_global_idx`` by reader row.  ``g`` itself where the process
+    holds every rank."""
+    assert g.send_counts.shape[0] == comm.p, (
+        "local_gather_tables cuts the whole batch's tables, derived from "
+        "its whole cols")
+    if comm.p_local == comm.p:
+        return g
+    rows = comm.local_rows
+    return DynamicGatherTables(send_local_idx=g.send_local_idx[rows],
+                               recv_global_idx=g.recv_global_idx[rows],
+                               send_counts=g.send_counts[rows])
 
 
 def _cols(cols) -> torch.Tensor:

@@ -29,7 +29,6 @@ import torch
 from repro_torch.comm import plan_cache
 from repro_torch.comm import select
 from repro_torch.comm import strategies as strat
-from repro_torch.comm.communicator import require_all_ranks
 from repro_torch.comm.dynamic import DYNAMIC_STRATEGIES, DynamicPattern
 from repro_torch.comm.pattern import AccessPattern
 from repro_torch.comm.plan import CommPlan, Topology
@@ -135,9 +134,6 @@ class IrregularExchange:
             topology = topology or where.topology
         else:
             comm = where
-        if isinstance(pattern, DynamicPattern):
-            require_all_ranks(comm, "a DynamicPattern exchange "
-                              "(comm/dynamic.py)")
         valid = strat.STRATEGIES + ("auto",)
         if strategy not in valid:
             raise ValueError(f"strategy must be one of {valid}")

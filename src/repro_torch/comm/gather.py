@@ -43,7 +43,9 @@ for bit with a host build at the envelope ``s_max``; a ``Destination``
 (host-precomputed per pattern) cannot serve one.  With ``use_kernel=True``
 the tables carry a third entry, the batch's ``kernels.TileOrder`` (derived
 on the device with no host sync), through which the card's one-pass
-unpack runs.
+unpack runs.  Over a ``DistComm`` whose process holds some of the ranks,
+``cols`` is still the batch's whole table: every process derives the
+global tables and keeps its rows (``dynamic.local_gather_tables``).
 """
 from __future__ import annotations
 
@@ -52,7 +54,6 @@ import torch
 from repro_torch.comm import dynamic as dyn
 from repro_torch.comm import plan_cache
 from repro_torch.comm import strategies as strat
-from repro_torch.comm.communicator import require_all_ranks
 from repro_torch.comm.exchange import IrregularExchange, OverlapHandle
 from repro_torch.comm.pattern import AccessPattern, Destination
 from repro_torch.comm.plan import CommPlan
@@ -204,20 +205,21 @@ class IrregularGather(IrregularExchange):
     def derive_plan_args(self, cols, gather_tables=None) -> tuple:
         """Per-batch replacement for ``plan_args``.
 
-        ``cols`` is this batch's (m, r) int32 global index table, a tensor
-        on the exchange's device.  Returns the condensed/overlap executor
-        tables ``(send_local_idx, recv_global_idx)`` computed there, bit
-        for bit with a host plan build at the envelope ``s_max``, with no
-        host sync; pass them to ``local`` / ``start_local`` in place of
-        ``plan_args``.  An exchange built with ``use_kernel=True`` gets a
-        third entry, the ``kernels.TileOrder`` of the landed index array,
-        which the card's unpack reads.  ``gather_tables``: this batch's
+        ``cols`` is this batch's whole (m, r) int32 global index table, a
+        tensor on the exchange's device, in every process of a
+        ``DistComm`` too.  Returns the condensed/overlap executor tables
+        ``(send_local_idx, recv_global_idx)`` computed there, bit for bit
+        with a host plan build at the envelope ``s_max``, with no host
+        sync, at this process's rows (``comm.local_rows``); pass them to
+        ``local`` / ``start_local`` in place of ``plan_args``.  An
+        exchange built with ``use_kernel=True`` gets a third entry, the
+        ``kernels.TileOrder`` of the landed index array, which the card's
+        unpack reads.  ``gather_tables``: this batch's whole
         ``DynamicGatherTables``, derived once for both directions (pass
         the same to a sibling scatter's ``derive_plan_args``).  The caller
         records ``telemetry.record("device-derive")`` once per executed
         step.
         """
-        require_all_ranks(self.comm, "derive_plan_args")
         if self.strategy not in dyn.DYNAMIC_STRATEGIES:
             raise ValueError(
                 f"derive_plan_args serves {dyn.DYNAMIC_STRATEGIES} "
@@ -226,16 +228,23 @@ class IrregularGather(IrregularExchange):
             raise ValueError(
                 "derive_plan_args cannot rebuild host-precomputed "
                 "Destination arrays")
+        assert cols.shape[0] == self.pattern.m, (
+            f"cols must be the batch's whole ({self.pattern.m}, r) table, "
+            f"not {tuple(cols.shape)}")
         return self._derived_args(cols, gather_tables)
 
     def _derived_args(self, cols, g=None) -> tuple:
+        """The process's rows of the tables derived from the whole
+        ``cols`` (or of the given ``g``), and with ``use_kernel`` their
+        tile order."""
         if g is None:
             g = dyn.derive_gather_tables(cols, self.plan.n, self.p,
                                          self.plan.s_max)
+        g = dyn.local_gather_tables(g, self.comm)
         args = (g.send_local_idx, g.recv_global_idx)
         if self.use_kernel:
             args += (kops.derive_tile_order(
-                g.recv_global_idx.reshape(self.p, -1)),)
+                g.recv_global_idx.reshape(self.comm.p_local, -1)),)
         return args
 
     # ---- standalone surface ----

@@ -47,8 +47,9 @@ them on the device (``strategies.derive_scatter_segment_tables``).
 Over a ``DistComm`` each process builds the same host ``ScatterPlan`` and
 runs its ``p_local`` ranks on its rows of every table: ``shard_values``
 places its rows of the contributions, and ``y`` holds its owned slices.
-A ``DynamicPattern`` and ``derive_plan_args`` still need every rank in
-the process (``communicator.require_all_ranks``).
+A ``DynamicPattern``'s ``derive_plan_args`` takes the batch's whole
+``(m, r)`` table in every process and hands back the process's rows of
+the derived tables.
 """
 from __future__ import annotations
 
@@ -61,7 +62,6 @@ import torch
 from repro_torch.comm import dynamic as dyn
 from repro_torch.comm import plan_cache
 from repro_torch.comm import strategies as strat
-from repro_torch.comm.communicator import require_all_ranks
 from repro_torch.comm.exchange import IrregularExchange
 from repro_torch.comm.plan import CommPlan, ScatterPlan, transpose_counts
 
@@ -168,9 +168,11 @@ class IrregularScatter(IrregularExchange):
         if self.dynamic_pattern is not None:
             # same substitution as the gather: the envelope plan's
             # accumulate-unpack table may belong to another founding
-            # routing, so the template's own derived table takes its place
+            # routing, so the template's own derived table (its owner
+            # rows here) takes its place
             self.plan_args = (self.plan_args[:1]
-                              + (self._dyn_send_local_idx,)
+                              + (self._dyn_send_local_idx[
+                                  self.comm.local_rows],)
                               + self.plan_args[2:])
         # the kernel arm's segment tables: built once here, on the device,
         # from the static plan arrays — never per step; a per-batch
@@ -179,7 +181,8 @@ class IrregularScatter(IrregularExchange):
         per_batch = self.dynamic_pattern is not None
         if self.use_kernel and per_batch:
             self.tables = strat.derive_scatter_segment_tables(
-                self.splan, self.plan_args, self._dyn_send_counts)
+                self.splan, self.plan_args,
+                self._dyn_send_counts[self.comm.local_rows])
             self.plan_args += (self.tables,)
         elif self.use_kernel:
             self.tables = strat.scatter_segment_tables(
@@ -217,13 +220,15 @@ class IrregularScatter(IrregularExchange):
     def derive_plan_args(self, cols, gather_tables=None) -> tuple:
         """Per-batch replacement for ``plan_args``.
 
-        ``cols`` is this batch's (m, r) int32 target table, a tensor on the
-        exchange's device.  Pass ``gather_tables`` (the
-        ``DynamicGatherTables`` a sibling gather of the same pattern
-        already derived) to share the one sort between both directions —
-        the ``CommPlan.transpose()`` economy, on the device.  Returns the
-        five condensed/overlap executor tables in the order and shapes of
-        ``plan_args``, with no host sync.  An exchange built with
+        ``cols`` is this batch's whole (m, r) int32 target table, a tensor
+        on the exchange's device, in every process of a ``DistComm`` too.
+        Pass ``gather_tables`` (the whole ``DynamicGatherTables`` a sibling
+        gather of the same pattern already derived) to share the one sort
+        between both directions — the ``CommPlan.transpose()`` economy, on
+        the device.  Returns the five condensed/overlap executor tables in
+        the order and shapes of ``plan_args``, with no host sync: the
+        process's rows of each (``comm.local_rows``; the accessor tables
+        by accessor row, the unpack table and ``touched`` by owner row).  An exchange built with
         ``use_kernel=True`` gets a sixth entry, the fold kernels'
         ``"pack"``/``"own"``/``"into"`` segment tables derived from the
         five (``strategies.derive_scatter_segment_tables``), the
@@ -231,22 +236,26 @@ class IrregularScatter(IrregularExchange):
         ``DynamicPattern``'s exchange runs them.  The caller records
         ``telemetry.record("device-derive")`` once per executed step.
         """
-        require_all_ranks(self.comm, "derive_plan_args")
         if self.strategy not in dyn.DYNAMIC_STRATEGIES:
             raise ValueError(
                 f"derive_plan_args serves {dyn.DYNAMIC_STRATEGIES} "
                 f"executor tables, not {self.strategy!r}")
+        assert cols.shape[0] == self.pattern.m, (
+            f"cols must be the batch's whole ({self.pattern.m}, r) table, "
+            f"not {tuple(cols.shape)}")
         n, p, s_max = self.plan.n, self.p, self.plan.s_max
         g = gather_tables
         if g is None:
             g = dyn.derive_gather_tables(cols, n, p, s_max)
         s = dyn.derive_scatter_tables(cols, n, p, s_max, gather=g)
+        g = dyn.local_gather_tables(g, self.comm)
+        rows = self.comm.local_rows
 
         def ranked(t):
-            return t.reshape((p, -1) + tuple(t.shape[1:]))
+            return t.reshape((p, -1) + tuple(t.shape[1:]))[rows]
 
         args = (ranked(s.cond_msg_idx), g.send_local_idx,
-                ranked(s.own_tgt_idx), ranked(s.win_mask), s.touched)
+                ranked(s.own_tgt_idx), ranked(s.win_mask), s.touched[rows])
         if self.use_kernel:
             args += (strat.derive_scatter_segment_tables(
                 self.splan, args, g.send_counts),)

@@ -644,17 +644,21 @@ def derive_scatter_segment_tables(splan: ScatterPlan, plan_args,
     tables (as ``scatter_segment_tables`` builds them) for one batch's
     derived plan args, on their device with no host sync
     (``kops.derive_segment_table``): ``send_counts`` is the batch's
-    ``DynamicGatherTables.send_counts``, whose padded pack lanes the
-    ``"into"`` table leaves out."""
+    ``DynamicGatherTables.send_counts`` at the plan args' rows (the
+    process's, ``dynamic.local_gather_tables``), whose padded pack lanes
+    the ``"into"`` table leaves out."""
+    # message tables span the P receivers whatever rows the args hold
     p, shard, s_max = splan.p, splan.shard_size, splan.s_max
     msg, unpack, own = plan_args[:3]
+    pl = msg.shape[0]
+    assert send_counts.shape[0] == pl, (send_counts.shape, pl)
     table = kops.derive_segment_table
     live = p * s_max
     return {
-        "pack": table(msg.reshape(p, -1), out_len=live + 1, live_len=live),
-        "own": table(own.reshape(p, -1), out_len=shard + 1,
+        "pack": table(msg.reshape(pl, -1), out_len=live + 1, live_len=live),
+        "own": table(own.reshape(pl, -1), out_len=shard + 1,
                      live_len=shard),
-        "into": table(unpack.reshape(p, -1), out_len=shard + 1,
+        "into": table(unpack.reshape(pl, -1), out_len=shard + 1,
                       live_len=shard,
                       pad=_padding_lanes(send_counts, s_max, msg.device)),
     }

@@ -21,21 +21,34 @@ on its CPU backend).
 ``--moe-comm`` routes each decode step's MoE FFN through a
 ``DynamicMoELayer`` over ``--mesh``'s ranks (``build_moe_layer``): a
 ``LoopbackComm`` of that many ranks on the one device (``local``: as many
-ranks as cards present, at least one).  The reference's 2-D meshes have a
-model axis the port has no counterpart for, and are refused.
+ranks as cards present, at least one), or, started one process a rank
+under a launcher, a ``DistComm`` holding ``P / world`` of them in each
+process (gloo on the CPU, NCCL on the card; ``launch.mesh.init_group``)::
+
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+        --arch mixtral-8x22b --reduced --device cpu --experts 8 --slots 8 \
+        --moe-comm --mesh 8
+
+Every process then runs the whole engine on every slot and holds its
+ranks' experts.  The reference's 2-D meshes have a model axis the port
+has no counterpart for, and are refused.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import logging
+import os
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.comm.communicator import LoopbackComm, resolve_device
+from repro_torch.comm.communicator import (DistComm, LoopbackComm,
+                                           resolve_device)
 from repro_torch.configs.registry import get_config
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch.train import preset_lm100m
 from repro_torch.models import moe as M
 from repro_torch.models.transformer import Model, RunCtx
@@ -59,11 +72,13 @@ def prefill_into_cache(model, params, cache, tokens):
     return cache, logits
 
 
-def make_comm(spec: str, device) -> LoopbackComm:
+def make_comm(spec: str, device):
     """The ranks of ``--mesh``: ``"local"`` is one rank per card present
-    (one on the CPU), ``"<P>"`` is ``LoopbackComm(P)`` on the one device.
-    A spec with a model axis (``"AxB"``, ``pod``, ``multipod``) is
-    refused: the port's communicator has one axis."""
+    (one on the CPU), ``"<P>"`` is ``LoopbackComm(P)`` on the one device,
+    or, when a default process group of world > 1 is initialised,
+    ``DistComm(P / world)`` in each process (a ``P`` the world does not
+    divide is refused).  A spec with a model axis (``"AxB"``, ``pod``,
+    ``multipod``) is refused: the port's communicator has one axis."""
     device = torch.device(device)
     if spec == "local":
         p = torch.cuda.device_count() if device.type == "cuda" else 1
@@ -72,7 +87,14 @@ def make_comm(spec: str, device) -> LoopbackComm:
         raise ValueError(
             f"--mesh {spec!r}: the port's communicator has one axis of "
             "ranks; give their count ('8') or 'local'")
-    return LoopbackComm(int(spec), device=device)
+    p = int(spec)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world == 1:
+        return LoopbackComm(p, device=device)
+    if p % world:
+        raise ValueError(f"--mesh {spec} has {p} ranks; the process group's "
+                         f"{world} processes do not split them")
+    return DistComm(p // world, device)
 
 
 def build_moe_layer(model, params, num_slots, comm, *, strategy="auto"):
@@ -255,9 +277,18 @@ def main(argv=None):
     ctx = RunCtx(act_dtype=torch.float32
                  if resolve_device(args.device).type == "cpu"
                  else torch.bfloat16)
-    if cfg.family in ("dense", "moe"):
-        return _serve_main(cfg, ctx, args)
-    return _batch_demo_main(cfg, ctx, args)
+    if cfg.family not in ("dense", "moe"):
+        return _batch_demo_main(cfg, ctx, args)
+    if (args.moe_comm and args.mesh != "local" and not dist.is_initialized()
+            and int(os.environ.get("WORLD_SIZE", "1")) > 1):
+        # one process a rank under a launcher (torchrun): the MoE exchange
+        # runs over the group, each process holding its ranks' experts
+        mesh_mod.init_group(args.device or "cuda")
+        try:
+            return _serve_main(cfg, ctx, args)
+        finally:
+            dist.destroy_process_group()
+    return _serve_main(cfg, ctx, args)
 
 
 if __name__ == "__main__":

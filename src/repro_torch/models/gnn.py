@@ -15,14 +15,14 @@ owned, zero-cost access whose message is identically zero).  That is the
 index-set shape of SpMV's EllPack ``cols``: the planner, the strategy
 ladder and the performance models are reused unchanged on a workload the
 paper never ran.  The port's schedule runs on rank-stacked tensors over a
-``LoopbackComm`` (``comm.schedule``).
+``LoopbackComm``, or over a ``DistComm`` on the process's rows of the
+features and of ``nbrs`` (``comm.schedule``).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.comm.communicator import require_all_ranks
 from repro_torch.comm.pattern import AccessPattern
 from repro_torch.comm.schedule import Schedule
 
@@ -82,8 +82,9 @@ class GNNNeighborAggregate:
 
     ``nbrs`` — (n, r) int32 ELL neighbor list (global node ids, self-id
     padding); features are (n, d), split over the communicator's ranks
-    like every other consumer: ``shard_features`` gives ``(P, n / P, d)``,
-    and a call returns the updated features in the same layout.
+    like every other consumer: ``shard_features`` gives ``(P, n / P, d)``
+    (a ``DistComm``'s process: its ``p_local`` rows), and a call returns
+    the updated features in the same layout.
     ``strategy``/``blocksize``/``hw`` etc. forward to ``Schedule.resolve``
     — ``strategy="auto"`` ranks the ladder on the §5 models as SpMV does,
     and ``.predicted_window`` carries the two-exchange composition
@@ -101,9 +102,7 @@ class GNNNeighborAggregate:
         self.nbrs = nbrs
         self.n = n
         self.weight = float(weight)
-        require_all_ranks(comm, "GNN layers")
         pattern = AccessPattern.from_indices(nbrs, n=n)
-        p = comm.p
 
         sched = Schedule()
         h = sched.input("h")
@@ -112,7 +111,9 @@ class GNNNeighborAggregate:
         w = self.weight
 
         def combine(xc, rl, hl):
-            ranks = torch.arange(p, device=xc.device)[:, None, None]
+            # the process's ranks: rows of x_copy, nbrs and h alike
+            ranks = torch.arange(xc.shape[0], device=xc.device)[:, None,
+                                                                None]
             # messages accumulate in float32 whatever the feature dtype: a
             # hub node sums thousands of same-sign contributions, which
             # low-precision accumulation drifts on

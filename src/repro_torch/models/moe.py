@@ -18,11 +18,13 @@ owning its expert (owner thread).
   no host plan build and no host sync.
 
 The reference compiles each exchange consumer into one ``shard_map``; the
-port runs it on rank-stacked tensors over a ``LoopbackComm``: tokens are
+port runs it on rank-stacked tensors over a communicator: tokens are
 ``(P, num_tokens / P, ...)``, expert buffers ``(P, num_experts / P,
 capacity, ...)``, expert weights ``(P, num_experts / P, ...)`` — rank q
 holds tokens and experts in contiguous blocks, as the reference shards
-them.  The expert matmuls are ``torch.matmul``; the reference computes
+them.  Over a ``DistComm`` a process holds ``p_local`` of those rows
+(``comm.local_rows``): every process plans (or derives) from the whole
+routing and runs its own ranks' tokens and experts.  The expert matmuls are ``torch.matmul``; the reference computes
 them with ``einsum`` outside any Pallas kernel.
 """
 from __future__ import annotations
@@ -35,7 +37,6 @@ import torch.nn.functional as F
 
 from repro_torch.comm import dynamic as dyn
 from repro_torch.comm import telemetry
-from repro_torch.comm.communicator import require_all_ranks
 from repro_torch.comm.exchange import measure_hw
 from repro_torch.comm.gather import IrregularGather
 from repro_torch.comm.pattern import AccessPattern, Destination
@@ -264,11 +265,13 @@ def moe_combine_ref(buf, idx, valid, w_slot, num_tokens: int):
     return y
 
 
-def _ranked(a, p: int, device) -> torch.Tensor:
-    """A host array (or tensor) split over ``p`` ranks along dim 0."""
+def _ranked(a, comm) -> torch.Tensor:
+    """A host array (or tensor) split over ``comm``'s ``p`` ranks along dim
+    0: this process's rows of it (``comm.local_rows``), on its device."""
     t = a if isinstance(a, torch.Tensor) else torch.as_tensor(
         np.ascontiguousarray(a))
-    return t.reshape((p, -1) + tuple(t.shape[1:])).to(device)
+    return t.reshape((comm.p, -1) + tuple(t.shape[1:]))[
+        comm.local_rows].to(comm.device)
 
 
 class MoEDispatchGather:
@@ -293,9 +296,8 @@ class MoEDispatchGather:
                  blocksize=None, shards_per_node=None,
                  materialize: str = "dest", hw=None,
                  use_plan_cache: bool = True):
-        require_all_ranks(comm, "MoEDispatchGather")
         p = comm.p
-        self.p = p
+        self.p, self.p_local = p, comm.p_local
         self.num_tokens = num_tokens
         self.num_experts = num_experts
         self.capacity = capacity
@@ -322,7 +324,6 @@ class MoEDispatchGather:
         self.requested_strategy = strategy
         self.predicted_times = self.gather.predicted_times
         self.plan = self.gather.plan
-        dev = comm.device
         if materialize == "dest":
             extra = ()
         elif self.strategy == "overlap":
@@ -331,7 +332,7 @@ class MoEDispatchGather:
                      valid.astype(np.float32))
         else:
             extra = (idx, valid.astype(np.float32))
-        self._extra_args = tuple(_ranked(a, p, dev) for a in extra)
+        self._extra_args = tuple(_ranked(a, comm) for a in extra)
 
     @property
     def counts(self):
@@ -342,22 +343,23 @@ class MoEDispatchGather:
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         """x: (P, num_tokens / P, ...) -> (P, num_experts / P, capacity,
-        ...) expert input buffers."""
-        gather, p, c = self.gather, self.p, self.capacity
+        ...) expert input buffers (the process's ``p_local`` rows of
+        both)."""
+        gather, pl, c = self.gather, self.p_local, self.capacity
         feat = tuple(x.shape[2:])
-        e_loc = self.num_experts // p
-        ranks = torch.arange(p, device=x.device)[:, None]
+        e_loc = self.num_experts // self.p
+        ranks = torch.arange(pl, device=x.device)[:, None]
         if self.materialize == "dest":
             # one targeted delivery: owned tokens from x, foreign tokens
             # from the landed recv buffer, empty slots exactly 0
             vals = gather.local(x, *gather.plan_args)["slots"]
-            return vals.reshape((p, e_loc, c) + feat)
+            return vals.reshape((pl, e_loc, c) + feat)
         if self.strategy == "overlap":
             loc, rem, valid = self._extra_args
             handle = gather.start_local(x, *gather.plan_args)
             # own-token slots resolve from x while the exchange flies;
             # padding points at the zero row appended here
-            x_ext = torch.cat([x, x.new_zeros((p, 1) + feat)], dim=1)
+            x_ext = torch.cat([x, x.new_zeros((pl, 1) + feat)], dim=1)
             own = x_ext[ranks, loc]
             x_copy = handle.finish(extra_slots=1, copy_own=False)
             vals = own + x_copy[ranks, rem]   # each slot is own xor foreign
@@ -366,7 +368,7 @@ class MoEDispatchGather:
             vals = gather.local(x, *gather.plan_args)[ranks, idx]
         mask = valid.reshape(tuple(valid.shape) + (1,) * len(feat))
         buf = vals * mask.to(vals.dtype)
-        return buf.reshape((p, e_loc, c) + feat)
+        return buf.reshape((pl, e_loc, c) + feat)
 
 
 class MoECombineScatter:
@@ -387,9 +389,8 @@ class MoECombineScatter:
                  capacity: int, comm, *, strategy: str = "auto",
                  blocksize=None, shards_per_node=None, hw=None,
                  use_plan_cache: bool = True):
-        require_all_ranks(comm, "MoECombineScatter")
         p = comm.p
-        self.p = p
+        self.p, self.p_local = p, comm.p_local
         self.num_tokens = num_tokens
         self.num_experts = num_experts
         self.capacity = capacity
@@ -412,8 +413,7 @@ class MoECombineScatter:
         self.plan = self.scatter.plan
         self.splan = self.scatter.splan
         # invalid slots: weight 0 -> contribution exactly 0
-        self._w = _ranked((w_slot * valid).astype(np.float32), p,
-                          comm.device)
+        self._w = _ranked((w_slot * valid).astype(np.float32), comm)
 
     @property
     def counts(self):
@@ -422,15 +422,17 @@ class MoECombineScatter:
 
     def shard_expert_buf(self, buf) -> torch.Tensor:
         """Place a host (num_experts, capacity, ...) buffer on the device
-        as ``(P, num_experts / P, capacity, ...)``."""
-        return _ranked(np.asarray(buf), self.p, self.scatter.device)
+        as ``(P, num_experts / P, capacity, ...)``: this process's rows of
+        it."""
+        return _ranked(np.asarray(buf), self.scatter.comm)
 
     def __call__(self, buf: torch.Tensor) -> torch.Tensor:
         """buf: (P, num_experts / P, capacity, ...) expert outputs ->
-        (P, num_tokens / P, ...) combined tokens."""
-        p, feat = self.p, tuple(buf.shape[3:])
-        flat = buf.reshape((p, -1, 1) + feat)
-        w = self._w.reshape((p, -1, 1) + (1,) * len(feat))
+        (P, num_tokens / P, ...) combined tokens (the process's
+        ``p_local`` rows of both)."""
+        pl, feat = self.p_local, tuple(buf.shape[3:])
+        flat = buf.reshape((pl, -1, 1) + feat)
+        w = self._w.reshape((pl, -1, 1) + (1,) * len(feat))
         return self.scatter(flat * w.to(buf.dtype))
 
 
@@ -445,17 +447,17 @@ class MoELayer:
     moe_expert_local → MoECombineScatter`` path on every rung.
 
     ``params``: ``{"w1": (E, D, F), "w2": (E, F, D)[, "w3": (E, D, F)]}``
-    (the ``init_moe`` layout), split over the ranks along the expert dim.
+    (the ``init_moe`` layout), split over the ranks along the expert dim
+    (a ``DistComm``'s process places its ranks' experts only).
     """
 
     def __init__(self, params, top_e, top_w, num_tokens: int,
                  num_experts: int, capacity: int, comm, *, act: str = "gelu",
                  strategy: str = "auto", blocksize=None,
                  shards_per_node=None, hw=None, use_plan_cache: bool = True):
-        require_all_ranks(comm, "MoELayer")
-        p = comm.p
+        p, pl = comm.p, comm.p_local
         assert num_experts % p == 0 and num_tokens % p == 0
-        self.p = p
+        self.p, self.p_local = p, pl
         self.num_tokens = num_tokens
         self.num_experts = num_experts
         self.capacity = capacity
@@ -489,11 +491,11 @@ class MoELayer:
             *wx, wc_l = weights
             w3_l = wx[2] if len(wx) == 3 else None
             # tokens land in (expert, capacity) order; empty slots are
-            # exactly 0 and carry combine weight 0
-            buf = delivered["slots"].reshape(p, e_loc, capacity, d)
+            # exactly 0 and carry combine weight 0; the process's ranks
+            buf = delivered["slots"].reshape(pl, e_loc, capacity, d)
             out = moe_expert_local(buf, wx[0], wx[1], w3_l, act)
-            flat = out.reshape(p, e_loc * capacity, 1, d)
-            return flat * wc_l.reshape(p, e_loc * capacity, 1, 1).to(
+            flat = out.reshape(pl, e_loc * capacity, 1, d)
+            return flat * wc_l.reshape(pl, e_loc * capacity, 1, 1).to(
                 flat.dtype)
 
         y = sched.compute(expert_fn, g, *wexperts, wc, name="expert")
@@ -551,6 +553,14 @@ class DynamicMoELayer:
     only its shape and load envelope matter.  The step runs in pieces
     (``pack``, ``derive``, ``dispatch``, ``experts``, ``combine``) that a
     caller may time one by one.
+
+    Over a ``DistComm`` whose process holds ``p_local`` of the ``P``
+    ranks, ``pack`` and ``derive`` run on the batch's whole routing in
+    every process (as the reference derives its tables outside its
+    ``shard_map``), and ``dispatch``, ``experts`` and ``combine`` on the
+    process's rows; the layer places only the process's experts,
+    ``num_experts / P · p_local`` of them from ``rank_offset ·
+    num_experts / P``.
     """
 
     def __init__(self, params, top_e, num_tokens: int, num_experts: int,
@@ -558,10 +568,9 @@ class DynamicMoELayer:
                  strategy: str = "auto", blocksize=None, shards_per_node=None,
                  hw=None, use_plan_cache: bool = True,
                  s_max: int | None = None, decode: bool = False):
-        require_all_ranks(comm, "DynamicMoELayer")
         p = comm.p
         assert num_experts % p == 0 and num_tokens % p == 0
-        self.p = p
+        self.p, self.p_local = p, comm.p_local
         self.comm = comm
         self.device = comm.device
         self.num_tokens = num_tokens
@@ -601,9 +610,9 @@ class DynamicMoELayer:
         self.requested_strategy = strategy
 
         names = ("w1", "w2", "w3") if act == "swiglu" else ("w1", "w2")
-        self._weights = tuple(
-            (params[k_] if isinstance(params[k_], torch.Tensor)
-             else torch.as_tensor(np.asarray(params[k_]))).to(self.device)
+        self._weights = tuple(self._local_experts(
+            params[k_] if isinstance(params[k_], torch.Tensor)
+            else torch.as_tensor(np.asarray(params[k_]))).to(self.device)
             for k_ in names)
         # empty-slot pad: an owned token id per expert rank (zero-cost)
         self._own_token = torch.arange(
@@ -612,6 +621,15 @@ class DynamicMoELayer:
 
     def shard_tokens(self, x) -> torch.Tensor:
         return self.gather.shard_vector(x)
+
+    def _local_experts(self, w):
+        """The process's experts of an (E, ...) weight: all of them over a
+        communicator that holds every rank."""
+        if self.p_local == self.p:
+            return w
+        e_loc = self.num_experts // self.p
+        lo = self.comm.rank_offset * e_loc
+        return w[lo:lo + self.p_local * e_loc]
 
     # ---- the step, in pieces ----
     def pack(self, top_e, top_w):
@@ -645,35 +663,42 @@ class DynamicMoELayer:
         return cols, w_slot
 
     def derive(self, cols):
-        """Both directions' executor tables from one derivation: the gather
-        tables seed the scatter's (``derive_plan_args``)."""
+        """Both directions' executor tables from one derivation on the
+        whole ``cols``: the gather tables seed the scatter's
+        (``derive_plan_args``); each direction keeps the process's
+        rows."""
         cols2 = cols.reshape(-1, 1)
         g = dyn.derive_gather_tables(cols2, self.num_tokens, self.p,
                                      self.pattern.s_max)
-        gargs = (g.send_local_idx, g.recv_global_idx)
+        gargs = self.gather.derive_plan_args(cols2, gather_tables=g)
         sargs = self.scatter.derive_plan_args(cols2, gather_tables=g)
         return gargs, sargs
 
     def dispatch(self, x, cols, gargs):
-        """x (P, T / P, d) -> the capacity buffers (P, E / P, C, d)."""
-        p, d = self.p, x.shape[-1]
+        """x (P, T / P, d) -> the capacity buffers (P, E / P, C, d), both
+        the process's ``p_local`` rows; ``cols`` the whole batch's."""
+        pl, d = self.p_local, x.shape[-1]
         x_copy = self.gather.local(x, *gargs)
-        ranks = torch.arange(p, device=x.device)[:, None]
-        return x_copy[ranks, cols.reshape(p, -1)].reshape(
-            p, self.num_experts // p, self.capacity, d)
+        ranks = torch.arange(pl, device=x.device)[:, None]
+        return x_copy[ranks, _ranked(cols, self.comm)].reshape(
+            pl, self.num_experts // self.p, self.capacity, d)
 
     def experts(self, buf, w_slot, weights):
         """Expert MLPs and the combine weights: -> the contribution table
-        ``(P, E / P · C, 1, d)``."""
-        p, d = self.p, buf.shape[-1]
-        w = [t.reshape((p, -1) + tuple(t.shape[1:])) for t in weights]
+        ``(P, E / P · C, 1, d)``, the process's rows.  ``weights`` are
+        the process's experts (``E / P · p_local`` each), ``w_slot`` the
+        whole batch's."""
+        pl, d = self.p_local, buf.shape[-1]
+        w = [t.reshape((pl, -1) + tuple(t.shape[1:])) for t in weights]
         out = moe_expert_local(buf, w[0], w[1], w[2] if len(w) == 3 else None,
                                self.act)
-        flat = out.reshape(p, -1, 1, d)
-        return flat * w_slot.reshape(p, -1, 1, 1).to(flat.dtype)
+        flat = out.reshape(pl, -1, 1, d)
+        return flat * _ranked(w_slot, self.comm).reshape(pl, -1, 1, 1).to(
+            flat.dtype)
 
     def combine(self, contrib, sargs):
-        """The contributions pushed back onto the tokens: (P, T / P, d)."""
+        """The contributions pushed back onto the tokens: (P, T / P, d),
+        the process's rows."""
         return self.scatter.local(contrib, *sargs)
 
     def _routed_step(self, x, top_e, top_w, weights):
@@ -689,21 +714,28 @@ class DynamicMoELayer:
         passed per call (``w1, w2[, w3]``, each (E, ...)) instead of the
         ones given at construction: the twin of ``__call__`` for a model
         whose layers share one instance (template shapes), each supplying
-        its own weights.  Returns (num_tokens, d).  No telemetry is
-        recorded here; the caller records one ``"device-derive"`` per
-        executed step (``serve.engine`` does, per decode tick)."""
+        its own weights.  Returns (num_tokens, d) in every process: over a
+        ``DistComm`` whose process holds some of the ranks it runs its
+        rows of ``x`` and its experts of each weight, and assembles the
+        output with one ``comm.all_gather``.  No telemetry is recorded
+        here; the caller records one ``"device-derive"`` per executed
+        step (``serve.engine`` does, per decode tick)."""
         if len(weights) != len(self._weights):
             raise ValueError(
                 f"expected {len(self._weights)} expert weight arrays "
                 f"(w1, w2{', w3' if len(self._weights) == 3 else ''}), "
                 f"got {len(weights)}")
-        xs = x.reshape((self.p, -1) + tuple(x.shape[1:]))
-        return self._routed_step(xs, top_e, top_w, weights).reshape(x.shape)
+        weights = tuple(self._local_experts(w) for w in weights)
+        y = self._routed_step(_ranked(x, self.comm), top_e, top_w, weights)
+        if self.p_local < self.p:
+            y = self.comm.all_gather(y.reshape(self.p_local, -1)).wait()[0]
+        return y.reshape(x.shape)
 
     def __call__(self, x: torch.Tensor, top_e, top_w) -> torch.Tensor:
-        """One routed step: x (P, T / P, d) + THIS batch's routing (T, k)
-        -> (P, T / P, d) combined expert outputs.  No host plan work: the
-        tables come from the device derivation (recorded per call as
+        """One routed step: x (P, T / P, d) + THIS batch's whole routing
+        (T, k) -> (P, T / P, d) combined expert outputs, the process's
+        ``p_local`` rows of both.  No host plan work: the tables come from
+        the device derivation (recorded per call as
         ``"device-derive"``)."""
         telemetry.record("device-derive")
         return self._routed_step(x, top_e, top_w, self._weights)

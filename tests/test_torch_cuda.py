@@ -1945,6 +1945,68 @@ def test_dynamic_exchange_with_kernels_on_card(dev, strategy, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dynamic_exchange_kernels_on_a_process_holding_some_ranks(dev,
+                                                                  dtype):
+    """A per-batch gather (B1, B2 through its tile order) and scatter-add
+    (B5 twice, B6) with use_kernel=True, condensed and overlap, over two
+    processes of four ranks played by threads on the card
+    (``chip_smoke.ThreadWorld``, the second at rank_offset 4): each derives
+    the whole batch's tables and keeps its rows; the threads' rows,
+    stacked, are the LoopbackComm(8) kernel arm's bit for bit, and the
+    kernels launched in the threads."""
+    import pathlib
+    import sys
+
+    from repro_torch.comm import dynamic as dyn
+    from repro_torch.comm import plan_cache
+    from repro_torch.comm.gather import IrregularGather
+
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    # the threads' communicators check their tensors' device by index
+    dev = torch.device(dev.type, torch.cuda.current_device())
+    p, n_tok, d = 8, 64, 16
+    _, _, cols0 = _routing_cols(0, p)
+    dp = dyn.DynamicPattern.from_template(
+        AccessPattern.from_indices(cols0.numpy(), n=n_tok), p)
+    base = plan_cache.get_envelope_plan(cols0.numpy(), n_tok, p,
+                                        s_max=dp.s_max, cache=False)
+    rng = np.random.default_rng(7)
+    batches = [(_routing_cols(seed, p)[2].to(dev),
+                _rand(rng, (p, n_tok // p, d), dtype, dev),
+                _rand(rng, (p, cols0.shape[0] // p, 1, d), dtype, dev))
+               for seed in (1, 2, 3)]
+
+    def drive(comm):
+        rows, out = comm.local_rows, []
+        for strategy in ("condensed", "overlap"):
+            g = IrregularGather(dp, comm, strategy=strategy, use_kernel=True,
+                                base_plan=base)
+            s = IrregularScatter(dp, comm, strategy=strategy, reduce="add",
+                                 use_kernel=True, base_plan=base)
+            for cols, x, vals in batches:
+                tables = dyn.derive_gather_tables(cols, n_tok, p, dp.s_max)
+                gargs = g.derive_plan_args(cols, gather_tables=tables)
+                sargs = s.derive_plan_args(cols, gather_tables=tables)
+                assert gargs[0].shape[0] == sargs[0].shape[0] == comm.p_local
+                out.append(g.local(x[rows], *gargs)[:, :n_tok])
+                out.append(s.local(vals[rows], *sargs))
+        return out
+
+    want = drive(LoopbackComm(p, device=dev))
+    torch.cuda.synchronize()
+    kops.reset_launch_counts()
+    got = chip_smoke.ThreadWorld(torch, 2, 4, dev, timeout=120.0).run(drive)
+    counts = kops.launch_counts()
+    for i, w in enumerate(want):
+        assert _same_bits(torch.cat([res[i] for res in got]), w), i
+    assert all(counts[k] > 0 for k in (
+        "pack_gather", "unpack_scatter_set", "accumulate_segments",
+        "accumulate_into")), counts
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("s", [77, 2080])
 def test_decode_attention_group_6(dev, s, dtype):
     """B8 at mixtral-8x22b's heads: 48 query heads over 8 KV heads of 128,

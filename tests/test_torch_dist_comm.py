@@ -12,7 +12,7 @@ follow XLA's rules.  Each process also holds the calibration's key and
 parameters: the same on every rank (``core.tune``).
 
 In process: the refusals (no group; a group whose backend does not serve
-the device) and ``require_all_ranks``.
+the device).
 
 ``run_ranks`` is the launcher the other multi-process tests of the port
 use: one subprocess a rank, each with its own timeout; ``run_worlds``
@@ -221,15 +221,6 @@ def test_dist_comm_refuses_a_backend_that_does_not_serve_the_device(
         assert (comm.p, comm.p_local, comm.rank_offset) == (3, 3, 0)
     finally:
         dist.destroy_process_group()
-
-
-def test_require_all_ranks_passes_a_loopback_comm():
-    from repro_torch.comm.communicator import LoopbackComm, require_all_ranks
-
-    comm = LoopbackComm(4, device="cpu")
-    require_all_ranks(comm, "anything")
-    assert (comm.p_local, comm.rank_offset, comm.world) == (4, 0, 1)
-    assert comm.local_rows == slice(0, 4)
 
 
 if __name__ == "__main__":

@@ -16,11 +16,12 @@ its rows of ``y`` and ``x_copy``:
 * ``strategy="auto"``: the same rung and the same predicted times on both
   processes (the calibration's maximum over ranks, ``core.tune``), and
   that rung's ``y`` bit for bit with the loopback engine's;
-* every consumer that does not run over a process holding some of the
-  ranks yet refuses the partial communicator by name (ROADMAP A23b: the
-  per-batch exchanges and their consumers) rather than compute on it; the
-  push direction, the normal equations, CG and Heat2D run over it
-  (``tests/test_torch_dist_push.py``, ``tests/test_torch_dist_heat2d.py``).
+* the per-batch consumers, once refused over a process holding some of
+  the ranks, build over the partial communicator and run one call each
+  with no refusal (their outputs are held in
+  ``tests/test_torch_dist_per_batch.py``); the push direction, the normal
+  equations, CG and Heat2D run over it (``tests/test_torch_dist_push.py``,
+  ``tests/test_torch_dist_heat2d.py``).
 """
 import json
 import os
@@ -62,46 +63,68 @@ def _engines(comm, m):
                     use_plan_cache=False)
 
 
-def _refusals(comm, m, x):
-    """Every consumer that does not serve a process holding some of the
-    ranks yet refuses ``comm`` by name."""
+def _once_refused(comm, m, x):
+    """The per-batch consumers that once refused a process holding some of
+    the ranks: each builds over ``comm`` and runs one call on its rows.
+    Returns the names of those that ran (every one: a refusal raises)."""
     import torch
 
     from repro_torch.comm.dynamic import DynamicPattern
     from repro_torch.comm.gather import IrregularGather
     from repro_torch.comm.pattern import AccessPattern
+    from repro_torch.core import perfmodel as pm
     from repro_torch.models.gnn import GNNNeighborAggregate
     from repro_torch.models import moe
 
     pattern = AccessPattern.from_ellpack(m)
-    top_e = np.zeros((16, 2), np.int32)
-    top_w = np.ones((16, 2), np.float32)
-    cases = {
-        "dynamic": lambda: IrregularGather(
-            DynamicPattern.from_template(pattern, P), comm,
-            strategy="condensed"),
-        "derive_plan_args": lambda: IrregularGather(
-            pattern, comm, strategy="condensed").derive_plan_args(
-                torch.as_tensor(pattern.indices)),
-        "gnn": lambda: GNNNeighborAggregate(m.cols, N, comm,
-                                            strategy="condensed"),
-        "moe_dispatch": lambda: moe.MoEDispatchGather(
-            top_e, 16, 8, 4, comm, strategy="condensed"),
-        "moe_combine": lambda: moe.MoECombineScatter(
-            top_e, top_w, 16, 8, 4, comm, strategy="condensed"),
-        "moe_layer": lambda: moe.MoELayer(
-            {}, top_e, top_w, 16, 8, 4, comm, strategy="condensed"),
-        "dynamic_moe": lambda: moe.DynamicMoELayer(
-            {}, top_e, 16, 8, 4, comm, strategy="condensed"),
-    }
-    refused = []
-    for name, build in cases.items():
-        try:
-            build()
-        except NotImplementedError as e:
-            assert "ROADMAP A23b" in str(e), (name, e)
-            refused.append(name)
-    return refused
+    top_e = np.repeat(np.arange(16, dtype=np.int32)[:, None] % 8, 2, 1)
+    top_e[:, 1] = (top_e[:, 1] + 1) % 8
+    top_w = np.full((16, 2), 0.5, np.float32)
+    rng = np.random.default_rng(1)
+    params = {k: rng.standard_normal((8, 4, 4)).astype(np.float32)
+              for k in ("w1", "w2")}
+    tokens = rng.standard_normal((16, 4)).astype(np.float32)
+    kw = dict(strategy="condensed", hw=pm.ABEL, use_plan_cache=False)
+
+    def dynamic():
+        g = IrregularGather(DynamicPattern.from_template(pattern, P), comm,
+                            **kw)
+        return g(g.shard_vector(x))
+
+    def derive_plan_args():
+        g = IrregularGather(DynamicPattern.from_template(pattern, P), comm,
+                            **kw)
+        args = g.derive_plan_args(torch.as_tensor(pattern.indices))
+        return g.local(g.shard_vector(x), *args)
+
+    def gnn():
+        layer = GNNNeighborAggregate(m.cols, N, comm, **kw)
+        return layer(layer.shard_features(x[:, None]))
+
+    def moe_dispatch():
+        g = moe.MoEDispatchGather(top_e, 16, 8, 4, comm, **kw)
+        return g(g.shard_tokens(tokens))
+
+    def moe_combine():
+        c = moe.MoECombineScatter(top_e, top_w, 16, 8, 4, comm, **kw)
+        return c(c.shard_expert_buf(np.ones((8, 4, 4), np.float32)))
+
+    def moe_layer():
+        layer = moe.MoELayer(params, top_e, top_w, 16, 8, 4, comm, **kw)
+        return layer(layer.shard_tokens(tokens))
+
+    def dynamic_moe():
+        layer = moe.DynamicMoELayer(params, top_e, 16, 8, 4, comm, **kw)
+        return layer(layer.shard_tokens(tokens), top_e, top_w)
+
+    ran = []
+    for build in (dynamic, derive_plan_args, gnn, moe_dispatch, moe_combine,
+                  moe_layer, dynamic_moe):
+        out = build()
+        assert out.shape[0] == comm.p_local and torch.isfinite(
+            out.float()).all(), build.__name__
+        ran.append(build.__name__)
+    return ran
 
 
 def _worker(rank: int, world: int, init: str, out: str) -> None:
@@ -125,7 +148,7 @@ def _worker(rank: int, world: int, init: str, out: str) -> None:
                            use_plan_cache=False)
     res["y-auto"] = auto(auto.shard_vector(x)).numpy()
     meta = {"auto": auto.strategy, "predicted": auto.predicted_times,
-            "refused": _refusals(comm, m, x)}
+            "ran": _once_refused(comm, m, x)}
     dist.destroy_process_group()
     np.savez(f"{out}-{rank}.npz", **res)
     pathlib.Path(f"{out}-{rank}.json").write_text(json.dumps(meta))
@@ -221,8 +244,10 @@ def test_dist_auto_picks_one_rung_on_every_rank(ranks, loopback):
 
 
 def test_dist_refuses_the_consumers_of_later_slices(ranks):
+    """None is refused now: each of the once-refused consumers built over
+    the partial communicator and ran one call (``_once_refused``)."""
     for _, meta in ranks:
-        assert meta["refused"] == [
+        assert meta["ran"] == [
             "dynamic", "derive_plan_args", "gnn", "moe_dispatch",
             "moe_combine", "moe_layer", "dynamic_moe"]
 
