@@ -230,13 +230,20 @@ each:
    its published widths and depth the same way with 2 timed steps (B9's
    backward at d_inner 3200 beside the banded attention; kernel line
    selective_scan_bwd_di3200).  Then dist_train: launch.train --mesh 1
-   (data parallelism over a one-process NCCL group, as dist_main_path's)
-   on falcon-mamba-7b at its published widths, DIST_TRAIN_LAYERS of its
-   64 layers, train_ssm's settings, beside a --mesh local trainer from
-   the same seed: the first step on the same batch gives the local
-   step's parameters, AdamW state, loss and gradient norm bit for bit,
-   with B9 launched layers x microbatches x 2 and B9's backward layers x
-   microbatches (every layer); then one timed step of each.  The
+   (FSDP storage sharding over a one-process NCCL group, as
+   dist_main_path's; at world 1 each part is the whole leaf, and every
+   gather and reduce-scatter runs) on falcon-mamba-7b at its published
+   widths, DIST_TRAIN_LAYERS of its 64 layers, train_ssm's settings,
+   beside a --mesh local trainer from the same seed: the first step on
+   the same batch gives the local step's parameters, AdamW state, loss
+   and gradient norm bit for bit, with B9 launched layers x microbatches
+   x 2 and B9's backward layers x microbatches (every layer), and the
+   step's all-gathers and reduce-scatters counted against its layers and
+   microbatches; then the two steps timed local, FSDP, FSDP, local, with
+   the peak memory of each and the bytes a rank holds (distinct
+   storages) beside those param_specs would place at D = 8.  ``python3
+   chip_smoke.py --only dist_train`` runs the card and build lines and
+   this phase, and an ok line that carries "only": "dist_train".  The
    train_twin phase holds reduced falcon-mamba-7b and hymba-1.5b too.  MFU counts 6 N tokens
    (runtime/steps.model_flops): the scan's own work is outside it.
 The model lines (phase "model"; the §5 models of core/perfmodel.py on
@@ -278,6 +285,7 @@ tables (launches: that phase's kernel-arm run), and last
 line; with no CUDA device, or outside a checkout of the repository, the
 script exits non-zero at once.
 """
+import collections
 import contextlib
 import dataclasses
 import gc
@@ -4749,19 +4757,118 @@ def phase_train_hybrid(torch, card):
                             bf16_line="selective_scan_bf16_bwd_di3200")
 
 
+def fsdp_bytes(params, dims, parts: int, stack_scale: float = 1.0):
+    """The bytes a rank holds of ``params`` and its AdamW ``m`` and ``v``
+    (and the int32 step) where ``dims`` splits leaves ``parts`` ways:
+    each split leaf's bytes over ``parts``, each other leaf's whole; the
+    stacked leaves (``layers``) scaled by ``stack_scale``."""
+    from repro_torch.runtime.sharding import _flat
+    total = 4
+    for keys, t, d in _flat(params, dims):
+        n = 3 * t.numel() * t.element_size()
+        if keys[0] == "layers":
+            n *= stack_scale
+        total += n / parts if d is not None else n
+    return int(total)
+
+
+def distinct_bytes(tree) -> int:
+    """The bytes of the distinct storages that ``tree``'s leaves hold."""
+    from repro_torch.models.transformer import tree_leaves
+    seen = {}
+    for t in tree_leaves(tree):
+        st = t.untyped_storage()
+        seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+@contextlib.contextmanager
+def counted_collectives(comm):
+    """Count the calls of ``comm``'s collectives inside the block (an
+    ``all_reduce`` also counts the ``reduce_scatter`` and ``all_gather``
+    it runs)."""
+    counts = collections.Counter()
+    names = ("all_gather", "reduce_scatter", "all_reduce")
+    saved = {n: getattr(comm, n) for n in names}
+
+    def counting(name):
+        def call(*args, **kwargs):
+            counts[name] += 1
+            return saved[name](*args, **kwargs)
+        return call
+
+    for n in names:
+        setattr(comm, n, counting(n))
+    try:
+        yield counts
+    finally:
+        for n in names:
+            delattr(comm, n)
+
+
+def fsdp_collective_ms(torch, tr, accum: int):
+    """Device ms (cuda_ms) and host enqueue ms of one gather and one
+    reduce-scatter of FSDP trainer ``tr``'s first layer and of its
+    embedding and head (their split leaves, float32), and a step's
+    gathers and reduce-scatters priced from them: ``accum`` x (2 x layers
+    + 1) gathers, ``accum`` x (layers + 1) reduce-scatters (the norm's
+    gathers and the all_reduce not priced)."""
+    from repro_torch.models.transformer import tree_map
+    from repro_torch.runtime.sharding import _flat, _gathered, _scattered
+
+    gather, comm = tr.model.ctx.gather, tr.comm
+    out = {}
+    for name, keys, tree in (
+            ("layer", ("layers",),
+             tree_map(lambda t: t[0], tr.params["layers"])),
+            ("embed_head", (), {k: tr.params[k] for k in ("embed",
+                                                          "lm_head")})):
+        split = [(t, d) for _, t, d in _flat(tree, gather.at(keys))
+                 if d is not None]
+        parts, dims = [t for t, _ in split], [d for _, d in split]
+        with torch.no_grad():
+            wholes = _gathered(comm, parts, dims)
+            row = {"bytes": sum(t.numel() * t.element_size()
+                                for t in parts)}
+            for op, fn in (("gather", lambda: _gathered(comm, parts, dims)),
+                           ("reduce_scatter",
+                            lambda: _scattered(comm, wholes, dims))):
+                row[op + "_ms"] = cuda_ms(torch, fn, warmup=2, iters=10)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                row[op + "_host_ms"] = (time.perf_counter() - t0) * 1e3
+                torch.cuda.synchronize()
+        out[name] = row
+        del wholes
+    n, lay, top = tr.model.cfg.num_layers, out["layer"], out["embed_head"]
+    out["step_priced_ms"] = accum * (
+        2 * n * lay["gather_ms"] + top["gather_ms"]
+        + n * lay["reduce_scatter_ms"] + top["reduce_scatter_ms"])
+    return out
+
+
 def phase_dist_train(torch, card):
-    """launch.train --mesh 1 (data parallelism over a one-process NCCL
-    group) on falcon-mamba-7b at its published widths, DIST_TRAIN_LAYERS
-    layers, train_ssm's settings, beside a --mesh local trainer from the
+    """launch.train --mesh 1 on falcon-mamba-7b at its published widths,
+    DIST_TRAIN_LAYERS layers, train_ssm's settings: FSDP over a
+    one-process NCCL group (each part the whole leaf at world 1; every
+    layer's weights all-gathered in its remat region, again in its
+    recomputed forward, its gradients reduce-scattered, the global norm's
+    split gradients assembled), beside a --mesh local trainer from the
     same seed (built before the group exists, so it trains alone): the
-    first step on the same batch bit for bit (parameters,
-    AdamW state, loss, gradient norm), B9 and its backward launched in
-    every layer of the data-parallel step; then one timed step of each
-    (CUDA events).  Returns the data-parallel step's launch counts."""
+    first step on the same batch bit for bit (parameters, AdamW state,
+    loss, gradient norm), B9 and its backward launched in every layer of
+    every microbatch of the FSDP step, and its collectives counted
+    against the layers and microbatches; then the two steps timed in the
+    order local, FSDP, FSDP, local (CUDA events; peak memory allocated
+    during each, both trainers resident), and the bytes a rank holds
+    (distinct storages) beside those param_specs would place at D = 8.
+    Returns the FSDP step's launch counts."""
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import ops as kops
     from repro_torch.launch import train as ltrain
     from repro_torch.models.transformer import tree_leaves
+    from repro_torch.runtime import sharding
 
     args = ltrain.parse_args(TRAIN_SSM_ARGV)
     full = get_config(args.arch)
@@ -4772,13 +4879,16 @@ def phase_dist_train(torch, card):
         return tree_leaves({"params": tr.params, "opt": tr.opt_state})
 
     def timed_step(tr):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         metrics = tr.step()
         end.record()
         torch.cuda.synchronize()
-        return metrics, start.elapsed_time(end)
+        return metrics, start.elapsed_time(end), \
+            torch.cuda.max_memory_allocated()
 
     # --mesh local with no process group: this process alone
     local = ltrain.setup(cfg, ltrain.parse_args(
@@ -4786,22 +4896,43 @@ def phase_dist_train(torch, card):
     with nccl_group(torch):
         dp = ltrain.setup(cfg, ltrain.parse_args(
             TRAIN_SSM_ARGV + ["--mesh", "1"]), retries=0)
-        check(local.comm is None and dp.comm.world == 1,
-              "dist_train: the trainers' communicators")
+        check(local.comm is None and dp.comm.world == 1
+              and dp.placed is not None
+              and dp.model.ctx.gather is not None
+              and dp.step_fn.retries == 0,
+              "dist_train: the --mesh 1 trainer is not the FSDP one")
         check(all(torch.equal(a, b) for a, b in zip(state(local),
                                                     state(dp))),
               "dist_train: the two trainers start from different weights")
+        dims = dp.placed.dims["params"]
+        split = sum(d is not None for d in tree_leaves(dims))
+        held = {"fsdp": distinct_bytes({"params": dp.params,
+                                        "opt": dp.opt_state}),
+                "local": distinct_bytes({"params": local.params,
+                                         "opt": local.opt_state})}
+        rules8 = ltrain.fsdp_rules(cfg, 8)
+        dims8 = sharding.data_dims(rules8, dp.params)
+        at_8 = {"layers": cfg.num_layers,
+                "bytes": fsdp_bytes(dp.params, dims8, 8),
+                "published_layers": full.num_layers,
+                "published_bytes": fsdp_bytes(
+                    dp.params, dims8, 8,
+                    full.num_layers / cfg.num_layers),
+                "published_bytes_replicated": fsdp_bytes(
+                    dp.params, dims8, 1,
+                    full.num_layers / cfg.num_layers)}
         t1 = time.perf_counter()
-        want, _ = timed_step(local)
+        want, _, _ = timed_step(local)
         kops.reset_launch_counts()
-        got, first_ms = timed_step(dp)
+        with counted_collectives(dp.comm) as calls:
+            got, first_ms, _ = timed_step(dp)
         counts = kops.launch_counts()
         same = all(torch.equal(a, b) for a, b in zip(state(local),
                                                      state(dp)))
         for k in ("loss", "grad_norm"):
             same = same and torch.equal(got[k], want[k])
-        check(same, "dist_train: the --mesh 1 step is not the --mesh local "
-              "step bit for bit")
+        check(same, "dist_train: the --mesh 1 FSDP step is not the --mesh "
+              "local step bit for bit")
         accum = args.accum
         per_step = cfg.num_layers * accum
         expect = {"selective_scan": 2 * per_step,
@@ -4810,27 +4941,56 @@ def phase_dist_train(torch, card):
         check(launched == expect, f"dist_train: B9 launched {launched} in "
               f"one step of {cfg.num_layers} layers x {accum} "
               f"microbatches, not {expect}")
+        # a layer: gathered, gathered again when remat recomputes it,
+        # reduce-scattered; the embedding and head once a microbatch; the
+        # norm assembles each split leaf; one all_reduce of the whole
+        # leaves' gradients and the loss (its own reduce_scatter and
+        # all_gather)
+        calls = dict(calls)
+        want_calls = {"all_gather": accum * (2 * cfg.num_layers + 1)
+                      + split + 1,
+                      "reduce_scatter": accum * (cfg.num_layers + 1) + 1,
+                      "all_reduce": 1}
+        check(calls == want_calls, f"dist_train: the FSDP step ran the "
+              f"collectives {calls}, not {want_calls}")
         t2 = time.perf_counter()
-        local_metrics, local_ms = timed_step(local)
-        dp_metrics, dp_ms = timed_step(dp)
-        losses = [float(m["loss"]) for m in (want, local_metrics,
-                                             dp_metrics)]
+        ms = {"local": [], "fsdp": []}
+        peak = {"local": 0, "fsdp": 0}
+        losses = [float(want["loss"])]
+        for name in ("local", "fsdp", "fsdp", "local"):
+            metrics, t, top = timed_step(local if name == "local" else dp)
+            ms[name].append(t)
+            peak[name] = max(peak[name], top)
+            losses.append(float(metrics["loss"]))
         check(np.isfinite(losses).all(), f"dist_train: losses {losses}")
-        del local, dp, want, got, local_metrics, dp_metrics
+        t3 = time.perf_counter()
+        collective_ms = fsdp_collective_ms(torch, dp, accum)
+        del local, dp, want, got, metrics
     gc.collect()
     torch.cuda.empty_cache()
+    local_ms, fsdp_ms = (sum(ms[k]) / 2 for k in ("local", "fsdp"))
     emit({"phase": "dist_train", "arch": cfg.name, "layers": cfg.num_layers,
           "of_layers": full.num_layers, "d_model": cfg.d_model,
           "d_inner": cfg.d_inner, "seq": args.seq, "batch": args.batch,
           "accum": args.accum, "mesh": "1",
           "comm": "DistComm, one process of an NCCL group (world 1)",
+          "fsdp": "every split leaf's part is the whole leaf at world 1",
           "bit_for_bit_mesh_local": True, "launches": launched,
+          "collectives_per_step": calls, "split_leaves": split,
+          "bytes_held": held,
+          "bytes_at_d8_by_param_specs": at_8,
           "losses": losses, "first_step_ms": first_ms,
-          "dp_step_ms": dp_ms, "local_step_ms": local_ms,
-          "dp_minus_local_ms": dp_ms - local_ms,
+          "order": "local, fsdp, fsdp, local",
+          "fsdp_step_ms": ms["fsdp"], "local_step_ms": ms["local"],
+          "fsdp_minus_local_ms": fsdp_ms - local_ms,
+          "peak_allocated_bytes": peak,
+          "peak_note": "max_memory_allocated during the step, both "
+                       "trainers resident",
+          "collective_ms": collective_ms,
           "wall_s": {"setup": round(t1 - t0, 1),
                      "checked_step": round(t2 - t1, 1),
-                     "timed_steps": round(time.perf_counter() - t2, 1)},
+                     "timed_steps": round(t3 - t2, 1),
+                     "collectives": round(time.perf_counter() - t3, 1)},
           "card": card})
     return launched
 
@@ -5043,9 +5203,10 @@ def main() -> None:
     # whose loopback runs it holds its outputs against, no kernels line
     only = sys.argv[2] if len(sys.argv) == 3 and sys.argv[1] == "--only" \
         else None
-    if sys.argv[1:] and only not in ("dist_consumers", "dist_per_batch"):
+    if sys.argv[1:] and only not in ("dist_consumers", "dist_per_batch",
+                                     "dist_train"):
         fail("usage: python3 chip_smoke.py "
-             "[--only dist_consumers|dist_per_batch]")
+             "[--only dist_consumers|dist_per_batch|dist_train]")
     alone = only == "dist_consumers"
     if not torch.cuda.is_available():
         fail("no CUDA device is available")
@@ -5066,8 +5227,11 @@ def main() -> None:
 
     card = phase_card(torch)
     probes = phase_build()
-    if only == "dist_per_batch":
-        only_dist_per_batch(torch, card)
+    if only in ("dist_per_batch", "dist_train"):
+        if only == "dist_per_batch":
+            only_dist_per_batch(torch, card)
+        else:
+            phase_dist_train(torch, card)
         emit({"ok": True, "only": only,
               "device": {"platform": "gpu",
                          "kind": torch.cuda.get_device_name(0),

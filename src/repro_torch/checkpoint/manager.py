@@ -18,8 +18,16 @@ float32, which restores to bfloat16 exactly.
   on every device, the CPU too), then commits on a background thread,
   overlapping the write with the next steps;
 * ``restore`` places each array on the device and in the dtype of the
-  target tree's leaf (the reference's shardings have no counterpart on
-  one device).
+  target tree's leaf.
+
+Under FSDP (``launch.train --mesh D``) a rank holds its parts of the
+leaves, and ``placed`` (a ``runtime.sharding.Placed``) says where: ``save``
+assembles each leaf whole, one leaf at a time (a collective: every rank
+calls it), and rank 0 writes the one ``arrays.npz`` the reference writes;
+``restore`` gives each rank its part of each leaf of the target
+placement, whatever the mesh that wrote it (the reference's elastic
+restore: a checkpoint of ``--mesh 2`` restores at ``--mesh 4`` and at
+``--mesh local``).
 """
 from __future__ import annotations
 
@@ -65,15 +73,19 @@ def _host(leaf) -> np.ndarray:
     return np.array(leaf, copy=True)
 
 
-def _flatten(tree) -> dict[str, np.ndarray]:
-    return {_key(p): _host(leaf) for p, leaf in _paths(tree)}
+def _flatten(tree, placed=None) -> dict[str, np.ndarray]:
+    whole = (lambda p, leaf: leaf) if placed is None else placed.whole
+    return {_key(p): _host(whole(p, leaf)) for p, leaf in _paths(tree)}
 
 
 def save(ckpt_dir: str, step: int, tree, *, extra: dict | None = None,
-         blocking: bool = True) -> threading.Thread | None:
-    """Snapshot ``tree`` to the host and commit it atomically."""
+         blocking: bool = True, placed=None) -> threading.Thread | None:
+    """Snapshot ``tree`` to the host and commit it atomically.  With
+    ``placed`` every rank calls it and rank 0 writes (module docstring)."""
+    arrays = _flatten(tree, placed)  # the host snapshot, synchronously
+    if placed is not None and not placed.writer:
+        return None
     os.makedirs(ckpt_dir, exist_ok=True)
-    arrays = _flatten(tree)  # the host snapshot happens HERE, synchronously
     manifest = {"step": int(step), "keys": sorted(arrays),
                 "extra": extra or {}}
 
@@ -109,27 +121,30 @@ def latest_step(ckpt_dir: str) -> int | None:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir: str, step: int, target_tree):
+def restore(ckpt_dir: str, step: int, target_tree, *, placed=None):
     """Restore into the structure of ``target_tree`` (a tree of tensors):
-    each array in its leaf's dtype, on its leaf's device.  Returns
-    ``(tree, extra)``."""
+    each array in its leaf's dtype, on its leaf's device; with ``placed``
+    the target's leaves are this rank's parts and each array is cut to
+    its part.  Returns ``(tree, extra)``."""
     path = os.path.join(ckpt_dir, f"step_{step}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     with np.load(os.path.join(path, "arrays.npz")) as data:
         def load(p, leaf):
             key = _key(p)
-            arr = data[key]
-            if arr.shape != tuple(leaf.shape):
+            arr = torch.from_numpy(data[key])
+            if placed is not None:
+                arr = placed.part(p, arr)
+            if arr.shape != leaf.shape:
                 raise ValueError(
-                    f"shape mismatch for {key}: ckpt {arr.shape} vs "
+                    f"shape mismatch for {key}: ckpt {tuple(arr.shape)} vs "
                     f"target {tuple(leaf.shape)}")
             # into memory of torch's own allocation: a CPU matmul's sums
             # can depend on its operands' alignment, and a resumed run
             # must repeat the uninterrupted one bit for bit
             out = torch.empty(leaf.shape, dtype=leaf.dtype,
                               device=leaf.device)
-            return out.copy_(torch.from_numpy(arr))
+            return out.copy_(arr)
 
         tree = _unflatten(target_tree, load)
     return tree, manifest.get("extra", {})
@@ -154,13 +169,17 @@ class CheckpointManager:
         self.save_every = save_every
         self._pending: threading.Thread | None = None
 
-    def maybe_save(self, step: int, tree, *, extra=None, force=False):
+    def maybe_save(self, step: int, tree, *, extra=None, force=False,
+                   placed=None):
+        """``save`` when ``step`` is due (``placed``: every rank calls
+        it, rank 0 writes and collects old steps)."""
         if not force and (step == 0 or step % self.save_every):
             return False
         self.wait()
         self._pending = save(self.dir, step, tree, extra=extra,
-                             blocking=False)
-        self._gc(step)
+                             blocking=False, placed=placed)
+        if placed is None or placed.writer:
+            self._gc(step)
         return True
 
     def wait(self):
@@ -180,9 +199,9 @@ class CheckpointManager:
                 shutil.rmtree(os.path.join(self.dir, f"step_{s}"),
                               ignore_errors=True)
 
-    def restore_latest(self, target_tree):
+    def restore_latest(self, target_tree, *, placed=None):
         step = latest_step(self.dir)
         if step is None:
             return None, None, None
-        tree, extra = restore(self.dir, step, target_tree)
+        tree, extra = restore(self.dir, step, target_tree, placed=placed)
         return step, tree, extra

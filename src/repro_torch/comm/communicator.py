@@ -11,9 +11,12 @@ process on one device, like the paper's UPC threads sharing one node:
 * ``all_gather`` on ``(P, shard, ...)`` gives every rank its own copy of the
   whole ``(n, ...)`` vector;
 * ``all_reduce`` on ``(P, ...)`` gives every rank its own copy of the sum
-  (or the max) over ranks — the replicate put rung's ``psum``/``pmax``.
+  (or the max) over ranks — the replicate put rung's ``psum``/``pmax``;
+* ``reduce_scatter`` on ``(P, P * c, ...)`` gives rank ``r`` the sum (or
+  the max) over ranks of their ``r``-th slices of ``c`` — the FSDP
+  gradient's reduction (``runtime.sharding.make_gather``).
 
-All three take ``async_op=True``: the copy is then enqueued on a side CUDA stream
+All four take ``async_op=True``: the copy is then enqueued on a side CUDA stream
 and the returned ``Work`` makes the caller's stream wait for it in
 ``wait()`` — the ``start`` / ``finish`` window of the overlap rung.  On the
 CPU every collective completes before it returns.
@@ -173,6 +176,22 @@ class LoopbackComm:
 
         return self._run(reduce, x, async_op)
 
+    def reduce_scatter(self, x: torch.Tensor, op: str = "sum", *,
+                       async_op: bool = False) -> Work:
+        """``(P, P * c, ...)`` -> ``(P, c, ...)``: rank ``r`` gets the
+        reduction over ranks of their ``r``-th slices, ``all_reduce``'s
+        ``op`` in ascending rank order."""
+        _check_op(op)
+        p = self.p
+        assert x.dim() >= 2 and x.shape[1] % p == 0, (x.shape, p)
+
+        def scatter(t):
+            c = t.shape[1] // p
+            return _fold(t.reshape((p, p, c) + tuple(t.shape[2:])),
+                         op).contiguous()
+
+        return self._run(scatter, x, async_op)
+
 
 class _DistWork(Work):
     """A ``torch.distributed`` collective in flight: ``wait()`` waits on
@@ -208,14 +227,14 @@ class DistComm:
       ``b_max``, as on one process);
     * ``all_gather`` ``(p_local, shard, ...)`` -> ``(p_local, P * shard,
       ...)``;
-    * ``all_reduce`` bit for bit ``LoopbackComm``'s: neither gloo nor NCCL
+    * ``reduce_scatter`` ``(p_local, P * c, ...)`` -> ``(p_local, c,
+      ...)`` bit for bit ``LoopbackComm``'s: neither gloo nor NCCL
       promises the ascending rank order of a float sum or XLA's ``max``,
-      so the fold is done here.  Each process takes a ``1/world`` slice of
-      the payload from every rank (one ``all_to_all_single``: a
-      reduce-scatter), folds it in rank order and gathers the folded
-      slices back, so no process holds more than ``p_local`` payloads.
-      An integer sum, exact in any order, goes through the backend's
-      ``SUM``.
+      so the fold is done here.  Each process receives its ranks' slices
+      from every rank (one ``all_to_all_single``) and folds them in rank
+      order, so no process holds more than ``p_local`` payloads;
+    * ``all_reduce`` ``(p_local, ...)`` -> ``(p_local, ...)``: the payload
+      padded to ``P`` slices, ``reduce_scatter`` and ``all_gather``.
 
     The group's backend must serve the device: gloo for ``"cpu"``, NCCL
     for ``"cuda"`` (the default, as everywhere in the port).  Nothing
@@ -303,45 +322,49 @@ class DistComm:
 
         return self._done(work, out, spread, async_op)
 
-    def all_reduce(self, x: torch.Tensor, op: str = "sum", *,
-                   async_op: bool = False) -> Work:
-        """``(p_local, ...)`` -> ``(p_local, ...)``: every local rank gets
-        the reduction over all ``p`` ranks, ``LoopbackComm``'s bit for
-        bit."""
+    def reduce_scatter(self, x: torch.Tensor, op: str = "sum", *,
+                       async_op: bool = False) -> Work:
+        """``(p_local, P * c, ...)`` -> ``(p_local, c, ...)``: local rank
+        ``r`` gets the reduction over all ``p`` ranks of their ``r``-th
+        slices, ``LoopbackComm``'s bit for bit."""
         _check_op(op)
         self._check(x)
-        shape = tuple(x.shape)
-        if op == "sum" and not (x.dtype.is_floating_point
-                                or x.dtype.is_complex):
-            # a copy: the backend sums in place
-            part = _fold(x, "sum").clone()
-            work = dist.all_reduce(part, dist.ReduceOp.SUM, group=self.group,
-                                   async_op=async_op)
-            return self._done(work, part,
-                              lambda t: t.expand(shape).contiguous(),
-                              async_op)
-        # (p_local, n) padded to (p_local, world, c) -> (world_dst,
-        # p_local_src, c): process d receives slice d of every rank's row
-        w, pl = self.world, self.p_local
-        flat = x.reshape(pl, -1)
-        n = flat.shape[1]
-        c = max(1, -(-n // w))
-        if w * c != n:
-            flat = torch.nn.functional.pad(flat, (0, w * c - n))
-        send = flat.reshape(pl, w, c).transpose(0, 1).contiguous()
+        w, pl, p = self.world, self.p_local, self.p
+        assert x.dim() >= 2 and x.shape[1] % p == 0, (x.shape, p)
+        c = x.shape[1] // p
+        tail = tuple(x.shape[2:])
+        # (p_local_src, world_dst, p_local_dst, c, ...) -> (world_dst,
+        # p_local_src, p_local_dst, c, ...): process d receives the slices
+        # of its ranks from every rank
+        send = x.reshape((pl, w, pl, c) + tail).transpose(0, 1).contiguous()
         recv = torch.empty_like(send)
         work = dist.all_to_all_single(recv, send, group=self.group,
                                       async_op=async_op)
 
-        def fold_and_gather(r):
-            # (world_src, p_local_src, c): the P ranks in ascending order
-            part = _fold(r.reshape(self.p, c), op)
-            out = part.new_empty((w * c,))
-            if hasattr(dist, "all_gather_single"):
-                dist.all_gather_single(out, part, group=self.group)
-            else:       # torch before all_gather_single
-                dist.all_gather_into_tensor(out, part, group=self.group)
-            return out[:n].reshape(shape[1:]).expand(
-                shape).contiguous()
+        def fold(r):
+            # (world_src, p_local_src, ...): the P ranks in ascending order
+            return _fold(r.reshape((p, pl, c) + tail), op).contiguous()
 
-        return self._done(work, recv, fold_and_gather, async_op)
+        return self._done(work, recv, fold, async_op)
+
+    def all_reduce(self, x: torch.Tensor, op: str = "sum", *,
+                   async_op: bool = False) -> Work:
+        """``(p_local, ...)`` -> ``(p_local, ...)``: every local rank gets
+        the reduction over all ``p`` ranks, ``LoopbackComm``'s bit for
+        bit: ``reduce_scatter`` of the payload padded to ``p`` slices,
+        then ``all_gather``."""
+        _check_op(op)
+        self._check(x)
+        shape = tuple(x.shape)
+        flat = x.reshape(self.p_local, -1)
+        n = flat.shape[1]
+        c = max(1, -(-n // self.p))
+        if self.p * c != n:
+            flat = torch.nn.functional.pad(flat, (0, self.p * c - n))
+        part = self.reduce_scatter(flat, op, async_op=async_op)
+
+        def gather(_):
+            out = self.all_gather(part.wait()).wait()
+            return out[:, :n].reshape(shape)
+
+        return self._done(None, flat, gather, async_op)

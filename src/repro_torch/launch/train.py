@@ -14,23 +14,34 @@ from the latest checkpoint there.
 
 ``--mesh`` takes the reference's grammar (``launch.mesh.make_mesh``).
 ``local`` without a process group trains in this process alone.  ``D`` or
-``Dx1`` trains data-parallel over the ``D`` processes of a
-``torch.distributed`` group (gloo on the CPU, NCCL on the card; ``main``
-initialises it from a launcher's environment, one process a rank):
+``Dx1`` trains over the ``D`` processes of a ``torch.distributed`` group
+(gloo on the CPU, NCCL on the card; ``main`` initialises it from a
+launcher's environment, one process a rank), data-parallel with FSDP
+storage sharding:
 
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
         --arch llama3-8b --reduced --mesh 2 --device cpu
 
 Every rank draws the same global batch from ``--seed`` and takes its
 consecutive rows, as the reference's batch sharding over the data axis
-does; the gradients are averaged over the
-ranks in rank order (``runtime.steps.mean_over_ranks``), and the
-parameters and AdamW state stay replicated where the reference's ``--mesh
-D`` shards them over the data axis (FSDP, ROADMAP A21).  So ``--mesh W``
-(accumulation 1 a rank) gives ``--mesh local --accum W``'s step bit for
-bit.  Rank 0 saves the checkpoints, every rank restores them.  Still
-refused: a model axis > 1 (``DxM``, ``pod``, ``multipod``: tensor and
-expert parallelism, ROADMAP A22).
+does.  The parameters and the AdamW state are placed as the reference's
+``--mesh Dx1`` places them (``fsdp_axes="data"``, ``ep_mode`` for an MoE
+config; ``runtime.sharding``): each rank holds ``1/D`` of every leaf
+whose rule names the data axis (an MoE layer's expert weights on their
+model dimension) and the rest whole (norms, biases, ``conv_w``,
+``x_proj``, ``dt_proj``, ``a_log``, ``d_skip``, and what ``fit_spec``
+left whole).  The model all-gathers a layer's weights inside its remat
+region, where it computes them, and the backward reduce-scatters their
+gradients in rank order (``sharding.make_gather``); the whole leaves'
+gradients are averaged over the ranks in rank order
+(``runtime.steps.mean_over_ranks``).  So ``--mesh W`` (accumulation 1 a
+rank) gives ``--mesh local --accum W``'s step bit for bit.  A sharded step
+retries nothing (a retry on one rank would leave the others in a
+gather).  Checkpoints keep the reference's format: every rank assembles
+each leaf, rank 0 writes, and every rank restores its part whatever the
+mesh that wrote them.  At ``--mesh 1`` each part is the whole leaf, and
+the gathers still run.  Still refused: a model axis > 1 (``DxM``,
+``pod``, ``multipod``: tensor and expert parallelism, ROADMAP A22).
 """
 from __future__ import annotations
 
@@ -53,11 +64,12 @@ from repro_torch.data.pipeline import DataState, SyntheticLM
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models.transformer import Model, RunCtx
 from repro_torch.optim.adamw import AdamW, cosine_schedule
+from repro_torch.runtime import sharding
 from repro_torch.runtime.fault import StepTimer, StragglerWatch
 from repro_torch.runtime.steps import build_train_step
 
 __all__ = ["preset_lm100m", "parse_args", "ported_mesh", "data_parallel",
-           "Trainer", "setup", "main"]
+           "fsdp_rules", "Trainer", "setup", "main"]
 
 log = logging.getLogger("repro_torch.train")
 
@@ -100,8 +112,11 @@ class Trainer:
     checkpoint manager, and the cross-attention inputs of every step
     (``extra``: the reference's zero frames or image embeddings for an
     encdec or vlm stack, else None).  Under data parallelism ``comm`` is
-    the ``DistComm`` of the ranks and ``rows`` this rank's rows of each
-    global batch; else ``comm`` is None and ``rows`` takes them all."""
+    the ``DistComm`` of the ranks, ``rows`` this rank's rows of each
+    global batch and ``placed`` the placement of ``{"params", "opt"}``
+    (``sharding.Placed``: ``params`` and ``opt_state`` hold this rank's
+    parts); else ``comm`` and ``placed`` are None and ``rows`` takes them
+    all."""
 
     model: Model
     opt: AdamW
@@ -115,6 +130,7 @@ class Trainer:
     extra: dict | None = None
     comm: object = None
     rows: slice = slice(None)
+    placed: sharding.Placed | None = None
 
     @property
     def device(self) -> torch.device:
@@ -137,13 +153,13 @@ class Trainer:
         return metrics
 
     def save(self, step: int, *, force=False):
-        """Save at ``step`` when due (rank 0 only: the state is
-        replicated)."""
-        if self.mgr is not None and (self.comm is None
-                                     or self.comm.rank == 0):
+        """Save at ``step`` when due; every rank calls it (assembling a
+        leaf is a collective) and rank 0 writes."""
+        if self.mgr is not None:
             self.mgr.maybe_save(
                 step, {"params": self.params, "opt": self.opt_state},
-                extra={"data": self.dstate.to_json()}, force=force)
+                extra={"data": self.dstate.to_json()}, force=force,
+                placed=self.placed)
 
 
 def ported_mesh(spec: str) -> mesh_mod.Mesh:
@@ -178,32 +194,56 @@ def data_parallel(spec: str, batch: int, device):
     return comm, slice(comm.rank * per, (comm.rank + 1) * per)
 
 
+def fsdp_rules(cfg, parts: int) -> sharding.ShardingRules:
+    """The reference's rules at ``--mesh D`` for ``cfg`` over ``D =
+    parts`` ranks (``fsdp_axes="data"``, ``ep_mode`` for an MoE config),
+    on the ``D x 1`` mesh whose model axis the rule table names."""
+    mesh = mesh_mod.Mesh((parts, 1), ("data", "model"))
+    return sharding.ShardingRules(
+        mesh=mesh, fsdp_axes="data",
+        ep_mode=cfg.is_moe and cfg.num_experts >= mesh.shape["model"])
+
+
 def setup(cfg, args, *, retries: int = 1,
           ssm_scan_dtype: torch.dtype = torch.float32) -> Trainer:
     """The model, optimizer and state of ``args`` for ``cfg``, resumed from
     ``--ckpt-dir``'s latest checkpoint when there is one.  A step's failed
     gradient half is retried up to ``retries`` times (the reference
-    retries a failed step once; ``build_train_step``).
+    retries a failed step once; ``build_train_step``), but for a sharded
+    step, whose gradient half holds collectives: it retries nothing.
     ``ssm_scan_dtype`` is ``RunCtx``'s: the mamba layers' scan payload (as
     the reference, no flag sets it).  A ``--mesh`` other than ``local``
-    needs an initialised process group (``data_parallel``)."""
+    needs an initialised process group (``data_parallel``) and shards the
+    parameters and the AdamW state over it (``fsdp_rules``)."""
     device = resolve_device(args.device)
     comm, rows = data_parallel(args.mesh, args.batch, device)
+    gather = None
+    if comm is not None:
+        gather = sharding.make_gather(fsdp_rules(cfg, comm.p), comm)
+        retries = 0
     ctx = RunCtx(
         moe_groups=1,          # the reference's min(data-parallel size, B)
         remat="full",
         act_dtype=torch.float32 if device.type == "cpu" else torch.bfloat16,
         ssm_scan_dtype=ssm_scan_dtype,
+        gather=gather,
     )
     model = Model(cfg, ctx, device=device)
     opt = AdamW(lr=cosine_schedule(args.lr, args.warmup, args.steps),
                 weight_decay=0.01)
-    step_fn = build_train_step(model, opt, accum_steps=args.accum,
-                               retries=retries, comm=comm)
 
+    # drawn whole, block by block; a rank keeps its parts (gather.keep)
     params = model.init_params(
         torch.Generator(device=device).manual_seed(args.seed), master=True)
     opt_state = opt.init(params)
+    placed = dims = None
+    if gather is not None:
+        dims = gather.dims
+        placed = sharding.Placed(gather, {"params": dims, "opt": {
+            k: dims if k in ("m", "v", "master") else None
+            for k in opt_state}})
+    step_fn = build_train_step(model, opt, accum_steps=args.accum,
+                               retries=retries, comm=comm, dims=dims)
     data = SyntheticLM(cfg.vocab_size, args.seq, args.batch, seed=args.seed)
     dstate = DataState()
 
@@ -211,7 +251,8 @@ def setup(cfg, args, *, retries: int = 1,
     start_step = 0
     if args.ckpt_dir:
         mgr = CheckpointManager(args.ckpt_dir, save_every=args.save_every)
-        got = mgr.restore_latest({"params": params, "opt": opt_state})
+        got = mgr.restore_latest({"params": params, "opt": opt_state},
+                                 placed=placed)
         if got[0] is not None:
             start_step, tree, extra_state = got
             params, opt_state = tree["params"], tree["opt"]
@@ -228,7 +269,7 @@ def setup(cfg, args, *, retries: int = 1,
             (local_batch, cfg.num_image_tokens, cfg.d_model),
             dtype=ctx.act_dtype, device=device)}
     return Trainer(model, opt, params, opt_state, step_fn, data, dstate,
-                   start_step, mgr, extra, comm, rows)
+                   start_step, mgr, extra, comm, rows, placed)
 
 
 def main(argv=None, *, retries: int = 1):

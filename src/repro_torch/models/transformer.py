@@ -106,10 +106,19 @@ class RunCtx:
     checkpoints groups of layers instead, keeping only the groups'
     boundaries.  ``cast_params_once`` casts the layer stack to the
     activation dtype once before the layers run, where the reference does
-    it to halve its weight all-gathers.  The reference's ``constrain``
-    and ``scan_barrier`` (sharding constraints and an XLA scheduling
-    barrier) have no counterpart on one card, and ``vocab_shards`` is
-    always 1 here."""
+    it to halve its weight all-gathers (under ``gather``, each layer's
+    shards are cast before they are gathered).
+
+    ``gather`` (``runtime.sharding.make_gather``, FSDP over the data axis)
+    stands where the reference's ``constrain`` stands: the parameters are
+    this rank's shards (``init_params`` keeps them), and
+    ``gather(tree, keys, dtype)`` makes a subtree at ``keys`` of the
+    parameter tree whole where it is computed, inside each remat region
+    (a layer's weights, gathered again when its forward is recomputed in
+    the backward), and the embedding, the head and the final norm once a
+    call of ``hidden``/``forward``/``loss``.  The reference's
+    ``scan_barrier`` (an XLA scheduling barrier) has no counterpart, and
+    ``vocab_shards`` is always 1 here."""
 
     act_dtype: torch.dtype = torch.bfloat16
     ssm_scan_dtype: torch.dtype = torch.float32
@@ -118,6 +127,7 @@ class RunCtx:
     remat: str = "full"
     remat_groups: int = 1
     cast_params_once: bool = False
+    gather: Callable[..., Any] | None = None
 
     def __post_init__(self):
         if self.remat not in ("none", "full", "dots"):
@@ -505,14 +515,29 @@ class Model:
         dtype = torch.float32 if float32 else self.ctx.act_dtype
         return torch.as_tensor(tree).to(device=self.device, dtype=dtype)
 
-    def _stack(self, generator, kind: str, lead: tuple, master: bool):
+    def _keep(self, keys, tree, lead=()):
+        """What this rank keeps of a subtree at ``keys`` (a block of a
+        stack on ``lead``): all of it, or under ``RunCtx.gather`` its
+        shards."""
+        gather = self.ctx.gather
+        if gather is None:
+            return tree
+        if isinstance(tree, dict):
+            return {k: self._keep(keys + (k,), v, lead)
+                    for k, v in tree.items()}
+        return gather.keep(keys, tree, lead + tuple(tree.shape))
+
+    def _stack(self, generator, kind: str, lead: tuple, master: bool,
+               keys: tuple):
         """``prod(lead)`` blocks of ``kind`` drawn one after another and
-        stored at once, a block at a time, in a tree stacked on ``lead``."""
+        stored at once, a block at a time, in a tree stacked on ``lead``
+        at ``keys`` (this rank's part of each block, ``_keep``)."""
         n = math.prod(lead)
         stack = None
         for i in range(n):
-            bp = self._load(_init_block(generator, self.cfg, kind=kind),
-                            float32=master)
+            bp = self._keep(keys, self._load(
+                _init_block(generator, self.cfg, kind=kind),
+                float32=master), lead)
             if stack is None:
                 stack = tree_map(lambda t: t.new_empty((n,) + t.shape), bp)
             tree_map(lambda dst, src: dst[i].copy_(src), stack, bp)
@@ -524,36 +549,43 @@ class Model:
         (normal × fan-in^-0.5, embeddings × 0.02; the numbers differ from
         ``jax.random``'s) and stored at once, a layer at a time, in the
         activation dtype, or kept float32 with ``master=True`` (training:
-        module docstring)."""
+        module docstring).  Under ``RunCtx.gather`` every leaf is drawn
+        whole, the same numbers, and only this rank's shard of it is kept
+        (a stack holds its shards only)."""
         if resolve_device(generator.device) != self.device:
             raise ValueError(f"the generator lies on {generator.device}, "
                              f"the model on {self.device}")
         cfg = self.cfg
-        load = functools.partial(self._load, float32=master)
+        def load(keys, tree, float32=master):
+            return self._keep(keys, self._load(tree, float32=float32))
+
         p: dict[str, Any] = {
-            "embed": load({"w": L._normal(
+            "embed": load(("embed",), {"w": L._normal(
                 generator, (cfg.vocab_size, cfg.d_model), 0.02)}),
-            "final_norm": self._load(L.init_norm(
+            "final_norm": load(("final_norm",), L.init_norm(
                 generator, cfg.d_model, kind=cfg.norm), float32=True),
         }
         if not cfg.tie_embeddings:
-            p["lm_head"] = load({"w": L._normal(
+            p["lm_head"] = load(("lm_head",), {"w": L._normal(
                 generator, (cfg.d_model, cfg.vocab_size),
                 cfg.d_model ** -0.5)})
         if self.groups:
             g, per = self.groups, cfg.cross_attn_period
             p["groups"] = {
-                "self": self._stack(generator, "dense", (g, per - 1), master),
-                "cross": self._stack(generator, "cross", (g,), master)}
+                "self": self._stack(generator, "dense", (g, per - 1), master,
+                                    ("groups", "self")),
+                "cross": self._stack(generator, "cross", (g,), master,
+                                     ("groups", "cross"))}
         else:
             p["layers"] = self._stack(generator, self.kind,
-                                      (cfg.num_layers,), master)
+                                      (cfg.num_layers,), master, ("layers",))
         if cfg.is_encdec:
             p["encoder"] = {
                 "layers": self._stack(generator, "enc",
-                                      (cfg.encoder_layers,), master),
-                "norm": self._load(L.init_norm(generator, cfg.d_model,
-                                               kind=cfg.norm), float32=True)}
+                                      (cfg.encoder_layers,), master,
+                                      ("encoder", "layers")),
+                "norm": load(("encoder", "norm"), L.init_norm(
+                    generator, cfg.d_model, kind=cfg.norm), float32=True)}
         return p
 
     def load_params(self, params, *, master=False):
@@ -589,10 +621,31 @@ class Model:
             return extra["image_embeds"].to(self.ctx.act_dtype)
         return None
 
+    def _whole(self, keys, dtype=None):
+        """``tree -> tree``: a subtree of the parameters at ``keys`` whole
+        (``RunCtx.gather``; the tree itself without it)."""
+        gather = self.ctx.gather
+        if gather is None:
+            return lambda tree: tree
+        return functools.partial(gather, keys=keys, dtype=dtype)
+
+    def _top(self, params):
+        """``params`` with the embedding, the head and the final norm
+        whole: one gather a call, so that a tied table's two uses add
+        their gradients before one reduce-scatter."""
+        if self.ctx.gather is None:
+            return params
+        top = {k: params[k] for k in ("embed", "lm_head", "final_norm")
+               if k in params}
+        return {**params, **self._whole(())(top)}
+
     def hidden(self, params, tokens, *, extra=None):
         """Post-final-norm hidden states (B, S, D).  ``extra``:
         ``{"frames": (B, T, D)}`` (encdec) or ``{"image_embeds": (B, T,
         D)}`` (vlm)."""
+        return self._hidden(self._top(params), tokens, extra)
+
+    def _hidden(self, params, tokens, extra):
         cfg, ctx = self.cfg, self.ctx
         x = _embed_fwd(params["embed"], tokens, cfg, ctx)
         kv_ctx = self._context(params, extra)
@@ -601,14 +654,16 @@ class Model:
             return L.norm_apply(params["final_norm"], self._vlm_stack(
                 params["groups"], x, kv_ctx, policy), kind=cfg.norm)
         stack = params["layers"]
-        if ctx.cast_params_once:
-            stack = tree_map(lambda a: a.to(ctx.act_dtype)
+        cast = ctx.act_dtype if ctx.cast_params_once else None
+        if cast is not None and ctx.gather is None:
+            stack = tree_map(lambda a: a.to(cast)
                              if a.is_floating_point() else a, stack)
         layers = _unstack(stack, cfg.num_layers)
+        whole = self._whole(("layers",), cast)
 
         def run(lps, x):
             for lp in lps:
-                x = _block_fwd(lp, x, cfg, ctx, kind=self.kind,
+                x = _block_fwd(whole(lp), x, cfg, ctx, kind=self.kind,
                                kv_ctx=kv_ctx)
             return x
 
@@ -628,14 +683,19 @@ class Model:
         under the remat policy (the reference's ``_vlm_stack``)."""
         cfg, ctx = self.cfg, self.ctx
         per = cfg.cross_attn_period - 1
+        self_w = self._whole(("groups", "self"))
+        cross_w = self._whole(("groups", "cross"))
+
+        def block(whole, lp, x, **kw):
+            return _block_fwd(whole(lp), x, cfg, ctx, **kw)
+
         for gp in _unstack(groups_p, self.groups):
             for lp in _unstack(gp["self"], per):
                 x = _remat(functools.partial(
-                    _block_fwd, lp, cfg=cfg, ctx=ctx, kind="dense"),
-                    policy)(x)
+                    block, self_w, lp, kind="dense"), policy)(x)
             x = _remat(functools.partial(
-                _block_fwd, gp["cross"], cfg=cfg, ctx=ctx, kind="cross",
-                kv_ctx=kv_ctx), policy)(x)
+                block, cross_w, gp["cross"], kind="cross", kv_ctx=kv_ctx),
+                policy)(x)
         return x
 
     def _encode(self, enc_p, frames):
@@ -644,23 +704,30 @@ class Model:
         cfg, ctx = self.cfg, self.ctx
         x = frames.to(ctx.act_dtype)
         policy = self._policy(enc_p)
+        whole = self._whole(("encoder", "layers"))
+
+        def block(lp, x):
+            return _block_fwd(whole(lp), x, cfg, ctx, kind="enc")
+
         for lp in _unstack(enc_p["layers"], cfg.encoder_layers):
-            x = _remat(functools.partial(
-                _block_fwd, lp, cfg=cfg, ctx=ctx, kind="enc"), policy)(x)
-        return L.norm_apply(enc_p["norm"], x, kind=cfg.norm)
+            x = _remat(functools.partial(block, lp), policy)(x)
+        norm = self._whole(("encoder", "norm"))(enc_p["norm"])
+        return L.norm_apply(norm, x, kind=cfg.norm)
 
     def forward(self, params, tokens, *, extra=None, last_only=False):
         """tokens: (B, S) int; ``extra`` as ``hidden``'s.  Returns logits
         (B, S, V), or (B, 1, V) when ``last_only`` (prefill: the head runs
         on the final position only)."""
-        x = self.hidden(params, tokens, extra=extra)
+        params = self._top(params)
+        x = self._hidden(params, tokens, extra)
         if last_only:
             x = x[:, -1:, :]
         return x @ self.head_weight(params).to(x.dtype)
 
     def loss(self, params, tokens, labels, *, extra=None, chunk=512):
         """Fused chunked cross-entropy (never materializes full logits)."""
-        x = self.hidden(params, tokens, extra=extra)
+        params = self._top(params)
+        x = self._hidden(params, tokens, extra)
         return fused_ce_loss(x, self.head_weight(params), labels,
                              chunk=chunk)
 

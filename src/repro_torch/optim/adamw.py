@@ -25,19 +25,22 @@ __all__ = ["AdamW", "cosine_schedule", "linear_warmup", "global_norm",
            "clip_by_global_norm"]
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, whole=None) -> torch.Tensor:
     """sqrt of the sum over leaves (``jax.tree.leaves``' order) of each
-    leaf's float32 sum of squares."""
+    leaf's float32 sum of squares.  ``whole(tree)``, when given, yields
+    each leaf whole in that order (an FSDP shard assembled, one leaf at a
+    time), so that the sums are the whole leaves'."""
     total = 0
-    for x in tree_leaves(tree):
+    for x in (tree_leaves(tree) if whole is None else whole(tree)):
         total = total + torch.sum(torch.square(x.float()))
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(tree, max_norm):
-    """Scale ``tree`` in place so that its global norm is at most
-    ``max_norm``; returns ``(tree, norm before clipping)``."""
-    norm = global_norm(tree)
+def clip_by_global_norm(tree, max_norm, whole=None):
+    """Scale ``tree`` in place so that its global norm (``global_norm``'s,
+    ``whole`` passed on) is at most ``max_norm``; returns ``(tree, norm
+    before clipping)``."""
+    norm = global_norm(tree, whole)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     for g in tree_leaves(tree):
         g.copy_(g * scale)
@@ -98,15 +101,17 @@ class AdamW:
         return tree_map(lambda x: x.to(dtype) if x.is_floating_point()
                         else x, params)
 
-    def apply(self, params, grads, state):
+    def apply(self, params, grads, state, whole=None):
         """One step: ``(params, state, gnorm)``, the first two updated in
         place (``grads`` is clipped in place too).  ``gnorm`` is the norm
-        before clipping."""
+        before clipping (``global_norm``'s, ``whole`` passed on).  The
+        update is elementwise, so it runs on FSDP shards as on whole
+        leaves."""
         step = state["step"] + 1
         if self.clip_norm:
-            grads, gnorm = clip_by_global_norm(grads, self.clip_norm)
+            grads, gnorm = clip_by_global_norm(grads, self.clip_norm, whole)
         else:
-            gnorm = global_norm(grads)
+            gnorm = global_norm(grads, whole)
         lr = self.lr(step) if callable(self.lr) else self.lr
         b1, b2 = self.b1, self.b2
         stepf = step.float()

@@ -19,12 +19,19 @@ The rules match name patterns on the parameter's path, written as the
 reference writes it (``['layers']['attn']['wq']['w']``), with any number
 of stacked leading dims (layers, vlm groups) skipped.
 
-The port's trainer uses the data axis only (``launch.train --mesh D``:
-``batch_spec`` gives each rank its rows; parameters stay replicated).  The
-rest of the table serves the FSDP and model-axis items to come (ROADMAP
-A21, A22).  The reference's ``make_constrain`` is not ported: it tags
-activations with ``with_sharding_constraint`` for XLA's partitioner, and
-eager PyTorch has no partitioner to tell.
+The port's trainer runs the data axis (``launch.train --mesh D``): FSDP
+storage sharding.  At ``--mesh D`` it builds the reference's rules
+(``fsdp_axes="data"``, ``ep_mode`` for an MoE config, no
+``opt_fsdp_axes``) on the ``D x 1`` mesh: the rule table names the model
+axis, which a one-axis mesh lacks (the reference's ``--mesh D`` raises a
+``KeyError`` in ``param_shardings``; its ``--mesh Dx1`` is this
+placement).  ``data_dim`` reads which dimension of a leaf the data axis
+splits, ``take`` cuts a rank's part, and ``make_gather`` gives the hook
+that stands where the reference's ``make_constrain`` tags activations for
+XLA's partitioner: eager PyTorch has no partitioner, so each layer's
+weights are all-gathered where they are computed and their gradients
+reduce-scattered in rank order (``_GatherFn``).  ``batch_spec`` gives each
+rank its rows.  The model-axis rules serve ROADMAP A22.
 """
 from __future__ import annotations
 
@@ -33,8 +40,11 @@ import math
 import re
 from typing import Any
 
+import torch
+
 __all__ = ["ShardingRules", "fit_spec", "param_specs", "batch_spec",
-           "cache_specs", "path_str"]
+           "cache_specs", "path_str", "data_dim", "data_dims", "take",
+           "take_tree", "Gather", "make_gather", "Placed"]
 
 
 def _axes_size(mesh, axes) -> int:
@@ -178,3 +188,230 @@ def cache_specs(rules: ShardingRules, cache):
         return fit_spec(mesh, tuple(leaf.shape), spec)
 
     return _map_with_path(one, cache)
+
+
+# ---------------------------------------------------------------------------
+# FSDP placement over the data axes
+# ---------------------------------------------------------------------------
+
+def _names(axes) -> set:
+    if axes is None:
+        return set()
+    return {axes} if isinstance(axes, str) else set(axes)
+
+
+def data_dim(rules: ShardingRules, path: str, shape) -> int | None:
+    """The dimension of a leaf of whole ``shape`` at ``path`` that
+    ``rules``' FSDP axes split, counted from the end (so a layer of a
+    stacked leaf has its stack's), or None where the leaf stays whole."""
+    fs = _names(rules.fsdp_axes)
+    spec = rules.spec_for(path, tuple(shape))
+    for i, axes in enumerate(spec):
+        if _names(axes) & fs:
+            return i - len(spec)
+    return None
+
+
+def data_dims(rules: ShardingRules, tree):
+    """``data_dim`` of every leaf of a tree of whole leaves."""
+    return _map_with_path(lambda path, leaf: data_dim(rules, path,
+                                                      leaf.shape), tree)
+
+
+def take(t: torch.Tensor, dim: int | None, rank: int, parts: int):
+    """Rank ``rank``'s part of ``t`` along ``dim`` (``parts`` equal parts,
+    in rank order) in storage of its own, so that the whole is freed; ``t``
+    itself where ``dim`` is None."""
+    if dim is None:
+        return t
+    n = t.shape[dim] // parts
+    return t.narrow(dim, rank * n, n).clone(
+        memory_format=torch.contiguous_format)
+
+
+def _zip(fn, tree, dims):
+    """``fn(leaf, dim)`` over a tree and its dims (the tree's keys)."""
+    if isinstance(tree, dict):
+        return {k: _zip(fn, v, dims[k]) for k, v in tree.items()}
+    return fn(tree, dims)
+
+
+def take_tree(tree, dims, rank: int, parts: int):
+    """``take`` of every leaf."""
+    return _zip(lambda t, d: take(t, d, rank, parts), tree, dims)
+
+
+def _gathered(comm, shards, dims):
+    """Each shard all-gathered whole (its data dim ``parts`` times
+    longer, the ranks' parts in order): one flat ``all_gather`` a dtype."""
+    p, out = comm.p, [None] * len(shards)
+    for dtype in dict.fromkeys(s.dtype for s in shards):
+        idx = [i for i, s in enumerate(shards) if s.dtype == dtype]
+        flat = torch.cat([shards[i].reshape(-1) for i in idx])[None]
+        got = comm.all_gather(flat).wait().view(p, -1)
+        off = 0
+        for i in idx:
+            s = shards[i]
+            d = dims[i] % s.dim()
+            whole = list(s.shape)
+            whole[d] *= p
+            out[i] = got[:, off:off + s.numel()].reshape(
+                (p,) + tuple(s.shape)).movedim(0, d).reshape(whole)
+            off += s.numel()
+    return out
+
+
+def _scattered(comm, grads, dims):
+    """Each whole gradient reduce-scattered to this rank's part, the ranks
+    summed in ascending order: one flat ``reduce_scatter`` a dtype."""
+    p, out = comm.p, [None] * len(grads)
+    for dtype in dict.fromkeys(g.dtype for g in grads):
+        idx = [i for i, g in enumerate(grads) if g.dtype == dtype]
+        rows = []
+        for i in idx:
+            g = grads[i]
+            d = dims[i] % g.dim()
+            split = g.shape[:d] + (p, g.shape[d] // p) + g.shape[d + 1:]
+            rows.append(g.reshape(split).movedim(d, 0).reshape(p, -1))
+        got = comm.reduce_scatter(torch.cat(rows, 1).reshape(1, -1)).wait()
+        for i, part in zip(idx, got[0].split([r.shape[1] for r in rows])):
+            g = grads[i]
+            d = dims[i] % g.dim()
+            shape = list(g.shape)
+            shape[d] //= p
+            out[i] = part.view(shape)
+    return out
+
+
+class _GatherFn(torch.autograd.Function):
+    """Shards -> whole weights (``_gathered``), cast to ``dtype`` first
+    when one is given; backward: the whole weights' gradients, cast back
+    to each shard's dtype (a float32 master's gradient is summed in
+    float32, as the replicated path's is), ``_scattered``."""
+
+    @staticmethod
+    def forward(ctx, comm, dims, dtype, *shards):
+        ctx.comm, ctx.dims = comm, dims
+        ctx.dtypes = [s.dtype for s in shards]
+        if dtype is not None:
+            shards = [s.to(dtype) if s.is_floating_point() else s
+                      for s in shards]
+        return tuple(_gathered(comm, shards, dims))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        grads = [g.to(dt) for g, dt in zip(grads, ctx.dtypes)]
+        return (None, None, None) + tuple(_scattered(ctx.comm, grads,
+                                                     ctx.dims))
+
+
+def _flat(tree, dims, keys=()):
+    """``(keys, leaf, dim)`` of a tree and its dims, in the tree's order."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items()
+                for x in _flat(v, dims[k], keys + (k,))]
+    return [(keys, tree, dims)]
+
+
+def _at(tree, keys):
+    """The subtree of ``tree`` at ``keys``."""
+    for k in keys:
+        tree = tree[k]
+    return tree
+
+
+def _rebuild(tree, values, keys=()):
+    if isinstance(tree, dict):
+        return {k: _rebuild(v, values, keys + (k,)) for k, v in tree.items()}
+    return values[keys]
+
+
+class Gather:
+    """``make_gather``'s hook: rank ``rank`` of ``parts`` over ``comm``
+    (one rank a process), FSDP over ``rules``' data axes.
+
+    ``keep(keys, t, shape)`` is ``Model.init_params``'s: the rank's part
+    of a leaf at ``keys`` whose whole shape is ``shape`` (a block of a
+    stacked leaf passes the stack's shape), recording the leaf's data dim
+    in ``dims``, a tree like the parameters'.  ``gather(tree, keys,
+    dtype)`` (the hook, ``RunCtx.gather``) gives a subtree of shards at
+    ``keys`` of the parameter tree (one layer of a stack too) whole: the
+    split leaves through ``_GatherFn``, one all-gather a dtype, the
+    others as they are.  ``whole`` and ``part`` assemble and cut one leaf
+    outside autograd (the global norm, checkpoints)."""
+
+    def __init__(self, rules: ShardingRules, comm):
+        if rules.opt_fsdp_axes is not None:
+            raise NotImplementedError("opt_fsdp_axes: the optimizer state "
+                                      "is placed as the parameters")
+        if comm.p_local != 1:
+            raise ValueError("FSDP holds one rank a process")
+        size = _axes_size(rules.mesh, rules.fsdp_axes)
+        if size != comm.p:
+            raise ValueError(f"the FSDP axes span {size} ranks; the "
+                             f"communicator has {comm.p}")
+        self.rules, self.comm = rules, comm
+        self.rank, self.parts = comm.rank, comm.p
+        self.dims: dict = {}
+
+    def keep(self, keys, t: torch.Tensor, shape=None) -> torch.Tensor:
+        d = data_dim(self.rules, path_str(keys),
+                     t.shape if shape is None else shape)
+        node = self.dims
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = d
+        return take(t, d, self.rank, self.parts)
+
+    def at(self, keys):
+        """The dims of the subtree at ``keys``."""
+        return _at(self.dims, keys)
+
+    def __call__(self, tree, keys=(), dtype=None):
+        flat = _flat(tree, self.at(keys))
+        split = [(k, t, d) for k, t, d in flat if d is not None]
+        values = {k: (t.to(dtype) if dtype is not None
+                      and t.is_floating_point() else t)
+                  for k, t, d in flat if d is None}
+        if split:
+            wholes = _GatherFn.apply(self.comm, [d for _, _, d in split],
+                                     dtype, *[t for _, t, _ in split])
+            values.update(zip([k for k, _, _ in split], wholes))
+        return _rebuild(tree, values)
+
+    def whole(self, t: torch.Tensor, dim: int | None) -> torch.Tensor:
+        """One leaf whole (a collective where it is split)."""
+        if dim is None:
+            return t
+        with torch.no_grad():
+            return _gathered(self.comm, [t], [dim])[0]
+
+    def part(self, t: torch.Tensor, dim: int | None) -> torch.Tensor:
+        return take(t, dim, self.rank, self.parts)
+
+
+def make_gather(rules: ShardingRules, comm) -> Gather:
+    """The FSDP hook of ``rules`` over ``comm`` (``Gather``): the port's
+    counterpart of the reference's ``make_constrain``."""
+    return Gather(rules, comm)
+
+
+@dataclasses.dataclass(frozen=True)
+class Placed:
+    """A tree of this rank's parts: ``dims`` its data dims (a tree like
+    it), ``gather`` the hook that placed it.  ``whole(keys, leaf)`` and
+    ``part(keys, t)`` assemble and cut the leaf at ``keys``; rank 0
+    writes what is assembled (``writer``)."""
+
+    gather: Gather
+    dims: Any
+
+    def whole(self, keys, leaf):
+        return self.gather.whole(leaf, _at(self.dims, keys))
+
+    def part(self, keys, t):
+        return self.gather.part(t, _at(self.dims, keys))
+
+    @property
+    def writer(self) -> bool:
+        return self.gather.rank == 0

@@ -67,14 +67,24 @@ def build_grad_fn(model: Model, *, accum_steps: int = 1):
     return grads_of
 
 
-def mean_over_ranks(grads, loss, comm):
+def mean_over_ranks(grads, loss, comm, dims=None):
     """``(grads, loss)`` summed over the ranks of ``comm`` (one a process,
     a ``DistComm``) in rank order and divided by their count: the
     data-parallel mean, as ``build_grad_fn``'s accumulation sums its
     microbatches in order and divides.  Every leaf of one dtype travels in
-    one flat buffer (one ``all_reduce``)."""
-    leaves = tree_leaves(grads) + [loss]
-    done = {}
+    one flat buffer (one ``all_reduce``).
+
+    ``dims`` (a tree like ``grads``, ``runtime.sharding``'s data dims):
+    the leaves it splits are FSDP shards whose gradients the gather's
+    backward has already summed over the ranks in order; they are only
+    divided."""
+    split = set()
+    if dims is not None:
+        split = {id(g) for g, d in zip(tree_leaves(grads), tree_leaves(dims))
+                 if d is not None}
+    leaves = [g for g in tree_leaves(grads) if id(g) not in split] + [loss]
+    done = {id(g): g.div_(comm.p) for g in tree_leaves(grads)
+            if id(g) in split}
     for dtype in dict.fromkeys(t.dtype for t in leaves):
         group = [t for t in leaves if t.dtype == dtype]
         flat = torch.cat([t.reshape(-1) for t in group])[None]
@@ -85,7 +95,7 @@ def mean_over_ranks(grads, loss, comm):
 
 
 def build_train_step(model: Model, opt: AdamW, *, accum_steps: int = 1,
-                     retries: int = 0, comm=None):
+                     retries: int = 0, comm=None, dims=None):
     """``step(params, opt_state, batch, extra=None) -> (params, opt_state,
     metrics)``.
 
@@ -100,19 +110,43 @@ def build_train_step(model: Model, opt: AdamW, *, accum_steps: int = 1,
     ``comm`` (a ``DistComm``, one rank a process): data parallelism.
     ``batch`` is this rank's rows; the gradients and the loss are
     averaged over the ranks (``mean_over_ranks``, outside the retry: a
-    collective must run once on every rank) before the replicated update,
-    so every rank holds the same parameters after the step."""
+    collective must run once on every rank) before the update, so every
+    rank holds the same parameters after the step.
+
+    ``dims`` (FSDP: ``RunCtx.gather`` is the model's hook, ``params`` and
+    ``opt_state`` this rank's shards, ``dims`` the parameters' data dims):
+    the split leaves' gradients arrive reduced by the gather's backward
+    and are divided by ``comm.p``, the others go through
+    ``mean_over_ranks``; the global norm sees each split gradient whole,
+    assembled one leaf at a time (``AdamW.apply``'s ``whole``), so it is
+    the replicated step's bit for bit; ``AdamW.apply`` then updates the
+    shards.  The gradient half then holds collectives, and a retry on one
+    rank alone would leave the others waiting in a gather: a sharded step
+    takes no ``retries``.  ``step.retries`` is the count it retries."""
+    sharded = dims is not None and any(
+        d is not None for d in tree_leaves(dims))
+    if sharded and retries:
+        raise ValueError("a sharded step retries nothing: its gradient "
+                         "half holds collectives")
     grads_of = retrying(build_grad_fn(model, accum_steps=accum_steps),
                         retries=retries)
+    whole = None
+    if sharded:
+        gather = model.ctx.gather
+
+        def whole(tree):
+            return (gather.whole(g, d) for g, d in zip(
+                tree_leaves(tree), tree_leaves(dims)))
 
     def step(params, opt_state, batch, extra=None):
         grads, loss = grads_of(params, batch, extra)
         if comm is not None:
-            grads, loss = mean_over_ranks(grads, loss, comm)
-        params, opt_state, gnorm = opt.apply(params, grads, opt_state)
+            grads, loss = mean_over_ranks(grads, loss, comm, dims)
+        params, opt_state, gnorm = opt.apply(params, grads, opt_state, whole)
         return params, opt_state, {"loss": loss,
                                    "grad_norm": gnorm.float()}
 
+    step.retries = retries
     return step
 
 

@@ -6,7 +6,8 @@ tests/test_torch_train_dp.py RANK 2 INIT OUT``) and, in one gloo group,
 for each arch:
 
 * train two steps through ``launch.train.setup`` at ``--mesh 2`` with
-  checkpoints every step (rank 0 writes them), and write their parameters;
+  checkpoints every step (rank 0 writes them), and write their parameters
+  and AdamW state, each leaf assembled whole from the ranks' FSDP parts;
 * take one ``build_train_step`` step over a ``DistComm`` from the
   reference's weights (``convert.model_params_from_reference``), each on
   its half of the batch.
@@ -45,9 +46,17 @@ def _argv(arch, *more):
             str(SEQ), "--device", "cpu", "--steps", "3", *more]
 
 
+def _paths(tree, keys=()):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _paths(tree[k], keys + (k,))]
+    return [(keys, tree)]
+
+
 def _leaves(tr):
-    from repro_torch.models.transformer import tree_leaves
-    return [t.numpy().copy() for t in tree_leaves(
+    """The trainer's state in ``tree_leaves``' order, each leaf whole
+    (under ``--mesh``, assembled from the ranks' parts: a collective)."""
+    whole = (lambda k, t: t) if tr.placed is None else tr.placed.whole
+    return [whole(k, t).numpy().copy() for k, t in _paths(
         {"params": tr.params, "opt": tr.opt_state})]
 
 
