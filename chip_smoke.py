@@ -229,21 +229,34 @@ each:
    its ms beside the serving entry's); then train_hybrid: hymba-1.5b at
    its published widths and depth the same way with 2 timed steps (B9's
    backward at d_inner 3200 beside the banded attention; kernel line
-   selective_scan_bwd_di3200).  Then dist_train: launch.train --mesh 1
-   (FSDP storage sharding over a one-process NCCL group, as
-   dist_main_path's; at world 1 each part is the whole leaf, and every
-   gather and reduce-scatter runs) on falcon-mamba-7b at its published
-   widths, DIST_TRAIN_LAYERS of its 64 layers, train_ssm's settings,
-   beside a --mesh local trainer from the same seed: the first step on
-   the same batch gives the local step's parameters, AdamW state, loss
-   and gradient norm bit for bit, with B9 launched layers x microbatches
-   x 2 and B9's backward layers x microbatches (every layer), and the
-   step's all-gathers and reduce-scatters counted against its layers and
-   microbatches; then the two steps timed local, FSDP, FSDP, local, with
-   the peak memory of each and the bytes a rank holds (distinct
-   storages) beside those param_specs would place at D = 8.  ``python3
-   chip_smoke.py --only dist_train`` runs the card and build lines and
-   this phase, and an ok line that carries "only": "dist_train".  The
+   selective_scan_bwd_di3200).  Then dist_train: launch.train --mesh 1x1
+   (the 2-D path over a one-process NCCL group, as dist_main_path's: FSDP
+   storage sharding over a data group of one rank, where each part is
+   the whole leaf and every gather and reduce-scatter runs, and the
+   model axis over a model group of one rank, where every tensor-parallel
+   collective runs) on falcon-mamba-7b at its published widths,
+   DIST_TRAIN_LAYERS of its 64 layers, train_ssm's settings, beside a
+   --mesh local trainer from the same seed: the first step on the same
+   batch gives the local step's parameters, AdamW state, loss and
+   gradient norm bit for bit, with B9 launched layers x microbatches x 2
+   and B9's backward layers x microbatches (every layer), and the step's
+   collectives counted against its layers and microbatches (the data
+   group's all-gathers and reduce-scatters, the model group's
+   all-reduces, in_proj's gathers and reduce-scatters, the vocab-parallel
+   cross entropy's reduces); then the two steps timed local, 2-D, 2-D,
+   local, with the peak memory of each and the bytes a rank holds
+   (distinct storages) beside those param_specs would place at D = 8.
+   Then dist_tp_forward: two threads of a ThreadWorld as the two model
+   ranks of a 1x2 mesh, each on its own stream, compute the first batch's
+   loss under no_grad in float32 (TF32 off) for llama3-8b (16 query and 4
+   KV heads a rank, a 64128-row vocabulary slice, the vocab-parallel
+   cross entropy) and falcon-mamba-7b (B9 on 4096 of 8192 channels a
+   rank, launched once a layer a rank), DIST_TP_LAYERS layers at
+   published widths, each held against a --mesh local float32 model's
+   loss within DIST_TP_TOL, with the ms and peak memory of each.
+   ``python3 chip_smoke.py --only dist_train`` runs the card and build
+   lines and these two phases, and an ok line that carries "only":
+   "dist_train".  The
    train_twin phase holds reduced falcon-mamba-7b and hymba-1.5b too.  MFU counts 6 N tokens
    (runtime/steps.model_flops): the scan's own work is outside it.
 The model lines (phase "model"; the §5 models of core/perfmodel.py on
@@ -266,7 +279,7 @@ ranking, or an auto engine's output differs from the fixed-rung engine it
 resolved to (bit for bit; the forward dest rungs may hold to
 unpack_dest_spmv's 3e-5 instead). A model miss, even past its budget, is printed, never a failure.
 In phases 5 to 15 and 18 (dist_main_path, dist_consumers' and
-dist_per_batch's arms and dist_train included) the kernel launch counters are zeroed just
+dist_per_batch's arms, dist_train and dist_tp_forward included) the kernel launch counters are zeroed just
 before the path runs and read just after, and every kernel of the path
 must have launched; in phases 5, 7 and 8 every launch of unpack_dest and
 unpack_scatter_set must have gone through its plan table (the counts by C
@@ -431,6 +444,13 @@ TRAIN_HYBRID_TIMED = 2
 # fewest layers that still run the scan kernels in more than one layer
 DIST_TRAIN_LAYERS = 2
 NCCL_INIT = pathlib.Path(__file__).resolve().parent / "build" / "nccl_init"
+# the model axis's forward on the card: two threads as the model ranks of a
+# 1x2 mesh, two layers of each arch at its published widths, a batch of 2
+# x 2048 tokens, float32 activations (the train twins' settings)
+DIST_TP_ARCHS = ("llama3-8b", "falcon-mamba-7b")
+DIST_TP_LAYERS = 2
+DIST_TP_ARGV = ["--seq", "2048", "--batch", "2", "--seed", str(SEED)]
+DIST_TP_TOL = 1e-4
 # the backward kernel against the plain backward: each gradient within
 # this share of its largest element
 SCAN_BWD_TOL = 2e-4
@@ -4848,22 +4868,48 @@ def fsdp_collective_ms(torch, tr, accum: int):
     return out
 
 
+def model_axis_calls(cfg, accum: int, seq: int, split_m: int) -> dict:
+    """The model group's collective calls in one --mesh 1x1 step of an ssm
+    stack (counted_collectives' way: an all_reduce also counts the
+    reduce_scatter and all_gather it runs).  Remat (torch.utils.checkpoint,
+    which stops recomputing a region at the last tensor its backward
+    saved) runs a region's forward once more, up to that tensor.  A mamba
+    layer, a microbatch: its forward gathers in_proj (one all_gather) and
+    reduces x_proj's and out_proj's partial sums (two all_reduces); the
+    recomputation runs all but the last reduce; the backward all-reduces
+    the two entries' gradients and reduce-scatters in_proj's.  A chunk of
+    the vocab-parallel cross entropy, a microbatch: the log-sum-exp's max
+    and sum and the label's logit reduced (three all_reduces), the
+    recomputation all but the last, and the entry's all_reduce in the
+    backward.  The global norm assembles every leaf that the model axis
+    splits (one all_gather each)."""
+    chunks = seq // min(512, seq)
+    reduces = accum * (5 * cfg.num_layers + 6 * chunks)
+    return {"all_gather": accum * 2 * cfg.num_layers + split_m + reduces,
+            "reduce_scatter": accum * cfg.num_layers + reduces,
+            "all_reduce": reduces}
+
+
 def phase_dist_train(torch, card):
-    """launch.train --mesh 1 on falcon-mamba-7b at its published widths,
-    DIST_TRAIN_LAYERS layers, train_ssm's settings: FSDP over a
-    one-process NCCL group (each part the whole leaf at world 1; every
-    layer's weights all-gathered in its remat region, again in its
-    recomputed forward, its gradients reduce-scattered, the global norm's
-    split gradients assembled), beside a --mesh local trainer from the
-    same seed (built before the group exists, so it trains alone): the
+    """launch.train --mesh 1x1 on falcon-mamba-7b at its published widths,
+    DIST_TRAIN_LAYERS layers, train_ssm's settings: the 2-D path over a
+    one-process NCCL group (the data group and the model group each of
+    one rank; each part the whole leaf; every layer's weights all-gathered
+    over the data group in its remat region, again in its recomputed
+    forward, its gradients reduce-scattered, the global norm's split
+    gradients assembled over both groups; the model group's collectives
+    run over its one rank: in_proj gathered, x_proj's and out_proj's
+    partial sums and the vocab-parallel cross entropy's reduced, the
+    entries' gradients all-reduced), beside a --mesh local trainer from
+    the same seed (built before the group exists, so it trains alone): the
     first step on the same batch bit for bit (parameters, AdamW state,
     loss, gradient norm), B9 and its backward launched in every layer of
-    every microbatch of the FSDP step, and its collectives counted
-    against the layers and microbatches; then the two steps timed in the
-    order local, FSDP, FSDP, local (CUDA events; peak memory allocated
-    during each, both trainers resident), and the bytes a rank holds
-    (distinct storages) beside those param_specs would place at D = 8.
-    Returns the FSDP step's launch counts."""
+    every microbatch, and both groups' collectives counted against the
+    layers and microbatches; then the two steps timed in the order local,
+    2-D, 2-D, local (CUDA events; peak memory allocated during each, both
+    trainers resident), and the bytes a rank holds (distinct storages)
+    beside those param_specs would place at D = 8.  Returns the 2-D step's
+    launch counts."""
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import ops as kops
     from repro_torch.launch import train as ltrain
@@ -4895,17 +4941,22 @@ def phase_dist_train(torch, card):
         TRAIN_SSM_ARGV + ["--mesh", "local"]), retries=0)
     with nccl_group(torch):
         dp = ltrain.setup(cfg, ltrain.parse_args(
-            TRAIN_SSM_ARGV + ["--mesh", "1"]), retries=0)
+            TRAIN_SSM_ARGV + ["--mesh", "1x1"]), retries=0)
+        tp = dp.model.ctx.model
         check(local.comm is None and dp.comm.world == 1
               and dp.placed is not None
               and dp.model.ctx.gather is not None
+              and tp is not None and tp.size == 1
+              and tp.comm is not dp.comm
               and dp.step_fn.retries == 0,
-              "dist_train: the --mesh 1 trainer is not the FSDP one")
+              "dist_train: the --mesh 1x1 trainer is not the 2-D one")
         check(all(torch.equal(a, b) for a, b in zip(state(local),
                                                     state(dp))),
               "dist_train: the two trainers start from different weights")
         dims = dp.placed.dims["params"]
         split = sum(d is not None for d in tree_leaves(dims))
+        split_m = sum(d is not None for d in tree_leaves(
+            dp.placed.mdims["params"]))
         held = {"fsdp": distinct_bytes({"params": dp.params,
                                         "opt": dp.opt_state}),
                 "local": distinct_bytes({"params": local.params,
@@ -4924,14 +4975,15 @@ def phase_dist_train(torch, card):
         t1 = time.perf_counter()
         want, _, _ = timed_step(local)
         kops.reset_launch_counts()
-        with counted_collectives(dp.comm) as calls:
+        with counted_collectives(dp.comm) as calls, \
+                counted_collectives(tp.comm) as model_calls:
             got, first_ms, _ = timed_step(dp)
         counts = kops.launch_counts()
         same = all(torch.equal(a, b) for a, b in zip(state(local),
                                                      state(dp)))
         for k in ("loss", "grad_norm"):
             same = same and torch.equal(got[k], want[k])
-        check(same, "dist_train: the --mesh 1 FSDP step is not the --mesh "
+        check(same, "dist_train: the --mesh 1x1 step is not the --mesh "
               "local step bit for bit")
         accum = args.accum
         per_step = cfg.num_layers * accum
@@ -4951,8 +5003,13 @@ def phase_dist_train(torch, card):
                       + split + 1,
                       "reduce_scatter": accum * (cfg.num_layers + 1) + 1,
                       "all_reduce": 1}
-        check(calls == want_calls, f"dist_train: the FSDP step ran the "
-              f"collectives {calls}, not {want_calls}")
+        check(calls == want_calls, f"dist_train: the 2-D step ran the "
+              f"data group's collectives {calls}, not {want_calls}")
+        model_calls = dict(model_calls)
+        want_model = model_axis_calls(cfg, accum, args.seq, split_m)
+        check(model_calls == want_model, f"dist_train: the 2-D step ran "
+              f"the model group's collectives {model_calls}, not "
+              f"{want_model}")
         t2 = time.perf_counter()
         ms = {"local": [], "fsdp": []}
         peak = {"local": 0, "fsdp": 0}
@@ -4972,11 +5029,14 @@ def phase_dist_train(torch, card):
     emit({"phase": "dist_train", "arch": cfg.name, "layers": cfg.num_layers,
           "of_layers": full.num_layers, "d_model": cfg.d_model,
           "d_inner": cfg.d_inner, "seq": args.seq, "batch": args.batch,
-          "accum": args.accum, "mesh": "1",
-          "comm": "DistComm, one process of an NCCL group (world 1)",
+          "accum": args.accum, "mesh": "1x1",
+          "comm": "DistComm over a data group and a model group of one "
+                  "rank each, one process of an NCCL group (world 1)",
           "fsdp": "every split leaf's part is the whole leaf at world 1",
           "bit_for_bit_mesh_local": True, "launches": launched,
-          "collectives_per_step": calls, "split_leaves": split,
+          "collectives_per_step": calls,
+          "model_group_collectives_per_step": model_calls,
+          "split_leaves": split, "model_split_leaves": split_m,
           "bytes_held": held,
           "bytes_at_d8_by_param_specs": at_8,
           "losses": losses, "first_step_ms": first_ms,
@@ -4993,6 +5053,151 @@ def phase_dist_train(torch, card):
                      "collectives": round(time.perf_counter() - t3, 1)},
           "card": card})
     return launched
+
+
+def phase_dist_tp_forward(torch, card, dev=None):
+    """The model axis on the card: a ThreadWorld of two threads holds model
+    ranks 0 and 1 of a 1x2 mesh (each its own stream, a ThreadComm of two
+    ranks as its model group and a LoopbackComm of one as its data
+    group), each keeping its parts of the parameters drawn from the seed
+    as launch.train --mesh 1x2 keeps them (fsdp_rules(cfg, 1, 2),
+    vocab_shards 2), and computes the first batch's loss under no_grad,
+    float32 activations and TF32 off (the train twins' settings): for
+    llama3-8b at its published widths, DIST_TP_LAYERS layers (16 query and
+    4 KV heads a rank, a 64128-row vocabulary slice looked up masked and
+    the vocab-parallel cross entropy), and for falcon-mamba-7b the same
+    way (B9 on 4096 of 8192 channels a rank, launched once a layer a
+    rank).  Each loss is held against a --mesh local float32 model's from
+    the same seed on the same batch, within DIST_TP_TOL relative, with
+    the ms of each after a warm-up forward (CUDA events on each rank's
+    stream; the local one on the default stream) and the peak memory
+    allocated during each timed forward, its parameters resident (both
+    ranks' threads share the card).  Returns the timed forwards' launch
+    counts."""
+    from repro_torch.comm.communicator import LoopbackComm
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import train as ltrain
+    from repro_torch.models.transformer import Model, RunCtx, tree_leaves
+    from repro_torch.runtime import sharding
+    from repro_torch.runtime.model_axis import ModelAxis
+
+    args = ltrain.parse_args(["--arch", "llama3-8b"] + DIST_TP_ARGV)
+    dev = dev or torch.device("cuda", torch.cuda.current_device())
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    launched = collections.Counter()
+    try:
+        for arch in DIST_TP_ARCHS:
+            t0 = time.perf_counter()
+            cfg = dataclasses.replace(get_config(arch),
+                                      num_layers=DIST_TP_LAYERS)
+            tokens, labels = (torch.from_numpy(a).to(dev, torch.int64)
+                              for a in SyntheticLM(
+                                  cfg.vocab_size, args.seq, args.batch,
+                                  seed=args.seed).batch_at(0))
+
+            def timed(fn):
+                torch.cuda.synchronize()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn()
+                end.record()
+                end.synchronize()
+                return out, start.elapsed_time(end)
+
+            model = Model(cfg, RunCtx(act_dtype=torch.float32), device=dev)
+            params = model.init_params(torch.Generator(device=dev).manual_seed(
+                args.seed), master=True)
+            with torch.no_grad():
+                model.loss(params, tokens, labels)          # warm-up
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                want, local_ms = timed(lambda: model.loss(params, tokens,
+                                                          labels))
+            torch.cuda.synchronize()
+            local_peak = torch.cuda.max_memory_allocated()
+            local_bytes = sum(t.numel() * t.element_size()
+                              for t in tree_leaves(params))
+            del params, model
+            gc.collect()
+            torch.cuda.empty_cache()
+            rules = ltrain.fsdp_rules(cfg, 1, 2)
+
+            def rank(comm):
+                tp = ModelAxis(comm)
+                gather = sharding.make_gather(
+                    rules, LoopbackComm(1, device=dev), model=tp)
+                m = Model(cfg, RunCtx(act_dtype=torch.float32, gather=gather,
+                                      model=tp, vocab_shards=tp.size),
+                          device=dev)
+                p = m.init_params(torch.Generator(device=dev).manual_seed(
+                    args.seed), master=True)
+                held = sum(t.numel() * t.element_size()
+                           for t in tree_leaves(p))
+                with torch.no_grad():
+                    m.loss(p, tokens, labels)                # warm-up
+                # the peak from here: both ranks' parameters drawn
+                comm._tw.barrier.wait()
+                if comm.rank == 0:
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    kops.reset_launch_counts()
+                comm._tw.barrier.wait()
+                with torch.no_grad():
+                    loss, ms = timed(lambda: m.loss(p, tokens, labels))
+                return float(loss), ms, held
+
+            t1 = time.perf_counter()
+            out = ThreadWorld(torch, 2, 1, dev).run(rank)
+            counts = kops.launch_counts()
+            torch.cuda.synchronize()
+            tp_peak = torch.cuda.max_memory_allocated()
+            want = float(want)
+            losses = [o[0] for o in out]
+            rel = max(abs(x - want) for x in losses) / abs(want)
+            scans = counts.get("selective_scan", 0)
+            launched["selective_scan"] += scans
+            emit({"phase": "dist_tp_forward", "arch": arch,
+                  "layers": cfg.num_layers, "d_model": cfg.d_model,
+                  "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+                  "d_inner": cfg.d_inner if cfg.ssm_state else 0,
+                  "vocab": cfg.vocab_size, "seq": args.seq,
+                  "batch": args.batch, "mesh": "1x2",
+                  "comm": "ThreadWorld(2, 1): two threads, one stream "
+                          "each, as the model group; LoopbackComm(1) as "
+                          "each data group",
+                  "act_dtype": "float32", "tf32": False,
+                  "losses": losses, "local_loss": want,
+                  "max_rel_err": rel, "tol": DIST_TP_TOL,
+                  "b9_launches": scans,
+                  "tp_ms_by_rank": [o[1] for o in out],
+                  "local_ms": local_ms,
+                  "peak_allocated_bytes": {"two_ranks": tp_peak,
+                                           "local": local_peak},
+                  "param_bytes": {"rank": [o[2] for o in out],
+                                  "local": local_bytes},
+                  "wall_s": {"local": round(t1 - t0, 1),
+                             "tp": round(time.perf_counter() - t1, 1)},
+                  "card": card})
+            check(len(set(losses)) == 1, f"dist_tp_forward {arch}: the two "
+                  f"model ranks computed the losses {losses}")
+            check(rel <= DIST_TP_TOL, f"dist_tp_forward {arch}: the 1x2 "
+                  f"loss {losses[0]} is {rel} apart from the local {want}")
+            if cfg.ssm_state:
+                check(scans == 2 * cfg.num_layers, f"dist_tp_forward "
+                      f"{arch}: B9 launched {scans} times, not once a "
+                      f"layer a rank ({2 * cfg.num_layers})")
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    return dict(launched)
 
 
 def phase_train_ssm_bf16(torch, card, f32_ms):
@@ -5232,6 +5437,9 @@ def main() -> None:
             only_dist_per_batch(torch, card)
         else:
             phase_dist_train(torch, card)
+            gc.collect()
+            torch.cuda.empty_cache()
+            phase_dist_tp_forward(torch, card)
         emit({"ok": True, "only": only,
               "device": {"platform": "gpu",
                          "kind": torch.cuda.get_device_name(0),
@@ -5405,6 +5613,10 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     for name, n in phase_dist_train(torch, card).items():
+        counts[name] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, n in phase_dist_tp_forward(torch, card).items():
         counts[name] += n
     phase_train_twins(torch, card)
     phase_train_lm100m(torch, src.parent / "build" / "train_ckpt", card)

@@ -6,7 +6,11 @@ the port keeps only what its rules read, the axis sizes by name
 (``Mesh.shape``, as a jax mesh's ``.shape``).  The processes themselves
 come from ``torch.distributed``: ``init_group`` initialises the group the
 way a launcher such as ``torchrun`` describes it in the environment, and
-``comm.communicator.DistComm`` runs the collectives over it.
+``comm.communicator.DistComm`` runs the collectives over it.  A ``D x M``
+mesh lays its ranks out as the reference's mesh lays out its devices:
+global rank ``r = d·M + m`` sits at data index ``d`` and model index
+``m`` (``grid``), with one data group for each ``m`` and one model group
+for each ``d``.
 
     PYTHONPATH=src torchrun --nproc-per-node 2 \\
         -m repro_torch.launch.train --mesh 2 --device cpu ...
@@ -21,7 +25,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["Mesh", "make_production_mesh", "make_local_mesh", "make_mesh",
-           "init_group"]
+           "init_group", "Grid", "grid"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,3 +98,38 @@ def init_group(device) -> None:
         torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
     dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
                             init_method="env://")
+
+
+@dataclasses.dataclass(frozen=True)
+class Grid:
+    """This process's place ``(d, m)`` on a ``D x M`` mesh, and the
+    communicators of its data group (the ``D`` ranks of model index ``m``)
+    and its model group (the ``M`` ranks of data index ``d``), each a
+    ``DistComm`` of one rank a process."""
+
+    d: int
+    m: int
+    data: object
+    model: object
+
+
+def grid(mesh: Mesh, device) -> Grid:
+    """The groups of ``mesh`` (axes ``data`` and ``model``) over the
+    default process group, whose world must be the mesh's size: every
+    process creates every group (``torch.distributed.new_group``), the
+    data groups in ``m`` order and then the model groups in ``d`` order,
+    as ``new_group`` asks, and keeps its own two."""
+    from repro_torch.comm.communicator import DistComm
+
+    dd, mm = mesh.shape.get("data", 1), mesh.shape.get("model", 1)
+    world = dist.get_world_size()
+    if world != dd * mm:
+        raise ValueError(f"the {dd} x {mm} mesh has {dd * mm} ranks; the "
+                         f"process group has {world}")
+    data = [dist.new_group([d * mm + m for d in range(dd)])
+            for m in range(mm)]
+    model = [dist.new_group([d * mm + m for m in range(mm)])
+             for d in range(dd)]
+    d, m = divmod(dist.get_rank(), mm)
+    return Grid(d, m, DistComm(1, device, group=data[m]),
+                DistComm(1, device, group=model[d]))

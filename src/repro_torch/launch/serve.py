@@ -78,15 +78,17 @@ def make_comm(spec: str, device):
     or, when a default process group of world > 1 is initialised,
     ``DistComm(P / world)`` in each process (a ``P`` the world does not
     divide is refused).  A spec with a model axis (``"AxB"``, ``pod``,
-    ``multipod``) is refused: the port's communicator has one axis."""
+    ``multipod``) is refused: serving over a model axis is ROADMAP
+    A22b."""
     device = torch.device(device)
     if spec == "local":
         p = torch.cuda.device_count() if device.type == "cuda" else 1
         return LoopbackComm(max(1, p), device=device)
     if not spec.isdigit():
         raise ValueError(
-            f"--mesh {spec!r}: the port's communicator has one axis of "
-            "ranks; give their count ('8') or 'local'")
+            f"--mesh {spec!r}: the port's serving communicator has one "
+            "axis of ranks (a model axis is ROADMAP A22b); give their "
+            "count ('8') or 'local'")
     p = int(spec)
     world = dist.get_world_size() if dist.is_initialized() else 1
     if world == 1:

@@ -40,8 +40,32 @@ retries nothing (a retry on one rank would leave the others in a
 gather).  Checkpoints keep the reference's format: every rank assembles
 each leaf, rank 0 writes, and every rank restores its part whatever the
 mesh that wrote them.  At ``--mesh 1`` each part is the whole leaf, and
-the gathers still run.  Still refused: a model axis > 1 (``DxM``,
-``pod``, ``multipod``: tensor and expert parallelism, ROADMAP A22).
+the gathers still run.
+
+``DxM`` (``M > 1``, or ``Dx1`` and ``1x1``) adds the model axis: tensor
+and expert parallelism over ``D·M`` processes, global rank ``r = d·M + m``
+(``launch.mesh.grid``: a data group for each ``m``, a model group for
+each ``d``).  The batch splits over the data axis only, so the ``M`` ranks
+of a model group see the same rows.  A leaf's part is its block over both
+axes under the reference's rules on the ``D x M`` mesh (``fsdp_rules``),
+the data group gathers a layer's parts whole over the data axis, and the
+layer computes with its model-axis part (``runtime.model_axis``):
+``H/M`` query heads, ``F/M`` MLP columns, ``di/M`` mamba channels (B9 and
+its backward on them), ``E/M`` experts (``ep_mode``), a vocab-parallel
+embedding (``vocab_shards = M``) and cross-entropy.  The gradients and
+the loss are averaged over the data group; the global norm counts each
+leaf once.  The step then holds ``--mesh local --accum D`` within float32
+rounding (the row-split products add their partial sums over the ranks).
+At ``M = 1`` the model group's collectives still run, over one rank, and
+the step is ``--mesh local``'s bit for bit (the hybrid family's within
+float32 rounding: ``runtime.model_axis``).
+
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+        --arch llama3-8b --reduced --mesh 2x2 --device cpu
+
+Still refused, each naming ROADMAP A22b: ``pod`` and ``multipod`` (a pod
+axis), ``opt_fsdp_axes``, and an MoE config with fewer experts than the
+model axis (the reference's ``tp_local`` expert split).
 """
 from __future__ import annotations
 
@@ -65,6 +89,7 @@ from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models.transformer import Model, RunCtx
 from repro_torch.optim.adamw import AdamW, cosine_schedule
 from repro_torch.runtime import sharding
+from repro_torch.runtime.model_axis import ModelAxis
 from repro_torch.runtime.fault import StepTimer, StragglerWatch
 from repro_torch.runtime.steps import build_train_step
 
@@ -112,7 +137,8 @@ class Trainer:
     checkpoint manager, and the cross-attention inputs of every step
     (``extra``: the reference's zero frames or image embeddings for an
     encdec or vlm stack, else None).  Under data parallelism ``comm`` is
-    the ``DistComm`` of the ranks, ``rows`` this rank's rows of each
+    the ``DistComm`` of the data group (the model group's is the model's
+    ``ctx.model.comm`` under ``DxM``), ``rows`` this rank's rows of each
     global batch and ``placed`` the placement of ``{"params", "opt"}``
     (``sharding.Placed``: ``params`` and ``opt_state`` hold this rank's
     parts); else ``comm`` and ``placed`` are None and ``rows`` takes them
@@ -162,43 +188,60 @@ class Trainer:
                 placed=self.placed)
 
 
-def ported_mesh(spec: str) -> mesh_mod.Mesh:
-    """``--mesh spec``'s mesh, refusing what is not ported: a model axis >
-    1."""
+def ported_mesh(spec: str, cfg=None) -> mesh_mod.Mesh:
+    """``--mesh spec``'s mesh, refusing what is not ported (ROADMAP A22b):
+    the production meshes (``pod``/``16x16``, ``multipod``/``2x16x16``),
+    and for ``cfg`` an MoE layer with fewer experts than the model axis."""
     mesh = mesh_mod.make_mesh(spec)
-    if mesh.shape.get("model", 1) > 1:
+    if spec in ("pod", "16x16", "multipod", "2x16x16"):
         raise NotImplementedError(
-            f"--mesh {spec}: a model axis of {mesh.shape['model']} (tensor "
-            "and expert parallelism) is not ported yet (ROADMAP A22); the "
-            "port trains data-parallel, --mesh D")
+            f"--mesh {spec}: the production meshes are not ported yet "
+            "(ROADMAP A22b); the port trains --mesh D or DxM")
+    m = mesh.shape.get("model", 1)
+    if cfg is not None and cfg.is_moe and cfg.num_experts < m:
+        raise NotImplementedError(
+            f"--mesh {spec}: {cfg.num_experts} experts on a model axis of "
+            f"{m} (the reference's tp_local expert split) is not ported "
+            "yet (ROADMAP A22b)")
     return mesh
 
 
-def data_parallel(spec: str, batch: int, device):
-    """``--mesh spec``'s data parallelism: ``(comm, rows)``, this rank's
-    ``DistComm`` (one rank a process) and its rows of a global batch of
-    ``batch``, or ``(None, all rows)`` for ``local`` without a process
-    group (``ported_mesh``'s refusals first)."""
-    mesh = ported_mesh(spec)
+def data_parallel(spec: str, batch: int, device, cfg=None):
+    """``--mesh spec``'s parallelism: ``(comm, model, rows)``, this
+    rank's ``DistComm`` over its data group (one rank a process), the
+    ``DistComm`` of its model group (``DxM`` specs; None for ``D``) and
+    its rows of a global batch of ``batch``, or ``(None, None, all
+    rows)`` for ``local`` without a process group (``ported_mesh``'s
+    refusals first)."""
+    mesh = ported_mesh(spec, cfg)
     if spec == "local" and not dist.is_initialized():
-        return None, slice(None)
-    dp = mesh.size              # the model axis is 1
-    comm = DistComm(1, device)
-    if comm.world != dp:
-        raise ValueError(f"--mesh {spec} has {dp} data-parallel ranks; the "
-                         f"process group has {comm.world}")
+        return None, None, slice(None)
+    model = None
+    if "model" in mesh.shape and spec != "local":
+        if not dist.is_initialized():
+            DistComm(1, device)                     # raises: no group
+        g = mesh_mod.grid(mesh, device)
+        comm, model = g.data, g.model
+    else:
+        comm = DistComm(1, device)
+        if comm.world != mesh.size:
+            raise ValueError(f"--mesh {spec} has {mesh.size} data-parallel "
+                             f"ranks; the process group has {comm.world}")
+    dp = comm.p
     if batch % dp:
         raise ValueError(f"--batch {batch} does not split over {dp} "
                          "data-parallel ranks")
     per = batch // dp
-    return comm, slice(comm.rank * per, (comm.rank + 1) * per)
+    return comm, model, slice(comm.rank * per, (comm.rank + 1) * per)
 
 
-def fsdp_rules(cfg, parts: int) -> sharding.ShardingRules:
-    """The reference's rules at ``--mesh D`` for ``cfg`` over ``D =
-    parts`` ranks (``fsdp_axes="data"``, ``ep_mode`` for an MoE config),
-    on the ``D x 1`` mesh whose model axis the rule table names."""
-    mesh = mesh_mod.Mesh((parts, 1), ("data", "model"))
+def fsdp_rules(cfg, parts: int, model: int = 1) -> sharding.ShardingRules:
+    """The reference's rules for ``cfg`` on the ``D x M`` mesh, ``D =
+    parts`` and ``M = model`` (``fsdp_axes="data"``, ``ep_mode`` for an
+    MoE config with at least ``M`` experts, as the reference's
+    ``launch.train``); ``--mesh D`` is the ``D x 1`` mesh, whose model
+    axis the rule table names."""
+    mesh = mesh_mod.Mesh((parts, model), ("data", "model"))
     return sharding.ShardingRules(
         mesh=mesh, fsdp_axes="data",
         ep_mode=cfg.is_moe and cfg.num_experts >= mesh.shape["model"])
@@ -216,10 +259,14 @@ def setup(cfg, args, *, retries: int = 1,
     needs an initialised process group (``data_parallel``) and shards the
     parameters and the AdamW state over it (``fsdp_rules``)."""
     device = resolve_device(args.device)
-    comm, rows = data_parallel(args.mesh, args.batch, device)
-    gather = None
+    comm, model_comm, rows = data_parallel(args.mesh, args.batch, device,
+                                           cfg)
+    gather = tp = None
     if comm is not None:
-        gather = sharding.make_gather(fsdp_rules(cfg, comm.p), comm)
+        tp = ModelAxis(model_comm) if model_comm is not None else None
+        gather = sharding.make_gather(
+            fsdp_rules(cfg, comm.p, 1 if tp is None else tp.size), comm,
+            model=tp)
         retries = 0
     ctx = RunCtx(
         moe_groups=1,          # the reference's min(data-parallel size, B)
@@ -227,6 +274,8 @@ def setup(cfg, args, *, retries: int = 1,
         act_dtype=torch.float32 if device.type == "cpu" else torch.bfloat16,
         ssm_scan_dtype=ssm_scan_dtype,
         gather=gather,
+        model=tp,
+        vocab_shards=1 if tp is None else tp.size,
     )
     model = Model(cfg, ctx, device=device)
     opt = AdamW(lr=cosine_schedule(args.lr, args.warmup, args.steps),
@@ -239,9 +288,13 @@ def setup(cfg, args, *, retries: int = 1,
     placed = dims = None
     if gather is not None:
         dims = gather.dims
-        placed = sharding.Placed(gather, {"params": dims, "opt": {
-            k: dims if k in ("m", "v", "master") else None
-            for k in opt_state}})
+
+        def state(d):
+            return None if d is None else {"params": d, "opt": {
+                k: d if k in ("m", "v", "master") else None
+                for k in opt_state}}
+
+        placed = sharding.Placed(gather, state(dims), state(gather.mdims))
     step_fn = build_train_step(model, opt, accum_steps=args.accum,
                                retries=retries, comm=comm, dims=dims)
     data = SyntheticLM(cfg.vocab_size, args.seq, args.batch, seed=args.seed)
@@ -285,7 +338,7 @@ def main(argv=None, *, retries: int = 1):
     else:
         raise SystemExit("pass --arch or --preset")
     if args.mesh != "local" and not dist.is_initialized():
-        ported_mesh(args.mesh)                  # refused before a group
+        ported_mesh(args.mesh, cfg)             # refused before a group
         if "WORLD_SIZE" not in os.environ:
             raise SystemExit(
                 f"--mesh {args.mesh} trains over a torch.distributed group: "

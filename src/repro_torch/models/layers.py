@@ -248,8 +248,45 @@ def init_attention(generator, cfg, *, d_model=None):
     }
 
 
+def _tp_attention(p, x, src, cfg, tp):
+    """The attention block's leaves and inputs on the model axis ``tp``:
+    ``(p, x, src, heads, kv_heads, kv_index, row_split)``.
+
+    With ``H % M == 0`` a rank runs its block of ``H/M`` query heads
+    (``wq`` and its bias split by columns, ``wo`` by rows, then
+    ``reduce``) and the inputs ``enter``.  Its KV heads are its block of
+    ``Hkv/M`` where ``Hkv % M == 0`` (the GQA groups stay aligned: query
+    head ``j`` reads KV head ``j // (H/Hkv)``); else (``Hkv < M``, or an
+    ``Hkv`` that M does not divide, e.g. reduced hymba's 2 at M = 4) ``wk``
+    and ``wv`` are gathered whole (``gather_used``) and each query head
+    reads its KV head by index.  With ``H % M != 0`` (hymba's 25 heads at
+    M = 2 or 4) every leaf is gathered whole (``full``) and the block is
+    computed replicated."""
+    h, hkv, hd, m = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, tp.size
+    if h % m:
+        whole = {name: {k: tp.full(t, 0 if name == "wo" and k == "w"
+                                   else -1, (hkv if name in ("wk", "wv")
+                                             else h) * hd)
+                        for k, t in leaf.items()}
+                 for name, leaf in p.items()}
+        return whole, x, src, h, hkv, None, False
+    x_in = tp.enter(x)
+    src_in = x_in if src is x else tp.enter(src)
+    hl, kv_index = h // m, None
+    if hkv % m == 0:
+        hkv = hkv // m
+    else:
+        p = dict(p, **{name: {k: tp.gather_used(t, -1, hkv * hd)
+                              for k, t in p[name].items()}
+                       for name in ("wk", "wv")})
+        kv_index = (tp.rank * hl + torch.arange(hl, device=x.device)) \
+            // (h // hkv)
+    return p, x_in, src_in, hl, hkv, kv_index, True
+
+
 def attention_fwd(p, x, cfg, *, kv_x=None, positions=None, causal=True,
-                  window=0, cache=None, cache_pos=None, use_rope=True):
+                  window=0, cache=None, cache_pos=None, use_rope=True,
+                  tp=None):
     """Self- or cross-attention, the reference's ``attention_fwd``.
 
     ``kv_x`` (B, Skv, D): cross-attention, keys and values from ``kv_x``,
@@ -259,13 +296,22 @@ def attention_fwd(p, x, cfg, *, kv_x=None, positions=None, causal=True,
     ``dynamic_update_slice`` clamps it) in place, and the queries attend
     positions ``< cache_pos + Sq`` of the whole buffer with the window
     mask and no causal one, as the reference's cache path does.  Returns
-    ``y``, or ``(y, cache)`` with a cache (the same dict, written)."""
+    ``y``, or ``(y, cache)`` with a cache (the same dict, written).
+
+    ``tp`` (training, no cache): the model axis; ``p`` holds this rank's
+    model-axis parts, and the heads are split as ``_tp_attention`` says."""
     b, sq, _ = x.shape
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     src = x if kv_x is None else kv_x
+    kv_index, row_split = None, False
+    if tp is not None:
+        p, x, src, h, hkv, kv_index, row_split = _tp_attention(
+            p, x, src, cfg, tp)
     q = linear(p["wq"], x).reshape(b, sq, h, hd)
     k = linear(p["wk"], src).reshape(b, src.shape[1], hkv, hd)
     v = linear(p["wv"], src).reshape(b, src.shape[1], hkv, hd)
+    if kv_index is not None:
+        k, v = k[:, :, kv_index], v[:, :, kv_index]
     if positions is None:
         positions = torch.arange(sq, device=x.device)[None, :]
     if use_rope and kv_x is None:
@@ -282,7 +328,8 @@ def attention_fwd(p, x, cfg, *, kv_x=None, positions=None, causal=True,
                         kv_len=pos + sq)
         return linear(p["wo"], out.reshape(b, sq, h * hd)), cache
     out = attention(q, k, v, causal=causal and kv_x is None, window=window)
-    return linear(p["wo"], out.reshape(b, sq, h * hd))
+    y = linear(p["wo"], out.reshape(b, sq, h * hd))
+    return tp.reduce(y) if row_split else y
 
 
 # ---------------------------------------------------------------------------
@@ -297,10 +344,16 @@ def init_mlp(generator, d, f, *, act="swiglu"):
     return p
 
 
-def mlp_fwd(p, x, *, act="swiglu"):
+def mlp_fwd(p, x, *, act="swiglu", tp=None):
+    """``tp``: the model axis, whose ranks hold ``w1``/``w3`` split by
+    columns and ``w2`` by rows (the caller passes it where it splits
+    ``F``): ``x`` enters, and the rows' partial sums are reduced."""
+    if tp is not None:
+        x = tp.enter(x)
     h = linear(p["w1"], x)
     if act == "swiglu":
         h = F.silu(h) * linear(p["w3"], x)
     else:
         h = F.gelu(h, approximate="tanh")      # jax.nn.gelu's default
-    return linear(p["w2"], h)
+    y = linear(p["w2"], h)
+    return y if tp is None else tp.reduce(y)

@@ -126,7 +126,7 @@ def moe_expert_local(buf, w1, w2, w3=None, act="gelu"):
     return torch.matmul(h, w2)
 
 
-def moe_fwd(p, x, cfg):
+def moe_fwd(p, x, cfg, *, tp=None):
     """x: (G, T, D) tokens grouped by data-parallel rank.
 
     The router's logits in the activation dtype, a float32 softmax, the
@@ -135,7 +135,18 @@ def moe_fwd(p, x, cfg):
     D) capacity buffers (over-capacity choices dropped into a dump row);
     the expert MLPs; each kept choice's output weighted and added onto its
     token (the plain fold of ``kernels.ref``, one rounding per add in the
-    activation dtype)."""
+    activation dtype).
+
+    ``tp`` (training): the model axis.  Where it splits the experts
+    (``ep_mode``: ``w1``/``w3``/``w2`` hold this rank's block of ``E/M``
+    experts), every rank routes the same rows (the router is replicated),
+    packs and runs only its own experts' capacity buffers, and the expert
+    outputs are gathered over the axis in rank order (``tp.gather``)
+    before the combine, which is the reference's.  Experts that the axis
+    does not split (``E % M != 0``) run replicated."""
+    el = p["w1"].shape[-3]
+    if tp is not None and el == cfg.num_experts and tp.size > 1:
+        tp = None
     g, t, d = x.shape
     e, k = cfg.num_experts, cfg.experts_per_token
     c = moe_capacity(t, cfg)
@@ -159,12 +170,20 @@ def moe_fwd(p, x, cfg):
     dest = torch.where(keep, se * c + pos, e * c)         # dump slot
     tok = sort_idx // k
 
-    gather_tok = x.gather(1, tok[..., None].expand(-1, -1, d))  # (G,T*k,D)
-    buf = torch.zeros((g, e * c + 1, d), dtype=x.dtype, device=dev)
-    buf.scatter_(1, dest[..., None].expand(-1, -1, d), gather_tok)
-    buf = buf[:, :e * c].reshape(g, e, c, d)
+    gather_tok = (x if tp is None else tp.enter(x)).gather(
+        1, tok[..., None].expand(-1, -1, d))              # (G, T*k, D)
+    mine = dest
+    if tp is not None:      # this rank's experts' slots; the rest dumped
+        lo = tp.rank * el * c
+        mine = torch.where((dest >= lo) & (dest < lo + el * c), dest - lo,
+                           el * c)
+    buf = torch.zeros((g, el * c + 1, d), dtype=x.dtype, device=dev)
+    buf.scatter_(1, mine[..., None].expand(-1, -1, d), gather_tok)
+    buf = buf[:, :el * c].reshape(g, el, c, d)
 
     out_buf = moe_expert_local(buf, p["w1"], p["w2"], p.get("w3"), cfg.act)
+    if tp is not None:
+        out_buf = tp.gather(out_buf, 1)                   # (G, E, C, D)
 
     flat_out = torch.cat([out_buf.reshape(g, e * c, d),
                           out_buf.new_zeros((g, 1, d))], dim=1)

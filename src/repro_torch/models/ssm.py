@@ -55,16 +55,45 @@ def _causal_conv(x, w, b):
     return out + b[None, None, :]
 
 
+def _tp_ssm(p, u, di, tp):
+    """The layer's leaves and input on the model axis ``tp``:
+    ``(p, u, d_inner, tp)``.  Where ``di % M == 0`` a rank runs its block
+    of ``di/M`` channels: ``conv_w``, ``conv_b``, ``dt_proj``, ``a_log``,
+    ``d_skip``, and the rows of ``x_proj`` and ``out_proj``, are that
+    block already.  ``in_proj``'s stored block is the rule table's
+    contiguous columns of ``(x | z)`` (all of ``x`` on rank 0 and all of
+    ``z`` on rank 1 at M = 2), so it is gathered whole
+    (``gather_used``) and the rank's channels of ``x`` and of ``z`` are
+    cut from it.  Else (``di`` odd at M = 2: no registered config) the
+    layer runs replicated, ``in_proj`` gathered whole where it is split."""
+    if not tp.splits(di):
+        return dict(p, in_proj={"w": tp.full(p["in_proj"]["w"], -1,
+                                             2 * di)}), u, di, None
+    w = tp.gather_used(p["in_proj"]["w"], -1, 2 * di)
+    if tp.size > 1:
+        mine = tp.block(di)
+        w = torch.cat([w[:, mine], w[:, di + mine.start:di + mine.stop]],
+                      dim=1)
+    return dict(p, in_proj={"w": w}), tp.enter(u), di // tp.size, tp
+
+
 def ssm_fwd(p, u, cfg, *, d_inner=None, chunk=256,
-            scan_dtype=torch.float32):
+            scan_dtype=torch.float32, tp=None):
     """u: (B, L, d). Returns (B, L, d).
 
     ``scan_dtype=torch.bfloat16`` rounds the scan payload (exp(dt·a) and
     dt·x·B) and each chunk's entering state to bfloat16 and scans each
     chunk of ``min(chunk, L)`` steps (which must divide L) as the
     reference's bf16 associative scan; the decay exponent, the boundary
-    states and ``y`` stay float32."""
+    states and ``y`` stay float32.
+
+    ``tp`` (training): the model axis; ``p`` holds this rank's parts and
+    the layer runs its channels (``_tp_ssm``): the scan on ``di/M`` of
+    them, ``x_proj``'s partial ``dt|B|C`` and ``out_proj``'s partial
+    output reduced over the axis."""
     di = d_inner or cfg.d_inner
+    if tp is not None:
+        p, u, di, tp = _tp_ssm(p, u, di, tp)
     st, dr = cfg.ssm_state, cfg.ssm_dt_rank
     xz = linear(p["in_proj"], u)
     x, z = xz.split(di, dim=-1)                           # (B, L, di)
@@ -72,6 +101,8 @@ def ssm_fwd(p, u, cfg, *, d_inner=None, chunk=256,
                             p["conv_b"].to(x.dtype)))
 
     dbc = linear(p["x_proj"], x)
+    if tp is not None:
+        dbc = tp.enter(tp.reduce(dbc))
     dt, bmat, cmat = dbc.split([dr, st, st], dim=-1)
     dt = F.softplus(linear(p["dt_proj"], dt)).float()     # (B, L, di)
     a = -torch.exp(p["a_log"].float())                    # (di, st)
@@ -81,7 +112,8 @@ def ssm_fwd(p, u, cfg, *, d_inner=None, chunk=256,
                            chunk=chunk)
     y = y + xs * p["d_skip"].float()
     y = y * F.silu(z.float())
-    return linear(p["out_proj"], y.to(u.dtype))
+    out = linear(p["out_proj"], y.to(u.dtype))
+    return out if tp is None else tp.reduce(out)
 
 
 def init_ssm_cache(batch, cfg, *, d_inner=None, dtype=torch.float32,

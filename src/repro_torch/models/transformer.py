@@ -117,8 +117,18 @@ class RunCtx:
     (a layer's weights, gathered again when its forward is recomputed in
     the backward), and the embedding, the head and the final norm once a
     call of ``hidden``/``forward``/``loss``.  The reference's
-    ``scan_barrier`` (an XLA scheduling barrier) has no counterpart, and
-    ``vocab_shards`` is always 1 here."""
+    ``scan_barrier`` (an XLA scheduling barrier) has no counterpart.
+
+    ``model`` (``runtime.model_axis.ModelAxis``, ``launch.train --mesh
+    DxM``) is the model-axis hook: the parameters are this rank's parts
+    over both axes, ``gather`` makes them whole over the data group only,
+    and the layers compute tensor- and expert-parallel with the parts
+    (``layers.attention_fwd``, ``mlp_fwd``, ``ssm.ssm_fwd``,
+    ``moe.moe_fwd``, the vocab-parallel embedding and cross-entropy).
+    ``vocab_shards`` is the reference's: above 1, with a vocabulary that
+    it divides and ``embed_gather`` not ``replicate``, the embedding is
+    the reference's ``onehot_psum`` over the vocabulary split on the model
+    axis (``_VocabEmbed``)."""
 
     act_dtype: torch.dtype = torch.bfloat16
     ssm_scan_dtype: torch.dtype = torch.float32
@@ -128,6 +138,8 @@ class RunCtx:
     remat_groups: int = 1
     cast_params_once: bool = False
     gather: Callable[..., Any] | None = None
+    model: Any = None
+    vocab_shards: int = 1
 
     def __post_init__(self):
         if self.remat not in ("none", "full", "dots"):
@@ -218,24 +230,36 @@ def _init_block(generator, cfg, *, kind: str):
 
 def _mixer_fwd(p, h, cfg, ctx, *, kind, kv_ctx=None):
     """The token-mixing half of a block (h already normed)."""
+    tp = ctx.model
     if kind == "ssm":
-        return S.ssm_fwd(p["ssm"], h, cfg, scan_dtype=ctx.ssm_scan_dtype)
+        return S.ssm_fwd(p["ssm"], h, cfg, scan_dtype=ctx.ssm_scan_dtype,
+                         tp=tp)
     if kind == "hybrid":
         a = L.attention_fwd(p["attn"], h, cfg, causal=True,
-                            window=cfg.swa_window)
-        s = S.ssm_fwd(p["ssm"], h, cfg, scan_dtype=ctx.ssm_scan_dtype)
+                            window=cfg.swa_window, tp=tp)
+        s = S.ssm_fwd(p["ssm"], h, cfg, scan_dtype=ctx.ssm_scan_dtype,
+                      tp=tp)
         return 0.5 * (a + s)
     if kind == "cross":
         return L.attention_fwd(p["attn"], h, cfg, kv_x=kv_ctx, causal=False,
-                               use_rope=False)
+                               use_rope=False, tp=tp)
     return L.attention_fwd(p["attn"], h, cfg, causal=kind != "enc",
-                           window=cfg.swa_window, use_rope=kind != "enc")
+                           window=cfg.swa_window, use_rope=kind != "enc",
+                           tp=tp)
+
+
+def _mlp_tp(ctx, f: int):
+    """The model axis for an MLP of width ``f``: where it splits ``f``
+    (``w1``/``w3`` by columns, ``w2`` by rows), else None (replicated)."""
+    tp = ctx.model
+    return tp if tp is not None and tp.splits(f) else None
 
 
 def _ffn_fwd(p, x, cfg, ctx, *, decode=False):
     h = L.norm_apply(p["ln2"], x, kind=cfg.norm)
     if "moe" not in p:
-        return L.mlp_fwd(p["mlp"], h, act=cfg.act)
+        return L.mlp_fwd(p["mlp"], h, act=cfg.act,
+                         tp=_mlp_tp(ctx, cfg.d_ff))
     b, s_len, d = h.shape
     if ctx.moe_step is not None and decode:
         # serving decode: the comm-scheduled per-step MoE exchange.  The
@@ -245,9 +269,10 @@ def _ffn_fwd(p, x, cfg, ctx, *, decode=False):
     else:
         g = min(ctx.moe_groups, b)
         out = M.moe_fwd(p["moe"], h.reshape(g, (b // g) * s_len, d),
-                        cfg).reshape(b, s_len, d)
+                        cfg, tp=ctx.model).reshape(b, s_len, d)
     if cfg.dense_residual:
-        out = out + L.mlp_fwd(p["res_mlp"], h, act=cfg.act)
+        out = out + L.mlp_fwd(p["res_mlp"], h, act=cfg.act,
+                              tp=_mlp_tp(ctx, cfg.residual_d_ff))
     return out
 
 
@@ -257,7 +282,7 @@ def _block_fwd(p, x, cfg, ctx, *, kind, kv_ctx=None):
     if kind == "encdec_dec":
         hc = L.norm_apply(p["ln_cross"], x, kind=cfg.norm)
         x = x + L.attention_fwd(p["cross"], hc, cfg, kv_x=kv_ctx,
-                                causal=False, use_rope=False)
+                                causal=False, use_rope=False, tp=ctx.model)
     if kind != "ssm":
         x = x + _ffn_fwd(p, x, cfg, ctx)
     return x
@@ -418,18 +443,74 @@ class _CastEmbed(torch.autograd.Function):
         return table.to(dtype), None, None
 
 
+class _VocabEmbed(torch.autograd.Function):
+    """This rank's part of the reference's ``onehot_psum`` embedding: the
+    rows of table part ``w`` (vocabulary rows ``[lo, lo + len(w))``) for
+    the tokens that fall in it, cast to the activation dtype, zeros for
+    the others (the ranks' parts add up to the lookup: ``ModelAxis.
+    reduce``).  Its backward is the reference's one-hot contraction
+    ``ohᵀ @ g`` a chunk of ``min(512, S)`` positions at a time (one chunk
+    where that does not divide ``S``): each chunk's rows added in float32
+    and rounded once to the activation dtype, then cast to the table's
+    dtype (the reference casts the table inside its scan's body), and
+    the chunks added in the table's dtype from the last to the first (the
+    transpose of the reference's scan over the chunks)."""
+
+    @staticmethod
+    def forward(ctx, w, tokens, lo, dtype):
+        n = w.shape[0]
+        local = tokens - lo
+        mine = (local >= 0) & (local < n)
+        local = torch.where(mine, local, torch.zeros_like(local))
+        ctx.save_for_backward(local, mine)
+        ctx.table = (tuple(w.shape), w.dtype)
+        rows = F.embedding(local, w).to(dtype)
+        return torch.where(mine[..., None], rows, torch.zeros_like(rows))
+
+    @staticmethod
+    def backward(ctx, grad):
+        local, mine = ctx.saved_tensors
+        shape, dtype = ctx.table
+        s = local.shape[1]
+        chunk = min(512, s)
+        if s % chunk:
+            chunk = s
+        table = None
+        for i in reversed(range(s // chunk)):
+            sl = slice(i * chunk, (i + 1) * chunk)
+            sel = mine[:, sl].reshape(-1)
+            part = torch.zeros(shape, dtype=torch.float32,
+                               device=grad.device).index_add_(
+                0, local[:, sl].reshape(-1)[sel],
+                grad[:, sl].reshape(-1, shape[1])[sel].float())
+            part = part.to(grad.dtype).to(dtype)
+            table = part if table is None else table + part
+        return table, None, None, None
+
+
 def _embed_fwd(p, tokens, cfg, ctx):
     """The reference's ``replicate`` gather, rows cast to the activation
     dtype.  Its ``onehot_psum`` path serves a vocabulary sharded over a
-    model axis (``vocab_shards > 1``); on one card the table is whole and
-    the reference takes this path too.  Where a backward runs through a
-    table of another dtype than the activations (float32 master weights,
-    bf16 activations) the gather is ``_CastEmbed``; otherwise
-    ``F.embedding``, not indexing: its backward adds a token's rows in the
-    same order every run, on the CPU and on the card, where indexing's
-    (``index_put_``) does not on the CPU, and a resumed run must repeat
-    the uninterrupted one."""
+    model axis (``vocab_shards > 1``, a vocabulary it divides and
+    ``embed_gather`` not ``replicate``): this rank looks up its slice of
+    the vocabulary, masked (``_VocabEmbed``), and the ranks' lookups are
+    added over the model axis.  On one card the table is whole and the
+    reference takes the ``replicate`` path; under a model axis that
+    path gathers a split table whole first.  Where a backward runs
+    through a table of another dtype than the activations (float32
+    master weights, bf16 activations) the gather is ``_CastEmbed``;
+    otherwise ``F.embedding``, not indexing: its backward adds a token's
+    rows in the same order every run, on the CPU and on the card, where
+    indexing's (``index_put_``) does not on the CPU, and a resumed run
+    must repeat the uninterrupted one."""
     w = p["w"]
+    tp, v, vs = ctx.model, cfg.vocab_size, ctx.vocab_shards
+    if tp is not None:
+        if vs > 1 and v % vs == 0 and cfg.embed_gather != "replicate":
+            assert vs == tp.size, (vs, tp.size)
+            return tp.reduce(_VocabEmbed.apply(w, tokens, tp.block(v).start,
+                                               ctx.act_dtype))
+        w = tp.full(w, 0, v)
     if (w.dtype != ctx.act_dtype and w.requires_grad
             and torch.is_grad_enabled()):
         return _CastEmbed.apply(w, tokens, ctx.act_dtype)
@@ -457,18 +538,37 @@ def _ce_chunk(xc, head, lc):
     return (lse - ll).sum()
 
 
-def fused_ce_loss(x, head, labels, *, chunk=512):
+def _ce_chunk_tp(xc, head, lc, tp):
+    """``_ce_chunk`` with the head split by columns over the model axis
+    ``tp`` (this rank's block of ``V/M`` vocabulary columns): the local
+    log-sum-exp combined over the ranks (``ModelAxis.logsumexp``), and
+    the label's logit taken from the rank that holds it (zeros elsewhere,
+    reduced)."""
+    lf = (tp.enter(xc) @ head.to(xc.dtype)).float()       # (B, C, V/M)
+    lse = tp.logsumexp(torch.logsumexp(lf, dim=-1))
+    local = lc.long() - tp.rank * lf.shape[-1]
+    mine = (local >= 0) & (local < lf.shape[-1])
+    ll = lf.gather(-1, torch.where(mine, local, torch.zeros_like(
+        local))[..., None])[..., 0]
+    ll = tp.reduce(torch.where(mine, ll, torch.zeros_like(ll)))
+    return (lse - ll).sum()
+
+
+def fused_ce_loss(x, head, labels, *, chunk=512, tp=None):
     """Memory-fused cross-entropy: the head matmul and the log-softmax run
     a sequence chunk at a time, each under checkpoint where a backward
     will run, so the (B, S, V) logits never exist whole.  x: (B, S, D)
-    post-norm hidden; the chunks' sums are added in order from 0."""
+    post-norm hidden; the chunks' sums are added in order from 0.  ``tp``:
+    the model axis whose ranks hold the head's columns in rank order
+    (``_ce_chunk_tp``): vocab-parallel."""
     b, s, _ = x.shape
     chunk = min(chunk, s)
     if s % chunk:
         raise ValueError(f"chunk {chunk} does not divide the length {s}")
-    body = _ce_chunk
+    body = _ce_chunk if tp is None else functools.partial(_ce_chunk_tp,
+                                                          tp=tp)
     if torch.is_grad_enabled() and (x.requires_grad or head.requires_grad):
-        body = _remat(_ce_chunk, "full")
+        body = _remat(body, "full")
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(s // chunk):
         sl = slice(i * chunk, (i + 1) * chunk)
@@ -722,14 +822,26 @@ class Model:
         x = self._hidden(params, tokens, extra)
         if last_only:
             x = x[:, -1:, :]
-        return x @ self.head_weight(params).to(x.dtype)
+        tp = self._vocab_tp()
+        if tp is None:
+            return x @ self.head_weight(params).to(x.dtype)
+        return tp.gather(tp.enter(x) @ self.head_weight(params).to(x.dtype),
+                         -1)
+
+    def _vocab_tp(self):
+        """The model axis where it splits the head's vocabulary columns
+        (and the tied table's rows), else None."""
+        tp = self.ctx.model
+        return tp if tp is not None and tp.splits(self.cfg.vocab_size) \
+            else None
 
     def loss(self, params, tokens, labels, *, extra=None, chunk=512):
-        """Fused chunked cross-entropy (never materializes full logits)."""
+        """Fused chunked cross-entropy (never materializes full logits);
+        vocab-parallel under a model axis that splits the head."""
         params = self._top(params)
         x = self._hidden(params, tokens, extra)
         return fused_ce_loss(x, self.head_weight(params), labels,
-                             chunk=chunk)
+                             chunk=chunk, tp=self._vocab_tp())
 
     # ---- serving ----
     def _layer_cache(self, lead, kind, batch, cache_len, cross_len, dtype,

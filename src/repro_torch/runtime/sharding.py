@@ -25,13 +25,16 @@ storage sharding.  At ``--mesh D`` it builds the reference's rules
 ``opt_fsdp_axes``) on the ``D x 1`` mesh: the rule table names the model
 axis, which a one-axis mesh lacks (the reference's ``--mesh D`` raises a
 ``KeyError`` in ``param_shardings``; its ``--mesh Dx1`` is this
-placement).  ``data_dim`` reads which dimension of a leaf the data axis
+placement).  At ``--mesh DxM`` the rules are the ``D x M`` mesh's, and a
+rank keeps the block of a leaf at its place ``(d, m)`` over both axes.
+``data_dim`` and ``model_dim`` read which dimension of a leaf each axis
 splits, ``take`` cuts a rank's part, and ``make_gather`` gives the hook
 that stands where the reference's ``make_constrain`` tags activations for
 XLA's partitioner: eager PyTorch has no partitioner, so each layer's
-weights are all-gathered where they are computed and their gradients
-reduce-scattered in rank order (``_GatherFn``).  ``batch_spec`` gives each
-rank its rows.  The model-axis rules serve ROADMAP A22.
+weights are all-gathered over the data group where they are computed and
+their gradients reduce-scattered in rank order (``_GatherFn``); a layer
+then computes with its model-axis part (``runtime.model_axis``).
+``batch_spec`` gives each rank its rows.
 """
 from __future__ import annotations
 
@@ -43,7 +46,8 @@ from typing import Any
 import torch
 
 __all__ = ["ShardingRules", "fit_spec", "param_specs", "batch_spec",
-           "cache_specs", "path_str", "data_dim", "data_dims", "take",
+           "cache_specs", "path_str", "data_dim", "data_dims", "model_dim",
+           "model_dims", "take",
            "take_tree", "Gather", "make_gather", "Placed"]
 
 
@@ -200,22 +204,38 @@ def _names(axes) -> set:
     return {axes} if isinstance(axes, str) else set(axes)
 
 
+def _axis_dim(spec, names: set) -> int | None:
+    for i, axes in enumerate(spec):
+        if _names(axes) & names:
+            return i - len(spec)
+    return None
+
+
 def data_dim(rules: ShardingRules, path: str, shape) -> int | None:
     """The dimension of a leaf of whole ``shape`` at ``path`` that
     ``rules``' FSDP axes split, counted from the end (so a layer of a
     stacked leaf has its stack's), or None where the leaf stays whole."""
-    fs = _names(rules.fsdp_axes)
-    spec = rules.spec_for(path, tuple(shape))
-    for i, axes in enumerate(spec):
-        if _names(axes) & fs:
-            return i - len(spec)
-    return None
+    return _axis_dim(rules.spec_for(path, tuple(shape)),
+                     _names(rules.fsdp_axes))
 
 
 def data_dims(rules: ShardingRules, tree):
     """``data_dim`` of every leaf of a tree of whole leaves."""
     return _map_with_path(lambda path, leaf: data_dim(rules, path,
                                                       leaf.shape), tree)
+
+
+def model_dim(rules: ShardingRules, path: str, shape) -> int | None:
+    """``data_dim``'s counterpart for the model axis (``tp_axis``, and the
+    expert-parallel axes of an MoE layer's expert weights)."""
+    names = _names(rules.tp_axis) | _names(rules.ep_axes)
+    return _axis_dim(rules.spec_for(path, tuple(shape)), names)
+
+
+def model_dims(rules: ShardingRules, tree):
+    """``model_dim`` of every leaf of a tree of whole leaves."""
+    return _map_with_path(lambda path, leaf: model_dim(rules, path,
+                                                       leaf.shape), tree)
 
 
 def take(t: torch.Tensor, dim: int | None, rank: int, parts: int):
@@ -328,39 +348,60 @@ def _rebuild(tree, values, keys=()):
 
 class Gather:
     """``make_gather``'s hook: rank ``rank`` of ``parts`` over ``comm``
-    (one rank a process), FSDP over ``rules``' data axes.
+    (the data group, one rank a process), FSDP over ``rules``' data axes,
+    and with ``model`` (a ``runtime.model_axis.ModelAxis`` over the model
+    group) the model axis's part of each leaf too.
 
     ``keep(keys, t, shape)`` is ``Model.init_params``'s: the rank's part
     of a leaf at ``keys`` whose whole shape is ``shape`` (a block of a
-    stacked leaf passes the stack's shape), recording the leaf's data dim
-    in ``dims``, a tree like the parameters'.  ``gather(tree, keys,
-    dtype)`` (the hook, ``RunCtx.gather``) gives a subtree of shards at
-    ``keys`` of the parameter tree (one layer of a stack too) whole: the
-    split leaves through ``_GatherFn``, one all-gather a dtype, the
-    others as they are.  ``whole`` and ``part`` assemble and cut one leaf
-    outside autograd (the global norm, checkpoints)."""
+    stacked leaf passes the stack's shape), its block over the model axis
+    and then over the data axis, recording the leaf's data dim in
+    ``dims`` and its model dim in ``mdims``, trees like the parameters'.
+    ``gather(tree, keys, dtype)`` (the hook, ``RunCtx.gather``) gives a
+    subtree of shards at ``keys`` of the parameter tree (one layer of a
+    stack too) whole over the data group: the split leaves through
+    ``_GatherFn``, one all-gather a dtype, the others as they are; each
+    leaf keeps its model-axis part, with which the layer computes.
+    ``whole`` and ``part`` assemble and cut one leaf outside autograd (the
+    global norm, checkpoints): over the data group first, then over the
+    model group."""
 
-    def __init__(self, rules: ShardingRules, comm):
+    def __init__(self, rules: ShardingRules, comm, model=None):
         if rules.opt_fsdp_axes is not None:
-            raise NotImplementedError("opt_fsdp_axes: the optimizer state "
-                                      "is placed as the parameters")
+            raise NotImplementedError(
+                "opt_fsdp_axes: the optimizer state is placed as the "
+                "parameters (ROADMAP A22b)")
         if comm.p_local != 1:
             raise ValueError("FSDP holds one rank a process")
         size = _axes_size(rules.mesh, rules.fsdp_axes)
         if size != comm.p:
             raise ValueError(f"the FSDP axes span {size} ranks; the "
                              f"communicator has {comm.p}")
-        self.rules, self.comm = rules, comm
-        self.rank, self.parts = comm.rank, comm.p
+        msize = _axes_size(rules.mesh, rules.tp_axis) \
+            if rules.tp_axis in rules.mesh.shape else 1
+        if model is not None and model.size != msize:
+            raise ValueError(f"the model axis spans {msize} ranks; the "
+                             f"model group has {model.size}")
+        self.rules, self.comm, self.model = rules, comm, model
+        self.rank, self.parts = comm.rank_offset, comm.p
         self.dims: dict = {}
+        self.mdims: dict | None = {} if model is not None else None
+
+    @staticmethod
+    def _record(tree, keys, d):
+        for k in keys[:-1]:
+            tree = tree.setdefault(k, {})
+        tree[keys[-1]] = d
 
     def keep(self, keys, t: torch.Tensor, shape=None) -> torch.Tensor:
-        d = data_dim(self.rules, path_str(keys),
-                     t.shape if shape is None else shape)
-        node = self.dims
-        for k in keys[:-1]:
-            node = node.setdefault(k, {})
-        node[keys[-1]] = d
+        path = path_str(keys)
+        shape = t.shape if shape is None else shape
+        d = data_dim(self.rules, path, shape)
+        self._record(self.dims, keys, d)
+        if self.model is not None:
+            md = model_dim(self.rules, path, shape)
+            self._record(self.mdims, keys, md)
+            t = take(t, md, self.model.rank, self.model.size)
         return take(t, d, self.rank, self.parts)
 
     def at(self, keys):
@@ -379,39 +420,60 @@ class Gather:
             values.update(zip([k for k, _, _ in split], wholes))
         return _rebuild(tree, values)
 
-    def whole(self, t: torch.Tensor, dim: int | None) -> torch.Tensor:
-        """One leaf whole (a collective where it is split)."""
-        if dim is None:
-            return t
+    def whole(self, t: torch.Tensor, dim: int | None,
+              mdim: int | None = None) -> torch.Tensor:
+        """One leaf whole (a collective where it is split): over the data
+        group along ``dim``, then over the model group along ``mdim``."""
         with torch.no_grad():
-            return _gathered(self.comm, [t], [dim])[0]
+            if dim is not None:
+                t = _gathered(self.comm, [t], [dim])[0]
+            if mdim is not None:
+                t = _gathered(self.model.comm, [t], [mdim])[0]
+        return t
 
-    def part(self, t: torch.Tensor, dim: int | None) -> torch.Tensor:
+    def part(self, t: torch.Tensor, dim: int | None,
+             mdim: int | None = None) -> torch.Tensor:
+        if mdim is not None:
+            t = take(t, mdim, self.model.rank, self.model.size)
         return take(t, dim, self.rank, self.parts)
 
+    @property
+    def writer(self) -> bool:
+        """Rank 0 of the mesh: rank 0 of its data group and of its model
+        group."""
+        return self.rank == 0 and (self.model is None
+                                   or self.model.rank == 0)
 
-def make_gather(rules: ShardingRules, comm) -> Gather:
-    """The FSDP hook of ``rules`` over ``comm`` (``Gather``): the port's
-    counterpart of the reference's ``make_constrain``."""
-    return Gather(rules, comm)
+
+def make_gather(rules: ShardingRules, comm, model=None) -> Gather:
+    """The FSDP hook of ``rules`` over ``comm`` (``Gather``), with
+    ``model`` the model axis's: the port's counterpart of the reference's
+    ``make_constrain``."""
+    return Gather(rules, comm, model)
 
 
 @dataclasses.dataclass(frozen=True)
 class Placed:
     """A tree of this rank's parts: ``dims`` its data dims (a tree like
-    it), ``gather`` the hook that placed it.  ``whole(keys, leaf)`` and
-    ``part(keys, t)`` assemble and cut the leaf at ``keys``; rank 0
-    writes what is assembled (``writer``)."""
+    it), ``mdims`` its model dims (None without a model axis), ``gather``
+    the hook that placed it.  ``whole(keys, leaf)`` and ``part(keys, t)``
+    assemble and cut the leaf at ``keys`` over both axes; rank 0 of the
+    mesh writes what is assembled (``writer``)."""
 
     gather: Gather
     dims: Any
+    mdims: Any = None
+
+    def _dims(self, keys):
+        return (_at(self.dims, keys),
+                None if self.mdims is None else _at(self.mdims, keys))
 
     def whole(self, keys, leaf):
-        return self.gather.whole(leaf, _at(self.dims, keys))
+        return self.gather.whole(leaf, *self._dims(keys))
 
     def part(self, keys, t):
-        return self.gather.part(t, _at(self.dims, keys))
+        return self.gather.part(t, *self._dims(keys))
 
     @property
     def writer(self) -> bool:
-        return self.gather.rank == 0
+        return self.gather.writer

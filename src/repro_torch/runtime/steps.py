@@ -122,7 +122,14 @@ def build_train_step(model: Model, opt: AdamW, *, accum_steps: int = 1,
     the replicated step's bit for bit; ``AdamW.apply`` then updates the
     shards.  The gradient half then holds collectives, and a retry on one
     rank alone would leave the others waiting in a gather: a sharded step
-    takes no ``retries``.  ``step.retries`` is the count it retries."""
+    takes no ``retries``.  ``step.retries`` is the count it retries.
+
+    Under a model axis too (``launch.train --mesh DxM``: the gather's
+    ``mdims``), ``comm`` is the data group, so the gradients and the loss
+    are averaged over the data axis only (every model rank computes the
+    same loss, and a leaf that the model axis does not split has the same
+    gradient on every model rank); the global norm assembles each leaf
+    over both axes, so that it counts every leaf once."""
     sharded = dims is not None and any(
         d is not None for d in tree_leaves(dims))
     if sharded and retries:
@@ -134,9 +141,13 @@ def build_train_step(model: Model, opt: AdamW, *, accum_steps: int = 1,
     if sharded:
         gather = model.ctx.gather
 
+        mds = None if gather.mdims is None else tree_leaves(gather.mdims)
+
         def whole(tree):
-            return (gather.whole(g, d) for g, d in zip(
-                tree_leaves(tree), tree_leaves(dims)))
+            leaves = tree_leaves(tree)
+            return (gather.whole(g, d, None if mds is None else mds[i])
+                    for i, (g, d) in enumerate(zip(leaves,
+                                                   tree_leaves(dims))))
 
     def step(params, opt_state, batch, extra=None):
         grads, loss = grads_of(params, batch, extra)

@@ -2349,3 +2349,71 @@ def test_rank_sums_are_the_loopback_row_sums(dev, p_local):
         comm = types.SimpleNamespace(p=8, p_local=p_local, local_rows=rows)
         got = _rank_sums(t[rows].contiguous(), comm)
         assert torch.equal(got.view(torch.int32), want[rows].view(torch.int32))
+
+
+# -- the model axis (launch.train --mesh DxM) at one rank on the card --
+
+@pytest.mark.parametrize("name", ["llama3-8b", "arctic-480b",
+                                  "falcon-mamba-7b"])
+def test_mesh_1x1_step_is_mesh_local_on_card(dev, tmp_path, name):
+    """``launch.train --mesh 1x1`` on the card (a one-process NCCL group:
+    a data group and a model group of one rank each, every model-axis
+    collective run over its one rank): two steps of a reduced model in
+    the card's bf16 activations over float32 masters, bit for bit a
+    ``--mesh local`` trainer's from the same seed (built before the
+    group)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import tree_leaves
+
+    argv = ["--arch", name, "--reduced", "--batch", "4", "--seq", "64",
+            "--steps", "3"]
+    local = train.setup(get_config(name, reduced=True),
+                        train.parse_args(argv))
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/init",
+                            rank=0, world_size=1)
+    try:
+        tr = train.setup(get_config(name, reduced=True),
+                         train.parse_args(argv + ["--mesh", "1x1"]))
+        assert tr.model.ctx.model.size == 1 and tr.comm is not None
+        for _ in range(2):
+            want, got = local.step(), tr.step()
+            for k in ("loss", "grad_norm"):
+                assert torch.equal(got[k], want[k]), k
+            for a, b in zip(tree_leaves({"p": tr.params, "o": tr.opt_state}),
+                            tree_leaves({"p": local.params,
+                                         "o": local.opt_state})):
+                assert torch.equal(a, b)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_vocab_parallel_ce_on_card_matches_cpu(dev, no_tf32):
+    """``fused_ce_loss`` with the head's columns over a model axis of one
+    rank (``ModelAxis(LoopbackComm(1))``): on the card bit for bit the
+    unsplit loss and gradients there, and within 1e-5 of the same on the
+    CPU."""
+    from repro_torch.models.transformer import fused_ce_loss
+    from repro_torch.runtime.model_axis import ModelAxis
+
+    rng = np.random.default_rng(5)
+    x0 = rng.standard_normal((2, 1024, 64)).astype(np.float32)
+    h0 = rng.standard_normal((64, 256)).astype(np.float32) * 0.2
+    labels0 = rng.integers(0, 256, (2, 1024))
+    out = {}
+    for d, tp in ((dev, True), (dev, False), ("cpu", True)):
+        x = torch.from_numpy(x0).to(d).requires_grad_()
+        head = torch.from_numpy(h0).to(d).requires_grad_()
+        labels = torch.from_numpy(labels0).to(d)
+        kw = dict(tp=ModelAxis(LoopbackComm(1, device=d))) if tp else {}
+        loss = fused_ce_loss(x, head, labels, **kw)
+        loss.backward()
+        out[(str(d), tp)] = [t.detach().cpu() for t in (loss, x.grad,
+                                                        head.grad)]
+    card, plain, cpu = (out[(str(dev), True)], out[(str(dev), False)],
+                        out[("cpu", True)])
+    for a, b, c in zip(card, plain, cpu):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, c, rtol=1e-5, atol=1e-5)

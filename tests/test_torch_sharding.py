@@ -1,7 +1,7 @@
 """The port's sharding rules and mesh grammar against the reference's.
 
 For every registered config, reduced and at its published size, on the
-meshes (8,), (4, 2), (16, 16) and (2, 16, 16), under FSDP over the data
+meshes (8,), (4, 2), (2, 2), (2, 4), (16, 16) and (2, 16, 16), under FSDP over the data
 axes or none, ``opt_fsdp_axes`` set or not and ``ep_mode`` on and off:
 the spec of every parameter, optimizer-state and decode-cache leaf, and
 of batches, equals the reference's ``ShardingRules``.  The reference runs
@@ -11,6 +11,9 @@ port's rules read the same trees' shapes and paths; for the reduced
 configs the port's own parameter, optimizer and cache trees are first
 held to the reference's paths and shapes.  On (8,), with no model axis,
 both tables refuse a parameter or cache rule that names one (KeyError).
+At ``launch.train --mesh DxM``'s 2 x 2, 2 x 4 and 4 x 2, the port's
+``data_dim``/``model_dim`` of every leaf and the block cut over both axes
+are the reference's spec and shard shape.
 
 ``launch.mesh.make_mesh`` against ``repro.launch.train.make_mesh``: the
 same axis names and sizes for every spec of the grammar (the reference's
@@ -38,6 +41,7 @@ from repro_torch.optim.adamw import AdamW
 from repro_torch.runtime import sharding as tsh
 
 MESHES = [((8,), ("data",)), ((4, 2), ("data", "model")),
+          ((2, 2), ("data", "model")), ((2, 4), ("data", "model")),
           ((16, 16), ("data", "model")),
           ((2, 16, 16), ("pod", "data", "model"))]
 CASES = [(name, reduced) for name in jregistry.ARCH_NAMES
@@ -128,6 +132,46 @@ def test_specs_equal_the_reference(name, reduced):
                 want = {p: tuple(s.spec) for p, s in
                         _flat_jax(ref(jr, tree)).items()}
                 assert _flat(port(tr, tree)) == want, (what, shape, kw)
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (2, 4), (4, 2)])
+@pytest.mark.parametrize("name,reduced", CASES)
+def test_model_dim_and_the_2d_cut_are_the_reference_specs(name, reduced,
+                                                          shape):
+    """``launch.train --mesh DxM``'s rules (``fsdp_rules``: ``ep_mode``
+    where the experts are at least M): every parameter and AdamW leaf's
+    ``data_dim`` and ``model_dim`` are where the reference's spec names
+    ``data`` and ``model``, and the block that ``take`` cuts over both
+    axes has the reference's shard shape (``NamedSharding.shard_shape``
+    on the abstract mesh)."""
+    from jax.sharding import NamedSharding, PartitionSpec
+
+    from repro_torch.launch import train as ttrain
+
+    params, opt, _ = _jax_trees(name, reduced)
+    cfg = tregistry.get_config(name, reduced=reduced)
+    d, m = shape
+    mesh = AbstractMesh(shape, ("data", "model"))
+    jr = jsh.ShardingRules(mesh=mesh, fsdp_axes="data",
+                           ep_mode=cfg.is_moe and cfg.num_experts >= m)
+    tr = ttrain.fsdp_rules(cfg, d, m)
+    assert tr.ep_mode == jr.ep_mode and tr.mesh.shape == dict(mesh.shape)
+    tree = {"params": params, "opt": opt}
+    specs = _flat_jax(jsh.param_shardings(jr, tree))
+    for path, leaf in _flat_jax(tree).items():
+        spec = tuple(specs[path].spec)
+        spec += (None,) * (len(leaf.shape) - len(spec))
+        for axis, fn in (("data", tsh.data_dim), ("model", tsh.model_dim)):
+            at = [i - len(spec) for i, a in enumerate(spec) if a == axis]
+            assert fn(tr, path, leaf.shape) == (at[0] if at else None), (
+                path, axis)
+        t = torch.empty(leaf.shape, device="meta")
+        cut = tsh.take(tsh.take(t, tsh.model_dim(tr, path, leaf.shape),
+                                m - 1, m),
+                       tsh.data_dim(tr, path, leaf.shape), d - 1, d)
+        want = NamedSharding(mesh, PartitionSpec(*spec)).shard_shape(
+            leaf.shape)
+        assert tuple(cut.shape) == tuple(want), path
 
 
 MESH_SPECS = ["local", "pod", "16x16", "multipod", "2x16x16", "8", "4x2",

@@ -23,7 +23,8 @@ In this process the same steps run at ``--mesh local --accum 2``:
 * the DP step from the reference's weights matches the JAX single-device
   step on the whole batch within ``test_train_step_matches_jax``'s 1e-5
   (AdamW's ``eps`` 1e-3: that test's docstring says why);
-* a model axis and the production meshes are refused with their ROADMAP
+* the production meshes and a model axis with fewer experts than its
+  ranks are refused with their ROADMAP
   item, ``--mesh 2`` without a process group raises, and ``--mesh 1`` in
   a one-process group takes the whole batch over a ``DistComm``.
 """
@@ -220,9 +221,18 @@ def test_mesh_2_step_matches_the_jax_step(arch, dp_run):
 @pytest.mark.parametrize("spec,item", [("2x2", "A22"), ("1x2", "A22"),
                                        ("pod", "A22"), ("multipod", "A22")])
 def test_model_axis_is_refused(spec, item):
+    """What the model axis still refuses names ROADMAP A22's second half
+    (A22b): the production meshes, and at ``2x2`` and ``1x2`` an MoE
+    config with fewer experts than the model axis (one expert on two
+    model ranks: the reference's tp_local split)."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
     from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        train.data_parallel(spec, BATCH, "cpu")
+    cfg = dataclasses.replace(get_config("mixtral-8x22b", reduced=True),
+                              num_experts=1, experts_per_token=1)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}b"):
+        train.data_parallel(spec, BATCH, "cpu", cfg)
 
 
 def test_data_parallel_in_a_one_process_group(tmp_path):
@@ -234,8 +244,8 @@ def test_data_parallel_in_a_one_process_group(tmp_path):
     from repro_torch.launch import train
     init_gloo(0, 1, str(tmp_path / "init"))
     try:
-        comm, rows = train.data_parallel("1", BATCH, "cpu")
-        assert isinstance(comm, DistComm)
+        comm, model, rows = train.data_parallel("1", BATCH, "cpu")
+        assert isinstance(comm, DistComm) and model is None
         assert (comm.p, comm.rank, rows) == (1, 0, slice(0, BATCH))
         with pytest.raises(ValueError, match="process group has 1"):
             train.data_parallel("2", BATCH, "cpu")
@@ -251,7 +261,8 @@ def test_mesh_2_needs_a_process_group(monkeypatch):
     with pytest.raises(SystemExit, match="torch.distributed group"):
         train.main(_argv("llama3-8b", "--mesh", "2"))
     # local without a group: this process alone
-    assert train.data_parallel("local", BATCH, "cpu") == (None, slice(None))
+    assert train.data_parallel("local", BATCH, "cpu") == (None, None,
+                                                         slice(None))
 
 
 if __name__ == "__main__":

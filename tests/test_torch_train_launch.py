@@ -76,9 +76,9 @@ def test_train_falcon_mamba_on_the_cpu():
 
 
 def test_train_entry_point_refusals(monkeypatch):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A22\b"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A22b\b"):
         T.main(CPU + ["--arch", "llama3-8b", "--reduced", "--steps", "1",
-                      "--mesh", "2x4"])
+                      "--mesh", "pod"])
     with pytest.raises(SystemExit):
         T.main(CPU)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
