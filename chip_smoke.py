@@ -256,7 +256,23 @@ each:
    loss within DIST_TP_TOL, with the ms and peak memory of each.
    ``python3 chip_smoke.py --only dist_train`` runs the card and build
    lines and these two phases, and an ok line that carries "only":
-   "dist_train".  The
+   "dist_train".  Then dist_tp_serve, serving over the model axis
+   (launch.serve --mesh DxM): --mesh 1x1 in a one-process NCCL group
+   beside --mesh local, llama3-8b at its published widths with the serve
+   phase's engine settings, its requests cut to 4 and its layers to 4,
+   the tokens and one more decode step's logits bit for bit and B8
+   launched once a layer and tick; then --mesh 1x2 on two threads (a
+   ThreadWorld as the model group) beside --mesh local, float32 with TF32
+   off, llama3-8b (4 layers) and mixtral-8x22b (2 layers) at published
+   widths, 8 requests over 4 slots: both ranks emit the local tokens, a
+   decode step's logits within DIST_TP_SERVE_TOL, B8's partial entry
+   (each rank's 132 of the ring's 264 slots, merged over the model
+   group) launched layers x ticks x 2, a rank's bytes about half, the
+   step's ms a rank and local; the partial entry's kernel line on rank
+   0's block with the merge's ms; and the bytes a rank would hold at 1x8
+   of the published mixtral-8x22b and llama-3.2-vision-90b under the
+   serve rule at this card's limit.  ``--only dist_tp_serve`` runs the
+   card and build lines and this phase.  The
    train_twin phase holds reduced falcon-mamba-7b and hymba-1.5b too.  MFU counts 6 N tokens
    (runtime/steps.model_flops): the scan's own work is outside it.
 The model lines (phase "model"; the §5 models of core/perfmodel.py on
@@ -290,8 +306,9 @@ cut to 8) and selective_scan (one falcon-mamba layer at L = 32768)
 against their plain versions at 2e-4, each with the device time of every
 kernel it launches (torch.profiler) and ptxas's registers and spills.
 
-Then one line {"kernels": [...]} with all ten kernels' numbers (the nine
-TPU kernels' and B9's backward, whose launches are the train phases') and,
+Then one line {"kernels": [...]} with all eleven kernels' numbers (the
+nine TPU kernels', B9's backward, whose launches are the train phases',
+and B8's partial entry, whose launches are dist_tp_serve's) and,
 beside them, the four exchange kernels at phase 15's two shapes on derived
 tables (launches: that phase's kernel-arm run), and last
 {"ok": true, "device": {...}}.  Any failure exits non-zero before the last
@@ -451,6 +468,16 @@ DIST_TP_ARCHS = ("llama3-8b", "falcon-mamba-7b")
 DIST_TP_LAYERS = 2
 DIST_TP_ARGV = ["--seq", "2048", "--batch", "2", "--seed", str(SEED)]
 DIST_TP_TOL = 1e-4
+# serving over the model axis: launch.serve --mesh 1x1 with the serve
+# phase's engine settings, its 16 requests cut to 4 and llama3-8b's 32
+# layers to 4; then 1x2 on two threads, float32, a few layers of each arch
+# at its published widths, 8 requests over 4 slots (cache_len 264, whose
+# ring the model axis splits into two blocks of 132 slots)
+DIST_TP_SERVE_1X1 = ("llama3-8b", 4, ["--requests", "4"])
+DIST_TP_SERVE_LAYERS = {"llama3-8b": 4, "mixtral-8x22b": 2}
+DIST_TP_SERVE_ARGV = ["--requests", "8", "--slots", "4", "--prompt-len",
+                      "256", "--gen", "8", "--seed", str(SEED)]
+DIST_TP_SERVE_TOL = 1e-4
 # the backward kernel against the plain backward: each gradient within
 # this share of its largest element
 SCAN_BWD_TOL = 2e-4
@@ -500,6 +527,11 @@ SOURCE = {
                   "src/repro/kernels/stencil2d.py:60"),
     "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention.py:95"),
+    # B8's partial entry (the model axis's flash-decoding): the same TPU
+    # kernel, on a rank's block of the ring
+    "decode_attention_partial": (
+        "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention.py:95"),
     "selective_scan": ("src/repro_torch/kernels/csrc/selective_scan.cu",
                        "src/repro/kernels/selective_scan.py:71"),
     # the reference differentiates its chunked associative scan with
@@ -4834,7 +4866,7 @@ def fsdp_collective_ms(torch, tr, accum: int):
     + 1) gathers, ``accum`` x (layers + 1) reduce-scatters (the norm's
     gathers and the all_reduce not priced)."""
     from repro_torch.models.transformer import tree_map
-    from repro_torch.runtime.sharding import _flat, _gathered, _scattered
+    from repro_torch.runtime.sharding import _flat, gathered, _scattered
 
     gather, comm = tr.model.ctx.gather, tr.comm
     out = {}
@@ -4847,10 +4879,10 @@ def fsdp_collective_ms(torch, tr, accum: int):
                  if d is not None]
         parts, dims = [t for t, _ in split], [d for _, d in split]
         with torch.no_grad():
-            wholes = _gathered(comm, parts, dims)
+            wholes = gathered(comm, parts, dims)
             row = {"bytes": sum(t.numel() * t.element_size()
                                 for t in parts)}
-            for op, fn in (("gather", lambda: _gathered(comm, parts, dims)),
+            for op, fn in (("gather", lambda: gathered(comm, parts, dims)),
                            ("reduce_scatter",
                             lambda: _scattered(comm, wholes, dims))):
                 row[op + "_ms"] = cuda_ms(torch, fn, warmup=2, iters=10)
@@ -5200,6 +5232,294 @@ def phase_dist_tp_forward(torch, card, dev=None):
     return dict(launched)
 
 
+def b8_partial_line(torch, q, k, v, lengths):
+    """B8's partial entry on a 1x2 rank's ring block: out and lse against
+    the plain version at 2e-4, out bit for bit the whole entry's on the
+    lanes with slots; timed beside the plain version and SDPA on the
+    block (which returns no log-sum-exp: the merge could not use it), and
+    the merge of two such partials (``merge_partials``, the collective
+    excluded).  The bound: the attended K/V read once, q and lengths
+    read, out and lse written; a dot and an accumulate of D per (query
+    head, attended slot).  Emits the kernel line."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.runtime.model_axis import merge_partials
+    b, h, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    out, lse = kops.decode_attention_partial(q, k, v, lengths)
+    want, want_lse = kref.decode_attention_partial_ref(q, k, v, lengths)
+    err = max(float((out.float() - want).abs().max()),
+              float((lse - want_lse).abs().nan_to_num(0.0).max()))
+    check(torch.allclose(out.float(), want, **MODEL_TOL)
+          and torch.allclose(lse, want_lse, **MODEL_TOL),
+          f"decode_attention_partial differs from its plain version: {err}")
+    live = lengths > 0
+    check(torch.equal(out[live], kops.decode_attention(q, k, v, lengths)[
+        live]), "decode_attention_partial's out is not the whole entry's")
+    attended = torch.clamp(lengths, min=0, max=s)
+    mask = (torch.arange(s, device=q.device)[None, :]
+            < attended[:, None])[:, None, None, :]
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q[:, :, None], kt, vt,
+                                              attn_mask=mask, enable_gqa=True)
+    other = (out.flip(0), lse.flip(0))
+    n = int(attended.sum())
+    res = dict(max_abs_err=err,
+               ms=cuda_ms(torch, lambda: kops.decode_attention_partial(
+                   q, k, v, lengths)),
+               plain_ms=cuda_ms(torch, lambda: kref.
+                                decode_attention_partial_ref(q, k, v,
+                                                             lengths)),
+               library_ms=cuda_ms(torch, sdpa),
+               merge_ms=cuda_ms(torch, lambda: merge_partials(
+                   [out, other[0]], [lse, other[1]])),
+               bound=bound(2 * n * hkv * d * k.element_size()
+                           + 2 * b * h * d * q.element_size() + 4 * b * h
+                           + 4 * b, flops=4.0 * n * h * d))
+    emit({"phase": "kernel", "name": "decode_attention_partial",
+          "max_abs_err": res["max_abs_err"], "ms": res["ms"],
+          "plain_ms": res["plain_ms"], "library_ms": res["library_ms"],
+          "library": "scaled_dot_product_attention on the block, no lse",
+          "merge_ms": res["merge_ms"], "bound_ms": res["bound"][0],
+          "bound_by": res["bound"][1], "group": h // hkv,
+          "shape": f"q {tuple(q.shape)} {str(q.dtype)[6:]}, k/v "
+                   f"{tuple(k.shape)} {str(k.dtype)[6:]}, {n} attended "
+                   "slots (rank 0 of 1x2)"})
+    check_bound("decode_attention_partial", res)
+    return res
+
+
+def phase_dist_tp_serve(torch, card, dev=None):
+    """Serving over the model axis on the card, in three parts.
+
+    1. launch.serve --mesh 1x1 in a one-process NCCL group (the DxM path:
+       the serve rules, the cache blocks, every model-axis collective over
+       one rank) beside --mesh local, llama3-8b at its published widths,
+       the serve cell's engine settings with the requests and the depth
+       cut (DIST_TP_SERVE_1X1): the tokens, and one more decode step's
+       logits, bit for bit; B8's whole entry launched once a layer and
+       decode tick.
+    2. --mesh 1x2 played by two threads (ThreadWorld(2, 1) as the model
+       group, LoopbackComm(1) as each data group, each thread its own
+       engine on its own stream) beside --mesh local, float32 and TF32
+       off, llama3-8b and mixtral-8x22b at their published widths, a few
+       layers (DIST_TP_SERVE_LAYERS), 8 requests over 4 slots: both ranks
+       emit the local tokens, one more decode step's logits within
+       DIST_TP_SERVE_TOL (relative L2) of the local step's and the same
+       bits on both ranks, B8's partial entry launched layers x decode
+       ticks x 2 (the whole entry never), a rank's parameter bytes about
+       half the local ones, and the decode step's ms on each rank beside
+       the local one.
+    3. The kernel line of B8's partial entry on rank 0's ring block of
+       llama3-8b's first layer (b8_partial_line), and the bytes a rank
+       would hold at 1x8 of the published mixtral-8x22b and
+       llama-3.2-vision-90b under the serve rule at this card's limit.
+    Returns (launch counts, the kernel line's numbers)."""
+    from repro_torch.comm.communicator import LoopbackComm
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import serve as lserve
+    from repro_torch.models.transformer import RunCtx, tree_leaves
+    from repro_torch.runtime import sharding
+
+    dev = dev or torch.device("cuda", torch.cuda.current_device())
+    launched = collections.Counter()
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+    def timed(fn, iters=5):
+        fn()
+        torch.cuda.current_stream().synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end) / iters
+
+    # 1. --mesh 1x1 against --mesh local, bf16
+    t0 = time.perf_counter()
+    arch, layers, more = DIST_TP_SERVE_1X1
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    ctx = RunCtx(act_dtype=torch.bfloat16)
+    runs = {}
+    for spec in ("local", "1x1"):
+        args = lserve.parse_args(SERVE_ARGV + more + ["--mesh", spec])
+        with (nccl_group(torch) if spec != "local"
+              else contextlib.nullcontext()):
+            engine = lserve.make_engine(cfg, ctx, args)
+            kops.reset_launch_counts()
+            report = engine.run()
+            counts = kops.launch_counts()
+            logits = engine.model.decode_step(engine.params, engine.cache,
+                                              engine._tokens)[0]
+            torch.cuda.synchronize()
+        runs[spec] = (report, counts, logits)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    (rep, counts, logits), (rep1, counts1, logits1) = runs["local"], \
+        runs["1x1"]
+    ticks = len(rep1.tick_seconds)
+    launched["decode_attention"] += counts1["decode_attention"]
+    emit({"phase": "dist_tp_serve", "part": "1x1", "arch": arch,
+          "layers": layers, "d_model": cfg.d_model, "dtype": "bfloat16",
+          "argv": SERVE_ARGV + more,
+          "cut": "requests 16 -> 4, layers 32 -> 4",
+          "comm": "a one-process NCCL group (world 1) as the 1x1 mesh",
+          "completed": len(rep1.completed), "tokens": rep1.total_tokens,
+          "tokens_equal_local": rep1.outputs == rep.outputs,
+          "logits_bit_equal_local": bool(torch.equal(logits1, logits)),
+          "decode_ticks": ticks,
+          "decode_attention_launches": counts1["decode_attention"],
+          "decode_tokens_per_s": {"1x1": rep1.tokens_per_s,
+                                  "local": rep.tokens_per_s},
+          "wall_s": round(time.perf_counter() - t0, 1), "card": card})
+    check(len(rep1.completed) == int(more[1]), "dist_tp_serve 1x1: "
+          f"{len(rep1.completed)} requests completed")
+    check(rep1.outputs == rep.outputs, "dist_tp_serve: --mesh 1x1 emitted "
+          "other tokens than --mesh local")
+    check(torch.equal(logits1, logits), "dist_tp_serve: --mesh 1x1's "
+          "decode logits are not --mesh local's bit for bit")
+    check(counts1["decode_attention"] == layers * ticks,
+          f"dist_tp_serve 1x1: B8 launched {counts1['decode_attention']} "
+          f"times in {ticks} ticks of {layers} layers")
+    del runs, logits, logits1
+
+    # 2. --mesh 1x2 on two threads against --mesh local, float32
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx = RunCtx(act_dtype=torch.float32)
+    block = None
+    try:
+        for arch, layers in DIST_TP_SERVE_LAYERS.items():
+            t0 = time.perf_counter()
+            cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+            argv = ["--arch", arch] + DIST_TP_SERVE_ARGV
+            local = lserve.make_engine(cfg, ctx, lserve.parse_args(argv))
+            rep = local.run()
+            want, local_ms = timed(lambda: local.model.decode_step(
+                local.params, local.cache, local._tokens)[0])
+            local_bytes = nbytes(local.params)
+            del local
+            gc.collect()
+            torch.cuda.empty_cache()
+            args = lserve.parse_args(argv + ["--mesh", "1x2"])
+            shared = {}
+
+            def rank(comm):
+                grid = mesh_mod.Grid(0, comm.rank, LoopbackComm(1, device=dev),
+                                     comm)
+                eng = lserve.make_engine(cfg, ctx, args, grid=grid)
+                comm._tw.barrier.wait()
+                if comm.rank == 0:
+                    torch.cuda.synchronize()
+                    kops.reset_launch_counts()
+                comm._tw.barrier.wait()
+                out = eng.run()
+                comm._tw.sync()
+                comm._tw.barrier.wait()
+                if comm.rank == 0:
+                    shared["counts"] = kops.launch_counts()
+                comm._tw.barrier.wait()
+                got, ms = timed(lambda: eng.model.decode_step(
+                    eng.params, eng.cache, eng._tokens)[0])
+                kept = None
+                if comm.rank == 0 and arch == "llama3-8b":
+                    lc = eng.cache["layers"]
+                    n = lc["k"].shape[2]
+                    pos = eng.cache["pos"]
+                    kept = (lc["k"][0].clone(), lc["v"][0].clone(),
+                            torch.clamp(torch.clamp(pos + 1, max=eng.cache_len),
+                                        0, n).to(torch.int32))
+                return (out, got, ms, nbytes(eng.params),
+                        tuple(eng.cache["layers"]["k"].shape), kept)
+
+            out = ThreadWorld(torch, 2, 1, dev).run(rank)
+            counts = shared["counts"]
+            ticks = len(out[0][0].tick_seconds)
+            rels = [rel_l2(torch, o[1], want) for o in out]
+            launched["decode_attention_partial"] += counts[
+                "decode_attention_partial"]
+            if out[0][5] is not None:
+                block = out[0][5]
+            emit({"phase": "dist_tp_serve", "part": "1x2", "arch": arch,
+                  "layers": layers, "d_model": cfg.d_model,
+                  "heads": [cfg.num_heads, cfg.num_kv_heads],
+                  "experts": cfg.num_experts, "vocab": cfg.vocab_size,
+                  "argv": argv, "mesh": "1x2", "dtype": "float32",
+                  "tf32": False,
+                  "comm": "ThreadWorld(2, 1): two threads, one stream each, "
+                          "as the model group; LoopbackComm(1) as each "
+                          "data group",
+                  "ring_block": list(out[0][4]),
+                  "completed": [len(o[0].completed) for o in out],
+                  "tokens_equal_local": [o[0].outputs == rep.outputs
+                                         for o in out],
+                  "logits_rel_l2_vs_local": rels, "tol": DIST_TP_SERVE_TOL,
+                  "decode_ticks": ticks,
+                  "partial_launches": counts["decode_attention_partial"],
+                  "whole_launches": counts["decode_attention"],
+                  "decode_step_ms": {"ranks": [o[2] for o in out],
+                                     "local": local_ms},
+                  "param_bytes": {"ranks": [o[3] for o in out],
+                                  "local": local_bytes},
+                  "wall_s": round(time.perf_counter() - t0, 1),
+                  "card": card})
+            for o in out:
+                check(o[0].outputs == rep.outputs, f"dist_tp_serve {arch}: "
+                      "a 1x2 rank emitted other tokens than --mesh local")
+            check(torch.equal(out[0][1], out[1][1]), f"dist_tp_serve "
+                  f"{arch}: the two model ranks' logits differ")
+            check(max(rels) <= DIST_TP_SERVE_TOL, f"dist_tp_serve {arch}: "
+                  f"the 1x2 logits are {rels} apart from the local ones")
+            check(counts["decode_attention_partial"] == 2 * layers * ticks
+                  and counts["decode_attention"] == 0,
+                  f"dist_tp_serve {arch}: B8's partial entry launched "
+                  f"{counts['decode_attention_partial']} times (the whole "
+                  f"{counts['decode_attention']}), not 2 x {layers} layers "
+                  f"x {ticks} ticks")
+            check(all(abs(o[3] / local_bytes - 0.5) < 0.05 for o in out),
+                  f"dist_tp_serve {arch}: a rank holds "
+                  f"{[o[3] for o in out]} bytes of {local_bytes}")
+            del out, want
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        # 3. the kernel line on rank 0's block of the first layer
+        k, v, lengths = block
+        cfg = get_config("llama3-8b")
+        q = torch.randn((k.shape[0], cfg.num_heads, cfg.head_dim),
+                        generator=torch.Generator(device=dev).manual_seed(
+                            SEED), device=dev)
+        res = b8_partial_line(torch, q, k, v, lengths)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    at8 = {}
+    for arch in ("mixtral-8x22b", "llama-3.2-vision-90b"):
+        cfg = get_config(arch)
+        rules = sharding.serve_rules(cfg, mesh_mod.Mesh((1, 8), (
+            "data", "model")), device=dev)
+        at8[arch] = {"rank_bytes": sharding.serving_bytes(cfg, rules),
+                     "whole_bytes": sharding.serving_bytes(cfg),
+                     "zero_inference": rules.fsdp_axes is not None}
+    emit({"phase": "dist_tp_serve", "part": "bytes_at_1x8",
+          "limit_bytes": sharding.serve_limit(dev),
+          "by_param_specs": at8, "card": card})
+    return dict(launched), res
+
+
 def phase_train_ssm_bf16(torch, card, f32_ms):
     """falcon-mamba-7b as train_ssm (TRAIN_SSM_LAYERS of its 64 layers, its
     settings) with the reference's bf16 scan payload
@@ -5409,9 +5729,9 @@ def main() -> None:
     only = sys.argv[2] if len(sys.argv) == 3 and sys.argv[1] == "--only" \
         else None
     if sys.argv[1:] and only not in ("dist_consumers", "dist_per_batch",
-                                     "dist_train"):
-        fail("usage: python3 chip_smoke.py "
-             "[--only dist_consumers|dist_per_batch|dist_train]")
+                                     "dist_train", "dist_tp_serve"):
+        fail("usage: python3 chip_smoke.py [--only dist_consumers|"
+             "dist_per_batch|dist_train|dist_tp_serve]")
     alone = only == "dist_consumers"
     if not torch.cuda.is_available():
         fail("no CUDA device is available")
@@ -5432,9 +5752,11 @@ def main() -> None:
 
     card = phase_card(torch)
     probes = phase_build()
-    if only in ("dist_per_batch", "dist_train"):
+    if only in ("dist_per_batch", "dist_train", "dist_tp_serve"):
         if only == "dist_per_batch":
             only_dist_per_batch(torch, card)
+        elif only == "dist_tp_serve":
+            phase_dist_tp_serve(torch, card)
         else:
             phase_dist_train(torch, card)
             gc.collect()
@@ -5618,6 +5940,14 @@ def main() -> None:
     torch.cuda.empty_cache()
     for name, n in phase_dist_tp_forward(torch, card).items():
         counts[name] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp_counts, results["decode_attention_partial"] = phase_dist_tp_serve(
+        torch, card)
+    for name, n in tp_counts.items():
+        counts[name] = counts.get(name, 0) + n
+    gc.collect()
+    torch.cuda.empty_cache()
     phase_train_twins(torch, card)
     phase_train_lm100m(torch, src.parent / "build" / "train_ckpt", card)
 

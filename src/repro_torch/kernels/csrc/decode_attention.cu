@@ -62,6 +62,13 @@
 // 16-byte copies need 16-byte rows (D * sizeof(T) % 16 == 0) and aligned
 // k and v, else the rows are copied one element at a time.
 //
+// The partial entry (rt_decode_attention_partial) is the same kernel for a
+// cache split by sequence over the ranks of a model group (flash-decoding
+// across ranks): it also writes lse[b, h] = max + ln(sum) of the scaled
+// logits over the attended slots (natural-log units, float32), which the
+// ranks' merge weighs each rank's output by, and a length of 0 or less is
+// an empty range there: out = 0 and lse = -inf, nothing read.
+//
 // Launches on the given stream and returns cudaGetLastError().
 
 #include <cuda_bf16.h>
@@ -76,6 +83,7 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr float kMasked = -1e30f;     // the TPU kernel's mask and start
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kTile = 32;             // slots of a tile
 constexpr int kStages = 2;            // tiles in the ring
 constexpr int kParts = kThreads / kTile;   // threads of a slot in the logits
@@ -227,8 +235,8 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
     const T* __restrict__ v, const int32_t* __restrict__ lengths,
     float* __restrict__ part_m, float* __restrict__ part_l,
     float* __restrict__ part_acc, int* __restrict__ counters,
-    TQ* __restrict__ out, int s_len, int hkv, int g_all, int d, int chunk,
-    float scale2, bool vec) {
+    TQ* __restrict__ out, float* __restrict__ lse, int s_len, int hkv,
+    int g_all, int d, int chunk, float scale2, bool vec, bool partial) {
   using Lay = Layout<T, kG>;
   constexpr int kRowSlots = kTile / kWarps;        // slots of a warp in P.V
   // a bfloat16 query on a bfloat16 cache runs the products on the tensor
@@ -262,6 +270,17 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
   const int kvh = sg - b * hkv;
   const int len = lengths[b];
   const bool masked = len <= 0;
+  // the heads [hbase, hbase + gn) of lane b, flat over (b, h)
+  const long long hbase = static_cast<long long>(b) * hkv * g_all +
+                          static_cast<long long>(kvh) * g_all + g0;
+  if (partial && masked) {           // an empty range: out 0, lse -inf
+    if (split == 0) {
+      for (int e = tid; e < gn * d; e += kThreads)
+        out[hbase * d + e] = from_f32<TQ>(0.0f);
+      if (tid < gn) lse[hbase + tid] = -INFINITY;
+    }
+    return;
+  }
   const int n = attended(len, s_len);
   const int s0 = split * chunk;
   if (s0 >= n) return;                 // past the prefix: no partial
@@ -530,9 +549,7 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
   // the split's (max, sum, accumulator): straight to the output when it
   // is the lane's only split, else a partial at row sg * nsplit + split
   const bool alone = live == 1;
-  const long long obase =
-      (static_cast<long long>(b) * hkv * g_all +
-       static_cast<long long>(kvh) * g_all + g0) * d;
+  const long long obase = hbase * d;
   const long long prow =
       (static_cast<long long>(sg) * gridDim.x + split) * g_all + g0;
   cp_wait<0>();
@@ -575,6 +592,8 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
         part_acc[(prow + g) * d + c] = a;
     }
   }
+  if (alone && lse != nullptr && tid < gn)
+    lse[hbase + tid] = (sm[tid] + log2f(fmaxf(sl[tid], 1e-30f))) * kLn2;
   if (!alone) {
     if (tid < gn) {
       part_m[prow + tid] = sm[tid];
@@ -616,6 +635,8 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
         }
       }
       __syncthreads();
+      if (lse != nullptr && tid < gn)
+        lse[hbase + tid] = (sm[tid] + log2f(sl[tid])) * kLn2;
       for (int e = tid; e < gn * d; e += kThreads) {
         const int g = e / d;
         const int c = e - g * d;
@@ -638,10 +659,10 @@ __global__ void __launch_bounds__(kThreads) decode_attention_kernel(
 
 struct Args {
   const void *q, *k, *v, *lengths;
-  void *out, *part_m, *part_l, *part_acc, *counters;
+  void *out, *lse, *part_m, *part_l, *part_acc, *counters;
   int b, s_len, h_all, hkv, d, chunk;
   float scale2;
-  bool vec;
+  bool vec, partial;
   cudaStream_t stream;
 };
 
@@ -663,8 +684,8 @@ int launch(const Args& a) {
       static_cast<const T*>(a.v), static_cast<const int32_t*>(a.lengths),
       static_cast<float*>(a.part_m), static_cast<float*>(a.part_l),
       static_cast<float*>(a.part_acc), static_cast<int*>(a.counters),
-      static_cast<TQ*>(a.out), a.s_len, a.hkv, g_all, a.d, a.chunk,
-      a.scale2, a.vec);
+      static_cast<TQ*>(a.out), static_cast<float*>(a.lse), a.s_len, a.hkv,
+      g_all, a.d, a.chunk, a.scale2, a.vec, a.partial);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -677,6 +698,37 @@ int by_heads(const Args& a) {
   if (g == 2) return launch<TQ, T, 2>(a);
   if (g <= 4) return launch<TQ, T, 4>(a);
   return launch<TQ, T, 8>(a);
+}
+
+// the checks and the dispatch on the types, shared by both entries
+int run(const void* q, const void* k, const void* v, const void* lengths,
+        void* out, void* lse, void* part_m, void* part_l, void* part_acc,
+        void* counters, long long b, long long s_len, long long h_all,
+        long long hkv, long long d, long long chunk, int q_dtype,
+        int kv_dtype, float scale, bool partial, void* stream) {
+  if (b == 0 || h_all == 0) return static_cast<int>(cudaGetLastError());
+  if (s_len < 1 || hkv < 1 || h_all % hkv != 0 || d < 1 || d > 128 ||
+      chunk < 1 || b * hkv > 65535 || (h_all / hkv + 7) / 8 > 65535 ||
+      b * h_all >= (1LL << 31) || s_len >= (1LL << 31) ||
+      chunk >= (1LL << 31) || (partial && lse == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int elem = kv_dtype == 1 ? 2 : 4;
+  // 16-byte copies need 16-byte rows and aligned k, v
+  const bool vec = d * elem % 16 == 0 &&
+                   (reinterpret_cast<uintptr_t>(k) |
+                    reinterpret_cast<uintptr_t>(v)) % 16 == 0;
+  const Args a{q, k, v, lengths, out, lse, part_m, part_l, part_acc,
+               counters, static_cast<int>(b), static_cast<int>(s_len),
+               static_cast<int>(h_all), static_cast<int>(hkv),
+               static_cast<int>(d), static_cast<int>(chunk),
+               scale * kLog2e, vec, partial,
+               static_cast<cudaStream_t>(stream)};
+  if (q_dtype == 0 && kv_dtype == 0) return by_heads<float, float>(a);
+  if (q_dtype == 0 && kv_dtype == 1)
+    return by_heads<float, __nv_bfloat16>(a);
+  if (q_dtype == 1 && kv_dtype == 1)
+    return by_heads<__nv_bfloat16, __nv_bfloat16>(a);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -698,28 +750,24 @@ int rt_decode_attention(const void* q, const void* k, const void* v,
                         long long hkv, long long d, long long chunk,
                         int q_dtype, int kv_dtype, float scale,
                         void* stream) {
-  if (b == 0 || h_all == 0) return static_cast<int>(cudaGetLastError());
-  if (s_len < 1 || hkv < 1 || h_all % hkv != 0 || d < 1 || d > 128 ||
-      chunk < 1 || b * hkv > 65535 || (h_all / hkv + 7) / 8 > 65535 ||
-      b * h_all >= (1LL << 31) || s_len >= (1LL << 31) ||
-      chunk >= (1LL << 31))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int elem = kv_dtype == 1 ? 2 : 4;
-  // 16-byte copies need 16-byte rows and aligned k, v
-  const bool vec = d * elem % 16 == 0 &&
-                   (reinterpret_cast<uintptr_t>(k) |
-                    reinterpret_cast<uintptr_t>(v)) % 16 == 0;
-  const Args a{q, k, v, lengths, out, part_m, part_l, part_acc, counters,
-               static_cast<int>(b), static_cast<int>(s_len),
-               static_cast<int>(h_all), static_cast<int>(hkv),
-               static_cast<int>(d), static_cast<int>(chunk),
-               scale * kLog2e, vec, static_cast<cudaStream_t>(stream)};
-  if (q_dtype == 0 && kv_dtype == 0) return by_heads<float, float>(a);
-  if (q_dtype == 0 && kv_dtype == 1)
-    return by_heads<float, __nv_bfloat16>(a);
-  if (q_dtype == 1 && kv_dtype == 1)
-    return by_heads<__nv_bfloat16, __nv_bfloat16>(a);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return run(q, k, v, lengths, out, nullptr, part_m, part_l, part_acc,
+             counters, b, s_len, h_all, hkv, d, chunk, q_dtype, kv_dtype,
+             scale, false, stream);
+}
+
+// The partial entry: rt_decode_attention's arguments and lse (b, h)
+// float32, max + ln(sum) of the scaled logits of each head over its lane's
+// attended slots; a length of 0 or less gives out = 0 and lse = -inf.
+int rt_decode_attention_partial(const void* q, const void* k, const void* v,
+                                const void* lengths, void* out, void* lse,
+                                void* part_m, void* part_l, void* part_acc,
+                                void* counters, long long b, long long s_len,
+                                long long h_all, long long hkv, long long d,
+                                long long chunk, int q_dtype, int kv_dtype,
+                                float scale, void* stream) {
+  return run(q, k, v, lengths, out, lse, part_m, part_l, part_acc, counters,
+             b, s_len, h_all, hkv, d, chunk, q_dtype, kv_dtype, scale, true,
+             stream);
 }
 
 }  // extern "C"

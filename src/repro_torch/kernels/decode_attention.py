@@ -10,6 +10,13 @@ shapes alone (the lengths stay on the device: no host sync), and merges the
 splits of a (lane, KV head) in the same launch.  A CUDA tensor always goes
 through the kernel (or the call raises); a CPU tensor takes the plain
 version in ``kernels/ref.py``.
+
+``decode_attention_partial`` is the same kernel's partial entry, for a
+cache whose slots are split over the ranks of a model group (the
+reference's flash-decoding cache layout, sequence over the model axis):
+each rank attends its own slots and returns its output with the
+log-sum-exp of its logits, and ``runtime.model_axis.merge_partials``
+combines the ranks' pairs.
 """
 from __future__ import annotations
 
@@ -21,7 +28,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.pack_gather import on_card, require
 
-__all__ = ["decode_attention", "plan_chunk"]
+__all__ = ["decode_attention", "decode_attention_partial",
+           "plan_chunk"]
 
 TILE = 32            # slots of one shared-memory tile on the card
 # The split planner's aims: at least TARGET_BLOCKS blocks (four resident on
@@ -58,6 +66,49 @@ def _counters(device, n: int) -> torch.Tensor:
     return buf
 
 
+def _checked(q, k, v, lengths):
+    """The shape checks of both entries; ``(b, s, h, hkv, d)``."""
+    require(q.dim() == 3 and k.dim() == 4 and k.shape == v.shape,
+            (q.shape, k.shape, v.shape))
+    b, h, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    require(k.shape[0] == b and k.shape[3] == d and s >= 1 and hkv >= 1
+            and h % hkv == 0, (q.shape, k.shape))
+    require(tuple(lengths.shape) == (b,), lengths.shape)
+    return b, s, h, hkv, d
+
+
+def _launch(kernel, entry, q, k, v, lengths, out, *lse):
+    """The card's launch of ``entry`` (``rt_decode_attention`` or, with an
+    ``lse`` output, ``rt_decode_attention_partial``), counted as
+    ``kernel``: the type checks, the split plan and the scratch."""
+    if lengths.dtype != torch.int32:
+        raise TypeError(f"lengths must be int32, got {lengths.dtype}")
+    if (q.dtype not in _DTYPES or k.dtype not in _DTYPES
+            or v.dtype != k.dtype
+            or (q.dtype, k.dtype) == (torch.bfloat16, torch.float32)):
+        raise TypeError("the card's decode attention takes a float32 or "
+                        "bfloat16 query and cache (a float32 query may read "
+                        f"a bfloat16 cache), got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    b, h, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    require(d <= 128 and b * hkv <= 65535, (d, b, hkv))
+    chunk = plan_chunk(b, s, hkv)
+    nsplit = -(-s // chunk)
+    part_ml = torch.empty((2, b * hkv, nsplit, h // hkv),
+                          dtype=torch.float32, device=q.device)
+    part_acc = torch.empty((b * hkv, nsplit, h // hkv, d),
+                           dtype=torch.float32, device=q.device)
+    _build.launch(kernel, entry, q.device, q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                  *(t.data_ptr() for t in lse), part_ml[0].data_ptr(),
+                  part_ml[1].data_ptr(), part_acc.data_ptr(),
+                  _counters(q.device, b * h).data_ptr(), b, s, h, hkv, d,
+                  chunk, _DTYPES[q.dtype], _DTYPES[k.dtype],
+                  ctypes.c_float(d ** -0.5))
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lengths: torch.Tensor) -> torch.Tensor:
     """``out (B, H, D)`` in ``q.dtype``: query head h of lane b attends
@@ -74,37 +125,29 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     version (rtol/atol 2e-4 in float32); a bfloat16 query on a bfloat16
     cache runs its products on the tensor cores, each probability kept to
     16 bits, within one bfloat16 rounding of the plain version."""
-    require(q.dim() == 3 and k.dim() == 4 and k.shape == v.shape,
-            (q.shape, k.shape, v.shape))
-    b, h, d = q.shape
-    s, hkv = k.shape[1], k.shape[2]
-    require(k.shape[0] == b and k.shape[3] == d and s >= 1 and hkv >= 1
-            and h % hkv == 0, (q.shape, k.shape))
-    require(tuple(lengths.shape) == (b,), lengths.shape)
+    _checked(q, k, v, lengths)
     if not on_card(q, k, v, lengths):
         return kref.decode_attention_ref(q, k, v, lengths)
-    if lengths.dtype != torch.int32:
-        raise TypeError(f"lengths must be int32, got {lengths.dtype}")
-    if (q.dtype not in _DTYPES or k.dtype not in _DTYPES
-            or v.dtype != k.dtype
-            or (q.dtype, k.dtype) == (torch.bfloat16, torch.float32)):
-        raise TypeError("the card's decode attention takes a float32 or "
-                        "bfloat16 query and cache (a float32 query may read "
-                        f"a bfloat16 cache), got {q.dtype}, {k.dtype}, "
-                        f"{v.dtype}")
-    require(d <= 128 and b * hkv <= 65535, (d, b, hkv))
     out = torch.empty_like(q)
-    chunk = plan_chunk(b, s, hkv)
-    nsplit = -(-s // chunk)
-    part_ml = torch.empty((2, b * hkv, nsplit, h // hkv),
-                          dtype=torch.float32, device=q.device)
-    part_acc = torch.empty((b * hkv, nsplit, h // hkv, d),
-                           dtype=torch.float32, device=q.device)
-    _build.launch("decode_attention", "rt_decode_attention", q.device,
-                  q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  lengths.data_ptr(), out.data_ptr(), part_ml[0].data_ptr(),
-                  part_ml[1].data_ptr(), part_acc.data_ptr(),
-                  _counters(q.device, b * h).data_ptr(), b, s, h, hkv, d,
-                  chunk, _DTYPES[q.dtype], _DTYPES[k.dtype],
-                  ctypes.c_float(d ** -0.5))
+    _launch("decode_attention", "rt_decode_attention", q, k, v, lengths, out)
     return out
+
+
+def decode_attention_partial(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, lengths: torch.Tensor):
+    """``(out (B, H, D) in q.dtype, lse (B, H) float32)``: ``out`` is
+    ``decode_attention``'s over the slots ``s < lengths[b]`` (bit for bit
+    on the card: the same kernel), and ``lse`` the log-sum-exp of the
+    scaled float32 logits of each head over those slots.  A length of 0 or
+    less is an empty range: ``out`` 0 and ``lse`` -inf (not the TPU
+    kernel's mean of V), so that a rank holding none of a lane's valid
+    slots adds nothing to the merge.  The inputs as ``decode_attention``'s;
+    ``lse`` within 2e-4 of the plain version's on the card."""
+    b, _, h, _, _ = _checked(q, k, v, lengths)
+    if not on_card(q, k, v, lengths):
+        return kref.decode_attention_partial_ref(q, k, v, lengths)
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h), dtype=torch.float32, device=q.device)
+    _launch("decode_attention_partial", "rt_decode_attention_partial", q, k,
+            v, lengths, out, lse)
+    return out, lse

@@ -36,7 +36,8 @@ __all__ = [
     "TileOrder", "derive_tile_order", "ellpack_spmv_windowed",
     "accumulate_segments", "accumulate_into", "SegmentTable",
     "segment_table", "derive_segment_table", "stencil2d",
-    "decode_attention", "selective_scan", "launch_counts", "entry_counts",
+    "decode_attention", "decode_attention_partial", "selective_scan",
+    "launch_counts", "entry_counts",
     "reset_launch_counts",
 ]
 
@@ -103,6 +104,17 @@ def decode_attention(q, k, v, lengths):
             "one-token decode is never differentiated (train through "
             "Model.loss, whose attention is plain PyTorch)")
     return _b8.decode_attention(q, k, v, lengths)
+
+
+def decode_attention_partial(q, k, v, lengths):
+    """``kernels.decode_attention.decode_attention_partial`` (B8's partial
+    entry: the output over a range of slots and its log-sum-exp), refusing
+    inputs that require grad as ``decode_attention`` does."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "decode_attention_partial has no backward: it is a serving "
+            "kernel")
+    return _b8.decode_attention_partial(q, k, v, lengths)
 
 
 # --------------------------------------------------------------------------

@@ -18,7 +18,8 @@ __all__ = ["pack_gather_ref", "unpack_scatter_set_ref", "unpack_dest_ref",
            "ellpack_spmv_ref", "reduce_identity", "maximum",
            "accumulate_segments_ref", "accumulate_into_ref", "ordered_add",
            "fma_f32",
-           "stencil2d_ref", "decode_attention_ref", "selective_scan_ref",
+           "stencil2d_ref", "decode_attention_ref",
+           "decode_attention_partial_ref", "selective_scan_ref",
            "selective_scan_bwd_ref", "scan_chunk_bf16", "scan_chunk_len",
            "state_sum", "selective_scan_bf16_states_ref",
            "selective_scan_bf16_ref", "selective_scan_bf16_bwd_ref"]
@@ -296,6 +297,29 @@ def decode_attention_ref(q, k, v, lengths, *, scale=None):
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgs,bshd->bhgd", w, v.float())
     return out.reshape(b, h, d).to(q.dtype)
+
+
+def decode_attention_partial_ref(q, k, v, lengths, *, scale=None):
+    """``decode_attention_ref`` over a range of slots, with its log-sum-exp:
+    ``(out (B, H, D) in q.dtype, lse (B, H) float32)``, ``out`` the float32
+    softmax-weighted V over the slots ``s < lengths[b]`` and ``lse`` the
+    log-sum-exp of their scaled float32 logits.  A length of 0 or less is
+    an empty range: ``out`` 0 and ``lse`` -inf.  Ranges of a cache merged
+    by ``runtime.model_axis.merge_partials`` give ``decode_attention_ref``
+    over their union."""
+    b, h, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    if scale is None:
+        scale = d ** -0.5
+    qg = q.reshape(b, hkv, h // hkv, d).float()
+    logits = torch.einsum("bhgd,bshd->bhgs", qg, k.float()) * scale
+    valid = (torch.arange(s, device=q.device)[None, :]
+             < lengths.to(device=q.device, dtype=torch.int64)[:, None])
+    logits = torch.where(valid[:, None, None, :], logits, -torch.inf)
+    lse = torch.logsumexp(logits, dim=-1)
+    w = torch.exp(logits - torch.where(lse.isfinite(), lse, 0.0)[..., None])
+    out = torch.einsum("bhgs,bshd->bhgd", w, v.float())
+    return out.reshape(b, h, d).to(q.dtype), lse.reshape(b, h)
 
 
 def selective_scan_ref(x, dt, bmat, cmat, a):

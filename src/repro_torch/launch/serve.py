@@ -30,8 +30,28 @@ process (gloo on the CPU, NCCL on the card; ``launch.mesh.init_group``)::
         --moe-comm --mesh 8
 
 Every process then runs the whole engine on every slot and holds its
-ranks' experts.  The reference's 2-D meshes have a model axis the port
-has no counterpart for, and are refused.
+ranks' experts.
+
+``--mesh DxM`` (``Dx1`` and ``1xM`` too) serves over a data axis of D
+ranks and a model axis of M, one process a rank (global rank ``d·M +
+m``, ``launch.mesh.grid``), with the reference's serve placement
+(``runtime.sharding.serve_rules``: the weights over the model axis, and
+over the data axis too where a model-axis part would exceed
+``sharding.serve_limit``: half the card's memory on the card, the
+reference's 12e9 bytes on the CPU) and its
+decode caches (``cache_specs``: lanes over the data axis, the ring and the
+cross slots over the model axis).  A data rank serves its block of the
+lanes (or of the batched demo's batch) tensor- and expert-parallel with
+its model group, and with ``--moe-comm`` the decode hook's
+``DynamicMoELayer`` runs over its data group, as the reference's hook over
+its mesh's ``data`` axis::
+
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+        --arch llama3-8b --reduced --device cpu --mesh 2x2
+
+Still refused, naming ROADMAP A22c: ``pod``/``multipod`` and an MoE
+config with fewer experts than the model axis (the reference's
+``tp_local`` split).
 """
 from __future__ import annotations
 
@@ -52,11 +72,16 @@ from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch.train import preset_lm100m
 from repro_torch.models import moe as M
 from repro_torch.models.transformer import Model, RunCtx
+from repro_torch.runtime import sharding
+from repro_torch.runtime.model_axis import ModelAxis
 from repro_torch.serve import Request, ServeEngine
 
 __all__ = ["prefill_into_cache", "preset_lm100m", "parse_args",
-           "make_comm", "build_moe_layer", "build_engine", "submit_trace",
-           "make_engine", "setup_batch_demo", "run_batch_demo", "main"]
+           "serve_mesh", "serving_ctx", "make_comm", "build_moe_layer",
+           "build_engine", "submit_trace", "make_engine", "setup_batch_demo",
+           "run_batch_demo", "main"]
+
+_PRODUCTION = ("pod", "16x16", "multipod", "2x16x16")
 
 log = logging.getLogger("repro_torch.serve")
 
@@ -72,23 +97,64 @@ def prefill_into_cache(model, params, cache, tokens):
     return cache, logits
 
 
+def serve_mesh(spec: str, cfg=None):
+    """``--mesh spec``'s ``D x M`` mesh where it has a model axis
+    (``"DxM"``), None for ``"local"`` or a count.  Refused, naming ROADMAP
+    A22c: the production meshes, and for ``cfg`` an MoE layer with fewer
+    experts than the model axis."""
+    if spec in _PRODUCTION:
+        raise NotImplementedError(
+            f"--mesh {spec}: the production meshes are not ported to "
+            "serving yet (ROADMAP A22c); give DxM")
+    if "x" not in spec:
+        return None
+    mesh = mesh_mod.make_mesh(spec)
+    if len(mesh.axis_sizes) != 2:
+        raise ValueError(f"--mesh {spec!r}: give D x M")
+    m = mesh.shape["model"]
+    if cfg is not None and cfg.is_moe and cfg.num_experts < m:
+        raise NotImplementedError(
+            f"--mesh {spec}: {cfg.num_experts} experts on a model axis of "
+            f"{m} (the reference's tp_local expert split) is not ported "
+            "yet (ROADMAP A22c)")
+    return mesh
+
+
+def serving_ctx(cfg, ctx: RunCtx, mesh, grid, *, limit=None,
+                device=None) -> RunCtx:
+    """``ctx`` serving over ``mesh`` at ``grid``'s place (a
+    ``launch.mesh.Grid``: its data and model groups): the reference's
+    serve rules (``sharding.serve_rules`` at ``limit``), the placement hook
+    over the data group with the model axis (``RunCtx.gather``,
+    ``RunCtx.model``) and ``vocab_shards = M``, as the reference's
+    ``input_specs``."""
+    rules = sharding.serve_rules(cfg, mesh, limit=limit, device=device)
+    tp = ModelAxis(grid.model)
+    return dataclasses.replace(
+        ctx, gather=sharding.make_gather(rules, grid.data, model=tp),
+        model=tp, vocab_shards=tp.size)
+
+
 def make_comm(spec: str, device):
     """The ranks of ``--mesh``: ``"local"`` is one rank per card present
     (one on the CPU), ``"<P>"`` is ``LoopbackComm(P)`` on the one device,
     or, when a default process group of world > 1 is initialised,
     ``DistComm(P / world)`` in each process (a ``P`` the world does not
-    divide is refused).  A spec with a model axis (``"AxB"``, ``pod``,
-    ``multipod``) is refused: serving over a model axis is ROADMAP
-    A22b."""
+    divide is refused).  ``"DxM"`` is this process's data group of the
+    ``D x M`` mesh over the default group (``launch.mesh.grid``, which
+    creates every group: ``build_engine`` makes the grid once and serves
+    the MoE hook over its data group).  The production meshes are refused
+    (ROADMAP A22c)."""
     device = torch.device(device)
     if spec == "local":
         p = torch.cuda.device_count() if device.type == "cuda" else 1
         return LoopbackComm(max(1, p), device=device)
+    mesh = serve_mesh(spec)
+    if mesh is not None:
+        return mesh_mod.grid(mesh, device).data
     if not spec.isdigit():
-        raise ValueError(
-            f"--mesh {spec!r}: the port's serving communicator has one "
-            "axis of ranks (a model axis is ROADMAP A22b); give their "
-            "count ('8') or 'local'")
+        raise ValueError(f"--mesh {spec!r}: give 'local', a count ('8') "
+                         "or 'DxM'")
     p = int(spec)
     world = dist.get_world_size() if dist.is_initialized() else 1
     if world == 1:
@@ -114,18 +180,40 @@ def build_moe_layer(model, params, num_slots, comm, *, strategy="auto"):
                                 cfg.experts_per_token)
     moe_p = params["layers"]["moe"]
     weights = {k: moe_p[k][0] for k in ("w1", "w2", "w3") if k in moe_p}
+    if model.ctx.gather is not None:         # whole over both axes
+        weights = model.ctx.gather(weights, ("layers", "moe"))
+        tp = model.ctx.model
+        weights = {k: tp.full(w, 0, cfg.num_experts)
+                   for k, w in weights.items()}
     return M.DynamicMoELayer(weights, tmpl_e, num_slots, cfg.num_experts,
                              cap, comm, act=cfg.act, strategy=strategy,
                              decode=True)
 
 
-def build_engine(cfg, ctx, args) -> ServeEngine:
+def _placed(cfg, ctx, args, device, grid):
+    """``(ctx, grid)``: under a ``DxM`` ``--mesh`` the serving context of
+    this process's place (``serving_ctx``) and its grid (``grid``, made
+    over the default process group when not given: a caller that plays
+    the ranks otherwise, as threads, passes its own), else ``(ctx,
+    None)``."""
+    mesh = serve_mesh(args.mesh, cfg)
+    if mesh is None:
+        return ctx, None
+    grid = grid or mesh_mod.grid(mesh, device)
+    return serving_ctx(cfg, ctx, mesh, grid, device=device), grid
+
+
+def build_engine(cfg, ctx, args, *, grid=None) -> ServeEngine:
     """The model, its random parameters (``torch.Generator`` seeded with
     ``args.seed`` on the device) and an engine with ``args.slots`` lanes of
     ``cache_len = prompt_len + gen``, its queue empty.  With
     ``args.moe_comm`` the engine's decode steps route the MoE FFN through
-    ``build_moe_layer`` over ``args.mesh``'s ranks."""
+    ``build_moe_layer`` over ``args.mesh``'s ranks (over a ``DxM`` mesh,
+    its data group).  Under a ``DxM`` mesh this process keeps its parts
+    of the parameters, drawn whole from the seed, and its block of the
+    cache (``_placed``; ``grid`` as there)."""
     device = resolve_device(args.device)
+    ctx, grid = _placed(cfg, ctx, args, device, grid)
     model = Model(cfg, ctx, device=device)
     params = model.init_params(
         torch.Generator(device=device).manual_seed(args.seed))
@@ -133,8 +221,9 @@ def build_engine(cfg, ctx, args) -> ServeEngine:
     if args.moe_comm:
         if cfg.family != "moe":
             raise ValueError("--moe-comm needs a MoE architecture")
-        moe_layer = build_moe_layer(model, params, args.slots,
-                                    make_comm(args.mesh, device))
+        comm = grid.data if grid is not None else make_comm(args.mesh,
+                                                            device)
+        moe_layer = build_moe_layer(model, params, args.slots, comm)
         log.info("MoE decode comm: strategies=%s plan_time=%.2fus",
                  moe_layer.strategies, moe_layer.plan_time * 1e6)
     return ServeEngine(model, params, num_slots=args.slots,
@@ -159,9 +248,9 @@ def submit_trace(engine: ServeEngine, cfg, args) -> None:
             arrival_time=engine.now + float(i // 2)))
 
 
-def make_engine(cfg, ctx, args) -> ServeEngine:
+def make_engine(cfg, ctx, args, *, grid=None) -> ServeEngine:
     """``build_engine`` with ``submit_trace``'s requests queued."""
-    engine = build_engine(cfg, ctx, args)
+    engine = build_engine(cfg, ctx, args, grid=grid)
     submit_trace(engine, cfg, args)
     return engine
 
@@ -181,7 +270,7 @@ def _serve_main(cfg, ctx, args):
     return report
 
 
-def setup_batch_demo(cfg, ctx, args):
+def setup_batch_demo(cfg, ctx, args, *, grid=None):
     """The batched demo's model, its random parameters (a
     ``torch.Generator`` seeded with ``args.seed`` on the device), a cache
     of ``args.batch`` lanes and ``cache_len = prompt_len + gen`` (cut to
@@ -190,8 +279,11 @@ def setup_batch_demo(cfg, ctx, args):
     ``num_image_tokens`` image embeddings, and the prompt ``(batch,
     prompt_len)``.  The context and then the prompt are drawn from
     ``np.random.default_rng(args.seed)``, as the reference draws them.
-    Returns ``(model, params, cache, prompt)``."""
+    Returns ``(model, params, cache, prompt)``.  Under a ``DxM`` ``--mesh``
+    (``grid`` as ``build_engine``'s) the model and the cache are this
+    process's parts, and the context and the prompt its lanes' rows."""
     device = resolve_device(args.device)
+    ctx, _ = _placed(cfg, ctx, args, device, grid)
     model = Model(cfg, ctx, device=device)
     params = model.init_params(
         torch.Generator(device=device).manual_seed(args.seed))
@@ -199,14 +291,16 @@ def setup_batch_demo(cfg, ctx, args):
     cache = model.init_cache(args.batch, args.prompt_len + args.gen,
                              cross_len=cross_len, dtype=ctx.act_dtype)
     rng = np.random.default_rng(args.seed)
+    lanes = slice(None) if ctx.gather is None else ctx.gather.lanes(
+        args.batch)
     if cross_len:
         context = torch.as_tensor(rng.standard_normal(
-            (args.batch, cross_len, cfg.d_model)), device=device).to(
+            (args.batch, cross_len, cfg.d_model))[lanes], device=device).to(
                 ctx.act_dtype)
         cache = model.prefill_cross(params, cache, context)
     prompt = torch.as_tensor(rng.integers(
-        0, cfg.vocab_size, (args.batch, args.prompt_len)), dtype=torch.int32,
-        device=device)
+        0, cfg.vocab_size, (args.batch, args.prompt_len))[lanes],
+        dtype=torch.int32, device=device)
     return model, params, cache, prompt
 
 
@@ -214,7 +308,9 @@ def run_batch_demo(model, params, cache, prompt, gen: int):
     """The prompt prefilled through ``prefill_into_cache``, then ``gen``
     greedy decode steps over the whole batch.  Returns ``(tokens (B, gen)
     on the host, cache, prefill seconds, decode seconds)``; each time ends
-    with a read of the tokens on the host, which waits for the device."""
+    with a read of the tokens on the host, which waits for the device.
+    Over a data axis that splits the batch each rank decodes its lanes
+    and the tokens are all-gathered over its data group."""
     t0 = time.time()
     cache, last_logits = prefill_into_cache(model, params, cache, prompt)
     last = torch.argmax(last_logits[:, -1], dim=-1).to(torch.int32)  # (B,)
@@ -228,7 +324,14 @@ def run_batch_demo(model, params, cache, prompt, gen: int):
                                           out_tokens[-1][:, None])
         out_tokens.append(torch.argmax(logits[:, -1], dim=-1).to(
             torch.int32))
-    seq = torch.stack(out_tokens[1:], dim=1).cpu()
+    seq = torch.stack(out_tokens[1:], dim=1)
+    gather = model.ctx.gather
+    if gather is not None:                  # every lane's tokens
+        b = cache["whole"]["batch"]
+        lanes = gather.lanes(b)
+        if lanes.stop - lanes.start < b:
+            seq = sharding.gathered(gather.comm, [seq], [0])[0]
+    seq = seq.cpu()
     return seq, cache, t_prefill, time.time() - t0
 
 
@@ -262,7 +365,8 @@ def parse_args(argv=None):
     ap.add_argument("--experts", type=int, default=None,
                     help="override num_experts (e.g. to match the mesh)")
     ap.add_argument("--mesh", default="local",
-                    help="the MoE exchange's ranks: 'local' or a count")
+                    help="the MoE exchange's ranks ('local' or a count), "
+                         "or a DxM serving mesh (one process a rank)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="'cpu' runs without a card; default the card")
@@ -279,18 +383,19 @@ def main(argv=None):
     ctx = RunCtx(act_dtype=torch.float32
                  if resolve_device(args.device).type == "cpu"
                  else torch.bfloat16)
-    if cfg.family not in ("dense", "moe"):
-        return _batch_demo_main(cfg, ctx, args)
-    if (args.moe_comm and args.mesh != "local" and not dist.is_initialized()
-            and int(os.environ.get("WORLD_SIZE", "1")) > 1):
-        # one process a rank under a launcher (torchrun): the MoE exchange
-        # runs over the group, each process holding its ranks' experts
+    run = _serve_main if cfg.family in ("dense", "moe") else _batch_demo_main
+    grouped = serve_mesh(args.mesh, cfg) is not None or (
+        args.moe_comm and args.mesh != "local"
+        and int(os.environ.get("WORLD_SIZE", "1")) > 1)
+    if grouped and not dist.is_initialized():
+        # one process a rank under a launcher (torchrun): a DxM mesh's
+        # groups, or the MoE exchange's ranks over the group
         mesh_mod.init_group(args.device or "cuda")
         try:
-            return _serve_main(cfg, ctx, args)
+            return run(cfg, ctx, args)
         finally:
             dist.destroy_process_group()
-    return _serve_main(cfg, ctx, args)
+    return run(cfg, ctx, args)
 
 
 if __name__ == "__main__":

@@ -63,7 +63,7 @@ float32 rounding: ``runtime.model_axis``).
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
         --arch llama3-8b --reduced --mesh 2x2 --device cpu
 
-Still refused, each naming ROADMAP A22b: ``pod`` and ``multipod`` (a pod
+Still refused, each naming ROADMAP A22c: ``pod`` and ``multipod`` (a pod
 axis), ``opt_fsdp_axes``, and an MoE config with fewer experts than the
 model axis (the reference's ``tp_local`` expert split).
 """
@@ -189,20 +189,20 @@ class Trainer:
 
 
 def ported_mesh(spec: str, cfg=None) -> mesh_mod.Mesh:
-    """``--mesh spec``'s mesh, refusing what is not ported (ROADMAP A22b):
+    """``--mesh spec``'s mesh, refusing what is not ported (ROADMAP A22c):
     the production meshes (``pod``/``16x16``, ``multipod``/``2x16x16``),
     and for ``cfg`` an MoE layer with fewer experts than the model axis."""
     mesh = mesh_mod.make_mesh(spec)
     if spec in ("pod", "16x16", "multipod", "2x16x16"):
         raise NotImplementedError(
             f"--mesh {spec}: the production meshes are not ported yet "
-            "(ROADMAP A22b); the port trains --mesh D or DxM")
+            "(ROADMAP A22c); the port trains --mesh D or DxM")
     m = mesh.shape.get("model", 1)
     if cfg is not None and cfg.is_moe and cfg.num_experts < m:
         raise NotImplementedError(
             f"--mesh {spec}: {cfg.num_experts} experts on a model axis of "
             f"{m} (the reference's tp_local expert split) is not ported "
-            "yet (ROADMAP A22b)")
+            "yet (ROADMAP A22c)")
     return mesh
 
 

@@ -27,7 +27,8 @@ import torch.nn.functional as F
 
 __all__ = [
     "init_linear", "linear", "init_norm", "norm_apply", "rope",
-    "attention", "init_attention", "attention_fwd", "mlp_fwd", "init_mlp",
+    "attention", "init_attention", "attention_fwd", "serve_attention",
+    "mlp_fwd", "init_mlp",
 ]
 
 
@@ -282,6 +283,35 @@ def _tp_attention(p, x, src, cfg, tp):
         kv_index = (tp.rank * hl + torch.arange(hl, device=x.device)) \
             // (h // hkv)
     return p, x_in, src_in, hl, hkv, kv_index, True
+
+
+def serve_attention(p, cfg, tp):
+    """The serving half of the split attention block on the model axis
+    ``tp``: ``(p, heads, kv_heads, row_split)``, the leaves this rank
+    projects with and the query and KV heads they give.
+
+    With ``H % M == 0`` a rank projects its block of ``H/M`` query heads
+    (``wq`` and its bias by columns) and ``wo``'s rows for them
+    (``row_split``: its output is a partial sum, ``reduce``d), and its
+    block of ``Hkv/M`` KV heads where ``Hkv % M == 0``; else (``Hkv < M``,
+    or an ``Hkv`` that M does not divide, hymba's 5 or reduced hymba's 2
+    at M = 4) ``wk`` and ``wv`` are gathered whole and it projects every
+    KV head.  With ``H % M != 0`` (hymba's 25 heads at M = 2 or 4) every
+    leaf is gathered whole (``full``) and the block runs replicated.
+    Serving has no backward: the gathers are forward collectives."""
+    h, hkv, hd, m = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, tp.size
+
+    def whole(names):
+        return {name: {k: tp.full(t, 0 if name == "wo" and k == "w"
+                                  else -1, (hkv if name in ("wk", "wv")
+                                            else h) * hd)
+                       for k, t in p[name].items()} for name in names}
+
+    if h % m:
+        return whole(p), h, hkv, False
+    if hkv % m:
+        return dict(p, **whole(("wk", "wv"))), h // m, hkv, True
+    return p, h // m, hkv // m, True
 
 
 def attention_fwd(p, x, cfg, *, kv_x=None, positions=None, causal=True,

@@ -739,16 +739,33 @@ class DynamicMoELayer:
         output with one ``comm.all_gather``.  No telemetry is recorded
         here; the caller records one ``"device-derive"`` per executed
         step (``serve.engine`` does, per decode tick)."""
+        y = self.apply_rows(_ranked(x, self.comm), top_e, top_w, *weights)
+        if self.p_local < self.p:
+            y = self.comm.all_gather(y.reshape(self.p_local, -1)).wait()[0]
+        return y.reshape(x.shape)
+
+    def apply_rows(self, rows: torch.Tensor, top_e, top_w,
+                   *weights) -> torch.Tensor:
+        """``apply`` on the process's rows alone: ``rows`` its ``p_local ·
+        num_tokens / P`` tokens (``(p_local, T / P, d)`` or flat), the
+        batch's whole routing ``(T, k)``, each weight ``(E, ...)`` whole or
+        already the process's experts (``E / P · p_local``); returns the
+        process's rows of the output, shaped as ``rows``, with no
+        collective of its own after the exchange: the serving hook over a
+        data group whose ranks each hold their lanes
+        (``serve.engine.moe_decode_hook``)."""
         if len(weights) != len(self._weights):
             raise ValueError(
                 f"expected {len(self._weights)} expert weight arrays "
                 f"(w1, w2{', w3' if len(self._weights) == 3 else ''}), "
                 f"got {len(weights)}")
-        weights = tuple(self._local_experts(w) for w in weights)
-        y = self._routed_step(_ranked(x, self.comm), top_e, top_w, weights)
-        if self.p_local < self.p:
-            y = self.comm.all_gather(y.reshape(self.p_local, -1)).wait()[0]
-        return y.reshape(x.shape)
+        e_loc = self.num_experts // self.p * self.p_local
+        weights = tuple(w if w.shape[0] == e_loc else self._local_experts(w)
+                        for w in weights)
+        d = rows.shape[-1]
+        y = self._routed_step(rows.reshape(self.p_local, -1, d), top_e,
+                              top_w, weights)
+        return y.reshape(rows.shape)
 
     def __call__(self, x: torch.Tensor, top_e, top_w) -> torch.Tensor:
         """One routed step: x (P, T / P, d) + THIS batch's whole routing

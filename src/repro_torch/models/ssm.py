@@ -126,9 +126,17 @@ def init_ssm_cache(batch, cfg, *, d_inner=None, dtype=torch.float32,
     }
 
 
-def ssm_decode_step(p, u, cache, cfg, *, d_inner=None):
-    """u: (B, 1, d). Exact single-step recurrence. Returns (y, new_cache)."""
+def ssm_decode_step(p, u, cache, cfg, *, d_inner=None, tp=None):
+    """u: (B, 1, d). Exact single-step recurrence. Returns (y, new_cache).
+
+    ``tp`` (serving): the model axis; ``p`` holds this rank's parts, the
+    cache's ``h`` and ``conv`` its block of ``di/M`` channels (the
+    reference's ``cache_specs``), and the step runs those channels as
+    ``ssm_fwd`` does (``_tp_ssm``): ``x_proj``'s partial ``dt|B|C`` and
+    ``out_proj``'s partial output reduced over the axis."""
     di = d_inner or cfg.d_inner
+    if tp is not None:
+        p, u, di, tp = _tp_ssm(p, u, di, tp)
     st, dr = cfg.ssm_state, cfg.ssm_dt_rank
     xz = linear(p["in_proj"], u)                          # (B, 1, 2di)
     x, z = xz.split(di, dim=-1)
@@ -139,6 +147,8 @@ def ssm_decode_step(p, u, cache, cfg, *, d_inner=None):
     xc = F.silu(xc)
 
     dbc = linear(p["x_proj"], xc)
+    if tp is not None:
+        dbc = tp.reduce(dbc)
     dt, bmat, cmat = dbc.split([dr, st, st], dim=-1)
     dt = F.softplus(linear(p["dt_proj"], dt)).float()
     a = -torch.exp(p["a_log"].float())
@@ -149,4 +159,6 @@ def ssm_decode_step(p, u, cache, cfg, *, d_inner=None):
     y = y + xc.float() * p["d_skip"].float()
     y = y * F.silu(z.float())
     out = linear(p["out_proj"], y.to(u.dtype))
+    if tp is not None:
+        out = tp.reduce(out)
     return out, {"h": h, "conv": conv_in[:, 1:]}

@@ -61,6 +61,28 @@ it is plain jnp in the reference, with the reference's window mask.
 The MoE FFN runs ``models.moe.moe_fwd`` (groups of ``RunCtx.moe_groups``),
 or, for a one-token decode step, ``RunCtx.moe_step`` when it is set: the
 serving hook that ``serve.engine`` points at a ``DynamicMoELayer``.
+
+Serving over a model axis (``RunCtx.model``, ``launch.serve --mesh DxM``)
+keeps the reference's placement (``runtime.sharding.serve_rules`` for the
+weights, ``cache_specs`` for the caches, ``RunCtx.gather`` holding both):
+``init_cache`` gives this rank's block of every cache leaf, its lanes of
+the batch (``Gather.lanes``) and, where the model axis divides the ring
+(or the cross length), its ``S/M`` slots of it (the flash-decoding
+layout), else the whole ring.  A step's caller passes this rank's lanes of
+the tokens (and the context of ``prefill_cross``); ``pos`` stays whole.
+Each rank projects its ``H/M`` query heads (``layers.serve_attention``);
+the query and the new K/V rows are gathered over the heads, the rank that
+owns a position's ring slot (``pos % cache_len``) writes its row, each rank
+attends its own slots for every head (B8's partial entry,
+``ops.decode_attention_partial``; a fused prefill's masked einsum with its
+log-sum-exp), the ranks' partials are merged (``ModelAxis.merge``), and
+``wo``'s rows give a partial sum that is reduced.  On a whole ring (and
+at ``M = 1``, where the step is ``--mesh local``'s bit for bit) B8 runs
+every head over it and each rank keeps its heads.  The MLP, the experts,
+the mamba channels (``ssm_decode_step(tp=)``), the embedding and the
+vocabulary-parallel head are the training split's; the logits are
+gathered over the model group, so every rank of it samples the same
+token.
 """
 from __future__ import annotations
 
@@ -120,15 +142,17 @@ class RunCtx:
     ``scan_barrier`` (an XLA scheduling barrier) has no counterpart.
 
     ``model`` (``runtime.model_axis.ModelAxis``, ``launch.train --mesh
-    DxM``) is the model-axis hook: the parameters are this rank's parts
-    over both axes, ``gather`` makes them whole over the data group only,
-    and the layers compute tensor- and expert-parallel with the parts
-    (``layers.attention_fwd``, ``mlp_fwd``, ``ssm.ssm_fwd``,
-    ``moe.moe_fwd``, the vocab-parallel embedding and cross-entropy).
-    ``vocab_shards`` is the reference's: above 1, with a vocabulary that
-    it divides and ``embed_gather`` not ``replicate``, the embedding is
-    the reference's ``onehot_psum`` over the vocabulary split on the model
-    axis (``_VocabEmbed``)."""
+    DxM`` and ``launch.serve --mesh DxM``) is the model-axis hook: the
+    parameters are this rank's parts over both axes, ``gather`` makes them
+    whole over the data group only, and the layers compute tensor- and
+    expert-parallel with the parts (``layers.attention_fwd``, ``mlp_fwd``,
+    ``ssm.ssm_fwd``, ``moe.moe_fwd``, the vocab-parallel embedding and
+    cross-entropy in training; the serving steps as the module docstring
+    says, the caches placed by ``gather``'s rules).  ``vocab_shards`` is
+    the reference's: above 1, with a vocabulary that it divides and
+    ``embed_gather`` not ``replicate``, the embedding is the reference's
+    ``onehot_psum`` over the vocabulary split on the model axis
+    (``_VocabEmbed``), in training and in serving."""
 
     act_dtype: torch.dtype = torch.bfloat16
     ssm_scan_dtype: torch.dtype = torch.float32
@@ -288,15 +312,83 @@ def _block_fwd(p, x, cfg, ctx, *, kind, kv_ctx=None):
     return x
 
 
-def _qkv(p, x, cfg):
+def _qkv(p, x, cfg, h, hkv):
+    """The query and the new K/V rows of ``h`` query and ``hkv`` KV
+    heads."""
     b, s_len = x.shape[:2]
-    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
     return (L.linear(p["wq"], x).reshape(b, s_len, h, hd),
             L.linear(p["wk"], x).reshape(b, s_len, hkv, hd),
             L.linear(p["wv"], x).reshape(b, s_len, hkv, hd))
 
 
-def _attn_decode(p, x, cfg, cache, pos):
+@dataclasses.dataclass(frozen=True)
+class _Place:
+    """Where a serving step runs on a model axis: ``tp`` the axis,
+    ``lanes`` this rank's lanes of a per-slot ``pos`` (None: all of
+    them), ``seq`` and ``xseq`` the ``(first slot, whole length)`` of this
+    rank's block of a sequence-split self-attention ring and
+    cross-attention cache (None: it holds the whole)."""
+
+    tp: Any
+    lanes: slice | None = None
+    seq: tuple | None = None
+    xseq: tuple | None = None
+
+
+def _split_heads(p, x, cfg, tp):
+    """``(p, x, heads, kv_heads, row_split)`` of the attention block: the
+    leaves and the head counts a rank projects (``layers.serve_attention``)
+    without a model axis, with it, and ``x`` entered."""
+    if tp is None:
+        return p, x, cfg.num_heads, cfg.num_kv_heads, False
+    p, h, hkv, row_split = L.serve_attention(p, cfg, tp)
+    return p, tp.enter(x), h, hkv, row_split
+
+
+def _all_heads(tp, cfg, *ts):
+    """The query (and the new K/V rows) ``(B, S, heads, hd)`` of this
+    rank's heads made whole over the heads, one gather for all those that
+    are split: every rank attends every head over its own slots."""
+    whole = (cfg.num_heads, cfg.num_kv_heads, cfg.num_kv_heads)
+    split = [i for i, t in enumerate(ts) if t.shape[2] < whole[i]]
+    out = list(ts)
+    for i, t in zip(split, tp.gather_all([ts[i] for i in split],
+                                         [2] * len(split))):
+        out[i] = t
+    return out
+
+
+def _own_heads(out, cfg, tp, h):
+    """This rank's ``h`` heads of an ``(..., H, D)`` attention output."""
+    return out if h == cfg.num_heads else out[..., tp.block(cfg.num_heads), :]
+
+
+def _out_proj(p, out, x, h, hd, tp, row_split):
+    """``wo`` of this rank's heads' outputs ``(B, S, h, hd)``, reduced over
+    the model axis where its rows are split."""
+    b, s_len = out.shape[:2]
+    y = L.linear(p["wo"], out.reshape(b, s_len, h * hd).to(x.dtype))
+    return tp.reduce(y) if row_split else y
+
+
+def _ring_row(buf, lane, ls, mine, rows):
+    """Write ``rows`` into ``buf`` at lanes ``lane`` (None: the shared
+    position's row of every lane, ``buf``'s dim 1 for a K/V ring, dim 0
+    for ``slot_pos``) and local slot ``ls`` where ``mine``, the old row
+    elsewhere: one position a lane, so no two writes meet."""
+    if lane is None:
+        dim = 1 if buf.dim() > 1 else 0
+        ls = ls.reshape(1)
+        old = buf.index_select(dim, ls)
+        buf.index_copy_(dim, ls, torch.where(mine, rows.to(buf.dtype), old))
+    else:
+        shape = (-1,) + (1,) * (rows.dim() - 1)
+        buf[lane, ls] = torch.where(mine.reshape(shape), rows.to(buf.dtype),
+                                    buf[lane, ls])
+
+
+def _attn_decode(p, x, cfg, cache, pos, place=None):
     """x: (B, 1, D); one token per lane into the ring K/V cache.
 
     ``pos`` 0-d: every lane at the same position, ``slot_pos``
@@ -304,34 +396,75 @@ def _attn_decode(p, x, cfg, cache, pos):
     with ``slot_pos`` ``(B, cache_len)`` (``init_cache(per_slot=True)``).
     The attention reads the valid prefix ``min(pos + 1, cache_len)`` of
     each lane, which is the reference's mask, sliding window included
-    (module docstring)."""
+    (module docstring).
+
+    ``place`` (a ``_Place``, serving over a model axis): ``x`` holds this
+    rank's lanes, ``pos`` and ``slot_pos`` every lane.  On a
+    sequence-split ring the owner of the new token's slot writes it, and
+    each rank runs B8's partial entry on its slots, merged over the
+    axis."""
+    tp = None if place is None else place.tp
     b = x.shape[0]
-    h, hd = cfg.num_heads, cfg.head_dim
+    hd, h_all = cfg.head_dim, cfg.num_heads
     ck, cv, spos = cache["k"], cache["v"], cache["slot_pos"]
-    cache_len = ck.shape[1]
-    q, k, v = _qkv(p, x, cfg)
+    p, x, h, hkv, row_split = _split_heads(p, x, cfg, tp)
+    all_pos = pos
+    if pos.dim() == 1 and place is not None and place.lanes is not None:
+        pos = pos[place.lanes]
+    q, k, v = _qkv(p, x, cfg, h, hkv)
     positions = pos[None, None] if pos.dim() == 0 else pos[:, None]
     q = L.rope(q, positions, theta=cfg.rope_theta)
     k = L.rope(k, positions, theta=cfg.rope_theta)
+    if tp is not None:
+        q, k, v = _all_heads(tp, cfg, q, k, v)
+    lo, whole = (0, ck.shape[1]) if place is None or place.seq is None \
+        else place.seq
+    n = ck.shape[1]
 
-    slot = (pos % cache_len).long()     # ring slot (== pos before a wrap)
-    if pos.dim() == 0:
-        ck.index_copy_(1, slot.reshape(1), k.to(ck.dtype))
-        cv.index_copy_(1, slot.reshape(1), v.to(cv.dtype))
-        spos.index_copy_(0, slot.reshape(1), pos.reshape(1).to(torch.int32))
-        lengths = torch.clamp(pos + 1, max=cache_len).to(torch.int32)
-        lengths = lengths.expand(b).contiguous()
+    slot = (pos % whole).long()         # ring slot (== pos before a wrap)
+    if place is not None and place.seq is not None:
+        # a sequence-split ring: the owner of the slot writes the row
+        ls = slot - lo
+        mine = (ls >= 0) & (ls < n)
+        ls = ls.clamp(0, n - 1)
+        lane = None if pos.dim() == 0 else torch.arange(b, device=x.device)
+        _ring_row(ck, lane, ls, mine, k[:, 0] if lane is not None else k)
+        _ring_row(cv, lane, ls, mine, v[:, 0] if lane is not None else v)
+        aslot = (all_pos % whole).long() - lo
+        amine = (aslot >= 0) & (aslot < n)
+        alane = None if all_pos.dim() == 0 else torch.arange(
+            all_pos.shape[0], device=x.device)
+        _ring_row(spos, alane, aslot.clamp(0, n - 1), amine,
+                  all_pos.to(torch.int32))
+        lengths = torch.clamp(torch.clamp(pos + 1, max=whole) - lo, 0, n)
+        lengths = lengths.to(torch.int32).expand(b).contiguous()
+        part, lse = ops.decode_attention_partial(
+            q.reshape(b, h_all, hd), ck, cv, lengths)
+        out, _ = tp.merge(part, lse)
     else:
-        lane = torch.arange(b, device=x.device)
-        ck[lane, slot] = k[:, 0].to(ck.dtype)
-        cv[lane, slot] = v[:, 0].to(cv.dtype)
-        spos[lane, slot] = pos.to(torch.int32)
-        lengths = torch.clamp(pos + 1, max=cache_len).to(torch.int32)
-    out = ops.decode_attention(q.reshape(b, h, hd), ck, cv, lengths)
-    return L.linear(p["wo"], out.reshape(b, 1, h * hd).to(x.dtype))
+        if pos.dim() == 0:
+            ck.index_copy_(1, slot.reshape(1), k.to(ck.dtype))
+            cv.index_copy_(1, slot.reshape(1), v.to(cv.dtype))
+            spos.index_copy_(0, slot.reshape(1),
+                             pos.reshape(1).to(torch.int32))
+            lengths = torch.clamp(pos + 1, max=n).to(torch.int32)
+            lengths = lengths.expand(b).contiguous()
+        else:
+            lane = torch.arange(b, device=x.device)
+            ck[lane, slot] = k[:, 0].to(ck.dtype)
+            cv[lane, slot] = v[:, 0].to(cv.dtype)
+            alane = torch.arange(all_pos.shape[0], device=x.device)
+            spos[alane, (all_pos % n).long()] = all_pos.to(torch.int32)
+            lengths = torch.clamp(pos + 1, max=n).to(torch.int32)
+        out = ops.decode_attention(q.reshape(b, q.shape[2], hd), ck, cv,
+                                   lengths)
+    if tp is None:
+        return L.linear(p["wo"], out.reshape(b, 1, h * hd).to(x.dtype))
+    out = _own_heads(out.reshape(b, 1, h_all, hd), cfg, tp, h)
+    return _out_proj(p, out, x, h, hd, tp, row_split)
 
 
-def _attn_prefill(p, x, cfg, cache, pos):
+def _attn_prefill(p, x, cfg, cache, pos, place=None):
     """x: (B, S, D) prompt chunk; writes positions [pos, pos+S) into the
     ring cache, then attends over every slot the reference's mask keeps
     (written, at or before the query, inside the sliding window), as S
@@ -340,76 +473,146 @@ def _attn_prefill(p, x, cfg, cache, pos):
     ring (S <= cache_len).  A chunk that wraps the ring overwrites slots
     of its own earlier positions before any query reads them, as the
     reference's write-then-mask does.  ``pos`` 0-d for a shared-position
-    cache, (B,) for a per-slot one."""
+    cache, (B,) for a per-slot one.
+
+    ``place`` as ``_attn_decode``'s.  On a sequence-split ring each rank
+    writes the chunk's rows that land in its slots (each local slot takes
+    the chunk's row of its position, if any) and attends its slots with
+    the log-sum-exp of its logits (-inf masking: a query none of whose
+    slots lie here adds nothing), merged over the axis."""
+    tp = None if place is None else place.tp
     b, s_len = x.shape[:2]
-    h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    hkv_all, hd, h_all = cfg.num_kv_heads, cfg.head_dim, cfg.num_heads
     ck, cv, spos = cache["k"], cache["v"], cache["slot_pos"]
-    cache_len = ck.shape[1]
-    q, k, v = _qkv(p, x, cfg)
-    offs = torch.arange(s_len, device=x.device)
+    p, x, h, hkv, row_split = _split_heads(p, x, cfg, tp)
     per_slot = pos.dim() == 1
+    all_pos = pos
+    lanes = None if place is None else place.lanes
+    if per_slot and lanes is not None:
+        pos = pos[lanes]
+    q, k, v = _qkv(p, x, cfg, h, hkv)
+    offs = torch.arange(s_len, device=x.device)
     qpos = pos[:, None] + offs[None] if per_slot else pos + offs
     qp = qpos if per_slot else qpos[None]              # (B, S) | (1, S)
     q = L.rope(q, qp, theta=cfg.rope_theta)
     k = L.rope(k, qp, theta=cfg.rope_theta)
+    if tp is not None:
+        q, k, v = _all_heads(tp, cfg, q, k, v)
+    n = ck.shape[1]
+    qg = q.reshape(b, s_len, hkv_all, h_all // hkv_all, hd)
 
-    slots = (qpos % cache_len).long()
-    if per_slot:
-        lane = torch.arange(b, device=x.device)[:, None]
-        ck[lane, slots] = k.to(ck.dtype)
-        cv[lane, slots] = v.to(cv.dtype)
-        spos[lane, slots] = qpos.to(torch.int32)
-        sp = spos                                      # (B, cache_len)
+    if place is not None and place.seq is not None:
+        lo, whole = place.seq
+        g = lo + torch.arange(n, device=x.device)
+        off = (g - (all_pos[:, None] if per_slot else all_pos)) % whole
+        hit = off < s_len                       # (B_all, n) | (n,)
+        spos.copy_(torch.where(hit, ((all_pos[:, None] if per_slot
+                                      else all_pos) + off).to(torch.int32),
+                               spos))
+        if per_slot:
+            off_l = off if lanes is None else off[lanes]
+            hit_l = hit if lanes is None else hit[lanes]
+            idx = off_l.clamp(max=s_len - 1)[..., None, None].expand(
+                -1, -1, hkv_all, hd)
+            keep = hit_l[..., None, None]
+            ck.copy_(torch.where(keep, k.gather(1, idx).to(ck.dtype), ck))
+            cv.copy_(torch.where(keep, v.gather(1, idx).to(cv.dtype), cv))
+            sp = spos if lanes is None else spos[lanes]
+        else:
+            idx = off.clamp(max=s_len - 1)
+            keep = hit[None, :, None, None]
+            ck.copy_(torch.where(keep, k[:, idx].to(ck.dtype), ck))
+            cv.copy_(torch.where(keep, v[:, idx].to(cv.dtype), cv))
+            sp = spos[None]
+        valid = (sp[:, None, :] >= 0) & (sp[:, None, :] <= qp[..., None])
+        if cfg.swa_window:
+            valid = valid & (sp[:, None, :] > qp[..., None] - cfg.swa_window)
+        logits = torch.einsum("bshgd,blhd->bhgsl", qg.float(),
+                              ck.float()) * (hd ** -0.5)
+        logits = torch.where(valid[:, None, None, :, :], logits, -torch.inf)
+        lse = torch.logsumexp(logits, dim=-1)               # (b, hkv, g, s)
+        w = torch.exp(logits - torch.where(lse.isfinite(), lse,
+                                           0.0)[..., None])
+        part = torch.einsum("bhgsl,blhd->bshgd", w, cv.float())
+        out, _ = tp.merge(part.reshape(b, s_len, h_all, hd),
+                          lse.permute(0, 3, 1, 2).reshape(b, s_len, h_all))
     else:
-        ck.index_copy_(1, slots, k.to(ck.dtype))
-        cv.index_copy_(1, slots, v.to(cv.dtype))
-        spos.index_copy_(0, slots, qpos.to(torch.int32))
-        sp = spos[None]                                # (1, cache_len)
-    valid = (sp[:, None, :] >= 0) & (sp[:, None, :] <= qp[..., None])
-    if cfg.swa_window:
-        valid = valid & (sp[:, None, :] > qp[..., None] - cfg.swa_window)
-    qg = q.reshape(b, s_len, hkv, h // hkv, hd)
-    logits = torch.einsum("bshgd,blhd->bhgsl", qg.float(),
-                          ck.float()) * (hd ** -0.5)
-    logits = torch.where(valid[:, None, None, :, :], logits, -1e30)
-    w = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhgsl,blhd->bshgd", w, cv.float())
-    out = out.reshape(b, s_len, h * hd).to(x.dtype)
-    return L.linear(p["wo"], out)
+        slots = (qpos % n).long()
+        if per_slot:
+            lane = torch.arange(b, device=x.device)[:, None]
+            ck[lane, slots] = k.to(ck.dtype)
+            cv[lane, slots] = v.to(cv.dtype)
+            aq = all_pos[:, None] + offs[None]
+            alane = torch.arange(all_pos.shape[0], device=x.device)[:, None]
+            spos[alane, (aq % n).long()] = aq.to(torch.int32)
+            sp = spos if lanes is None else spos[lanes]  # (B, cache_len)
+        else:
+            ck.index_copy_(1, slots, k.to(ck.dtype))
+            cv.index_copy_(1, slots, v.to(cv.dtype))
+            spos.index_copy_(0, slots, qpos.to(torch.int32))
+            sp = spos[None]                              # (1, cache_len)
+        valid = (sp[:, None, :] >= 0) & (sp[:, None, :] <= qp[..., None])
+        if cfg.swa_window:
+            valid = valid & (sp[:, None, :] > qp[..., None] - cfg.swa_window)
+        logits = torch.einsum("bshgd,blhd->bhgsl", qg.float(),
+                              ck.float()) * (hd ** -0.5)
+        logits = torch.where(valid[:, None, None, :, :], logits, -1e30)
+        w = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bhgsl,blhd->bshgd", w, cv.float())
+    if tp is None:
+        out = out.reshape(b, s_len, h_all * hd).to(x.dtype)
+        return L.linear(p["wo"], out)
+    out = _own_heads(out.reshape(b, s_len, h_all, hd), cfg, tp, h)
+    return _out_proj(p, out, x, h, hd, tp, row_split)
 
 
-def _cross_decode(p, x, cfg, cache):
+def _cross_decode(p, x, cfg, cache, place=None):
     """x: (B, 1, D); one query per lane against the cached encoder or
     image K/V, every slot attended: B8 with ``lengths`` = the cross
-    length."""
+    length; over a model axis each rank's query heads, and on a
+    sequence-split cross cache B8's partial entry on its slots, merged."""
+    tp = None if place is None else place.tp
     b = x.shape[0]
-    h, hd = cfg.num_heads, cfg.head_dim
+    hd, h_all = cfg.head_dim, cfg.num_heads
     ck, cv = cache["cross_k"], cache["cross_v"]
-    q = L.linear(p["wq"], x).reshape(b, h, hd)
+    p, x, h, _, row_split = _split_heads({k: p[k] for k in ("wq", "wo")},
+                                         x, cfg, tp)
+    q = L.linear(p["wq"], x).reshape(b, 1, h, hd)
+    if tp is not None:
+        q, = _all_heads(tp, cfg, q)
     lengths = torch.full((b,), ck.shape[1], dtype=torch.int32,
                          device=x.device)
-    out = ops.decode_attention(q, ck, cv, lengths)
-    return L.linear(p["wo"], out.reshape(b, 1, h * hd).to(x.dtype))
+    if place is not None and place.xseq is not None:
+        part, lse = ops.decode_attention_partial(q.reshape(b, h_all, hd),
+                                                 ck, cv, lengths)
+        out, _ = tp.merge(part, lse)
+    else:
+        out = ops.decode_attention(q.reshape(b, h_all, hd), ck, cv, lengths)
+    if tp is None:
+        return L.linear(p["wo"], out.reshape(b, 1, h * hd).to(x.dtype))
+    out = _own_heads(out.reshape(b, 1, h_all, hd), cfg, tp, h)
+    return _out_proj(p, out, x, h, hd, tp, row_split)
 
 
-def _block_decode(p, x, cfg, ctx, cache, pos, *, kind):
+def _block_decode(p, x, cfg, ctx, cache, pos, *, kind, place=None):
     """One layer of one decode step; writes the layer's cache in place."""
     h = L.norm_apply(p["ln1"], x, kind=cfg.norm)
     if kind in ("ssm", "hybrid"):
-        s_out, new = S.ssm_decode_step(p["ssm"], h, cache["ssm"], cfg)
+        s_out, new = S.ssm_decode_step(p["ssm"], h, cache["ssm"], cfg,
+                                       tp=ctx.model)
         cache["ssm"]["h"].copy_(new["h"])
         cache["ssm"]["conv"].copy_(new["conv"])
         if kind == "ssm":
             return x + s_out
-        a = _attn_decode(p["attn"], h, cfg, cache, pos)
+        a = _attn_decode(p["attn"], h, cfg, cache, pos, place)
         x = x + 0.5 * (a + s_out)
     elif kind == "cross":
-        x = x + _cross_decode(p["attn"], h, cfg, cache)
+        x = x + _cross_decode(p["attn"], h, cfg, cache, place)
     else:
-        x = x + _attn_decode(p["attn"], h, cfg, cache, pos)
+        x = x + _attn_decode(p["attn"], h, cfg, cache, pos, place)
         if kind == "encdec_dec":
             hc = L.norm_apply(p["ln_cross"], x, kind=cfg.norm)
-            x = x + _cross_decode(p["cross"], hc, cfg, cache)
+            x = x + _cross_decode(p["cross"], hc, cfg, cache, place)
     return x + _ffn_fwd(p, x, cfg, ctx, decode=True)
 
 
@@ -701,9 +904,14 @@ class Model:
                 else params["lm_head"]["w"])
 
     def _head(self, params, x):
-        """Logits of the final norm of ``x``."""
+        """Logits of the final norm of ``x``: vocab-parallel under a model
+        axis that splits the head, gathered over it."""
         x = L.norm_apply(params["final_norm"], x, kind=self.cfg.norm)
-        return x @ self.head_weight(params).to(x.dtype)
+        tp = self._vocab_tp()
+        if tp is None:
+            return x @ self.head_weight(params).to(x.dtype)
+        return tp.gather(tp.enter(x) @ self.head_weight(params).to(x.dtype),
+                         -1)
 
     # ---- training forward ----
     def _policy(self, params) -> str:
@@ -844,25 +1052,36 @@ class Model:
                              chunk=chunk, tp=self._vocab_tp())
 
     # ---- serving ----
-    def _layer_cache(self, lead, kind, batch, cache_len, cross_len, dtype,
-                     per_slot):
-        """The cache of ``kind``'s layers, stacked on ``lead``."""
-        cfg, dev = self.cfg, self.device
+    def _cache_leaf(self, keys, shape, dtype, fill=0):
+        """A cache leaf at ``keys`` of whole ``shape``, filled: this rank's
+        block of it under ``RunCtx.gather`` (``cache_specs``)."""
+        gather = self.ctx.gather
+        if gather is not None:
+            shape = gather.cache_shape(keys, tuple(shape))
+        return torch.full(shape, fill, dtype=dtype, device=self.device)
+
+    def _layer_cache(self, keys, lead, kind, batch, cache_len, cross_len,
+                     dtype, per_slot):
+        """The cache of ``kind``'s layers at ``keys``, stacked on
+        ``lead``."""
+        cfg = self.cfg
+        leaf = lambda name, shape, dt, fill=0: self._cache_leaf(  # noqa: E731
+            keys + (name,), shape, dt, fill)
         c: dict[str, Any] = {}
         kv = lead + (batch, cache_len, cfg.num_kv_heads, cfg.head_dim)
         if kind in ("dense", "moe", "hybrid", "encdec_dec"):
-            c["k"] = torch.zeros(kv, dtype=dtype, device=dev)
-            c["v"] = torch.zeros(kv, dtype=dtype, device=dev)
+            c["k"] = leaf("k", kv, dtype)
+            c["v"] = leaf("v", kv, dtype)
             spos = lead + ((batch, cache_len) if per_slot else (cache_len,))
-            c["slot_pos"] = torch.full(spos, -1, dtype=torch.int32,
-                                       device=dev)
+            c["slot_pos"] = leaf("slot_pos", spos, torch.int32, -1)
         if kind in ("encdec_dec", "cross"):
             xkv = lead + (batch, cross_len, cfg.num_kv_heads, cfg.head_dim)
-            c["cross_k"] = torch.zeros(xkv, dtype=dtype, device=dev)
-            c["cross_v"] = torch.zeros(xkv, dtype=dtype, device=dev)
+            c["cross_k"] = leaf("cross_k", xkv, dtype)
+            c["cross_v"] = leaf("cross_v", xkv, dtype)
         if kind in ("ssm", "hybrid"):
-            one = S.init_ssm_cache(batch, cfg, dtype=dtype, device=dev)
-            c["ssm"] = {k: t.expand(lead + t.shape).clone()
+            one = S.init_ssm_cache(batch, cfg, dtype=dtype, device="meta")
+            c["ssm"] = {k: self._cache_leaf(keys + ("ssm", k),
+                                            lead + t.shape, t.dtype)
                         for k, t in one.items()}
         return c
 
@@ -872,7 +1091,11 @@ class Model:
         vlm), which ``prefill_cross`` fills.  ``per_slot=True`` builds a
         continuous-batching cache: ``pos`` (B,) and ``slot_pos`` (B,
         cache_len) per layer, so every lane (a serving *slot*) tracks its
-        own sequence.  Needs an attention stack (dense, moe)."""
+        own sequence.  Needs an attention stack (dense, moe).  Under
+        ``RunCtx.gather`` (serving over a model axis) each leaf is this
+        rank's block of the whole cache of ``batch`` lanes (module
+        docstring), and the cache's ``whole`` holds the whole sizes the
+        blocks are of: ``self`` (the ring), ``cross`` and ``batch``."""
         cfg = self.cfg
         if cfg.swa_window:
             cache_len = min(cache_len, cfg.swa_window)
@@ -885,35 +1108,105 @@ class Model:
                                  dtype=dtype, per_slot=per_slot)
         if self.groups:
             g, per = self.groups, cfg.cross_attn_period
-            layers = {"self": make((g, per - 1), "dense"),
-                      "cross": make((g,), "cross")}
+            layers = {"self": make(("layers", "self"), (g, per - 1),
+                                   "dense"),
+                      "cross": make(("layers", "cross"), (g,), "cross")}
         else:
-            layers = make((cfg.num_layers,), self.kind)
+            layers = make(("layers",), (cfg.num_layers,), self.kind)
         pos0 = torch.zeros((batch,) if per_slot else (), dtype=torch.int32,
                            device=self.device)
-        return {"pos": pos0, "layers": layers}
+        cache = {"pos": pos0, "layers": layers}
+        if self.ctx.gather is not None:
+            cache["whole"] = {"self": cache_len, "cross": cross_len,
+                              "batch": batch}
+        return cache
+
+    def ring_len(self, cache) -> int:
+        """The whole length of ``cache``'s self-attention ring (cut to the
+        window), of which this rank may hold a block."""
+        if "whole" in cache:
+            return cache["whole"]["self"]
+        return cache["layers"]["k"].shape[-3]
+
+    def ring_slots(self, cache) -> torch.Tensor:
+        """The ring slots (int32) of this rank's block of ``cache``'s
+        self-attention ring: all of them but where the model axis splits
+        it."""
+        n = cache["layers"]["k"].shape[-3]
+        seq = None if self.ctx.model is None else self._seq(cache, "self", n)
+        lo = 0 if seq is None else seq[0]
+        return torch.arange(lo, lo + n, dtype=torch.int32,
+                            device=self.device)
+
+    def _seq(self, cache, kind: str, n: int):
+        """``(first slot, whole length)`` of this rank's block of ``n``
+        slots of ``cache``'s ``kind`` ("self" or "cross") cache, where the
+        model axis splits it; None where this rank holds it whole (and at
+        M = 1).  A cache that ``init_cache`` did not place for this model
+        (no ``whole``), or whose block is not ``n`` slots, raises."""
+        tp = self.ctx.model
+        if "whole" not in cache:
+            raise ValueError(f"a {kind} cache of {n} slots that this model "
+                             "did not place: make it with init_cache")
+        whole = cache["whole"][kind]
+        split = tp.size > 1 and tp.splits(whole)
+        if n != (whole // tp.size if split else whole):
+            raise ValueError(
+                f"this rank's {kind} cache holds {n} slots; the model "
+                f"placed a cache of {whole} over {tp.size} model ranks")
+        return (tp.rank * n, whole) if split else None
+
+    def _place(self, cache):
+        """The ``_Place`` of a serving step on ``cache``, None without a
+        model axis."""
+        tp = self.ctx.model
+        if tp is None:
+            return None
+        layers = cache["layers"]
+        if self.groups:
+            self_c, cross_c = layers["self"], layers["cross"]
+        else:
+            self_c = cross_c = layers
+        lanes = None
+        pos = cache["pos"]
+        if pos.dim() == 1 and self.ctx.gather is not None:
+            lanes = self.ctx.gather.lanes(pos.shape[0])
+        seq = (self._seq(cache, "self", self_c["k"].shape[-3])
+               if "k" in self_c else None)
+        xseq = (self._seq(cache, "cross", cross_c["cross_k"].shape[-3])
+                if "cross_k" in cross_c else None)
+        return _Place(tp, lanes, seq, xseq)
 
     def decode_step(self, params, cache, tokens):
         """tokens: (B, 1).  Returns (logits (B, 1, V), new_cache); the
-        cache's tensors are written in place (module docstring)."""
+        cache's tensors are written in place (module docstring).  Over a
+        model axis: this rank's lanes of the tokens and of the logits, the
+        logits gathered over the vocabulary."""
         cfg, ctx = self.cfg, self.ctx
+        params = self._top(params)
+        place = self._place(cache)
         pos = cache["pos"]
         x = _embed_fwd(params["embed"], tokens, cfg, ctx)
         layers = cache["layers"]
         if self.groups:
             gp, gc = params["groups"], layers
+            self_w = self._whole(("groups", "self"))
+            cross_w = self._whole(("groups", "cross"))
             for g in range(self.groups):
                 for j in range(cfg.cross_attn_period - 1):
-                    x = _block_decode(_layer(gp["self"], g, j), x, cfg, ctx,
-                                      _layer(gc["self"], g, j), pos,
-                                      kind="dense")
-                x = _block_decode(_layer(gp["cross"], g), x, cfg, ctx,
-                                  _layer(gc["cross"], g), pos, kind="cross")
+                    x = _block_decode(self_w(_layer(gp["self"], g, j)), x,
+                                      cfg, ctx, _layer(gc["self"], g, j),
+                                      pos, kind="dense", place=place)
+                x = _block_decode(cross_w(_layer(gp["cross"], g)), x, cfg,
+                                  ctx, _layer(gc["cross"], g), pos,
+                                  kind="cross", place=place)
         else:
+            whole = self._whole(("layers",))
             for i in range(cfg.num_layers):
-                x = _block_decode(_layer(params["layers"], i), x, cfg, ctx,
-                                  _layer(layers, i), pos, kind=self.kind)
-        return self._head(params, x), {"pos": pos + 1, "layers": layers}
+                x = _block_decode(whole(_layer(params["layers"], i)), x, cfg,
+                                  ctx, _layer(layers, i), pos,
+                                  kind=self.kind, place=place)
+        return self._head(params, x), dict(cache, pos=pos + 1)
 
     def prefill(self, params, cache, tokens):
         """Fused prompt prefill: one forward over ``tokens`` (B, S) that
@@ -927,21 +1220,24 @@ class Model:
             raise NotImplementedError(
                 "fused prefill supports attention-only stacks; family "
                 f"{cfg.family!r} prefills via the decode_step scan")
-        cache_len = cache["layers"]["k"].shape[2]
+        cache_len = self.ring_len(cache)       # the whole ring, not a block
         if tokens.shape[1] > cache_len:
             raise ValueError(
                 f"prefill chunk ({tokens.shape[1]} tokens) exceeds the ring "
                 f"cache ({cache_len} slots); chunk the prompt")
+        params = self._top(params)
+        place = self._place(cache)
         pos = cache["pos"]
         x = _embed_fwd(params["embed"], tokens, cfg, self.ctx)
         layers = cache["layers"]
+        whole = self._whole(("layers",))
         for i in range(cfg.num_layers):
-            lp, lc = _layer(params["layers"], i), _layer(layers, i)
+            lp, lc = whole(_layer(params["layers"], i)), _layer(layers, i)
             h = L.norm_apply(lp["ln1"], x, kind=cfg.norm)
-            x = x + _attn_prefill(lp["attn"], h, cfg, lc, pos)
+            x = x + _attn_prefill(lp["attn"], h, cfg, lc, pos, place)
             x = x + _ffn_fwd(lp, x, cfg, self.ctx)
-        return self._head(params, x[:, -1:, :]), {
-            "pos": pos + tokens.shape[1], "layers": layers}
+        return self._head(params, x[:, -1:, :]), dict(
+            cache, pos=pos + tokens.shape[1])
 
     def prefill_cross(self, params, cache, context):
         """Fill the cross-attention K/V from ``context`` (B, T, D): the
@@ -949,18 +1245,32 @@ class Model:
         (vlm).  The cache's ``cross_k``/``cross_v`` become new tensors of
         T slots in the cache's dtype (as the reference replaces them);
         returns the cache.  Other families' caches come back as they
-        are."""
+        are.  Over a model axis: this rank's lanes of the context, the
+        encoder tensor-parallel, and the K/V of this rank's ``T/M`` slots
+        (all ``T`` where the axis does not divide them) for every KV head,
+        ``wk``/``wv`` gathered whole."""
         cfg = self.cfg
         if cfg.is_encdec:
             kv_src = self._encode(params["encoder"], context)
-            attn, n = params["layers"]["cross"], cfg.num_layers
+            keys, n = ("layers", "cross"), cfg.num_layers
+            attn = params["layers"]["cross"]
             lc = cache["layers"]
         elif cfg.is_vlm:
             kv_src = context.to(self.ctx.act_dtype)
-            attn, n = params["groups"]["cross"]["attn"], self.groups
+            keys, n = ("groups", "cross", "attn"), self.groups
+            attn = params["groups"]["cross"]["attn"]
             lc = cache["layers"]["cross"]
         else:
             return cache
+        attn = self._whole(keys)({k: attn[k] for k in ("wk", "wv")})
+        tp, t = self.ctx.model, kv_src.shape[1]
+        if tp is not None:
+            cache["whole"]["cross"] = t
+            if tp.size > 1 and tp.splits(t):
+                kv_src = kv_src[:, tp.block(t)]
+            width = cfg.num_kv_heads * cfg.head_dim
+            attn = {w: {k: tp.full(leaf, -1, width)
+                        for k, leaf in attn[w].items()} for w in attn}
         b = kv_src.shape[0]
         shape = (b, kv_src.shape[1], cfg.num_kv_heads, cfg.head_dim)
         for key, w in (("cross_k", "wk"), ("cross_v", "wv")):

@@ -1,5 +1,5 @@
-"""The model axis of a ``D x M`` training mesh: tensor and expert
-parallelism over the ``M`` ranks of a model group.
+"""The model axis of a ``D x M`` mesh: tensor and expert parallelism over
+the ``M`` ranks of a model group, in training and in serving.
 
 The reference places the compute of a sharded step with GSPMD: its rule
 table (``runtime.sharding``) splits a weight over the model axis and XLA
@@ -27,6 +27,14 @@ Megatron's way, through a ``ModelAxis`` (``RunCtx.model``):
 * ``logsumexp(lse)``: the log-sum-exp of a vocabulary split over the
   ranks from each rank's own (the max and the sum of exponentials over
   the ranks), with the backward ``g · exp(lse_r − lse)``.
+* ``merge(out, lse)`` (serving, no backward): attention over a cache
+  whose slots are split over the ranks (the reference's flash-decoding
+  layout, sequence over the model axis).  Each rank attends its own
+  slots and holds its output ``out_r``, normalised over them, and the
+  log-sum-exp ``lse_r`` of its logits (-inf where it holds no valid
+  slot, its ``out_r`` then 0); the pairs are all-gathered in rank order
+  and every rank combines them in that order (``merge_partials``), so
+  every rank gets the same bits.
 
 Every all-reduce sums the ranks in ascending order
 (``DistComm.all_reduce``), so the replicated computation stays bit for bit
@@ -39,9 +47,11 @@ another order there (within float32 rounding).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
-__all__ = ["ModelAxis"]
+__all__ = ["ModelAxis", "merge_partials"]
 
 
 def _all_reduce(comm, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
@@ -51,8 +61,26 @@ def _all_reduce(comm, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
 def _gather(comm, x: torch.Tensor, dim: int) -> torch.Tensor:
     """``x`` from every rank of ``comm``, concatenated along ``dim`` in
     rank order."""
-    from repro_torch.runtime.sharding import _gathered
-    return _gathered(comm, [x], [dim])[0]
+    from repro_torch.runtime.sharding import gathered
+    return gathered(comm, [x], [dim])[0]
+
+
+def merge_partials(outs, lses):
+    """Attention partials over disjoint slot ranges combined, in list
+    order: ``outs`` each ``(..., D)`` normalised over its range, ``lses``
+    each ``(...)`` its log-sum-exp (-inf for an empty range, whose out is
+    0).  Returns the float32 ``(out, lse)`` over the union: the max of the
+    ``lse`` (a non-finite one taken as 0), each range weighted by
+    ``exp(lse_r − max)``, the weighted outputs and the weights summed in
+    order and divided."""
+    top = functools.reduce(torch.maximum, lses)
+    top = torch.where(top.isfinite(), top, torch.zeros_like(top))
+    ws = [torch.exp(lse.float() - top) for lse in lses]
+    total = functools.reduce(torch.add, ws)
+    acc = functools.reduce(torch.add, [w[..., None] * o.float()
+                                       for w, o in zip(ws, outs)])
+    return (acc / torch.clamp(total, min=1e-30)[..., None],
+            torch.log(total) + top)
 
 
 class _Enter(torch.autograd.Function):
@@ -155,3 +183,19 @@ class ModelAxis:
 
     def logsumexp(self, lse):
         return _LogSumExp.apply(lse, self.comm)
+
+    def gather_all(self, tensors, dims):
+        """Each tensor all-gathered along its dim in rank order, one
+        collective a dtype, forward only (serving): the query and the new
+        K/V rows of a rank's heads made whole over the heads."""
+        from repro_torch.runtime.sharding import gathered
+        return gathered(self.comm, list(tensors), list(dims))
+
+    def merge(self, out, lse):
+        """The merged attention ``(out, lse)`` (float32) of every rank's
+        partial over its slots: both all-gathered in rank order, in one
+        collective, and combined by ``merge_partials``."""
+        from repro_torch.runtime.sharding import gathered
+        got, lses = gathered(self.comm, [out.float()[None], lse[None]],
+                              [0, 0])
+        return merge_partials(list(got), list(lses))

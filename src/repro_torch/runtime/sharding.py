@@ -35,6 +35,14 @@ weights are all-gathered over the data group where they are computed and
 their gradients reduce-scattered in rank order (``_GatherFn``); a layer
 then computes with its model-axis part (``runtime.model_axis``).
 ``batch_spec`` gives each rank its rows.
+
+Serving (``launch.serve --mesh DxM``) places the weights by the
+reference's serve rule (``serve_rules``, the serve branch of its
+``launch/dryrun.py`` ``make_rules``): over the model axis only, and over
+the data axis too (ZeRO-inference) only when a model-axis part would not
+fit; and the decode caches by ``cache_specs`` (``cache_dim`` reads which
+dimension each axis splits, ``Gather.cache_shape`` and ``cache_part``
+give a rank's block, ``cache_whole`` assembles one).
 """
 from __future__ import annotations
 
@@ -46,9 +54,19 @@ from typing import Any
 import torch
 
 __all__ = ["ShardingRules", "fit_spec", "param_specs", "batch_spec",
-           "cache_specs", "path_str", "data_dim", "data_dims", "model_dim",
-           "model_dims", "take",
-           "take_tree", "Gather", "make_gather", "Placed"]
+           "cache_specs", "cache_spec", "cache_dim", "path_str", "data_dim",
+           "data_dims", "model_dim", "model_dims", "take", "take_tree",
+           "gathered", "Gather", "make_gather", "Placed", "SERVE_RESIDENCY_LIMIT",
+           "SERVE_MEMORY_FRACTION", "serving_bytes", "serve_limit",
+           "serve_rules"]
+
+# The reference's bytes a device of serving weights may hold before its
+# serve rule spreads them over the data axis too (ZeRO-inference): a TPU's
+# figure (``launch/dryrun.py``), which the tests pass to hold the rule to
+# the reference's.  On the card the limit is this share of the card's own
+# memory (the rest holds the caches and the activations).
+SERVE_RESIDENCY_LIMIT = 12e9
+SERVE_MEMORY_FRACTION = 0.5
 
 
 def _axes_size(mesh, axes) -> int:
@@ -171,27 +189,41 @@ def batch_spec(rules: ShardingRules, shape) -> tuple:
     return fit_spec(rules.mesh, shape, (rules.dp_axes,))
 
 
+def cache_spec(rules: ShardingRules, path: str, shape) -> tuple:
+    """The spec of one cache leaf of whole ``shape`` at ``path``: batch
+    over the data axes, sequence over the model axis (the flash-decoding
+    layout), the SSM state's and conv window's channels over the model
+    axis."""
+    dp, tp = rules.dp_axes, rules.tp_axis
+    nd = len(shape)
+    if re.search(r"\['(k|v|cross_k|cross_v)'\]", path):
+        # (..., B, S, H, hd)
+        spec = (None,) * (nd - 4) + (dp, tp, None, None)
+    elif re.search(r"\['h'\]", path):       # ssm state (..., B, di, st)
+        spec = (None,) * (nd - 3) + (dp, tp, None)
+    elif re.search(r"\['conv'\]", path):    # (..., B, K-1, di)
+        spec = (None,) * (nd - 3) + (dp, None, tp)
+    elif re.search(r"\['slot_pos'\]", path):  # (..., S)
+        spec = (None,) * (nd - 1) + (tp,)
+    else:                                   # pos scalar etc.
+        spec = ()
+    return fit_spec(rules.mesh, tuple(shape), spec)
+
+
 def cache_specs(rules: ShardingRules, cache):
     """Decode caches: batch->dp, seq->tp (flash-decoding layout); SSM state
     channel dim -> tp."""
-    mesh, dp, tp = rules.mesh, rules.dp_axes, rules.tp_axis
+    return _map_with_path(lambda path, leaf: cache_spec(
+        rules, path, tuple(leaf.shape)), cache)
 
-    def one(path, leaf):
-        nd = len(leaf.shape)
-        if re.search(r"\['(k|v|cross_k|cross_v)'\]", path):
-            # (..., B, S, H, hd)
-            spec = (None,) * (nd - 4) + (dp, tp, None, None)
-        elif re.search(r"\['h'\]", path):       # ssm state (..., B, di, st)
-            spec = (None,) * (nd - 3) + (dp, tp, None)
-        elif re.search(r"\['conv'\]", path):    # (..., B, K-1, di)
-            spec = (None,) * (nd - 3) + (dp, None, tp)
-        elif re.search(r"\['slot_pos'\]", path):  # (..., S)
-            spec = (None,) * (nd - 1) + (tp,)
-        else:                                   # pos scalar etc.
-            spec = ()
-        return fit_spec(mesh, tuple(leaf.shape), spec)
 
-    return _map_with_path(one, cache)
+def cache_dim(rules: ShardingRules, path: str, shape, axis: str):
+    """The dimension of a cache leaf (counted from the end) that the data
+    axes (``axis="data"``) or the model axis (``"model"``) split, or
+    None."""
+    names = (_names(rules.dp_axes) if axis == "data"
+             else _names(rules.tp_axis))
+    return _axis_dim(cache_spec(rules, path, shape), names)
 
 
 # ---------------------------------------------------------------------------
@@ -261,9 +293,12 @@ def take_tree(tree, dims, rank: int, parts: int):
     return _zip(lambda t, d: take(t, d, rank, parts), tree, dims)
 
 
-def _gathered(comm, shards, dims):
-    """Each shard all-gathered whole (its data dim ``parts`` times
-    longer, the ranks' parts in order): one flat ``all_gather`` a dtype."""
+def gathered(comm, shards, dims):
+    """Each of this rank's tensors ``shards`` all-gathered over ``comm``
+    along its dim in ``dims`` (that dim ``comm.p`` times longer, the
+    ranks' parts in rank order): one flat ``all_gather`` a dtype.  The
+    weights' gathers, the model axis's (``ModelAxis.gather_all``) and the
+    serving paths' gathers of tokens and routings over a data group."""
     p, out = comm.p, [None] * len(shards)
     for dtype in dict.fromkeys(s.dtype for s in shards):
         idx = [i for i, s in enumerate(shards) if s.dtype == dtype]
@@ -304,7 +339,7 @@ def _scattered(comm, grads, dims):
 
 
 class _GatherFn(torch.autograd.Function):
-    """Shards -> whole weights (``_gathered``), cast to ``dtype`` first
+    """Shards -> whole weights (``gathered``), cast to ``dtype`` first
     when one is given; backward: the whole weights' gradients, cast back
     to each shard's dtype (a float32 master's gradient is summed in
     float32, as the replicated path's is), ``_scattered``."""
@@ -316,7 +351,7 @@ class _GatherFn(torch.autograd.Function):
         if dtype is not None:
             shards = [s.to(dtype) if s.is_floating_point() else s
                       for s in shards]
-        return tuple(_gathered(comm, shards, dims))
+        return tuple(gathered(comm, shards, dims))
 
     @staticmethod
     def backward(ctx, *grads):
@@ -370,10 +405,16 @@ class Gather:
         if rules.opt_fsdp_axes is not None:
             raise NotImplementedError(
                 "opt_fsdp_axes: the optimizer state is placed as the "
-                "parameters (ROADMAP A22b)")
+                "parameters (ROADMAP A22c)")
+        if rules.seq_parallel:
+            raise NotImplementedError(
+                "seq_parallel: the activations are not split over the "
+                "model axis (ROADMAP A22c)")
         if comm.p_local != 1:
             raise ValueError("FSDP holds one rank a process")
-        size = _axes_size(rules.mesh, rules.fsdp_axes)
+        size = _axes_size(rules.mesh, rules.dp_axes)
+        if rules.fsdp_axes is not None:
+            size = _axes_size(rules.mesh, rules.fsdp_axes)
         if size != comm.p:
             raise ValueError(f"the FSDP axes span {size} ranks; the "
                              f"communicator has {comm.p}")
@@ -426,9 +467,9 @@ class Gather:
         group along ``dim``, then over the model group along ``mdim``."""
         with torch.no_grad():
             if dim is not None:
-                t = _gathered(self.comm, [t], [dim])[0]
+                t = gathered(self.comm, [t], [dim])[0]
             if mdim is not None:
-                t = _gathered(self.model.comm, [t], [mdim])[0]
+                t = gathered(self.model.comm, [t], [mdim])[0]
         return t
 
     def part(self, t: torch.Tensor, dim: int | None,
@@ -438,11 +479,112 @@ class Gather:
         return take(t, dim, self.rank, self.parts)
 
     @property
+    def splits_data(self) -> bool:
+        """Whether a leaf kept so far is split over the data group (FSDP,
+        or the serve rule's ZeRO-inference): its layers then gather over
+        the data group, which every data rank must join."""
+        def split(dims):
+            if isinstance(dims, dict):
+                return any(split(d) for d in dims.values())
+            return dims is not None
+        return split(self.dims)
+
+    # ---- the decode caches (``cache_specs``) ----
+    def _cache_cuts(self, keys, shape):
+        """``(dim, rank, parts)`` of the cache leaf at ``keys`` of whole
+        ``shape``, over the model group then the data group."""
+        path = path_str(keys)
+        m = self.model
+        return [(cache_dim(self.rules, path, shape, "model"),
+                 0 if m is None else m.rank, 1 if m is None else m.size),
+                (cache_dim(self.rules, path, shape, "data"), self.rank,
+                 self.parts)]
+
+    def cache_shape(self, keys, shape) -> tuple:
+        """This rank's block shape of the cache leaf at ``keys`` (its path
+        in the cache tree, ``("layers", "k")``) of whole ``shape``."""
+        out = list(shape)
+        for dim, _, parts in self._cache_cuts(keys, tuple(shape)):
+            if dim is not None:
+                out[dim] //= parts
+        return tuple(out)
+
+    def cache_part(self, keys, t: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the whole cache leaf ``t`` at ``keys``."""
+        for dim, rank, parts in self._cache_cuts(keys, tuple(t.shape)):
+            t = take(t, dim, rank, parts)
+        return t
+
+    def cache_whole(self, keys, t: torch.Tensor, shape) -> torch.Tensor:
+        """The cache leaf at ``keys`` whole (``shape``), from every rank's
+        block ``t``: over the data group, then the model group."""
+        (mdim, _, _), (ddim, _, _) = self._cache_cuts(keys, tuple(shape))
+        return self.whole(t, ddim, mdim)
+
+    def lanes(self, batch: int) -> slice:
+        """This rank's lanes of a cache of ``batch`` lanes (every lane
+        where the data axes do not divide them)."""
+        dim = cache_dim(self.rules, "['k']", (batch, 1, 1, 1), "data")
+        if dim is None:
+            return slice(0, batch)
+        per = batch // self.parts
+        return slice(self.rank * per, (self.rank + 1) * per)
+
+    @property
     def writer(self) -> bool:
         """Rank 0 of the mesh: rank 0 of its data group and of its model
         group."""
         return self.rank == 0 and (self.model is None
                                    or self.model.rank == 0)
+
+
+def serving_bytes(cfg, rules: ShardingRules | None = None) -> int:
+    """The reference's count of a model's serving bytes: two bytes (bf16)
+    for every element of every leaf of its parameter tree, whose shapes
+    come from ``Model.init_params`` under a fake-tensor mode (no memory,
+    nothing drawn); with ``rules``, a rank's share (each leaf over the
+    axes its spec splits it on)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.models.transformer import Model, RunCtx, tree_leaves
+    with FakeTensorMode():
+        params = Model(cfg, RunCtx(), device="cpu").init_params(
+            torch.Generator())
+        specs = tree_leaves(param_specs(rules, params)) if rules else None
+        return sum(2 * math.prod(t.shape) // (1 if specs is None else
+                                              math.prod(_axes_size(
+                                                  rules.mesh, a)
+                                                  for a in specs[i]))
+                   for i, t in enumerate(tree_leaves(params)))
+
+
+def serve_limit(device=None) -> float:
+    """The serve rule's bytes a rank of weights: ``SERVE_MEMORY_FRACTION``
+    of the card's memory on a CUDA ``device``, else the reference's
+    ``SERVE_RESIDENCY_LIMIT``."""
+    device = torch.device(device) if device is not None else None
+    if device is not None and device.type == "cuda":
+        return SERVE_MEMORY_FRACTION * torch.cuda.get_device_properties(
+            device).total_memory
+    return SERVE_RESIDENCY_LIMIT
+
+
+def serve_rules(cfg, mesh, *, limit: float | None = None,
+                device=None) -> ShardingRules:
+    """The reference's serve placement of ``cfg`` on ``mesh`` (``make_rules``
+    in ``launch/dryrun.py``, mode decode or prefill): the weights over the
+    model axis only, unless ``serving_bytes / M`` exceeds ``limit`` (then
+    over the data axes too: ZeRO-inference), ``ep_mode`` for an MoE config
+    with at least ``M`` experts.  ``limit`` defaults to ``serve_limit(
+    device)``."""
+    if limit is None:
+        limit = serve_limit(device)
+    m = mesh.shape["model"]
+    fsdp = ("pod", "data") if "pod" in mesh.shape else "data"
+    if serving_bytes(cfg) / m <= limit:
+        fsdp = None             # fits with the model axis alone
+    return ShardingRules(mesh=mesh, fsdp_axes=fsdp,
+                         ep_mode=cfg.is_moe and cfg.num_experts >= m)
 
 
 def make_gather(rules: ShardingRules, comm, model=None) -> Gather:

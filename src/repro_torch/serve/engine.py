@@ -24,6 +24,18 @@ step is routed through the §5-priced exchange via ``RunCtx.moe_step``:
 per-tick routing, executor tables derived on the device, no host plan
 build after construction — asserted through ``comm.telemetry``
 (``assert_steady_state``).  Prefill keeps the local ``moe_fwd``.
+
+Over a ``D x M`` mesh (a model whose ``RunCtx.gather`` places it,
+``launch.serve --mesh DxM``) every process runs the same queue and the
+same ticks.  A data rank holds its block of the lanes
+(``Gather.lanes``), decodes them with its model group, and the next
+tokens are all-gathered over the data group, so every process keeps
+every request's tokens.  Only the data rank that owns an admitted
+request's lane prefills it (every data rank where the weights are split
+over the data group too, whose gathers all of them join) and the first
+token is shared over the data group.  The MoE hook's ``DynamicMoELayer``
+runs over the data group, each rank's rows its lanes, as the
+reference's over its mesh's ``data`` axis.
 """
 from __future__ import annotations
 
@@ -36,7 +48,8 @@ import torch
 
 from repro_torch.comm import telemetry
 from repro_torch.models import moe as M
-from repro_torch.models.transformer import Model, tree_map
+from repro_torch.models.transformer import Model
+from repro_torch.runtime.sharding import gathered
 from repro_torch.serve.queue import Request, RequestQueue
 from repro_torch.serve.slots import SlotManager
 
@@ -44,7 +57,7 @@ __all__ = ["ServeEngine", "ServeReport", "generate_batch_loop",
            "moe_decode_hook"]
 
 
-def moe_decode_hook(cfg, layer):
+def moe_decode_hook(cfg, layer, *, tp=None, rows=False):
     """``RunCtx.moe_step`` adapter: route one decode tick's (B, 1, D)
     hidden batch through a ``DynamicMoELayer``.
 
@@ -53,6 +66,14 @@ def moe_decode_hook(cfg, layer):
     combine then runs through the layer with THIS layer's weights — one
     ``DynamicMoELayer`` instance (template shapes) serves every layer of
     the stack via ``DynamicMoELayer.apply``.
+
+    ``rows`` (serving over a ``D x M`` mesh): the hidden batch is this
+    rank's lanes, the layer's rows over its data group; the routing is
+    all-gathered over the group whole (the layer derives its tables from
+    it) and the step runs ``apply_rows``.  ``tp``: the model axis, whose
+    ranks hold the experts split (``ep_mode``); the layer needs the
+    experts of its data rank, so they are gathered whole over the model
+    group first.
     """
     k = cfg.experts_per_token
 
@@ -66,7 +87,13 @@ def moe_decode_hook(cfg, layer):
         wx = [p_moe["w1"], p_moe["w2"]]
         if cfg.act == "swiglu":
             wx.append(p_moe["w3"])
-        y = layer.apply(h.reshape(b, d), top_e[0], top_p[0], *wx)
+        if tp is not None:
+            wx = [tp.full(w, 0, cfg.num_experts) for w in wx]
+        if not rows:
+            y = layer.apply(h.reshape(b, d), top_e[0], top_p[0], *wx)
+        else:
+            te, tw = gathered(layer.comm, [top_e[0], top_p[0]], [0, 0])
+            y = layer.apply_rows(h.reshape(b, d), te, tw, *wx)
         return y.reshape(b, 1, d).to(h.dtype)
 
     return moe_step
@@ -78,23 +105,49 @@ def _with_moe_hook(model: Model, moe_layer) -> Model:
     if model.cfg.family != "moe":
         raise ValueError(
             f"moe_layer needs a MoE model, got family {model.cfg.family!r}")
-    ctx = dataclasses.replace(
-        model.ctx, moe_step=moe_decode_hook(model.cfg, moe_layer))
+    ctx = dataclasses.replace(model.ctx, moe_step=moe_decode_hook(
+        model.cfg, moe_layer, tp=model.ctx.model,
+        rows=model.ctx.gather is not None))
     return Model(model.cfg, ctx, device=model.device)
 
 
-def _insert(cache, prefix, slot: int, token, tokens):
+def _insert(cache, prefix, slot: int, token, tokens, *, lanes=None,
+            ring=None, plen=None):
     """Copy a B=1 per-slot prefix cache into lane ``slot`` of the batched
     cache, in place, and seed the lane's next input token.  Layer tensors
     carry the leading stacked-L dim: every leaf maps (L, 1, ...) -> lane of
-    (L, B, ...)."""
+    (L, B, ...).
 
-    def put(dst, src):
-        dst[:, slot] = src[:, 0]
+    ``lanes`` (over a ``D x M`` mesh): this rank's block of the lanes, of
+    which ``tokens`` and the K/V hold only these; ``slot_pos`` and ``pos``
+    hold every lane.  A rank that does not own ``slot`` gets no prefix
+    (None) and writes the lane's ``slot_pos`` itself, and ``pos``: after a
+    prompt of ``plen`` tokens, ring slot ``s`` (``ring``: the ring slots
+    of its block, ``Model.ring_slots``) holds the last position ``p <
+    plen`` with ``p % whole == s`` (``whole``: the whole ring), or -1 where
+    there is none, as the owner's chunked prefill leaves it."""
+    lo = 0 if lanes is None else lanes.start
+    if prefix is None:
+        last = plen - 1
+        p = last - torch.remainder(last - ring, cache["whole"]["self"])
+        spos = cache["layers"]["slot_pos"]                 # (L, B, n)
+        spos[:, slot] = torch.where(p >= 0, p, -1)
+        cache["pos"][slot] = plen
+        return cache, tokens
 
-    tree_map(put, cache["layers"], prefix["layers"])
+    def put(dst, src, name):
+        dst[:, slot if name == "slot_pos" else slot - lo] = src[:, 0]
+
+    def walk(dst, src):
+        for name, leaf in dst.items():
+            if isinstance(leaf, dict):
+                walk(leaf, src[name])
+            else:
+                put(leaf, src[name], name)
+
+    walk(cache["layers"], prefix["layers"])
     cache["pos"][slot] = prefix["pos"][0]
-    tokens[slot, 0] = token
+    tokens[slot - lo, 0] = token
     return cache, tokens
 
 
@@ -179,10 +232,20 @@ class ServeEngine:
             model.cfg.num_layers if moe_layer is not None else 0)
         self.cache = self.model.init_cache(
             num_slots, cache_len, per_slot=True, dtype=self.cache_dtype)
-        self.cache_len = int(self.cache["layers"]["k"].shape[2])
+        self.cache_len = self.model.ring_len(self.cache)
+        # over a D x M mesh: this rank's lanes and its data group
+        gather = self.model.ctx.gather
+        self._lanes = None if gather is None else gather.lanes(num_slots)
+        self._data = None if gather is None else gather.comm
+        self._split = (self._lanes is not None
+                       and self._lanes.stop - self._lanes.start < num_slots)
+        self._prefill_all = gather is not None and gather.splits_data
+        self._ring = self.model.ring_slots(self.cache)
         self.slots = SlotManager(num_slots)
         self.queue = RequestQueue()
-        self._tokens = torch.zeros((num_slots, 1), dtype=torch.int32,
+        n_lanes = num_slots if self._lanes is None else \
+            self._lanes.stop - self._lanes.start
+        self._tokens = torch.zeros((n_lanes, 1), dtype=torch.int32,
                                    device=model.device)
 
         self.now = 0.0            # tick clock (admission compares against it)
@@ -223,6 +286,8 @@ class ServeEngine:
                 self.params, self.cache, self._tokens)
             nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
             self._tokens = nxt[:, None]
+            if self._split:                     # every lane's token
+                nxt = self._data.all_gather(nxt[None]).wait()[0]
             nxt_host = nxt.cpu().numpy()        # blocks: tick boundary
             dt = time.perf_counter() - t0
             telemetry.record_tick("decode_steps")
@@ -243,15 +308,26 @@ class ServeEngine:
         before that read, which on an asynchronous device times only the
         enqueue)."""
         t0 = time.perf_counter()
-        prefix, first = _prefill(
-            self.model, self.params, _prompt(req, self.model.device),
-            cache_len=self.cache_len, chunk=self.prefill_chunk,
-            dtype=self.cache_dtype,
-            on_chunk=lambda: telemetry.record_tick("prefill_chunks"))
         slot = self.slots.allocate(req.id, max_new_tokens=req.max_new_tokens,
                                    eos_id=req.eos_id)
-        self.cache, self._tokens = _insert(self.cache, prefix, slot, first,
-                                           self._tokens)
+        lanes = self._lanes
+        mine = not self._split or lanes.start <= slot < lanes.stop
+        prefix = first = None
+        if mine or self._prefill_all:
+            prefix, first = _prefill(
+                self.model, self.params, _prompt(req, self.model.device),
+                cache_len=self.cache_len, chunk=self.prefill_chunk,
+                dtype=self.cache_dtype,
+                on_chunk=lambda: telemetry.record_tick("prefill_chunks"))
+        if self._split:                 # the owner's first token, shared
+            own = first.reshape(1) if mine else torch.zeros(
+                1, dtype=torch.int32, device=self.model.device)
+            got = self._data.all_gather(own[None]).wait()[0]
+            first = got[slot // (lanes.stop - lanes.start)]
+        self.cache, self._tokens = _insert(
+            self.cache, prefix if mine else None, slot, first, self._tokens,
+            lanes=lanes, ring=self._ring,
+            plen=int(np.asarray(req.prompt).size))
         tok = int(first)
         self._outputs[req.id] = []
         self._slot_of[req.id] = slot

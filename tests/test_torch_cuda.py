@@ -1109,6 +1109,69 @@ def split_plan(request, monkeypatch):
     return request.param
 
 
+@pytest.mark.parametrize("q_dtype,kv_dtype", [
+    (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+    (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("s", [1, 77, 1040])
+@pytest.mark.parametrize("g", [1, 2, 3, 4, 5, 8])
+def test_decode_attention_partial_matches_plain(dev, split_plan, g, s,
+                                                q_dtype, kv_dtype):
+    """B8's partial entry against its plain version (out within the
+    whole entry's tolerance, lse within 2e-4), one launch counted as
+    decode_attention_partial, empty ranges out 0 and lse -inf, and the
+    out of every lane with slots bit for bit the whole entry's (the same
+    kernel): a lane alone in one split and lanes merged over many."""
+    rng = np.random.default_rng(100 * g + s)
+    b, hkv, d = 6, 2, 128
+    lengths = rng.integers(1, s + 1, b)
+    lengths[:4] = (s, 1, 0, -2)          # full, one slot, two empty
+    lengths = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
+    q = _rand(rng, (b, hkv * g, d), q_dtype, dev)
+    k = _rand(rng, (b, s, hkv, d), kv_dtype, dev)
+    v = _rand(rng, (b, s, hkv, d), kv_dtype, dev)
+    before = kops.launch_counts()
+    out, lse = kops.decode_attention_partial(q, k, v, lengths)
+    torch.cuda.synchronize()
+    after = kops.launch_counts()
+    assert after["decode_attention_partial"] == \
+        before["decode_attention_partial"] + 1
+    assert after["decode_attention"] == before["decode_attention"]
+    assert out.dtype == q_dtype and lse.dtype == torch.float32
+    want, want_lse = kref.decode_attention_partial_ref(q.float(), k, v,
+                                                       lengths)
+    tol = MODEL_TOL if q_dtype == torch.float32 else BF16_OUT_TOL
+    torch.testing.assert_close(out.float(), want, **tol)
+    torch.testing.assert_close(lse, want_lse, **MODEL_TOL)
+    live = lengths > 0
+    assert (out[~live] == 0).all() and (lse[~live] == -torch.inf).all()
+    whole = kops.decode_attention(q, k, v, lengths)
+    assert torch.equal(out[live], whole[live])
+
+
+def test_decode_attention_partial_merged_over_ranges(dev):
+    """Four ranks' slot ranges of a bf16 ring through the card's partial
+    entry, merged by ``merge_partials``, against the whole entry's plain
+    version: the model axis's flash-decoding on one card."""
+    from repro_torch.runtime.model_axis import merge_partials
+
+    rng = np.random.default_rng(5)
+    b, h, hkv, d, s, m = 8, 32, 8, 128, 2080, 4
+    lengths = torch.as_tensor(rng.integers(1, s + 1, b), dtype=torch.int32,
+                              device=dev)
+    q = _rand(rng, (b, h, d), torch.float32, dev)
+    k = _rand(rng, (b, s, hkv, d), torch.bfloat16, dev)
+    v = _rand(rng, (b, s, hkv, d), torch.bfloat16, dev)
+    n = s // m
+    parts = [kops.decode_attention_partial(
+        q, k[:, r * n:(r + 1) * n].contiguous(),
+        v[:, r * n:(r + 1) * n].contiguous(),
+        torch.clamp(lengths - r * n, 0, n).to(torch.int32))
+        for r in range(m)]
+    got, _ = merge_partials([o for o, _ in parts], [l for _, l in parts])
+    torch.testing.assert_close(
+        got, kref.decode_attention_ref(q, k, v, lengths), **MODEL_TOL)
+
+
 def _check_decode(dev, b, h, hkv, d, s, lengths, dtype, seed):
     rng = np.random.default_rng(seed)
     lengths = torch.as_tensor(lengths, dtype=torch.int32, device=dev)

@@ -421,3 +421,62 @@ def test_segment_table_fold_bit_exact(reduce):
                                out_len=out_len, live_len=live),
             vals, init, reduce)
         assert np.signbit(no_pad[:, 0]).all()
+
+
+# -- B8's partial entry: the output over a range of slots with its
+# log-sum-exp, merged over ranges as the model axis merges its ranks
+
+@pytest.mark.parametrize("ranges", [1, 2, 3, 4])
+@pytest.mark.parametrize("g", [1, 4])
+def test_decode_attention_partial_merged_is_the_whole(ranges, g):
+    """The plain partial on each of ``ranges`` slot ranges of a cache (a
+    range holding none of a lane's valid slots is empty: out 0, lse
+    -inf), merged in range order (``model_axis.merge_partials``), within
+    1e-6 of ``decode_attention_ref`` over the whole cache, and of the
+    reference's plain decode attention."""
+    from repro_torch.kernels import ref as tref
+    from repro_torch.runtime.model_axis import merge_partials
+
+    rng = np.random.default_rng(10 * ranges + g)
+    b, hkv, d, s = 5, 2, 16, 40
+    q = rng.standard_normal((b, hkv * g, d)).astype(np.float32)
+    k = rng.standard_normal((b, s, hkv, d)).astype(np.float32)
+    v = rng.standard_normal((b, s, hkv, d)).astype(np.float32)
+    lengths = np.array([s, 1, 17, 33, 10], np.int32)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    cuts = np.linspace(0, s, ranges + 1).astype(int)
+    outs, lses = [], []
+    for lo, hi in zip(cuts[:-1], cuts[1:]):
+        local = torch.from_numpy(np.clip(lengths - lo, 0, hi - lo).astype(
+            np.int32))
+        out, lse = tops.decode_attention_partial(tq, tk[:, lo:hi],
+                                                 tv[:, lo:hi], local)
+        empty = local <= 0
+        assert (out[empty] == 0).all() and (lse[empty] == -np.inf).all()
+        assert lse[~empty].isfinite().all() and lse.dtype == torch.float32
+        outs.append(out)
+        lses.append(lse)
+    got, lse = merge_partials(outs, lses)
+    want = tref.decode_attention_ref(tq, tk, tv, torch.from_numpy(lengths))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
+                               atol=1e-6)
+    # the reference's oracle: each lane's valid prefix, dense attention
+    jwant = np.stack([np.asarray(jref.decode_attention_ref(
+        jnp.asarray(q[i:i + 1]), jnp.asarray(k[i:i + 1, :lengths[i]]),
+        jnp.asarray(v[i:i + 1, :lengths[i]])))[0] for i in range(b)])
+    np.testing.assert_allclose(got.numpy(), jwant, rtol=1e-6, atol=1e-6)
+    # the merged log-sum-exp is the whole cache's
+    logits = np.einsum("bhgd,bshd->bhgs", q.reshape(b, hkv, g, d), k) \
+        * d ** -0.5
+    logits = np.where(np.arange(s) < lengths[:, None, None, None], logits,
+                      -np.inf)
+    np.testing.assert_allclose(lse.numpy(), np.logaddexp.reduce(
+        logits, axis=-1).reshape(b, hkv * g), rtol=1e-6, atol=1e-6)
+
+
+def test_decode_attention_partial_refuses_grad():
+    q = torch.zeros((1, 2, 8), requires_grad=True)
+    kv = torch.zeros((1, 4, 1, 8))
+    with pytest.raises(NotImplementedError, match="no backward"):
+        tops.decode_attention_partial(q, kv, kv,
+                                      torch.ones(1, dtype=torch.int32))

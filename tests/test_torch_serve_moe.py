@@ -300,7 +300,10 @@ def test_sliding_window_runs_until_a_position_reaches_it(reference, port):
 def test_launch_serve_moe_comm_on_the_cpu():
     """``--moe-comm`` over ``--mesh 8`` (and ``local``: one rank on the
     CPU) serves every request; ``--experts`` overrides the expert count;
-    a 2-D mesh and a dense architecture are refused."""
+    a production mesh, a model axis wider than the experts (the
+    reference's tp_local split: ROADMAP A22c) and a dense architecture
+    are refused.  (A ``DxM`` mesh serves since A22b:
+    ``tests/test_torch_tp_serve.py``.)"""
     from repro_torch.launch import serve as tserve
 
     base = ["--arch", "mixtral-8x22b", "--reduced", "--device", "cpu",
@@ -312,8 +315,10 @@ def test_launch_serve_moe_comm_on_the_cpu():
         "decode_steps"]
     rep = tserve.main(base + ["--mesh", "local"])
     assert len(rep.completed) == 8
-    with pytest.raises(ValueError, match="one axis"):
-        tserve.main(base + ["--experts", "8", "--mesh", "2x4"])
+    with pytest.raises(NotImplementedError, match="ROADMAP A22c"):
+        tserve.main(base + ["--experts", "8", "--mesh", "pod"])
+    with pytest.raises(NotImplementedError, match="ROADMAP A22c"):
+        tserve.main(base + ["--experts", "4", "--mesh", "1x8"])
     with pytest.raises(ValueError, match="MoE architecture"):
         tserve.main(["--arch", "llama3-8b", "--reduced", "--device", "cpu",
                      "--moe-comm"])

@@ -221,8 +221,8 @@ def test_mesh_2_step_matches_the_jax_step(arch, dp_run):
 @pytest.mark.parametrize("spec,item", [("2x2", "A22"), ("1x2", "A22"),
                                        ("pod", "A22"), ("multipod", "A22")])
 def test_model_axis_is_refused(spec, item):
-    """What the model axis still refuses names ROADMAP A22's second half
-    (A22b): the production meshes, and at ``2x2`` and ``1x2`` an MoE
+    """What the model axis still refuses names ROADMAP A22's rest
+    (A22c): the production meshes, and at ``2x2`` and ``1x2`` an MoE
     config with fewer experts than the model axis (one expert on two
     model ranks: the reference's tp_local split)."""
     import dataclasses
@@ -231,7 +231,7 @@ def test_model_axis_is_refused(spec, item):
     from repro_torch.launch import train
     cfg = dataclasses.replace(get_config("mixtral-8x22b", reduced=True),
                               num_experts=1, experts_per_token=1)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}b"):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}c"):
         train.data_parallel(spec, BATCH, "cpu", cfg)
 
 

@@ -76,7 +76,7 @@ def test_train_falcon_mamba_on_the_cpu():
 
 
 def test_train_entry_point_refusals(monkeypatch):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A22b\b"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A22c\b"):
         T.main(CPU + ["--arch", "llama3-8b", "--reduced", "--steps", "1",
                       "--mesh", "pod"])
     with pytest.raises(SystemExit):
