@@ -466,6 +466,14 @@ NCCL_INIT = pathlib.Path(__file__).resolve().parent / "build" / "nccl_init"
 # x 2048 tokens, float32 activations (the train twins' settings)
 DIST_TP_ARCHS = ("llama3-8b", "falcon-mamba-7b")
 DIST_TP_LAYERS = 2
+# the tp_local MoE split: mixtral-8x22b's 8 experts on a 1x16 model axis
+# (16 threads, each all 8 experts on 1024 of their 16384 columns), one
+# layer at its published widths, a batch of 2 x 512 tokens: each thread's
+# ThreadComm all-reduce concatenates all 16 ranks' expert outputs, 1 GB
+# a thread here (at 2 x 2048 tokens, 4 GB a thread: more than an 80 GB
+# H100 holds beside the 16 ranks' weights)
+DIST_TP_LOCAL = ("mixtral-8x22b", 1, 16)
+DIST_TP_LOCAL_ARGV = ["--seq", "512", "--batch", "2", "--seed", str(SEED)]
 DIST_TP_ARGV = ["--seq", "2048", "--batch", "2", "--seed", str(SEED)]
 DIST_TP_TOL = 1e-4
 # serving over the model axis: launch.serve --mesh 1x1 with the serve
@@ -478,6 +486,12 @@ DIST_TP_SERVE_LAYERS = {"llama3-8b": 4, "mixtral-8x22b": 2}
 DIST_TP_SERVE_ARGV = ["--requests", "8", "--slots", "4", "--prompt-len",
                       "256", "--gen", "8", "--seed", str(SEED)]
 DIST_TP_SERVE_TOL = 1e-4
+# the tp_local split served: mixtral-8x22b, one layer at its published
+# widths, on a 1x16 model axis of 16 threads; 4 requests of 28-token
+# prompts and 4 new tokens over 4 slots (ring 32: 2 slots a rank)
+DIST_TP_LOCAL_SERVE = ("mixtral-8x22b", 1, 16)
+DIST_TP_LOCAL_SERVE_ARGV = ["--requests", "4", "--slots", "4", "--prompt-len",
+                            "28", "--gen", "4", "--seed", str(SEED)]
 # the backward kernel against the plain backward: each gradient within
 # this share of its largest element
 SCAN_BWD_TOL = 2e-4
@@ -4922,6 +4936,116 @@ def model_axis_calls(cfg, accum: int, seq: int, split_m: int) -> dict:
             "all_reduce": reduces}
 
 
+POD_AXES = ("pod", "data", "model")
+
+
+@contextlib.contextmanager
+def expert_widths():
+    """The (experts, columns) pairs that moe.moe_expert_local runs with
+    inside the block, from any thread: a set."""
+    from repro_torch.models import moe
+    seen, fn = set(), moe.moe_expert_local
+
+    def call(buf, w1, *args, **kwargs):
+        seen.add((buf.shape[-3], w1.shape[-1]))
+        return fn(buf, w1, *args, **kwargs)
+
+    moe.moe_expert_local = call
+    try:
+        yield seen
+    finally:
+        moe.moe_expert_local = fn
+
+
+def pod_arms(torch, cfg, args, local, local_first, state, launched) -> dict:
+    """dist_train's pod axis, inside its NCCL group, after --mesh local's
+    first step (``local`` holds it, ``local_first`` its metrics):
+    launch.train's setup on a 1x1x1 pod x data x model mesh (a
+    launch.mesh.Mesh as args.mesh; the data, pod, model and batch groups
+    each of one rank) takes the same first step,
+    bit for bit local's (parameters, AdamW state, loss, gradient norm),
+    its split leaves' gradients through the HSDP reduction (a
+    reduce-scatter over the batch group, an all-gather over the pod
+    group, each layer of each microbatch); every group's collectives are
+    counted and held.  Then the same under hierarchical_rules
+    (opt_fsdp_axes=("pod", "data"), the reference's dry-run train rules),
+    bit for bit too, the norm's gathers then over the batch group (at one
+    pod each block is its part: the update's block exchange is not
+    reached).  B9 and B9′ launched as in the 2-D step, added to
+    ``launched``.  Returns the phase's line."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import train as ltrain
+    from repro_torch.models.transformer import tree_leaves
+
+    mesh = mesh_mod.Mesh((1, 1, 1), POD_AXES)
+    accum, layers = args.accum, cfg.num_layers
+    out = {"phase": "dist_train", "part": "1x1x1", "arch": cfg.name,
+           "layers": layers, "mesh": list(mesh.axis_sizes),
+           "axes": list(POD_AXES)}
+    for arm, rules in (("pod", None),
+                       ("opt_fsdp_axes", ltrain.hierarchical_rules(cfg,
+                                                                   mesh))):
+        t0 = time.perf_counter()
+        pargs = ltrain.parse_args(TRAIN_SSM_ARGV)
+        pargs.mesh = mesh
+        tr = ltrain.setup(cfg, pargs, retries=0, rules=rules)
+        gather = tr.model.ctx.gather
+        check(gather.hier is not None and tr.comm is gather.batch
+              and (rules is None) == (gather.odims is None),
+              f"dist_train {arm}: the trainer is not the pod one")
+        groups = {"data": gather.comm, "batch": gather.batch,
+                  "pod": gather.pod, "model": tr.model.ctx.model.comm}
+        kops.reset_launch_counts()
+        with contextlib.ExitStack() as stack:
+            calls = {k: stack.enter_context(counted_collectives(c))
+                     for k, c in groups.items()}
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            got = tr.step()
+            end.record()
+            torch.cuda.synchronize()
+        counts = kops.launch_counts()
+        calls = {k: dict(v) for k, v in calls.items()}
+        same = all(torch.equal(a, b) for a, b in zip(state(local),
+                                                     state(tr)))
+        for k in ("loss", "grad_norm"):
+            same = same and float(got[k]) == float(local_first[k])
+        check(same, f"dist_train {arm}: the 1x1x1 step is not the --mesh "
+              "local step bit for bit")
+        expect = {"selective_scan": 2 * layers * accum,
+                  "selective_scan_bwd": layers * accum}
+        got_counts = {k: counts[k] for k in expect}
+        check(got_counts == expect, f"dist_train {arm}: B9 launched "
+              f"{got_counts}, not {expect}")
+        for k, n in got_counts.items():
+            launched[k] += n
+        # the norm assembles each leaf over the group of its block: the
+        # data group's parts, or the batch group's opt_fsdp_axes blocks
+        blocks = gather.dims if gather.odims is None else gather.odims
+        norm = sum(d is not None for d in tree_leaves(blocks))
+        want = {"data": {"all_gather": accum * (2 * layers + 1)},
+                "batch": {"reduce_scatter": accum * (layers + 1) + 1,
+                          "all_gather": 1, "all_reduce": 1},
+                "pod": {"all_gather": accum * (layers + 1)}}
+        want["data" if gather.wide is gather.comm else "batch"][
+            "all_gather"] += norm
+        for k, w in want.items():
+            check(calls[k] == w, f"dist_train {arm}: the {k} group ran "
+                  f"{calls[k]}, not {w}")
+        out[arm] = {"bit_for_bit_mesh_local": True, "launches": got_counts,
+                    "collectives_per_step": calls,
+                    "step_ms": start.elapsed_time(end),
+                    "loss": float(got["loss"]),
+                    "wall_s": round(time.perf_counter() - t0, 1)}
+        del tr, got, gather, groups
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_dist_train(torch, card):
     """launch.train --mesh 1x1 on falcon-mamba-7b at its published widths,
     DIST_TRAIN_LAYERS layers, train_ssm's settings: the 2-D path over a
@@ -4940,8 +5064,10 @@ def phase_dist_train(torch, card):
     layers and microbatches; then the two steps timed in the order local,
     2-D, 2-D, local (CUDA events; peak memory allocated during each, both
     trainers resident), and the bytes a rank holds (distinct storages)
-    beside those param_specs would place at D = 8.  Returns the 2-D step's
-    launch counts."""
+    beside those param_specs would place at D = 8.  Between the checked
+    step and the timed ones, pod_arms: the same first step on a 1x1x1 pod
+    x data x model mesh, without and with opt_fsdp_axes.  Returns the 2-D
+    and pod steps' launch counts."""
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import ops as kops
     from repro_torch.launch import train as ltrain
@@ -5042,6 +5168,8 @@ def phase_dist_train(torch, card):
         check(model_calls == want_model, f"dist_train: the 2-D step ran "
               f"the model group's collectives {model_calls}, not "
               f"{want_model}")
+        pod_line = pod_arms(torch, cfg, args, local, want, state, launched)
+        pod_line["card"] = card
         t2 = time.perf_counter()
         ms = {"local": [], "fsdp": []}
         peak = {"local": 0, "fsdp": 0}
@@ -5057,6 +5185,7 @@ def phase_dist_train(torch, card):
         del local, dp, want, got, metrics
     gc.collect()
     torch.cuda.empty_cache()
+    emit(pod_line)
     local_ms, fsdp_ms = (sum(ms[k]) / 2 for k in ("local", "fsdp"))
     emit({"phase": "dist_train", "arch": cfg.name, "layers": cfg.num_layers,
           "of_layers": full.num_layers, "d_model": cfg.d_model,
@@ -5105,7 +5234,13 @@ def phase_dist_tp_forward(torch, card, dev=None):
     stream; the local one on the default stream) and the peak memory
     allocated during each timed forward, its parameters resident (both
     ranks' threads share the card).  Returns the timed forwards' launch
-    counts."""
+    counts.  Then DIST_TP_LOCAL the same way on DIST_TP_LOCAL_ARGV's
+    batch: mixtral-8x22b's 8 experts on a 1x16 model axis of 16 threads (the reference's tp_local split,
+    ep_mode off: each rank all 8 experts on its 1024 columns, their
+    partial sums all-reduced), each thread drawing its parameters in turn
+    (a whole expert weight is 3.2 GB), its experts' columns recorded."""
+    import threading
+
     from repro_torch.comm.communicator import LoopbackComm
     from repro_torch.configs.registry import get_config
     from repro_torch.data.pipeline import SyntheticLM
@@ -5115,18 +5250,20 @@ def phase_dist_tp_forward(torch, card, dev=None):
     from repro_torch.runtime import sharding
     from repro_torch.runtime.model_axis import ModelAxis
 
-    args = ltrain.parse_args(["--arch", "llama3-8b"] + DIST_TP_ARGV)
     dev = dev or torch.device("cuda", torch.cuda.current_device())
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     launched = collections.Counter()
+    init_lock = threading.Lock()
+    arms = [(a, DIST_TP_LAYERS, 2, DIST_TP_ARGV) for a in DIST_TP_ARCHS]
+    arms.append(DIST_TP_LOCAL + (DIST_TP_LOCAL_ARGV,))
     try:
-        for arch in DIST_TP_ARCHS:
+        for arch, layers, msize, argv in arms:
+            args = ltrain.parse_args(["--arch", arch] + argv)
             t0 = time.perf_counter()
-            cfg = dataclasses.replace(get_config(arch),
-                                      num_layers=DIST_TP_LAYERS)
+            cfg = dataclasses.replace(get_config(arch), num_layers=layers)
             tokens, labels = (torch.from_numpy(a).to(dev, torch.int64)
                               for a in SyntheticLM(
                                   cfg.vocab_size, args.seq, args.batch,
@@ -5158,7 +5295,7 @@ def phase_dist_tp_forward(torch, card, dev=None):
             del params, model
             gc.collect()
             torch.cuda.empty_cache()
-            rules = ltrain.fsdp_rules(cfg, 1, 2)
+            rules = ltrain.fsdp_rules(cfg, 1, msize)
 
             def rank(comm):
                 tp = ModelAxis(comm)
@@ -5167,8 +5304,11 @@ def phase_dist_tp_forward(torch, card, dev=None):
                 m = Model(cfg, RunCtx(act_dtype=torch.float32, gather=gather,
                                       model=tp, vocab_shards=tp.size),
                           device=dev)
-                p = m.init_params(torch.Generator(device=dev).manual_seed(
-                    args.seed), master=True)
+                with init_lock:
+                    p = m.init_params(torch.Generator(
+                        device=dev).manual_seed(args.seed), master=True)
+                    torch.cuda.current_stream().synchronize()
+                    torch.cuda.empty_cache()
                 held = sum(t.numel() * t.element_size()
                            for t in tree_leaves(p))
                 with torch.no_grad():
@@ -5185,7 +5325,8 @@ def phase_dist_tp_forward(torch, card, dev=None):
                 return float(loss), ms, held
 
             t1 = time.perf_counter()
-            out = ThreadWorld(torch, 2, 1, dev).run(rank)
+            with expert_widths() as columns:
+                out = ThreadWorld(torch, msize, 1, dev).run(rank)
             counts = kops.launch_counts()
             torch.cuda.synchronize()
             tp_peak = torch.cuda.max_memory_allocated()
@@ -5199,31 +5340,40 @@ def phase_dist_tp_forward(torch, card, dev=None):
                   "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
                   "d_inner": cfg.d_inner if cfg.ssm_state else 0,
                   "vocab": cfg.vocab_size, "seq": args.seq,
-                  "batch": args.batch, "mesh": "1x2",
-                  "comm": "ThreadWorld(2, 1): two threads, one stream "
-                          "each, as the model group; LoopbackComm(1) as "
-                          "each data group",
+                  "batch": args.batch, "mesh": f"1x{msize}",
+                  "comm": f"ThreadWorld({msize}, 1): {msize} threads, one "
+                          "stream each, as the model group; LoopbackComm(1) "
+                          "as each data group",
+                  "experts": cfg.num_experts, "ep_mode": rules.ep_mode,
+                  "experts_and_columns_run": sorted(columns),
                   "act_dtype": "float32", "tf32": False,
                   "losses": losses, "local_loss": want,
                   "max_rel_err": rel, "tol": DIST_TP_TOL,
                   "b9_launches": scans,
                   "tp_ms_by_rank": [o[1] for o in out],
                   "local_ms": local_ms,
-                  "peak_allocated_bytes": {"two_ranks": tp_peak,
+                  "peak_allocated_bytes": {"ranks": tp_peak,
                                            "local": local_peak},
                   "param_bytes": {"rank": [o[2] for o in out],
                                   "local": local_bytes},
                   "wall_s": {"local": round(t1 - t0, 1),
                              "tp": round(time.perf_counter() - t1, 1)},
                   "card": card})
-            check(len(set(losses)) == 1, f"dist_tp_forward {arch}: the two "
+            check(len(set(losses)) == 1, f"dist_tp_forward {arch}: the "
                   f"model ranks computed the losses {losses}")
-            check(rel <= DIST_TP_TOL, f"dist_tp_forward {arch}: the 1x2 "
-                  f"loss {losses[0]} is {rel} apart from the local {want}")
+            check(rel <= DIST_TP_TOL, f"dist_tp_forward {arch}: the "
+                  f"1x{msize} loss {losses[0]} is {rel} apart from the local "
+                  f"{want}")
+            if cfg.is_moe and cfg.num_experts < msize:
+                check(not rules.ep_mode and columns == {
+                    (cfg.num_experts, cfg.d_ff // msize)},
+                      f"dist_tp_forward {arch}: the experts ran "
+                      f"{sorted(columns)} (experts, columns), not every "
+                      f"expert on d_ff/{msize}")
             if cfg.ssm_state:
-                check(scans == 2 * cfg.num_layers, f"dist_tp_forward "
+                check(scans == msize * cfg.num_layers, f"dist_tp_forward "
                       f"{arch}: B9 launched {scans} times, not once a "
-                      f"layer a rank ({2 * cfg.num_layers})")
+                      f"layer a rank ({msize * cfg.num_layers})")
             gc.collect()
             torch.cuda.empty_cache()
     finally:
@@ -5302,7 +5452,8 @@ def phase_dist_tp_serve(torch, card, dev=None):
        the serve cell's engine settings with the requests and the depth
        cut (DIST_TP_SERVE_1X1): the tokens, and one more decode step's
        logits, bit for bit; B8's whole entry launched once a layer and
-       decode tick.
+       decode tick.  Then the same on a 1x1x1 pod x data x model mesh (a
+       launch.mesh.Mesh as args.mesh), bit for bit too.
     2. --mesh 1x2 played by two threads (ThreadWorld(2, 1) as the model
        group, LoopbackComm(1) as each data group, each thread its own
        engine on its own stream) beside --mesh local, float32 and TF32
@@ -5313,12 +5464,17 @@ def phase_dist_tp_serve(torch, card, dev=None):
        bits on both ranks, B8's partial entry launched layers x decode
        ticks x 2 (the whole entry never), a rank's parameter bytes about
        half the local ones, and the decode step's ms on each rank beside
-       the local one.
+       the local one.  Then DIST_TP_LOCAL_SERVE: mixtral-8x22b's 8 experts
+       at 1x16 on 16 threads (the tp_local split, every rank all 8 experts
+       on 1024 columns), one layer, 4 requests: the same checks, B8's
+       partial entry 16 x layers x ticks, a rank's bytes about 1/16.
     3. The kernel line of B8's partial entry on rank 0's ring block of
        llama3-8b's first layer (b8_partial_line), and the bytes a rank
        would hold at 1x8 of the published mixtral-8x22b and
        llama-3.2-vision-90b under the serve rule at this card's limit.
     Returns (launch counts, the kernel line's numbers)."""
+    import threading
+
     from repro_torch.comm.communicator import LoopbackComm
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import ops as kops
@@ -5351,8 +5507,11 @@ def phase_dist_tp_serve(torch, card, dev=None):
     cfg = dataclasses.replace(get_config(arch), num_layers=layers)
     ctx = RunCtx(act_dtype=torch.bfloat16)
     runs = {}
-    for spec in ("local", "1x1"):
-        args = lserve.parse_args(SERVE_ARGV + more + ["--mesh", spec])
+    for spec in ("local", "1x1", "1x1x1"):
+        args = lserve.parse_args(SERVE_ARGV + more + [
+            "--mesh", "1x1" if spec == "1x1x1" else spec])
+        if spec == "1x1x1":
+            args.mesh = mesh_mod.Mesh((1, 1, 1), POD_AXES)
         with (nccl_group(torch) if spec != "local"
               else contextlib.nullcontext()):
             engine = lserve.make_engine(cfg, ctx, args)
@@ -5368,8 +5527,10 @@ def phase_dist_tp_serve(torch, card, dev=None):
         torch.cuda.empty_cache()
     (rep, counts, logits), (rep1, counts1, logits1) = runs["local"], \
         runs["1x1"]
+    rep3, counts3, logits3 = runs["1x1x1"]
     ticks = len(rep1.tick_seconds)
-    launched["decode_attention"] += counts1["decode_attention"]
+    launched["decode_attention"] += counts1["decode_attention"] \
+        + counts3["decode_attention"]
     emit({"phase": "dist_tp_serve", "part": "1x1", "arch": arch,
           "layers": layers, "d_model": cfg.d_model, "dtype": "bfloat16",
           "argv": SERVE_ARGV + more,
@@ -5381,7 +5542,13 @@ def phase_dist_tp_serve(torch, card, dev=None):
           "decode_ticks": ticks,
           "decode_attention_launches": counts1["decode_attention"],
           "decode_tokens_per_s": {"1x1": rep1.tokens_per_s,
-                                  "local": rep.tokens_per_s},
+                                  "local": rep.tokens_per_s,
+                                  "1x1x1": rep3.tokens_per_s},
+          "pod_1x1x1": {"tokens_equal_local": rep3.outputs == rep.outputs,
+                        "logits_bit_equal_local": bool(torch.equal(
+                            logits3, logits)),
+                        "decode_attention_launches":
+                            counts3["decode_attention"]},
           "wall_s": round(time.perf_counter() - t0, 1), "card": card})
     check(len(rep1.completed) == int(more[1]), "dist_tp_serve 1x1: "
           f"{len(rep1.completed)} requests completed")
@@ -5392,7 +5559,11 @@ def phase_dist_tp_serve(torch, card, dev=None):
     check(counts1["decode_attention"] == layers * ticks,
           f"dist_tp_serve 1x1: B8 launched {counts1['decode_attention']} "
           f"times in {ticks} ticks of {layers} layers")
-    del runs, logits, logits1
+    check(rep3.outputs == rep.outputs and torch.equal(logits3, logits)
+          and counts3["decode_attention"] == layers * len(rep3.tick_seconds),
+          "dist_tp_serve: --mesh 1x1x1 is not --mesh local bit for bit "
+          f"(B8 launched {counts3['decode_attention']} times)")
+    del runs, logits, logits1, logits3
 
     # 2. --mesh 1x2 on two threads against --mesh local, float32
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
@@ -5401,11 +5572,15 @@ def phase_dist_tp_serve(torch, card, dev=None):
     torch.backends.cudnn.allow_tf32 = False
     ctx = RunCtx(act_dtype=torch.float32)
     block = None
+    init_lock = threading.Lock()
+    arms = [(arch, layers, 2, DIST_TP_SERVE_ARGV)
+            for arch, layers in DIST_TP_SERVE_LAYERS.items()]
+    arms.append(DIST_TP_LOCAL_SERVE + (DIST_TP_LOCAL_SERVE_ARGV,))
     try:
-        for arch, layers in DIST_TP_SERVE_LAYERS.items():
+        for arch, layers, msize, more_argv in arms:
             t0 = time.perf_counter()
             cfg = dataclasses.replace(get_config(arch), num_layers=layers)
-            argv = ["--arch", arch] + DIST_TP_SERVE_ARGV
+            argv = ["--arch", arch] + more_argv
             local = lserve.make_engine(cfg, ctx, lserve.parse_args(argv))
             rep = local.run()
             want, local_ms = timed(lambda: local.model.decode_step(
@@ -5414,13 +5589,16 @@ def phase_dist_tp_serve(torch, card, dev=None):
             del local
             gc.collect()
             torch.cuda.empty_cache()
-            args = lserve.parse_args(argv + ["--mesh", "1x2"])
+            args = lserve.parse_args(argv + ["--mesh", f"1x{msize}"])
             shared = {}
 
             def rank(comm):
                 grid = mesh_mod.Grid(0, comm.rank, LoopbackComm(1, device=dev),
                                      comm)
-                eng = lserve.make_engine(cfg, ctx, args, grid=grid)
+                with init_lock:
+                    eng = lserve.make_engine(cfg, ctx, args, grid=grid)
+                    torch.cuda.current_stream().synchronize()
+                    torch.cuda.empty_cache()
                 comm._tw.barrier.wait()
                 if comm.rank == 0:
                     torch.cuda.synchronize()
@@ -5445,7 +5623,8 @@ def phase_dist_tp_serve(torch, card, dev=None):
                 return (out, got, ms, nbytes(eng.params),
                         tuple(eng.cache["layers"]["k"].shape), kept)
 
-            out = ThreadWorld(torch, 2, 1, dev).run(rank)
+            with expert_widths() as columns:
+                out = ThreadWorld(torch, msize, 1, dev).run(rank)
             counts = shared["counts"]
             ticks = len(out[0][0].tick_seconds)
             rels = [rel_l2(torch, o[1], want) for o in out]
@@ -5453,15 +5632,16 @@ def phase_dist_tp_serve(torch, card, dev=None):
                 "decode_attention_partial"]
             if out[0][5] is not None:
                 block = out[0][5]
-            emit({"phase": "dist_tp_serve", "part": "1x2", "arch": arch,
-                  "layers": layers, "d_model": cfg.d_model,
+            emit({"phase": "dist_tp_serve", "part": f"1x{msize}",
+                  "arch": arch, "layers": layers, "d_model": cfg.d_model,
                   "heads": [cfg.num_heads, cfg.num_kv_heads],
                   "experts": cfg.num_experts, "vocab": cfg.vocab_size,
-                  "argv": argv, "mesh": "1x2", "dtype": "float32",
+                  "argv": argv, "mesh": f"1x{msize}", "dtype": "float32",
                   "tf32": False,
-                  "comm": "ThreadWorld(2, 1): two threads, one stream each, "
-                          "as the model group; LoopbackComm(1) as each "
-                          "data group",
+                  "comm": f"ThreadWorld({msize}, 1): {msize} threads, one "
+                          "stream each, as the model group; LoopbackComm(1) "
+                          "as each data group",
+                  "experts_and_columns_run": sorted(columns),
                   "ring_block": list(out[0][4]),
                   "completed": [len(o[0].completed) for o in out],
                   "tokens_equal_local": [o[0].outputs == rep.outputs
@@ -5479,19 +5659,27 @@ def phase_dist_tp_serve(torch, card, dev=None):
             for o in out:
                 check(o[0].outputs == rep.outputs, f"dist_tp_serve {arch}: "
                       "a 1x2 rank emitted other tokens than --mesh local")
-            check(torch.equal(out[0][1], out[1][1]), f"dist_tp_serve "
-                  f"{arch}: the two model ranks' logits differ")
+            check(all(torch.equal(o[1], out[0][1]) for o in out),
+                  f"dist_tp_serve {arch}: the model ranks' logits differ")
             check(max(rels) <= DIST_TP_SERVE_TOL, f"dist_tp_serve {arch}: "
-                  f"the 1x2 logits are {rels} apart from the local ones")
-            check(counts["decode_attention_partial"] == 2 * layers * ticks
+                  f"the 1x{msize} logits are {rels} apart from the local "
+                  "ones")
+            check(counts["decode_attention_partial"]
+                  == msize * layers * ticks
                   and counts["decode_attention"] == 0,
                   f"dist_tp_serve {arch}: B8's partial entry launched "
                   f"{counts['decode_attention_partial']} times (the whole "
-                  f"{counts['decode_attention']}), not 2 x {layers} layers "
-                  f"x {ticks} ticks")
-            check(all(abs(o[3] / local_bytes - 0.5) < 0.05 for o in out),
+                  f"{counts['decode_attention']}), not {msize} x {layers} "
+                  f"layers x {ticks} ticks")
+            check(all(abs(o[3] / local_bytes - 1 / msize) < 0.05
+                      for o in out),
                   f"dist_tp_serve {arch}: a rank holds "
                   f"{[o[3] for o in out]} bytes of {local_bytes}")
+            if cfg.num_experts and cfg.num_experts < msize:
+                check(columns == {(cfg.num_experts, cfg.d_ff // msize)},
+                      f"dist_tp_serve {arch}: the experts ran "
+                      f"{sorted(columns)} (experts, columns), not every "
+                      f"expert on d_ff/{msize}")
             del out, want
             gc.collect()
             torch.cuda.empty_cache()
@@ -5517,7 +5705,62 @@ def phase_dist_tp_serve(torch, card, dev=None):
     emit({"phase": "dist_tp_serve", "part": "bytes_at_1x8",
           "limit_bytes": sharding.serve_limit(dev),
           "by_param_specs": at8, "card": card})
+    emit(pod_bytes_line(torch, dev, card))
     return dict(launched), res
+
+
+def pod_bytes_line(torch, dev, card) -> dict:
+    """The bytes a rank would hold of the published mixtral-8x22b at
+    ``pod`` and ``multipod``, each leaf's block by param_specs: training
+    (launch.train's rules) at 12 bytes a parameter (float32 weights, m
+    and v), multipod also under hierarchical_rules (m and v over pod x
+    data), and serving (two bytes a parameter) under the serve rule at
+    this card's limit and at the reference's SERVE_RESIDENCY_LIMIT."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import train as ltrain
+    from repro_torch.models.transformer import Model, RunCtx, tree_leaves
+    from repro_torch.runtime import sharding
+
+    cfg = get_config("mixtral-8x22b")
+    with FakeTensorMode():
+        params = Model(cfg, RunCtx(), device="cpu").init_params(
+            torch.Generator())
+    leaves = tree_leaves(params)
+
+    def held(rules, weight: int, state: int = 0) -> int:
+        opt = rules if rules.opt_fsdp_axes is None else dataclasses.replace(
+            rules, fsdp_axes=rules.opt_fsdp_axes)
+        total = 0
+        for r, nbytes in ((rules, weight), (opt, state)):
+            if nbytes:
+                specs = tree_leaves(sharding.param_specs(r, params))
+                total += sum(nbytes * math.prod(sharding.block_shape(
+                    r, sp, t.shape)) for sp, t in zip(specs, leaves))
+        return total
+
+    out = {"phase": "dist_tp_serve", "part": "bytes_at_pod",
+           "arch": cfg.name,
+           "params": sum(math.prod(t.shape) for t in leaves)}
+    for spec in ("pod", "multipod"):
+        mesh = mesh_mod.make_mesh(spec)
+        row = {"mesh": list(mesh.axis_sizes),
+               "train_12B": held(ltrain.mesh_rules(cfg, mesh), 4, 8)}
+        if "pod" in mesh.shape:
+            row["train_12B_opt_fsdp_axes"] = held(
+                ltrain.hierarchical_rules(cfg, mesh), 4, 8)
+        for name, limit in (("serve_card_limit", None),
+                            ("serve_reference_limit",
+                             sharding.SERVE_RESIDENCY_LIMIT)):
+            rules = sharding.serve_rules(cfg, mesh, limit=limit, device=dev)
+            row[name] = {"bytes": held(rules, 2),
+                         "fsdp_axes": rules.fsdp_axes}
+        out[spec] = row
+    out["limit_bytes"] = sharding.serve_limit(dev)
+    out["card"] = card
+    return out
 
 
 def phase_train_ssm_bf16(torch, card, f32_ms):

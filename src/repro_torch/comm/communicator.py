@@ -347,6 +347,21 @@ class DistComm:
 
         return self._done(work, recv, fold, async_op)
 
+    def sendrecv(self, x: torch.Tensor, dst: int, src: int) -> torch.Tensor:
+        """One rank a process: ``x`` sent to rank ``dst`` and the tensor of
+        ``x``'s shape that rank ``src`` sends returned (a permutation of the
+        group's ranks, which every rank joins): one ``all_to_all_single``
+        with one non-empty slice each way."""
+        assert self.p_local == 1, self.p_local
+        flat = x.contiguous().reshape(-1)
+        n = flat.numel()
+        sends, recvs = [0] * self.world, [0] * self.world
+        sends[dst], recvs[src] = n, n
+        out = flat.new_empty(n)
+        dist.all_to_all_single(out, flat, output_split_sizes=recvs,
+                               input_split_sizes=sends, group=self.group)
+        return out.view(x.shape)
+
     def all_reduce(self, x: torch.Tensor, op: str = "sum", *,
                    async_op: bool = False) -> Work:
         """``(p_local, ...)`` -> ``(p_local, ...)``: every local rank gets

@@ -49,9 +49,16 @@ its mesh's ``data`` axis::
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
         --arch llama3-8b --reduced --device cpu --mesh 2x2
 
-Still refused, naming ROADMAP A22c: ``pod``/``multipod`` and an MoE
-config with fewer experts than the model axis (the reference's
-``tp_local`` split).
+An MoE config with fewer experts than the model axis serves the
+reference's ``tp_local`` split (``ep_mode=False``: every rank runs every
+expert on its ``F/M`` columns, ``models.moe.moe_fwd``; the decode hook
+gathers the experts whole over the model group).  ``pod`` (16x16) is
+``DxM``; ``multipod`` (2x16x16, pod × data × model, global rank ``(p·D +
+d)·M + m``; a test passes a smaller ``launch.mesh.Mesh`` of that layout
+as ``args.mesh``) places the weights by the serve rule, ZeRO-inference
+over ``("pod", "data")`` where a model-axis part would not fit, and the
+caches by ``cache_specs``: the lanes over pod × data (the batch group),
+each served by its rank's model group.
 """
 from __future__ import annotations
 
@@ -81,8 +88,6 @@ __all__ = ["prefill_into_cache", "preset_lm100m", "parse_args",
            "build_engine", "submit_trace", "make_engine", "setup_batch_demo",
            "run_batch_demo", "main"]
 
-_PRODUCTION = ("pod", "16x16", "multipod", "2x16x16")
-
 log = logging.getLogger("repro_torch.serve")
 
 
@@ -97,42 +102,34 @@ def prefill_into_cache(model, params, cache, tokens):
     return cache, logits
 
 
-def serve_mesh(spec: str, cfg=None):
-    """``--mesh spec``'s ``D x M`` mesh where it has a model axis
-    (``"DxM"``), None for ``"local"`` or a count.  Refused, naming ROADMAP
-    A22c: the production meshes, and for ``cfg`` an MoE layer with fewer
-    experts than the model axis."""
-    if spec in _PRODUCTION:
-        raise NotImplementedError(
-            f"--mesh {spec}: the production meshes are not ported to "
-            "serving yet (ROADMAP A22c); give DxM")
-    if "x" not in spec:
+def serve_mesh(spec):
+    """``--mesh spec``'s mesh where it has a model axis (``DxM``, ``pod``,
+    ``multipod``, or a ``launch.mesh.Mesh`` with a ``model`` axis), None
+    for ``"local"`` or a count."""
+    if isinstance(spec, mesh_mod.Mesh):
+        mesh = spec
+    elif spec in ("local",) or spec.isdigit():
         return None
-    mesh = mesh_mod.make_mesh(spec)
-    if len(mesh.axis_sizes) != 2:
-        raise ValueError(f"--mesh {spec!r}: give D x M")
-    m = mesh.shape["model"]
-    if cfg is not None and cfg.is_moe and cfg.num_experts < m:
-        raise NotImplementedError(
-            f"--mesh {spec}: {cfg.num_experts} experts on a model axis of "
-            f"{m} (the reference's tp_local expert split) is not ported "
-            "yet (ROADMAP A22c)")
+    else:
+        mesh = mesh_mod.make_mesh(spec)
+    if "model" not in mesh.shape:
+        raise ValueError(f"--mesh {spec!r}: give D x M, pod or multipod")
     return mesh
 
 
 def serving_ctx(cfg, ctx: RunCtx, mesh, grid, *, limit=None,
                 device=None) -> RunCtx:
     """``ctx`` serving over ``mesh`` at ``grid``'s place (a
-    ``launch.mesh.Grid``: its data and model groups): the reference's
-    serve rules (``sharding.serve_rules`` at ``limit``), the placement hook
-    over the data group with the model axis (``RunCtx.gather``,
-    ``RunCtx.model``) and ``vocab_shards = M``, as the reference's
-    ``input_specs``."""
+    ``launch.mesh.Grid``: its data, model and, on a pod axis, pod and
+    batch groups): the reference's serve rules (``sharding.serve_rules``
+    at ``limit``), the placement hook over the groups they name with the
+    model axis (``Grid.gather_for``: ``RunCtx.gather``, ``RunCtx.model``)
+    and ``vocab_shards = M``, as the reference's ``input_specs``."""
     rules = sharding.serve_rules(cfg, mesh, limit=limit, device=device)
     tp = ModelAxis(grid.model)
     return dataclasses.replace(
-        ctx, gather=sharding.make_gather(rules, grid.data, model=tp),
-        model=tp, vocab_shards=tp.size)
+        ctx, gather=grid.gather_for(rules, tp), model=tp,
+        vocab_shards=tp.size)
 
 
 def make_comm(spec: str, device):
@@ -140,18 +137,18 @@ def make_comm(spec: str, device):
     (one on the CPU), ``"<P>"`` is ``LoopbackComm(P)`` on the one device,
     or, when a default process group of world > 1 is initialised,
     ``DistComm(P / world)`` in each process (a ``P`` the world does not
-    divide is refused).  ``"DxM"`` is this process's data group of the
-    ``D x M`` mesh over the default group (``launch.mesh.grid``, which
-    creates every group: ``build_engine`` makes the grid once and serves
-    the MoE hook over its data group).  The production meshes are refused
-    (ROADMAP A22c)."""
+    divide is refused).  ``"DxM"`` (``pod``, ``multipod``) is this
+    process's data group of the mesh over the default group (on a pod
+    axis its batch group, pod × data; ``launch.mesh.grid``, which creates
+    every group: ``build_engine`` makes the grid once and serves the MoE
+    hook over that group)."""
     device = torch.device(device)
     if spec == "local":
         p = torch.cuda.device_count() if device.type == "cuda" else 1
         return LoopbackComm(max(1, p), device=device)
     mesh = serve_mesh(spec)
     if mesh is not None:
-        return mesh_mod.grid(mesh, device).data
+        return mesh_mod.grid(mesh, device).batch
     if not spec.isdigit():
         raise ValueError(f"--mesh {spec!r}: give 'local', a count ('8') "
                          "or 'DxM'")
@@ -183,7 +180,7 @@ def build_moe_layer(model, params, num_slots, comm, *, strategy="auto"):
     if model.ctx.gather is not None:         # whole over both axes
         weights = model.ctx.gather(weights, ("layers", "moe"))
         tp = model.ctx.model
-        weights = {k: tp.full(w, 0, cfg.num_experts)
+        weights = {k: M.whole_experts(tp, cfg, k, w)
                    for k, w in weights.items()}
     return M.DynamicMoELayer(weights, tmpl_e, num_slots, cfg.num_experts,
                              cap, comm, act=cfg.act, strategy=strategy,
@@ -191,12 +188,12 @@ def build_moe_layer(model, params, num_slots, comm, *, strategy="auto"):
 
 
 def _placed(cfg, ctx, args, device, grid):
-    """``(ctx, grid)``: under a ``DxM`` ``--mesh`` the serving context of
-    this process's place (``serving_ctx``) and its grid (``grid``, made
-    over the default process group when not given: a caller that plays
-    the ranks otherwise, as threads, passes its own), else ``(ctx,
-    None)``."""
-    mesh = serve_mesh(args.mesh, cfg)
+    """``(ctx, grid)``: under a ``--mesh`` with a model axis the serving
+    context of this process's place (``serving_ctx``) and its grid
+    (``grid``, made over the default process group when not given: a
+    caller that plays the ranks otherwise, as threads, passes its own),
+    else ``(ctx, None)``."""
+    mesh = serve_mesh(args.mesh)
     if mesh is None:
         return ctx, None
     grid = grid or mesh_mod.grid(mesh, device)
@@ -221,8 +218,8 @@ def build_engine(cfg, ctx, args, *, grid=None) -> ServeEngine:
     if args.moe_comm:
         if cfg.family != "moe":
             raise ValueError("--moe-comm needs a MoE architecture")
-        comm = grid.data if grid is not None else make_comm(args.mesh,
-                                                            device)
+        comm = grid.batch if grid is not None else make_comm(args.mesh,
+                                                             device)
         moe_layer = build_moe_layer(model, params, args.slots, comm)
         log.info("MoE decode comm: strategies=%s plan_time=%.2fus",
                  moe_layer.strategies, moe_layer.plan_time * 1e6)
@@ -330,7 +327,7 @@ def run_batch_demo(model, params, cache, prompt, gen: int):
         b = cache["whole"]["batch"]
         lanes = gather.lanes(b)
         if lanes.stop - lanes.start < b:
-            seq = sharding.gathered(gather.comm, [seq], [0])[0]
+            seq = sharding.gathered(gather.batch, [seq], [0])[0]
     seq = seq.cpu()
     return seq, cache, t_prefill, time.time() - t0
 
@@ -384,12 +381,17 @@ def main(argv=None):
                  if resolve_device(args.device).type == "cpu"
                  else torch.bfloat16)
     run = _serve_main if cfg.family in ("dense", "moe") else _batch_demo_main
-    grouped = serve_mesh(args.mesh, cfg) is not None or (
+    grouped = serve_mesh(args.mesh) is not None or (
         args.moe_comm and args.mesh != "local"
         and int(os.environ.get("WORLD_SIZE", "1")) > 1)
     if grouped and not dist.is_initialized():
         # one process a rank under a launcher (torchrun): a DxM mesh's
         # groups, or the MoE exchange's ranks over the group
+        if "WORLD_SIZE" not in os.environ:
+            raise SystemExit(
+                f"--mesh {args.mesh} serves over a torch.distributed group: "
+                "start one process a rank under a launcher (torchrun) or "
+                "initialise the group first")
         mesh_mod.init_group(args.device or "cuda")
         try:
             return run(cfg, ctx, args)

@@ -63,9 +63,27 @@ float32 rounding: ``runtime.model_axis``).
     PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
         --arch llama3-8b --reduced --mesh 2x2 --device cpu
 
-Still refused, each naming ROADMAP A22c: ``pod`` and ``multipod`` (a pod
-axis), ``opt_fsdp_axes``, and an MoE config with fewer experts than the
-model axis (the reference's ``tp_local`` expert split).
+An MoE config with fewer experts than the model axis trains the
+reference's ``tp_local`` split (``ep_mode=False``): every rank runs every
+expert on its ``F/M`` columns (``models.moe.moe_fwd``).
+
+``pod`` (16x16, data × model over 256 processes) is ``DxM``.
+``multipod`` (2x16x16, pod × data × model over 512; a test passes a
+``launch.mesh.Mesh`` of that layout and smaller sizes as ``args.mesh``)
+adds the pod axis, global rank ``r = (p·D + d)·M + m``: the batch splits
+over ``("pod", "data")`` (the batch group, ``P·D`` ranks at ``m``),
+FSDP stays on ``"data"`` (a rank keeps its ``(d, m)`` block on every
+pod), and the gradients of the split leaves are summed over the batch
+group by the HSDP reduction (a reduce-scatter over the batch group into
+``P·D`` pieces, an all-gather over the pod group back to the ``1/D``
+part), the whole leaves' and the loss averaged over it, each in the
+batch group's order ``p·D + d``: so ``P x D x 1`` gives ``--mesh local
+--accum P·D``'s step bit for bit.  ``hierarchical_rules`` is the
+reference's dry-run train rules (``opt_fsdp_axes=("pod", "data")``,
+hierarchical ZeRO), which ``setup(rules=)`` takes: the AdamW state is
+kept at its block over both data axes and the update runs there
+(``runtime.steps``), bit for bit the step without it.  ``launch.train``
+itself, as the reference's, sets no ``opt_fsdp_axes``.
 """
 from __future__ import annotations
 
@@ -94,7 +112,8 @@ from repro_torch.runtime.fault import StepTimer, StragglerWatch
 from repro_torch.runtime.steps import build_train_step
 
 __all__ = ["preset_lm100m", "parse_args", "ported_mesh", "data_parallel",
-           "fsdp_rules", "Trainer", "setup", "main"]
+           "fsdp_rules", "mesh_rules", "hierarchical_rules", "Trainer",
+           "setup", "main"]
 
 log = logging.getLogger("repro_torch.train")
 
@@ -137,7 +156,8 @@ class Trainer:
     checkpoint manager, and the cross-attention inputs of every step
     (``extra``: the reference's zero frames or image embeddings for an
     encdec or vlm stack, else None).  Under data parallelism ``comm`` is
-    the ``DistComm`` of the data group (the model group's is the model's
+    the ``DistComm`` over which the batch splits: the data group (the
+    batch group on a pod axis; the model group's is the model's
     ``ctx.model.comm`` under ``DxM``), ``rows`` this rank's rows of each
     global batch and ``placed`` the placement of ``{"params", "opt"}``
     (``sharding.Placed``: ``params`` and ``opt_state`` hold this rank's
@@ -188,67 +208,82 @@ class Trainer:
                 placed=self.placed)
 
 
-def ported_mesh(spec: str, cfg=None) -> mesh_mod.Mesh:
-    """``--mesh spec``'s mesh, refusing what is not ported (ROADMAP A22c):
-    the production meshes (``pod``/``16x16``, ``multipod``/``2x16x16``),
-    and for ``cfg`` an MoE layer with fewer experts than the model axis."""
+def ported_mesh(spec) -> mesh_mod.Mesh:
+    """``--mesh spec``'s mesh (a ``launch.mesh.Mesh`` is taken as it is):
+    every spec of the reference's grammar is ported, the production
+    meshes too.  Where a process group is initialised, its world must be
+    the mesh's size (``local`` excepted): ``pod`` needs 256 processes,
+    ``multipod`` 512."""
     mesh = mesh_mod.make_mesh(spec)
-    if spec in ("pod", "16x16", "multipod", "2x16x16"):
-        raise NotImplementedError(
-            f"--mesh {spec}: the production meshes are not ported yet "
-            "(ROADMAP A22c); the port trains --mesh D or DxM")
-    m = mesh.shape.get("model", 1)
-    if cfg is not None and cfg.is_moe and cfg.num_experts < m:
-        raise NotImplementedError(
-            f"--mesh {spec}: {cfg.num_experts} experts on a model axis of "
-            f"{m} (the reference's tp_local expert split) is not ported "
-            "yet (ROADMAP A22c)")
+    if dist.is_initialized() and spec != "local" \
+            and dist.get_world_size() != mesh.size:
+        raise ValueError(f"--mesh {spec} has {mesh.size} ranks; the process "
+                         f"group has {dist.get_world_size()}")
     return mesh
 
 
-def data_parallel(spec: str, batch: int, device, cfg=None):
-    """``--mesh spec``'s parallelism: ``(comm, model, rows)``, this
-    rank's ``DistComm`` over its data group (one rank a process), the
-    ``DistComm`` of its model group (``DxM`` specs; None for ``D``) and
-    its rows of a global batch of ``batch``, or ``(None, None, all
-    rows)`` for ``local`` without a process group (``ported_mesh``'s
-    refusals first)."""
-    mesh = ported_mesh(spec, cfg)
+def data_parallel(spec, batch: int, device):
+    """``--mesh spec``'s parallelism: ``(mesh, grid, comm, rows)``, its
+    ``launch.mesh.Grid`` where it has a model axis (None for ``D``), this
+    rank's ``DistComm`` over the ranks the batch splits over (its data
+    group; its batch group, pod × data, on a pod axis; one rank a
+    process) and its rows of a global batch of ``batch``; ``(mesh, None,
+    None, all rows)`` for ``local`` without a process group."""
+    mesh = ported_mesh(spec)
     if spec == "local" and not dist.is_initialized():
-        return None, None, slice(None)
-    model = None
+        return mesh, None, None, slice(None)
+    g = None
     if "model" in mesh.shape and spec != "local":
         if not dist.is_initialized():
             DistComm(1, device)                     # raises: no group
         g = mesh_mod.grid(mesh, device)
-        comm, model = g.data, g.model
+        comm = g.batch
     else:
         comm = DistComm(1, device)
         if comm.world != mesh.size:
-            raise ValueError(f"--mesh {spec} has {mesh.size} data-parallel "
-                             f"ranks; the process group has {comm.world}")
+            raise ValueError(f"--mesh {spec} has {mesh.size} ranks; the "
+                             f"process group has {comm.world}")
     dp = comm.p
     if batch % dp:
         raise ValueError(f"--batch {batch} does not split over {dp} "
                          "data-parallel ranks")
     per = batch // dp
-    return comm, model, slice(comm.rank * per, (comm.rank + 1) * per)
+    return mesh, g, comm, slice(comm.rank * per, (comm.rank + 1) * per)
 
 
-def fsdp_rules(cfg, parts: int, model: int = 1) -> sharding.ShardingRules:
-    """The reference's rules for ``cfg`` on the ``D x M`` mesh, ``D =
-    parts`` and ``M = model`` (``fsdp_axes="data"``, ``ep_mode`` for an
-    MoE config with at least ``M`` experts, as the reference's
-    ``launch.train``); ``--mesh D`` is the ``D x 1`` mesh, whose model
-    axis the rule table names."""
-    mesh = mesh_mod.Mesh((parts, model), ("data", "model"))
+def mesh_rules(cfg, mesh) -> sharding.ShardingRules:
+    """The reference's ``launch.train`` rules for ``cfg`` on ``mesh``:
+    ``fsdp_axes="data"`` (the batch over ``("pod", "data")`` on a pod
+    axis, the weights replicated over pods), ``ep_mode`` for an MoE config
+    with at least ``M`` experts (else its ``tp_local`` split), no
+    ``opt_fsdp_axes``."""
     return sharding.ShardingRules(
         mesh=mesh, fsdp_axes="data",
         ep_mode=cfg.is_moe and cfg.num_experts >= mesh.shape["model"])
 
 
+def fsdp_rules(cfg, parts: int, model: int = 1) -> sharding.ShardingRules:
+    """``mesh_rules`` on the ``D x M`` mesh, ``D = parts`` and ``M =
+    model``; ``--mesh D`` is the ``D x 1`` mesh, whose model axis the rule
+    table names."""
+    return mesh_rules(cfg, mesh_mod.Mesh((parts, model), ("data", "model")))
+
+
+def hierarchical_rules(cfg, mesh) -> sharding.ShardingRules:
+    """The train branch of the reference's dry-run ``make_rules``
+    (``launch/dryrun.py``): on a pod axis hierarchical ZeRO, the weights
+    FSDP over ``"data"`` and the optimizer state over ``("pod",
+    "data")`` (``opt_fsdp_axes``); else ``mesh_rules``.  ``setup(rules=)``
+    takes them (``launch.train``, as the reference's, does not)."""
+    rules = mesh_rules(cfg, mesh)
+    if "pod" in mesh.shape:
+        rules = dataclasses.replace(rules, opt_fsdp_axes=("pod", "data"))
+    return rules
+
+
 def setup(cfg, args, *, retries: int = 1,
-          ssm_scan_dtype: torch.dtype = torch.float32) -> Trainer:
+          ssm_scan_dtype: torch.dtype = torch.float32,
+          rules: sharding.ShardingRules | None = None) -> Trainer:
     """The model, optimizer and state of ``args`` for ``cfg``, resumed from
     ``--ckpt-dir``'s latest checkpoint when there is one.  A step's failed
     gradient half is retried up to ``retries`` times (the reference
@@ -257,16 +292,25 @@ def setup(cfg, args, *, retries: int = 1,
     ``ssm_scan_dtype`` is ``RunCtx``'s: the mamba layers' scan payload (as
     the reference, no flag sets it).  A ``--mesh`` other than ``local``
     needs an initialised process group (``data_parallel``) and shards the
-    parameters and the AdamW state over it (``fsdp_rules``)."""
+    parameters and the AdamW state over it (``mesh_rules`` on its mesh, or
+    ``rules`` on the same mesh: ``hierarchical_rules``' for
+    ``opt_fsdp_axes``)."""
     device = resolve_device(args.device)
-    comm, model_comm, rows = data_parallel(args.mesh, args.batch, device,
-                                           cfg)
+    mesh, g, comm, rows = data_parallel(args.mesh, args.batch, device)
     gather = tp = None
     if comm is not None:
-        tp = ModelAxis(model_comm) if model_comm is not None else None
-        gather = sharding.make_gather(
-            fsdp_rules(cfg, comm.p, 1 if tp is None else tp.size), comm,
-            model=tp)
+        if g is None:                       # --mesh D: the D x 1 mesh
+            mesh = mesh_mod.Mesh((comm.p, 1), ("data", "model"))
+        if rules is None:
+            rules = mesh_rules(cfg, mesh)
+        elif rules.mesh.shape != mesh.shape:
+            raise ValueError(f"rules for the mesh {rules.mesh.shape}; "
+                             f"--mesh {args.mesh} is {mesh.shape}")
+        if g is None:
+            gather = sharding.make_gather(rules, comm)
+        else:
+            tp = ModelAxis(g.model)
+            gather = g.gather_for(rules, tp)
         retries = 0
     ctx = RunCtx(
         moe_groups=1,          # the reference's min(data-parallel size, B)
@@ -289,12 +333,24 @@ def setup(cfg, args, *, retries: int = 1,
     if gather is not None:
         dims = gather.dims
 
-        def state(d):
+        odims = gather.odims
+        if odims is not None:           # the AdamW state over opt axes
+            opt_state = {k: sharding.tree_zip(gather.to_wide, v, dims, odims)
+                         if k in sharding.OPT_STATE_KEYS else v
+                         for k, v in opt_state.items()}
+
+        def state(d, o=None):
             return None if d is None else {"params": d, "opt": {
-                k: d if k in ("m", "v", "master") else None
+                k: (d if o is None else o)
+                if k in sharding.OPT_STATE_KEYS else None
                 for k in opt_state}}
 
-        placed = sharding.Placed(gather, state(dims), state(gather.mdims))
+        wide = None
+        if odims is not None:
+            wide = state(sharding.tree_zip(lambda d: False, dims),
+                         sharding.tree_zip(lambda d: True, dims))
+        placed = sharding.Placed(gather, state(dims, odims),
+                                 state(gather.mdims), wide)
     step_fn = build_train_step(model, opt, accum_steps=args.accum,
                                retries=retries, comm=comm, dims=dims)
     data = SyntheticLM(cfg.vocab_size, args.seq, args.batch, seed=args.seed)
@@ -338,7 +394,7 @@ def main(argv=None, *, retries: int = 1):
     else:
         raise SystemExit("pass --arch or --preset")
     if args.mesh != "local" and not dist.is_initialized():
-        ported_mesh(args.mesh, cfg)             # refused before a group
+        ported_mesh(args.mesh)                  # a bad spec before a group
         if "WORLD_SIZE" not in os.environ:
             raise SystemExit(
                 f"--mesh {args.mesh} trains over a torch.distributed group: "

@@ -50,7 +50,8 @@ from repro_torch.models import layers as L
 __all__ = ["init_moe", "moe_fwd", "moe_capacity", "random_router", "top_k",
            "moe_dispatch_pattern", "moe_dispatch_ref", "MoEDispatchGather",
            "moe_combine_weights", "moe_combine_ref", "MoECombineScatter",
-           "moe_expert_local", "MoELayer", "DynamicMoELayer"]
+           "moe_expert_local", "whole_experts", "MoELayer",
+           "DynamicMoELayer"]
 
 
 def random_router(key, num_tokens: int, num_experts: int, top_e: int = 2):
@@ -110,6 +111,20 @@ def _act(h, act):
     return F.silu(h) if act == "swiglu" else F.gelu(h, approximate="tanh")
 
 
+def whole_experts(tp, cfg, name: str, w):
+    """An expert weight (``w1``/``w3`` (E, D, F), ``w2`` (E, F, D)) whole
+    over the model axis ``tp`` from this rank's part, for the serving
+    paths that need every expert: gathered along the dimension that the
+    rules split (the experts under ``ep_mode``, each expert's ``F`` under
+    ``tp_local``), or ``w`` itself where neither is split."""
+    whole = ((cfg.num_experts, cfg.d_model, cfg.d_ff) if name != "w2"
+             else (cfg.num_experts, cfg.d_ff, cfg.d_model))
+    for dim in (0, 1, 2):
+        if w.shape[dim] != whole[dim]:
+            return tp.full(w, dim, whole[dim])
+    return w
+
+
 def moe_expert_local(buf, w1, w2, w3=None, act="gelu"):
     """Expert MLPs on their capacity buffers: ``buf`` (..., E, C, D) with
     the matching expert weights ``w1`` (..., E, D, F) / ``w2`` (..., E, F,
@@ -137,16 +152,28 @@ def moe_fwd(p, x, cfg, *, tp=None):
     token (the plain fold of ``kernels.ref``, one rounding per add in the
     activation dtype).
 
-    ``tp`` (training): the model axis.  Where it splits the experts
-    (``ep_mode``: ``w1``/``w3``/``w2`` hold this rank's block of ``E/M``
-    experts), every rank routes the same rows (the router is replicated),
-    packs and runs only its own experts' capacity buffers, and the expert
-    outputs are gathered over the axis in rank order (``tp.gather``)
-    before the combine, which is the reference's.  Experts that the axis
-    does not split (``E % M != 0``) run replicated."""
+    ``tp``: the model axis.  Where it splits the experts (``ep_mode``:
+    ``w1``/``w3``/``w2`` hold this rank's block of ``E/M`` experts), every
+    rank routes the same rows (the router is replicated), packs and runs
+    only its own experts' capacity buffers, and the expert outputs are
+    gathered over the axis in rank order (``tp.gather``) before the
+    combine, which is the reference's.  Where it splits each expert's
+    ``F`` columns instead (the reference's ``tp_local``, ``ep_mode=False``
+    with ``E < M``: ``w1``/``w3`` hold this rank's ``F/M`` columns,
+    ``w2`` the same rows), every rank packs every expert's buffer, runs
+    the experts on its columns, and their partial sums are added over the
+    axis (``tp.reduce``); the tokens enter through ``tp.enter``, so that
+    their gradient sums the ranks' columns.  Experts that the axis splits
+    neither way (``fit_spec`` left them whole) run replicated."""
     el = p["w1"].shape[-3]
-    if tp is not None and el == cfg.num_experts and tp.size > 1:
-        tp = None
+    split = None
+    if tp is not None:
+        if el < cfg.num_experts or tp.size == 1:
+            split = "experts"
+        elif p["w1"].shape[-1] < cfg.d_ff:
+            split = "columns"
+        else:
+            tp = None
     g, t, d = x.shape
     e, k = cfg.num_experts, cfg.experts_per_token
     c = moe_capacity(t, cfg)
@@ -173,7 +200,7 @@ def moe_fwd(p, x, cfg, *, tp=None):
     gather_tok = (x if tp is None else tp.enter(x)).gather(
         1, tok[..., None].expand(-1, -1, d))              # (G, T*k, D)
     mine = dest
-    if tp is not None:      # this rank's experts' slots; the rest dumped
+    if split == "experts":  # this rank's experts' slots; the rest dumped
         lo = tp.rank * el * c
         mine = torch.where((dest >= lo) & (dest < lo + el * c), dest - lo,
                            el * c)
@@ -182,7 +209,9 @@ def moe_fwd(p, x, cfg, *, tp=None):
     buf = buf[:, :el * c].reshape(g, el, c, d)
 
     out_buf = moe_expert_local(buf, p["w1"], p["w2"], p.get("w3"), cfg.act)
-    if tp is not None:
+    if split == "columns":
+        out_buf = tp.reduce(out_buf)                      # partial sums
+    elif split == "experts":
         out_buf = tp.gather(out_buf, 1)                   # (G, E, C, D)
 
     flat_out = torch.cat([out_buf.reshape(g, e * c, d),

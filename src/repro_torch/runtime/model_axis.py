@@ -179,7 +179,7 @@ class ModelAxis:
         from repro_torch.runtime.sharding import _GatherFn
         if t.shape[dim] == n and self.size > 1:
             return self.enter(t)
-        return _GatherFn.apply(self.comm, [dim], None, t)[0]
+        return _GatherFn.apply(self.comm, [dim], None, None, t)[0]
 
     def logsumexp(self, lse):
         return _LogSumExp.apply(lse, self.comm)

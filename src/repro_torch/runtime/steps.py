@@ -129,7 +129,19 @@ def build_train_step(model: Model, opt: AdamW, *, accum_steps: int = 1,
     are averaged over the data axis only (every model rank computes the
     same loss, and a leaf that the model axis does not split has the same
     gradient on every model rank); the global norm assembles each leaf
-    over both axes, so that it counts every leaf once."""
+    over both axes, so that it counts every leaf once.  On a pod axis
+    ``comm`` is the batch group (pod × data), whose order the gather's
+    backward sums the split leaves in too.
+
+    AdamW updates each leaf at its block over ``opt_fsdp_axes`` (the
+    gather's ``odims``, where ``opt_state``'s ``m``/``v``/``master`` hold
+    theirs; its FSDP part without them): each parameter and gradient whose
+    block there differs from its part is cut to that block
+    (``Gather.to_wide``), the norm assembles the blocks over the same
+    axes, and each parameter's part is put back from its updated block
+    (``Gather.from_wide``).  The update is elementwise and the norm over
+    whole leaves, so the step is the one without ``opt_fsdp_axes`` bit
+    for bit."""
     sharded = dims is not None and any(
         d is not None for d in tree_leaves(dims))
     if sharded and retries:
@@ -138,22 +150,42 @@ def build_train_step(model: Model, opt: AdamW, *, accum_steps: int = 1,
     grads_of = retrying(build_grad_fn(model, accum_steps=accum_steps),
                         retries=retries)
     whole = None
+
+    def wide(tree):                     # replicated: the leaves themselves
+        return tree
+
+    def put_back(params, blocks):
+        pass
+
     if sharded:
         gather = model.ctx.gather
-
-        mds = None if gather.mdims is None else tree_leaves(gather.mdims)
+        ds = tree_leaves(dims)
+        mds = [None] * len(ds) if gather.mdims is None \
+            else tree_leaves(gather.mdims)
+        ods = ds if gather.odims is None else tree_leaves(gather.odims)
 
         def whole(tree):
-            leaves = tree_leaves(tree)
-            return (gather.whole(g, d, None if mds is None else mds[i])
-                    for i, (g, d) in enumerate(zip(leaves,
-                                                   tree_leaves(dims))))
+            return (gather.whole(g, od, md, wide=True)
+                    for g, od, md in zip(tree_leaves(tree), ods, mds))
+
+        def wide(tree):
+            cut = {id(t): gather.to_wide(t, d, od) for t, d, od in zip(
+                tree_leaves(tree), ds, ods)}
+            return tree_map(lambda t: cut[id(t)], tree)
+
+        def put_back(params, blocks):
+            for p, w, d, od in zip(tree_leaves(params), tree_leaves(blocks),
+                                   ds, ods):
+                if w is not p:
+                    p.copy_(gather.from_wide(w, d, od))
 
     def step(params, opt_state, batch, extra=None):
         grads, loss = grads_of(params, batch, extra)
         if comm is not None:
             grads, loss = mean_over_ranks(grads, loss, comm, dims)
-        params, opt_state, gnorm = opt.apply(params, grads, opt_state, whole)
+        blocks, opt_state, gnorm = opt.apply(wide(params), wide(grads),
+                                             opt_state, whole)
+        put_back(params, blocks)
         return params, opt_state, {"loss": loss,
                                    "grad_norm": gnorm.float()}
 

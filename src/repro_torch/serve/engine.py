@@ -35,7 +35,9 @@ request's lane prefills it (every data rank where the weights are split
 over the data group too, whose gathers all of them join) and the first
 token is shared over the data group.  The MoE hook's ``DynamicMoELayer``
 runs over the data group, each rank's rows its lanes, as the
-reference's over its mesh's ``data`` axis.
+reference's over its mesh's ``data`` axis.  On a pod axis the lanes
+split over pod × data (``dp_axes``): "the data group" is then the
+batch group (``Gather.batch``).
 """
 from __future__ import annotations
 
@@ -71,9 +73,10 @@ def moe_decode_hook(cfg, layer, *, tp=None, rows=False):
     rank's lanes, the layer's rows over its data group; the routing is
     all-gathered over the group whole (the layer derives its tables from
     it) and the step runs ``apply_rows``.  ``tp``: the model axis, whose
-    ranks hold the experts split (``ep_mode``); the layer needs the
-    experts of its data rank, so they are gathered whole over the model
-    group first.
+    ranks hold the experts split as the rules place them (``ep_mode``:
+    by experts; ``tp_local``: each expert's ``F`` columns); the layer
+    needs the whole experts of its data rank, so they are gathered whole
+    over the model group first (``moe.whole_experts``).
     """
     k = cfg.experts_per_token
 
@@ -84,11 +87,10 @@ def moe_decode_hook(cfg, layer, *, tp=None, rows=False):
         probs = torch.softmax(logits, dim=-1)
         top_p, top_e = M.top_k(probs, k)
         top_p = top_p / top_p.sum(-1, keepdim=True)
-        wx = [p_moe["w1"], p_moe["w2"]]
-        if cfg.act == "swiglu":
-            wx.append(p_moe["w3"])
+        names = ["w1", "w2"] + (["w3"] if cfg.act == "swiglu" else [])
+        wx = [p_moe[n] for n in names]
         if tp is not None:
-            wx = [tp.full(w, 0, cfg.num_experts) for w in wx]
+            wx = [M.whole_experts(tp, cfg, n, w) for n, w in zip(names, wx)]
         if not rows:
             y = layer.apply(h.reshape(b, d), top_e[0], top_p[0], *wx)
         else:
@@ -236,7 +238,7 @@ class ServeEngine:
         # over a D x M mesh: this rank's lanes and its data group
         gather = self.model.ctx.gather
         self._lanes = None if gather is None else gather.lanes(num_slots)
-        self._data = None if gather is None else gather.comm
+        self._data = None if gather is None else gather.batch
         self._split = (self._lanes is not None
                        and self._lanes.stop - self._lanes.start < num_slots)
         self._prefill_all = gather is not None and gather.splits_data

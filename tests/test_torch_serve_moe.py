@@ -297,13 +297,14 @@ def test_sliding_window_runs_until_a_position_reaches_it(reference, port):
     assert int(engine.cache["pos"].max()) >= 8 + WINDOW_GEN - 1 >= WINDOW
 
 
-def test_launch_serve_moe_comm_on_the_cpu():
+def test_launch_serve_moe_comm_on_the_cpu(monkeypatch):
     """``--moe-comm`` over ``--mesh 8`` (and ``local``: one rank on the
     CPU) serves every request; ``--experts`` overrides the expert count;
-    a production mesh, a model axis wider than the experts (the
-    reference's tp_local split: ROADMAP A22c) and a dense architecture
-    are refused.  (A ``DxM`` mesh serves since A22b:
-    ``tests/test_torch_tp_serve.py``.)"""
+    a production mesh and a model axis wider than the experts (the
+    reference's tp_local split) serve over a process group, which
+    ``main`` asks a launcher for; a dense architecture is refused.  (The
+    meshes with a model axis serve in ``tests/test_torch_tp_serve.py``,
+    ``test_torch_pod.py`` and ``test_torch_tp_local.py``.)"""
     from repro_torch.launch import serve as tserve
 
     base = ["--arch", "mixtral-8x22b", "--reduced", "--device", "cpu",
@@ -315,9 +316,10 @@ def test_launch_serve_moe_comm_on_the_cpu():
         "decode_steps"]
     rep = tserve.main(base + ["--mesh", "local"])
     assert len(rep.completed) == 8
-    with pytest.raises(NotImplementedError, match="ROADMAP A22c"):
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(SystemExit, match="torch.distributed group"):
         tserve.main(base + ["--experts", "8", "--mesh", "pod"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A22c"):
+    with pytest.raises(SystemExit, match="torch.distributed group"):
         tserve.main(base + ["--experts", "4", "--mesh", "1x8"])
     with pytest.raises(ValueError, match="MoE architecture"):
         tserve.main(["--arch", "llama3-8b", "--reduced", "--device", "cpu",

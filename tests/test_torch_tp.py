@@ -47,7 +47,9 @@ B)``, ``ep_mode``) from the same initial parameters:
   the model group's collectives run over one rank;
 * ``_VocabEmbed`` composed over two vocabulary parts against ``jax.vjp``
   of the reference's ``onehot_psum`` embedding at ``vocab_shards = 2``;
-* what is still refused names ROADMAP A22c.
+* the production meshes, the tp_local split and ``opt_fsdp_axes`` are
+  accepted (``tests/test_torch_pod.py`` and ``test_torch_tp_local.py``
+  run them).
 """
 import dataclasses
 import os
@@ -742,31 +744,59 @@ def test_vocab_embed_is_the_reference_onehot_psum(dtype):
             assert (np.abs(got_g - want_g) <= bound + 1e-6).all()
 
 
-@pytest.mark.parametrize("spec,item", [("pod", "A22c"), ("multipod", "A22c"),
-                                       ("1x8", "A22c")])
-def test_still_refused_names_a22b(spec, item):
+@pytest.mark.parametrize("spec,shape", [("pod", (16, 16)),
+                                        ("multipod", (2, 16, 16)),
+                                        ("1x8", (1, 8))])
+def test_production_meshes_and_tp_local_are_accepted(spec, shape, tmp_path,
+                                                     monkeypatch):
     """The production meshes, and an MoE config with fewer experts (4,
-    reduced mixtral) than the model axis, refuse before any group."""
+    reduced mixtral) than the model axis (its tp_local split), are
+    ported: ``ported_mesh`` gives the reference's mesh, ``main`` without
+    a launcher asks for a process group, and in a one-process group the
+    mesh refuses the world of one (``pod`` needs 256 processes,
+    ``multipod`` 512)."""
+    import torch.distributed as dist
+
     from repro_torch.launch import train
     cfg = _config("mixtral-8x22b")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        train.ported_mesh(spec, cfg)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+    mesh = train.ported_mesh(spec)
+    assert mesh.axis_sizes == shape
+    assert train.mesh_rules(cfg, mesh).ep_mode == (cfg.num_experts
+                                                   >= shape[-1])
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(SystemExit, match="torch.distributed group"):
         train.main(_argv("mixtral-8x22b", "--mesh", spec))
+    init_gloo(0, 1, str(tmp_path / "init"))
+    try:
+        with pytest.raises(ValueError, match="process group has 1"):
+            train.ported_mesh(spec)
+        with pytest.raises(ValueError, match="process group has 1"):
+            train.setup(cfg, train.parse_args(_argv("mixtral-8x22b",
+                                                    "--mesh", spec)))
+    finally:
+        dist.destroy_process_group()
 
 
-def test_opt_fsdp_axes_and_serving_refuse_names_a22b():
+def test_opt_fsdp_axes_and_pod_serving_are_accepted(tmp_path):
+    """``opt_fsdp_axes`` places the optimizer state (``Gather.odims``),
+    and serving takes the production meshes: ``make_comm("pod")`` in a
+    one-process group refuses the world of one, not the mesh."""
+    import torch.distributed as dist
+
     from repro_torch.comm.communicator import LoopbackComm
     from repro_torch.launch import serve
     from repro_torch.runtime import sharding
 
     cfg = _config("llama3-8b")
     rules = dataclasses.replace(_rules(cfg, "1x1"), opt_fsdp_axes="data")
-    with pytest.raises(NotImplementedError, match="ROADMAP A22c"):
-        sharding.make_gather(rules, LoopbackComm(1, device="cpu"))
-    # serving admits DxM since A22b; the production meshes still refuse
-    with pytest.raises(NotImplementedError, match="ROADMAP A22c"):
-        serve.make_comm("pod", "cpu")
+    gather = sharding.make_gather(rules, LoopbackComm(1, device="cpu"))
+    assert gather.odims == {} and gather.wide is gather.comm
+    init_gloo(0, 1, str(tmp_path / "init"))
+    try:
+        with pytest.raises(ValueError, match="process group has 1"):
+            serve.make_comm("pod", "cpu")
+    finally:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -48,7 +48,9 @@ widths; one on eight runs the reference's ``launch.serve --mesh 2x2``
   tokens on every rank, and its batched demo (falcon-mamba-7b,
   whisper-tiny) ``--mesh local``'s; ``--mesh 1x1`` in a one-process group
   is ``--mesh local`` bit for bit (the step's logits, the served tokens);
-* what is still refused names ROADMAP A22c.
+* the production meshes and the tp_local split are served (the pod
+  axis and tp_local run in ``test_torch_pod.py`` and
+  ``test_torch_tp_local.py``); ``seq_parallel`` still refuses.
 """
 import dataclasses
 import os
@@ -652,31 +654,50 @@ def test_a_lane_another_rank_prefilled_has_the_owners_slot_pos(plen):
 
 @pytest.mark.parametrize("spec,experts", [("pod", 8), ("multipod", 8),
                                           ("1x8", 4)])
-def test_still_refused_names_a22c(spec, experts):
+def test_production_meshes_and_tp_local_serve(spec, experts, tmp_path,
+                                              monkeypatch):
     """The production meshes, and an MoE config with fewer experts than
-    the model axis (the reference's tp_local split), refuse before any
-    group is made."""
+    the model axis (the reference's tp_local split), are served:
+    ``serve_mesh`` gives the reference's mesh, whose serve rule leaves
+    ``ep_mode`` off where the experts are fewer, and in a one-process
+    group ``launch.serve`` refuses the world of one, not the mesh."""
+    import torch.distributed as dist
+
     from repro_torch.launch import serve
+    from repro_torch.runtime import sharding
+    monkeypatch.setenv("REPRO_TORCH_PLAN_CACHE", "0")
     cfg = dataclasses.replace(_config("mixtral-8x22b"), num_experts=experts)
-    with pytest.raises(NotImplementedError, match="ROADMAP A22c"):
-        serve.serve_mesh(spec, cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP A22c"):
-        serve.main(["--arch", "mixtral-8x22b", "--mesh", spec]
-                   + SERVE_ARGV + (["--experts", "4"] if experts == 4
-                                   else []))
+    mesh = serve.serve_mesh(spec)
+    m = mesh.shape["model"]
+    assert mesh.size == {"pod": 256, "multipod": 512, "1x8": 8}[spec]
+    rules = sharding.serve_rules(cfg, mesh, limit=LIMIT)
+    assert rules.ep_mode == (experts >= m)
+    init_gloo(0, 1, str(tmp_path / "init"))
+    try:
+        with pytest.raises(ValueError, match="process group has 1"):
+            serve.main(["--arch", "mixtral-8x22b", "--mesh", spec]
+                       + SERVE_ARGV + (["--experts", "4"] if experts == 4
+                                       else []))
+    finally:
+        dist.destroy_process_group()
 
 
-def test_seq_parallel_and_opt_fsdp_axes_refuse_names_a22c():
+def test_seq_parallel_refuses_names_a22c_d():
+    """``seq_parallel`` (the reference's activation constraint, which no
+    entry point sets) still refuses, naming ROADMAP A22c (d);
+    ``opt_fsdp_axes`` places the optimizer state."""
     from repro_torch.comm.communicator import LoopbackComm
     from repro_torch.launch.mesh import Mesh
     from repro_torch.runtime import sharding
 
     rules = sharding.serve_rules(_config("llama3-8b"),
                                  Mesh((1, 1), ("data", "model")))
-    for bad in (dict(seq_parallel=True), dict(opt_fsdp_axes="data")):
-        with pytest.raises(NotImplementedError, match="ROADMAP A22c"):
-            sharding.make_gather(dataclasses.replace(rules, **bad),
-                                 LoopbackComm(1, device="cpu"))
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A22c \(d\)"):
+        sharding.make_gather(dataclasses.replace(rules, seq_parallel=True),
+                             LoopbackComm(1, device="cpu"))
+    gather = sharding.make_gather(dataclasses.replace(
+        rules, opt_fsdp_axes="data"), LoopbackComm(1, device="cpu"))
+    assert gather.odims == {}
 
 
 if __name__ == "__main__":

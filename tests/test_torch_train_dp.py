@@ -218,34 +218,40 @@ def test_mesh_2_step_matches_the_jax_step(arch, dp_run):
                                        **STEP_TOL)
 
 
-@pytest.mark.parametrize("spec,item", [("2x2", "A22"), ("1x2", "A22"),
-                                       ("pod", "A22"), ("multipod", "A22")])
-def test_model_axis_is_refused(spec, item):
-    """What the model axis still refuses names ROADMAP A22's rest
-    (A22c): the production meshes, and at ``2x2`` and ``1x2`` an MoE
-    config with fewer experts than the model axis (one expert on two
-    model ranks: the reference's tp_local split)."""
+@pytest.mark.parametrize("spec,shape", [("2x2", (2, 2)), ("1x2", (1, 2)),
+                                        ("pod", (16, 16)),
+                                        ("multipod", (2, 16, 16))])
+def test_model_axis_specs_are_accepted(spec, shape):
+    """Every mesh of the reference's grammar is ported: the production
+    meshes, and at ``2x2`` and ``1x2`` an MoE config with fewer experts
+    than the model axis (one expert on two model ranks: the reference's
+    tp_local split).  Without a process group the mesh asks for one."""
     import dataclasses
 
     from repro_torch.configs.registry import get_config
     from repro_torch.launch import train
     cfg = dataclasses.replace(get_config("mixtral-8x22b", reduced=True),
                               num_experts=1, experts_per_token=1)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}c"):
-        train.data_parallel(spec, BATCH, "cpu", cfg)
+    mesh = train.ported_mesh(spec)
+    assert mesh.axis_sizes == shape
+    assert not train.mesh_rules(cfg, mesh).ep_mode
+    with pytest.raises(RuntimeError, match="init_process_group"):
+        train.data_parallel(spec, BATCH, "cpu")
 
 
 def test_data_parallel_in_a_one_process_group(tmp_path):
     """``--mesh 1`` in a one-process gloo group: a ``DistComm`` of one rank
-    that takes every row; a mesh of another size than the group raises."""
+    that takes every row, with no grid (no model axis); a mesh of another
+    size than the group raises."""
     import torch.distributed as dist
 
     from repro_torch.comm.communicator import DistComm
     from repro_torch.launch import train
     init_gloo(0, 1, str(tmp_path / "init"))
     try:
-        comm, model, rows = train.data_parallel("1", BATCH, "cpu")
-        assert isinstance(comm, DistComm) and model is None
+        mesh, grid, comm, rows = train.data_parallel("1", BATCH, "cpu")
+        assert isinstance(comm, DistComm) and grid is None
+        assert mesh.axis_sizes == (1,)
         assert (comm.p, comm.rank, rows) == (1, 0, slice(0, BATCH))
         with pytest.raises(ValueError, match="process group has 1"):
             train.data_parallel("2", BATCH, "cpu")
@@ -261,8 +267,8 @@ def test_mesh_2_needs_a_process_group(monkeypatch):
     with pytest.raises(SystemExit, match="torch.distributed group"):
         train.main(_argv("llama3-8b", "--mesh", "2"))
     # local without a group: this process alone
-    assert train.data_parallel("local", BATCH, "cpu") == (None, None,
-                                                         slice(None))
+    _, grid, comm, rows = train.data_parallel("local", BATCH, "cpu")
+    assert (grid, comm, rows) == (None, None, slice(None))
 
 
 if __name__ == "__main__":
